@@ -1,0 +1,121 @@
+// Fused inference postprocess for KP2DTiny.
+//
+// Replaces the TPU kernel nanovs_slam_tpu/ops/pallas/postprocess_kernel.py
+// (fused_postprocess_pallas). For every cell (i, j) of the (Hc, Wc) grid:
+//   score  <- score with a one-cell border zeroed;
+//   coord  <- clip(j*cell + (cell-1)/2 + s*cross_ratio*(cell-1)/2) per axis;
+//   desc   <- bilinear, align_corners, zero-padded sample of the dense
+//             descriptor map (B, Hf, Wf, C) at coord, L2-normalised by
+//             max(||v||, 1e-12).
+// The TPU kernel computed the sample as a 36-tap hat stencil over stride-2
+// phase planes because Mosaic has no gather; here one warp takes one cell,
+// each lane a channel (and every 32nd after it), and reads the 4 bilinear
+// taps directly. The per-cell norm is a warp reduction over C.
+//
+// Bound on an H100: memory. At 240x320 with C = 32 a frame reads 2.5 MB of
+// descriptors and writes 0.7 MB, about 1 us at 3.35 TB/s; at batch 1 the
+// launch dominates. Inputs are taken through their strides, so the NCHW
+// conv output is read in place (no transpose); outputs are NHWC.
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxChannelsPerLane = 4;  // C <= 128
+
+__global__ void postprocess_kernel(
+    const float* __restrict__ score, long long ss_b, long long ss_h,
+    long long ss_w, const float* __restrict__ shift, long long sh_b,
+    long long sh_h, long long sh_w, long long sh_c,
+    const float* __restrict__ feat, long long sf_b, long long sf_h,
+    long long sf_w, long long sf_c, float* __restrict__ score_out,
+    float* __restrict__ coord_out, float* __restrict__ desc_out, int B,
+    int Hc, int Wc, int Hf, int Wf, int C, int H, int W, float cellf,
+    float step, float shift_scale) {
+  const int lane = threadIdx.x & 31;
+  const long long cell = (long long)blockIdx.x * (blockDim.x >> 5) +
+                         (threadIdx.x >> 5);
+  if (cell >= (long long)B * Hc * Wc) return;  // the whole warp leaves
+  const int j = (int)(cell % Wc);
+  const int i = (int)((cell / Wc) % Hc);
+  const long long b = cell / ((long long)Hc * Wc);
+
+  // coordinate decode, in the order of ops/grid.decode_coords and with its
+  // roundings (no fused multiply-add), so the coords match it bit for bit
+  const float* sp = shift + b * sh_b + i * sh_h + j * sh_w;
+  const float bx = __fadd_rn(__fmul_rn((float)j, cellf), step);
+  const float by = __fadd_rn(__fmul_rn((float)i, cellf), step);
+  const float cx = fminf(fmaxf(__fadd_rn(bx, __fmul_rn(sp[0], shift_scale)),
+                               0.f), (float)(W - 1));
+  const float cy = fminf(fmaxf(__fadd_rn(by, __fmul_rn(sp[sh_c], shift_scale)),
+                               0.f), (float)(H - 1));
+  if (lane == 0) {
+    const bool inner = i > 0 && i < Hc - 1 && j > 0 && j < Wc - 1;
+    const float s = score[b * ss_b + i * ss_h + j * ss_w];
+    score_out[cell] = inner ? s : 0.f;
+    coord_out[2 * cell] = cx;
+    coord_out[2 * cell + 1] = cy;
+  }
+
+  // image coords -> [-1, 1] -> feature-map pixels (ops/grid_sample order)
+  const float gx = cx / ((float)(W - 1) * 0.5f) - 1.f;
+  const float gy = cy / ((float)(H - 1) * 0.5f) - 1.f;
+  const float px = (gx + 1.f) * 0.5f * (float)(Wf - 1);
+  const float py = (gy + 1.f) * 0.5f * (float)(Hf - 1);
+  const float fx = floorf(px), fy = floorf(py);
+  const float wx = px - fx, wy = py - fy;
+  const int x0 = (int)fx, y0 = (int)fy, x1 = x0 + 1, y1 = y0 + 1;
+  const bool ix0 = x0 >= 0 && x0 < Wf, ix1 = x1 >= 0 && x1 < Wf;
+  const bool iy0 = y0 >= 0 && y0 < Hf, iy1 = y1 >= 0 && y1 < Hf;
+  const float* fb = feat + b * sf_b;
+
+  float v[kMaxChannelsPerLane];
+  float ss = 0.f;
+#pragma unroll
+  for (int q = 0; q < kMaxChannelsPerLane; ++q) {
+    const int c = lane + 32 * q;
+    v[q] = 0.f;
+    if (c < C) {
+      const float* fc = fb + c * sf_c;
+      const float v00 = (iy0 && ix0) ? fc[y0 * sf_h + x0 * sf_w] : 0.f;
+      const float v01 = (iy0 && ix1) ? fc[y0 * sf_h + x1 * sf_w] : 0.f;
+      const float v10 = (iy1 && ix0) ? fc[y1 * sf_h + x0 * sf_w] : 0.f;
+      const float v11 = (iy1 && ix1) ? fc[y1 * sf_h + x1 * sf_w] : 0.f;
+      const float top = v00 * (1.f - wx) + v01 * wx;
+      const float bot = v10 * (1.f - wx) + v11 * wx;
+      v[q] = top * (1.f - wy) + bot * wy;
+      ss += v[q] * v[q];
+    }
+  }
+  const float norm = fmaxf(sqrtf(nvs::warp_sum(ss)), 1e-12f);
+  float* out = desc_out + cell * C;
+#pragma unroll
+  for (int q = 0; q < kMaxChannelsPerLane; ++q) {
+    const int c = lane + 32 * q;
+    if (c < C) out[c] = v[q] / norm;
+  }
+}
+
+}  // namespace
+
+// score (B,Hc,Wc,1), shift (B,Hc,Wc,2), feat (B,Hf,Wf,C) with element
+// strides [b, h, w, c]; outputs contiguous NHWC.
+extern "C" int nvs_postprocess(const float* score, const long long* ss,
+                               const float* shift, const long long* sh,
+                               const float* feat, const long long* sf,
+                               float* score_out, float* coord_out,
+                               float* desc_out, int B, int Hc, int Wc, int Hf,
+                               int Wf, int C, int H, int W, int cell,
+                               float cross_ratio, cudaStream_t stream) {
+  if (C < 1 || C > 32 * kMaxChannelsPerLane) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long long cells = (long long)B * Hc * Wc;
+  const long long blocks = (cells + threads / 32 - 1) / (threads / 32);
+  const float step = (cell - 1) / 2.0f;
+  postprocess_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+      score, ss[0], ss[1], ss[2], shift, sh[0], sh[1], sh[2], sh[3], feat,
+      sf[0], sf[1], sf[2], sf[3], score_out, coord_out, desc_out, B, Hc, Wc,
+      Hf, Wf, C, H, W, (float)cell, step, cross_ratio * step);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels for Hopper, their wrappers and plain twins.
+
+Each wrapper launches its kernel for CUDA tensors and counts the launch in
+its ``launches`` attribute; for CPU tensors it runs the plain PyTorch twin
+of the same module. The library is built from ``csrc/`` at first launch.
+"""
+
+from .netvlad import netvlad, netvlad_plain  # noqa: F401
+from .postprocess import fused_postprocess, postprocess_plain  # noqa: F401
+from .stem import fused_stem_pair_pool, stem_plain  # noqa: F401
+
+KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad)
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for k in KERNELS:
+        k.launches = 0

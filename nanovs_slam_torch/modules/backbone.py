@@ -1,0 +1,65 @@
+"""Shared convolutional backbone (NCHW), the counterpart of
+``nanovs_slam_tpu/modules/backbone.py``.
+
+8 conv blocks conv1a..conv4b with 2x2 max-pools keyed on ``downsample``:
+after pair 1 if downsample >= 2, after pair 2 if >= 3, after the skip tap
+if >= 1. Dropout2d(0.2) after each pair when ``with_drop``.
+
+In eval mode on CUDA with downsample >= 2, ``conv1a -> conv1b -> maxpool``
+runs as the fused stem kernel on BN-folded weights (dropout is the identity
+in eval mode). In train mode, and on the CPU, it runs the plain chain.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..kernels.stem import fused_stem_pair_pool
+from ..utils.fuse import fold_conv_bn
+from .blocks import ConvBNAct, Dropout2d
+
+
+class BackBone(nn.Module):
+    """Returns (x, skip): x at 1/cell resolution (c4 ch), skip at
+    1/(cell/2) resolution (c4 ch)."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int,
+                 downsample: int = 2, with_drop: bool = True,
+                 bn_momentum: float = 0.1, leaky_relu: bool = True):
+        super().__init__()
+        kw = dict(bn_momentum=bn_momentum, leaky_relu=leaky_relu)
+        self.downsample = downsample
+        self.leaky_relu = leaky_relu
+        self.conv1a = ConvBNAct(3, c1, **kw)
+        self.conv1b = ConvBNAct(c1, c2, **kw)
+        self.conv2a = ConvBNAct(c2, c2, **kw)
+        self.conv2b = ConvBNAct(c2, c3, **kw)
+        self.conv3a = ConvBNAct(c3, c3, **kw)
+        self.conv3b = ConvBNAct(c3, c4, **kw)
+        self.conv4a = ConvBNAct(c4, c4, **kw)
+        self.conv4b = ConvBNAct(c4, c4, **kw)
+        self.drop = Dropout2d(0.2) if with_drop else nn.Identity()
+
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda and not self.training and self.downsample >= 2:
+            w1, b1 = fold_conv_bn(self.conv1a.conv, self.conv1a.bn)
+            w2, b2 = fold_conv_bn(self.conv1b.conv, self.conv1b.bn)
+            y = fused_stem_pair_pool(x.permute(0, 2, 3, 1), w1, b1, w2, b2,
+                                     0.01 if self.leaky_relu else 0.0)
+            return y.permute(0, 3, 1, 2)
+        x = self.drop(self.conv1b(self.conv1a(x)))
+        return F.max_pool2d(x, 2, 2) if self.downsample >= 2 else x
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self._stem(x)
+        x = self.drop(self.conv2b(self.conv2a(x)))
+        if self.downsample >= 3:
+            x = F.max_pool2d(x, 2, 2)
+        skip = self.drop(self.conv3b(self.conv3a(x)))
+        x = F.max_pool2d(skip, 2, 2) if self.downsample >= 1 else skip
+        x = self.drop(self.conv4b(self.conv4a(x)))
+        return x, skip

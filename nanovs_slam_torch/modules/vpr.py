@@ -1,0 +1,42 @@
+"""VPR head (NCHW), the counterpart of ``nanovs_slam_tpu/modules/vpr.py``
+for the netvlad method: convlad1 ConvBNAct [+ drop] -> convlad2 -> convlad3
+-> NetVLAD. ``only_encoder`` returns the L2-normalised dense map instead
+(for k-means cluster init); ``remove_netvlad`` (export) the raw map.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from .aggregators import NetVLAD
+from .blocks import ConvBNAct, Dropout2d, l2_normalize
+
+
+class VPRHead(nn.Module):
+    def __init__(self, c_in: int, encoder_dim: int, num_clusters: int = 64,
+                 with_drop: bool = True, bn_momentum: float = 0.1,
+                 remove_netvlad: bool = False, leaky_relu: bool = True,
+                 method: str = "netvlad"):
+        super().__init__()
+        if method != "netvlad":
+            raise NotImplementedError(
+                f"global descriptor method {method!r} is not ported yet")
+        kw = dict(bn_momentum=bn_momentum, leaky_relu=leaky_relu)
+        self.remove_netvlad = remove_netvlad
+        self.convlad1 = ConvBNAct(c_in, encoder_dim, **kw)
+        self.drop = Dropout2d(0.2) if with_drop else nn.Identity()
+        self.convlad2 = ConvBNAct(encoder_dim, encoder_dim, **kw)
+        self.convlad3 = ConvBNAct(encoder_dim, encoder_dim, **kw)
+        if not remove_netvlad:
+            self.netvlad = NetVLAD(num_clusters, encoder_dim)
+
+    def forward(self, x: torch.Tensor,
+                only_encoder: bool = False) -> torch.Tensor:
+        v = self.drop(self.convlad1(x))
+        v = self.convlad3(self.convlad2(v))
+        if self.remove_netvlad:
+            return v
+        if only_encoder:
+            return l2_normalize(v, dim=1)
+        return self.netvlad(v)

@@ -1,0 +1,1 @@
+"""Counterpart of nanovs_slam_tpu/ops."""

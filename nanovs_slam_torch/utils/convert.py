@@ -1,0 +1,95 @@
+"""Carry JAX (flax) weights across into the port's ``state_dict``.
+
+The port's modules keep the flax module names, so a flax path maps to a
+torch key by joining with ``.`` and renaming the leaf:
+
+- conv ``kernel`` HWIO -> ``weight`` OIHW (``permute(3, 2, 0, 1)``);
+- transposed-conv ``kernel`` (kH, kW, O, I) -> ConvTranspose2d ``weight``
+  (I, O, kH, kW), the same permutation (the layout rule of the JAX
+  package's inference mirror);
+- BN ``scale``/``bias`` -> ``weight``/``bias``; batch stats ``mean``/``var``
+  -> ``running_mean``/``running_var``;
+- NetVLAD ``assign_w`` (C, K) and ``centroids`` (K, C) carry over as they are.
+
+Inputs are nested dicts of numpy arrays (flax ``params``/``batch_stats``) or
+flat dicts with ``/``-joined keys as stored in a pinned ``.npz``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key + "/"))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def _torch_entry(path: str, value: np.ndarray):
+    parts = path.split("/")
+    leaf = parts[-1]
+    t = torch.from_numpy(np.array(value, np.float32))
+    if leaf == "kernel":
+        if t.dim() != 4:
+            raise ValueError(f"{path}: expected a 4-D conv kernel, got "
+                             f"{tuple(t.shape)}")
+        t = t.permute(3, 2, 0, 1).contiguous()
+        leaf = "weight"
+    parts[-1] = _LEAF.get(leaf, leaf)
+    return ".".join(parts), t
+
+
+def convert_variables(params: Mapping, batch_stats: Mapping
+                      ) -> Dict[str, torch.Tensor]:
+    """flax ``params`` and ``batch_stats`` -> torch state_dict entries."""
+    out: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats):
+        for path, value in _flatten(tree).items():
+            key, t = _torch_entry(path, value)
+            if key in out:
+                raise ValueError(f"duplicate key {key} from {path}")
+            out[key] = t
+    return out
+
+
+def load_jax_variables(model: nn.Module, params: Mapping,
+                       batch_stats: Mapping,
+                       absent_heads: Iterable[str] = ()) -> nn.Module:
+    """Load flax variables into ``model`` in place and return it.
+
+    Every key of the model (apart from BN's ``num_batches_tracked``) must
+    receive a value and every converted key must exist in the model, with
+    the same shape. Keys under a head named in ``absent_heads`` (e.g.
+    ``"vlad_head"``) are exempt on both sides: the model keeps its own
+    values there.
+    """
+    absent = tuple(f"{h}." for h in absent_heads)
+    sd = convert_variables(params, batch_stats)
+    target = {k: v for k, v in model.state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+    missing = sorted(k for k in target.keys() - sd.keys()
+                     if not k.startswith(absent))
+    unexpected = sorted(k for k in sd.keys() - target.keys()
+                        if not k.startswith(absent))
+    if missing or unexpected:
+        raise KeyError(f"unmatched keys: missing {missing}, "
+                       f"unexpected {unexpected}")
+    load = {k: v for k, v in sd.items() if k in target}
+    for k, v in load.items():
+        if tuple(v.shape) != tuple(target[k].shape):
+            raise ValueError(f"{k}: shape {tuple(v.shape)} does not match "
+                             f"the model's {tuple(target[k].shape)}")
+    model.load_state_dict(load, strict=False)
+    return model
