@@ -20,6 +20,16 @@ from .utils.device import resolve_device
 Tensor = torch.Tensor
 
 
+def forward_post_process(model: nn.Module, cfg: KP2DTinyConfig, x: Tensor,
+                         H: int, W: int, heads) -> Dict[str, Tensor]:
+    """x (B, H, W, 3) model input in [-1, 1] on the model's device -> the
+    eval ``post_process`` of the asked-for heads, NHWC."""
+    out = model(x.permute(0, 3, 1, 2).contiguous(), heads=heads)
+    nhwc = {k: v.permute(0, 2, 3, 1) if v.dim() == 4 else v
+            for k, v in out.items()}
+    return post_process(nhwc, H, W, cfg.cell, cfg.cross_ratio, eval_mode=True)
+
+
 def make_infer_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int,
                   top_k: Optional[int] = None, conf_threshold: float = 0.0,
                   with_seg: bool = True, with_vlad: bool = True,
@@ -50,11 +60,7 @@ def make_infer_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int,
             raise ValueError(f"images must be (B, {H}, {W}, 3), got "
                              f"{tuple(images.shape)}")
         x = to_model_input(images.to(dev, non_blocking=True))
-        out = model(x.permute(0, 3, 1, 2).contiguous(), heads=heads)
-        nhwc = {k: v.permute(0, 2, 3, 1) if v.dim() == 4 else v
-                for k, v in out.items()}
-        post = post_process(nhwc, H, W, cfg.cell, cfg.cross_ratio,
-                            eval_mode=True)
+        post = forward_post_process(model, cfg, x, H, W, heads)
         result = {k: post[k] for k in ("score", "coord", "feat")}
         if with_seg:
             result["seg"] = post["seg"]

@@ -5,11 +5,14 @@ its ``launches`` attribute; for CPU tensors it runs the plain PyTorch twin
 of the same module. The library is built from ``csrc/`` at first launch.
 """
 
+from .lightglue import (lightglue_transformer,  # noqa: F401
+                        lightglue_transformer_plain)
 from .netvlad import netvlad, netvlad_plain  # noqa: F401
 from .postprocess import fused_postprocess, postprocess_plain  # noqa: F401
 from .stem import fused_stem_pair_pool, stem_plain  # noqa: F401
 
-KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad)
+KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad,
+           lightglue_transformer)
 
 
 def reset_launches() -> None:

@@ -47,12 +47,15 @@ def top_k_keypoints(score: Tensor, coord: Tensor, feat: Tensor, k: int,
     score (B,Hc,Wc,1), coord (B,Hc,Wc,2), feat (B,Hc,Wc,C) ->
     (kp_xy (B,K,2), kp_score (B,K), desc (B,K,C), valid (B,K) bool) with
     K = min(k, Hc*Wc). Entries at or below ``conf_threshold`` are marked
-    invalid; their data is still the next-best cells.
+    invalid; their data is still the next-best cells. Equal scores keep
+    the lower cell index first, as ``jax.lax.top_k`` orders them (a
+    saturated score head gives many cells a score of exactly 1).
     """
     B, Hc, Wc, _ = score.shape
     k = min(k, Hc * Wc)
     s = score.reshape(B, Hc * Wc)
-    top_s, idx = torch.topk(s, k, dim=1)
+    top_s, idx = torch.sort(s, dim=1, descending=True, stable=True)
+    top_s, idx = top_s[:, :k], idx[:, :k]
     kp = torch.gather(coord.reshape(B, Hc * Wc, 2), 1,
                       idx[..., None].expand(B, k, 2))
     C = feat.shape[-1]

@@ -1,18 +1,24 @@
-"""Where the serving slice's time goes on the card.
+"""Where the time of the port's paths goes on the card.
 
-    python -m nanovs_slam_torch.profile_slice [--batch 1 8] [--iters 20]
+    python -m nanovs_slam_torch.profile_slice [--path slice match]
+        [--batch 1 8] [--iters 20]
 
-Serves KP2DTiny-N (28 classes, seeded random weights) at 240x320 through
-``make_infer_fn(top_k=1000, conf_threshold=0.7)`` and traces ``--iters``
-steady requests per batch size with ``torch.profiler``. Prints, per batch
-size, the host ms per request, the device busy share (the sum of kernel
-times over the wall time) and the kernels with the most device time.
-Needs a CUDA device.
+``slice``: serves KP2DTiny-N (28 classes, seeded random weights) at
+240x320 through ``make_infer_fn(top_k=1000, conf_threshold=0.7)``, per
+batch size, and prints the device time of the top-K's stable sort beside
+that of ``torch.topk`` on the same scores. ``match``: matches one 240x320
+pair (seeded random frames) through ``matching.pair.make_pair_matcher``
+with the pinned S8 extractor and the pinned kp2dtiny_S LightGlue, at 512
+and 1024 keypoints. Each traces ``--iters`` steady calls with
+``torch.profiler`` and prints the host ms per call, the device busy share
+(the sum of kernel times over the wall time) and the kernels with the
+most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -24,10 +30,91 @@ from .inference import make_infer_fn
 from .models.kp2dtiny import init_model
 
 H, W = 240, 320
+PINNED = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "pinned")
+
+
+def device_events(call, iters: int):
+    """(device kernel events, host wall ms) of ``iters`` steady calls."""
+    for _ in range(5):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA], wall_ms
+
+
+def device_ms(events, iters: int) -> float:
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
+
+
+def trace(label: str, call, iters: int) -> None:
+    events, wall_ms = device_events(call, iters)
+    dev_ms = device_ms(events, iters)
+    n_kernels = sum(e.count for e in events) / iters
+    print(f"{label}: {wall_ms / iters:.3f} ms per call (host), "
+          f"device busy {dev_ms:.3f} ms per call "
+          f"({100 * dev_ms * iters / wall_ms:.1f}% of wall), "
+          f"{n_kernels:.0f} device ops per call")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3 / iters:8.4f} ms "
+              f"x{e.count // iters:<3d} {e.key[:90]}")
+
+
+def profile_slice(batches, iters: int, rs) -> None:
+    cfg = get_config("N", n_classes=28)
+    model = init_model(cfg, torch.Generator().manual_seed(0), "cuda")
+    infer = make_infer_fn(model, cfg, H, W, top_k=1000, conf_threshold=0.7,
+                          device="cuda")
+    for b in batches:
+        frames = rs.randint(0, 256, (b, H, W, 3)).astype(np.uint8)
+        trace(f"slice B={b}", lambda: infer(frames), iters)
+        # the top-K's selection (ops/postprocess.top_k_keypoints) against
+        # torch.topk, on this request's border-masked scores
+        s = infer(frames)["score"].reshape(b, -1)
+        sort = device_ms(device_events(lambda: torch.sort(
+            s, dim=1, descending=True, stable=True), iters)[0], iters)
+        topk = device_ms(device_events(lambda: torch.topk(s, 1000, dim=1),
+                                       iters)[0], iters)
+        print(f"slice B={b}: top-K selection over {s.shape[1]} cells, "
+              f"stable sort {sort:.4f} ms, torch.topk {topk:.4f} ms "
+              f"(device time per request)")
+
+
+def profile_match(iters: int, rs) -> None:
+    from .matching.configs import LIGHTGLUE_CONFIGS
+    from .matching.lightglue import LightGlue
+    from .matching.pair import make_pair_matcher
+    from .utils.checkpoint import load_npz_checkpoint
+    from .utils.convert import load_jax_lightglue, load_jax_variables
+
+    tree, _ = load_npz_checkpoint(os.path.join(PINNED, "extractor_S8.npz"))
+    cfg = get_config("S", n_classes=8)
+    ex = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    load_jax_variables(ex, tree["params"], tree["batch_stats"])
+    lg_tree, meta = load_npz_checkpoint(os.path.join(PINNED,
+                                                     "lightglue_S.npz"))
+    lg = load_jax_lightglue(
+        LightGlue(LIGHTGLUE_CONFIGS[meta["config"]["lg_config"]]),
+        lg_tree["params"])
+    img0, img1 = (rs.uniform(-1, 1, (1, H, W, 3)).astype(np.float32)
+                  for _ in range(2))
+    for k in (512, 1024):
+        match = make_pair_matcher(ex, cfg, lg, H, W, max_keypoints=k,
+                                  conf_threshold=0.0, device="cuda")
+        trace(f"match K={k}", lambda: match(img0, img1), iters)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", nargs="+", choices=("slice", "match"),
+                    default=["slice", "match"])
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
@@ -36,34 +123,11 @@ def main() -> None:
     # float32 as chip_smoke.py times it: no TF32 in cuDNN or matmul
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("N", n_classes=28)
-    model = init_model(cfg, torch.Generator().manual_seed(0), "cuda")
-    infer = make_infer_fn(model, cfg, H, W, top_k=1000, conf_threshold=0.7,
-                          device="cuda")
     rs = np.random.RandomState(0)
-    for b in args.batch:
-        frames = rs.randint(0, 256, (b, H, W, 3)).astype(np.uint8)
-        for _ in range(5):
-            infer(frames)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.iters):
-                infer(frames)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-        n_kernels = sum(e.count for e in events) / args.iters
-        print(f"B={b}: {wall_ms / args.iters:.3f} ms per request (host), "
-              f"device busy {dev_ms / args.iters:.3f} ms per request "
-              f"({100 * dev_ms / wall_ms:.1f}% of wall), "
-              f"{n_kernels:.0f} device ops per request")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-            print(f"  {e.self_device_time_total / 1e3 / args.iters:8.4f} ms "
-                  f"x{e.count // args.iters:<3d} {e.key[:90]}")
+    if "slice" in args.path:
+        profile_slice(args.batch, args.iters, rs)
+    if "match" in args.path:
+        profile_match(args.iters, rs)
 
 
 if __name__ == "__main__":

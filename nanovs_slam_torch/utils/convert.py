@@ -11,6 +11,13 @@ torch key by joining with ``.`` and renaming the leaf:
   -> ``running_mean``/``running_var``;
 - NetVLAD ``assign_w`` (C, K) and ``centroids`` (K, C) carry over as they are.
 
+LightGlue (``load_jax_lightglue``) has Dense layers instead of convs:
+
+- Dense ``kernel`` (in, out) -> ``Linear.weight`` (out, in);
+- LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
+- ``posenc/Wr`` (2, head_dim/2) carries over as it is: the port's module
+  keeps the flax layout.
+
 Inputs are nested dicts of numpy arrays (flax ``params``/``batch_stats``) or
 flat dicts with ``/``-joined keys as stored in a pinned ``.npz``.
 """
@@ -37,11 +44,19 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _torch_entry(path: str, value: np.ndarray):
+def _torch_entry(path: str, value: np.ndarray, dense: bool = False):
+    """One flax leaf -> (torch key, tensor). ``kernel`` leaves are conv
+    kernels (4-D), or Dense kernels (2-D) where ``dense``."""
     parts = path.split("/")
     leaf = parts[-1]
     t = torch.from_numpy(np.array(value, np.float32))
-    if leaf == "kernel":
+    if leaf == "kernel" and dense:
+        if t.dim() != 2:
+            raise ValueError(f"{path}: expected a 2-D Dense kernel, got "
+                             f"{tuple(t.shape)}")
+        t = t.t().contiguous()
+        leaf = "weight"
+    elif leaf == "kernel":
         if t.dim() != 4:
             raise ValueError(f"{path}: expected a 4-D conv kernel, got "
                              f"{tuple(t.shape)}")
@@ -64,19 +79,8 @@ def convert_variables(params: Mapping, batch_stats: Mapping
     return out
 
 
-def load_jax_variables(model: nn.Module, params: Mapping,
-                       batch_stats: Mapping,
-                       absent_heads: Iterable[str] = ()) -> nn.Module:
-    """Load flax variables into ``model`` in place and return it.
-
-    Every key of the model (apart from BN's ``num_batches_tracked``) must
-    receive a value and every converted key must exist in the model, with
-    the same shape. Keys under a head named in ``absent_heads`` (e.g.
-    ``"vlad_head"``) are exempt on both sides: the model keeps its own
-    values there.
-    """
-    absent = tuple(f"{h}." for h in absent_heads)
-    sd = convert_variables(params, batch_stats)
+def _load_strict(model: nn.Module, sd: Dict[str, torch.Tensor],
+                 absent: tuple = ()) -> nn.Module:
     target = {k: v for k, v in model.state_dict().items()
               if not k.endswith("num_batches_tracked")}
     missing = sorted(k for k in target.keys() - sd.keys()
@@ -93,3 +97,29 @@ def load_jax_variables(model: nn.Module, params: Mapping,
                              f"the model's {tuple(target[k].shape)}")
     model.load_state_dict(load, strict=False)
     return model
+
+
+def load_jax_variables(model: nn.Module, params: Mapping,
+                       batch_stats: Mapping,
+                       absent_heads: Iterable[str] = ()) -> nn.Module:
+    """Load flax variables into ``model`` in place and return it.
+
+    Every key of the model (apart from BN's ``num_batches_tracked``) must
+    receive a value and every converted key must exist in the model, with
+    the same shape. Keys under a head named in ``absent_heads`` (e.g.
+    ``"vlad_head"``) are exempt on both sides: the model keeps its own
+    values there.
+    """
+    return _load_strict(model, convert_variables(params, batch_stats),
+                        tuple(f"{h}." for h in absent_heads))
+
+
+def load_jax_lightglue(model: nn.Module, params: Mapping) -> nn.Module:
+    """Load flax LightGlue ``params`` into the port's ``LightGlue`` in
+    place and return it; raises on any unmatched key on either side and on
+    any shape mismatch."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params).items():
+        key, t = _torch_entry(path, value, dense=True)
+        sd[key] = t
+    return _load_strict(model, sd)
