@@ -10,10 +10,14 @@ Phases, each of which raises (exit code != 0) on failure:
     the paths' shapes, with CUDA-event medians of the kernel, the twin and,
     where one exists, a library call: the stem, NetVLAD and postprocess
     kernels at the serving slice's shapes (KP2DTiny-N, 240x320) for batch 1
-    and 8, and the stem at the match path's config S widths (16, 32); the
-    LightGlue transformer kernel (pinned kp2dtiny_S weights) at
+    and 8, the stem at the match path's config S widths (16, 32) and
+    NetVLAD at config S's (C=64, K=64), with NetVLAD's device kernels a
+    call (one) counted by the profiler; the LightGlue transformer kernel
+    (pinned kp2dtiny_S weights) at
     K=512 and K=1024, at M=512/N=384 with padding masks and with a fully
-    masked image, with its device kernels broken down by the profiler and
+    masked image, with its device kernels broken down by the profiler (4 a
+    layer and 1 a call) with programmatic dependent launch off, so that
+    the per-launch times do not overlap, and
     one scaled_dot_product_attention call as the attention's yardstick
     (its twin, ~600 launches a call, is timed by the profiler's summed
     device time: more launches than the device queues behind a spin);
@@ -35,7 +39,8 @@ Phases, each of which raises (exit code != 0) on failure:
  7. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
-    the match path, K=512), ``_b8`` / ``_k1024`` another size of it, and
+    the match path, K=512), ``_b8`` / ``_k1024`` / ``_s`` another size of
+    it (``_s``: NetVLAD at config S widths), and
     ``launches_match`` / ``*_match`` the match path where it runs the
     kernel too (its postprocess shapes are the N slice's B=1 ones).
 
@@ -58,6 +63,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 H, W = 240, 320
 SEED = 0
 
@@ -186,14 +192,22 @@ def kernel_cases(B: int, dev):
                      + B * (H // 2) * (W // 2) * C2),
                 2 * B * H * W * (C1 * 27 + C2 * C1 * 9), check)
 
-    K, Cv = 32, 48
     S = Hc * Wc
-    xv = nhwc(rs.randn(B, Cv, Hc, Wc))
-    aw, cen = t(rs.randn(Cv, K) * 0.2), t(rs.rand(K, Cv))
-    nv = (xv, aw, cen)
 
-    def nv_check(got, want):
-        require(max_err(got, want) <= 1e-5, "netvlad")
+    def netvlad_case(key, Cv, K):
+        """NetVLAD at widths C, K (N: 48, 32; S: 64, 64)."""
+        xv = nhwc(rs.randn(B, Cv, Hc, Wc))
+        aw, cen = t(rs.randn(Cv, K) * 0.2), t(rs.rand(K, Cv))
+        nv = (xv, aw, cen)
+
+        def check(got, want):
+            require(max_err(got, want) <= 1e-5, f"netvlad {Cv}, {K}")
+
+        return (key, "netvlad", "nanovs_slam_torch/csrc/netvlad.cu",
+                "nanovs_slam_tpu/ops/pallas/netvlad_kernel.py:59",
+                netvlad, lambda: netvlad(*nv), lambda: netvlad_plain(*nv),
+                None, 4 * (B * S * Cv + 2 * Cv * K + B * K * Cv),
+                B * S * (4 * Cv * K + 3 * Cv + 3 * K), check)
 
     cases = [
         (suffix, "fused_postprocess", "nanovs_slam_torch/csrc/postprocess.cu",
@@ -203,14 +217,10 @@ def kernel_cases(B: int, dev):
          4 * (B * Hc * Wc * 3 + B * Hf * Wf * C + B * Hc * Wc * (3 + C)),
          B * Hc * Wc * C * 14, pp_check),
         stem_case(suffix, 16, 24),
-        (suffix, "netvlad", "nanovs_slam_torch/csrc/netvlad.cu",
-         "nanovs_slam_tpu/ops/pallas/netvlad_kernel.py:59",
-         netvlad, lambda: netvlad(*nv), lambda: netvlad_plain(*nv), None,
-         4 * (B * S * Cv + 2 * Cv * K + B * K * Cv),
-         B * S * (4 * Cv * K + 3 * Cv + 3 * K), nv_check),
+        netvlad_case(suffix, 48, 32),
     ]
     if B == 1:
-        cases.append(stem_case("_match", 16, 32))
+        cases += [stem_case("_match", 16, 32), netvlad_case("_s", 64, 64)]
     return cases
 
 
@@ -230,6 +240,12 @@ def kernel_phase(dev):
             plain_ms = cuda_ms(plain)
             library_ms = cuda_ms(library) if library is not None else None
             b_ms, b_by = bound(nbytes, flops)
+            if name == "netvlad":  # one launch a call
+                n_dev, _ = kernels_a_call(run, 1)
+                log(f"kernel netvlad{suffix or '_b1'}: {n_dev:g} device "
+                    f"kernels a call")
+                require(round(n_dev) == 1, f"netvlad: {n_dev} device "
+                        f"kernels a call, expected 1")
             log(f"kernel {name}{suffix or '_b1'}: max_abs_err {err:.3g}, "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                 f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}"
@@ -456,12 +472,20 @@ def lightglue_args(lg, dev, B, M, N, pad0, pad1, empty1, seed):
 
 
 def lightglue_work(B, M, N, D, L, P):
-    """(bytes, flops) of the stack: inputs read once, outputs written once;
-    per layer 38 (M+N) D^2 + 4 (M^2+N^2) D + 6 M N D flops."""
+    """(bytes, flops, attention flops) of the stack: inputs read once,
+    outputs written once; per layer 38 (M+N) D^2 flops of projections and
+    FFNs, and 4 (M^2+N^2) D + 6 M N D of attention."""
     nbytes = 4 * (B * (M + N) * (2 * D + D // 4) + L * P) + B * (M + N)
-    flops = B * L * (38 * (M + N) * D * D + 4 * (M * M + N * N) * D
-                     + 6 * M * N * D)
-    return nbytes, flops
+    attn = B * L * (4 * (M * M + N * N) * D + 6 * M * N * D)
+    return nbytes, B * L * 38 * (M + N) * D * D + attn, attn
+
+
+def bound_3xtf32(nbytes: float, flops: float, attn_flops: float) -> float:
+    """The stack's bound with its attention on the tensor cores in 3xTF32
+    (three TF32 products a product) and the rest in float32, ms."""
+    t_ops = 3 * attn_flops / TF32_FLOP_PER_S + (flops - attn_flops) \
+        / FP32_FLOP_PER_S
+    return max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
 
 
 def device_breakdown(run, iters: int = 20) -> dict:
@@ -481,6 +505,19 @@ def device_breakdown(run, iters: int = 20) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
 
 
+def kernels_a_call(run, expected: int, windows: int = 5):
+    """(device kernels a call, the window's breakdown): the profiler now
+    and then loses kernel records (seen on the card with both launch plans,
+    never an extra one), so windows are taken until one sees ``expected``
+    kernels a call or more."""
+    for _ in range(windows):
+        parts = device_breakdown(run)
+        n = sum(c for c, _ in parts.values())
+        if round(n) >= expected:
+            break
+    return n, parts
+
+
 def device_sum_ms(run, iters: int = 10) -> float:
     """The summed device time of one call's kernels, by the profiler: for a
     function of more small launches than the device queues behind a spin
@@ -494,15 +531,15 @@ def lightglue_kernel_phase(dev, repo: str) -> dict:
     import torch.nn.functional as F
 
     from nanovs_slam_torch.kernels.lightglue import (
-        HEADS, KERNELS_PER_LAYER, lightglue_transformer,
+        HEADS, KERNELS_PER_LAYER, device_kernels, lightglue_transformer,
         lightglue_transformer_plain)
 
     lg = pinned_lightglue(repo)
     D, L = lg.cfg.descriptor_dim, lg.cfg.n_layers
     P = lg.packed_weights().shape[1]
     log(f"kernel lightglue_transformer: one call enqueues "
-        f"{KERNELS_PER_LAYER * L} device kernels ({KERNELS_PER_LAYER} a "
-        f"layer, {L} layers)")
+        f"{device_kernels(L)} device kernels ({KERNELS_PER_LAYER} a "
+        f"layer, {L} layers, and the first layer's self projection)")
     entry = {"name": "lightglue_transformer", "route": "cuda",
              "source": "nanovs_slam_torch/csrc/lightglue.cu",
              "replaces": "nanovs_slam_tpu/ops/pallas/lightglue_kernel.py:265",
@@ -534,24 +571,35 @@ def lightglue_kernel_phase(dev, repo: str) -> dict:
         q, k, v = (torch.randn(2, HEADS, M, D // HEADS, device=dev,
                                generator=g) for _ in range(3))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        parts = device_breakdown(lambda: lightglue_transformer(*args))
-        per_call = sum(n for n, _ in parts.values())
-        require(round(per_call) == KERNELS_PER_LAYER * L,
+        # under programmatic dependent launch a kernel's record starts
+        # while it waits for the previous one: the breakdown is read with
+        # it off (the same kernels and results, launched in stream order)
+        lightglue_transformer.pdl = False
+        try:
+            per_call, parts = kernels_a_call(
+                lambda: lightglue_transformer(*args), device_kernels(L))
+        finally:
+            lightglue_transformer.pdl = True
+        require(round(per_call) == device_kernels(L),
                 f"lightglue_transformer {tag}: {per_call} device kernels a "
-                f"call, expected {KERNELS_PER_LAYER * L}")
+                f"call, expected {device_kernels(L)}")
         attn = [t for name, (_, t) in parts.items() if "attn_kernel" in name]
         attn_ms = statistics.mean(attn) if attn else None
-        b_ms, b_by = bound(*lightglue_work(1, M, N, D, L, P))
+        work = lightglue_work(1, M, N, D, L, P)
+        b_ms, b_by = bound(*work[:2])
         log(f"kernel lightglue_transformer {tag}: max_abs_err {err:.3g}, "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by}); attention launch "
+            f"{b_ms:.5f} ms ({b_by}; with the attention in 3xTF32 on the "
+            f"tensor cores {bound_3xtf32(*work):.5f} ms); attention launch "
+            f"(PDL off) "
             f"{'n/a' if attn_ms is None else f'{attn_ms:.4f} ms'}, sdpa "
             f"{library_ms:.4f} ms")
+        log("  per launch, PDL off:")
         for name, (n, t) in sorted(parts.items(), key=lambda kv: -kv[1][1]):
             log(f"  {t:.4f} ms x{n:g} a call  {name[:80]}")
         keys = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-                "attn_launch_ms": attn_ms}
+                "attn_launch_ms": attn_ms}  # PDL off: one launch's own time
         suffix = "" if tag == "K512" else "_k1024"
         entry.update({k + suffix: v for k, v in keys.items()})
     entry["library"] = ("torch.nn.functional.scaled_dot_product_attention, "

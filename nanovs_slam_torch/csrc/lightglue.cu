@@ -15,21 +15,31 @@
 //
 // Design. The TPU kernel held every weight and activation in VMEM and ran
 // the whole stack in one grid step. On Hopper one block per pair would leave
-// 131 of 132 SMs idle, so each layer is six launches over many blocks:
-//   proj_kernel: one warp per row, one lane per pair of outputs; the
-//     weights (<= 3 D^2) are staged in shared memory. The rotary is applied
-//     to the interleaved (even, odd) pairs in registers, in the module's
-//     basis (no half-basis permutation). q, k, v go out as (B, H, n, DH).
-//   attn_kernel: flash-style online softmax. A block takes 32 query rows of
-//     one head of one problem (self: image 0 and image 1; cross: the two
-//     directions), four threads per row each taking every fourth key of a
-//     64-key tile staged in shared memory; the four partial softmaxes are
-//     merged with warp shuffles. exp2 with log2(e) folded into the scale.
-//   ffn_kernel: one warp per row: out projection, fc1 over [x, msg],
-//     LayerNorm (eps 1e-5), exact GELU (erff), fc2 and the residual. Its
-//     weights (7 D^2 + 8 D floats) are staged in shared memory.
-// One host call (nvs_lightglue_layers) enqueues every launch of the layers
-// it is given on the caller's stream.
+// 131 of 132 SMs idle, so the stack is a chain of launches over many blocks,
+// 4 a layer plus one:
+//   row_kernel: 8 rows a block, 2 rows a warp sharing each weight read;
+//     the self FFN is fused with the cross projection that follows it, and
+//     the cross FFN with the next layer's self projection (the row a warp
+//     finishes is the row it projects). The FFN is the out projection, fc1
+//     over [x, msg], LayerNorm (eps 1e-5), exact GELU (erff), fc2 and the
+//     residual; the projection applies the rotary to the interleaved (even,
+//     odd) pairs in neighbouring lanes, in the module's basis (no
+//     half-basis permutation). q, k, v go out as (B, H, n, DH).
+//   attn_kernel: flash-style online softmax on the tensor cores. A block
+//     takes 32 query rows of one head of one problem (self: image 0 and
+//     image 1; cross: the two directions), 16 rows and half the keys a
+//     warp; its four warps share each 128-key tile of K and V,
+//     double-buffered with cp.async.
+//     q k^T and p v are m16n8k8 TF32 products (DH = 8 is one k-step; DH =
+//     16 two) in 3xTF32, which keeps float32 accuracy. exp2 with log2(e)
+//     folded into the scale.
+// Every launch of a call but the first is a programmatic dependent launch
+// (Hopper): the next kernel starts while this one runs, stages its weights,
+// and waits (griddepcontrol.wait) before it reads what this one writes. The
+// first waits for the stream as usual, because what ran before the call may
+// have written the packed weights it stages. One host call
+// (nvs_lightglue_layers) enqueues every launch of the layers it is given on
+// the caller's stream.
 //
 // Bound on an H100: operations. Per layer 38 (M+N) D^2 + 4 (M^2+N^2) D +
 // 6 M N D flops: at M = N = 512, D = 32, L = 4 that is 0.63 GFLOP, 9.4 us at
@@ -37,6 +47,7 @@
 // (weights 80 KB a layer, activations < 1 MB) move in well under that.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <atomic>
 
@@ -45,14 +56,14 @@
 namespace {
 
 constexpr int kHeads = 4;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kProjRows = 16;  // rows per projection block
-constexpr int kFfnRows = 32;   // rows per FFN block
-constexpr int kSplit = 4;      // threads per query row
-constexpr int kQRows = 32;     // query rows per attention block
-constexpr int kAttnThreads = kQRows * kSplit;
-constexpr int kKeyTile = 64;
+constexpr int kRowsPerWarp = 2;  // rows a warp of the row kernel carries
+constexpr int kRowThreads = 128;
+constexpr int kRowRows = kRowThreads / 32 * kRowsPerWarp;  // rows a block
+constexpr int kQGroups = 2;  // attention: groups of 16 query rows a block
+constexpr int kKeySplit = 2;  // warps that share a group, each 64 keys of 128
+constexpr int kAttnThreads = kQGroups * kKeySplit * 32;
+constexpr int kQRows = kQGroups * 16;  // query rows a block
+constexpr int kKeyTile = 64 * kKeySplit;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
@@ -60,68 +71,260 @@ __device__ __forceinline__ T pick(int img, T a, T b) {
   return img ? b : a;
 }
 
-// ------------------------------------------------------------- projection
+// ------------------------------------------------- PDL (Hopper) helpers
 
-struct ProjArgs {
-  const float* x0;  // (B, M, D) rows
-  const float* x1;  // (B, N, D)
-  const float* cs0;  // (B, M, DH/2) rotary tables; unused without rotary
+// Programmatic dependent launch: a kernel waits for the previous one on the
+// stream before it touches what that one wrote or reads, and then lets the
+// next one start, whose blocks stage their weights while this one runs.
+// Letting it start before the wait would cascade: every later kernel's
+// blocks would take SM resources while waiting.
+__device__ __forceinline__ void allow_next_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_previous_launch() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// ------------------------------------------------- FFN and/or projection
+
+struct RowArgs {
+  const float* x0;    // (B, M, D) residual input, or the rows to project
+  const float* x1;    // (B, N, D)
+  const float* ctx0;  // (B, M, D) attention context (with the FFN)
+  const float* ctx1;
+  float* y0;  // (B, M, D) FFN output; may be x0 (in place, row by row)
+  float* y1;
+  const float* w_ffn;   // wo (D,D), bo, fc1 (2D,2D), b1, ln_g, ln_b,
+                        // fc2 (2D,D), b2; unused without the FFN
+  const float* w_proj;  // (D, T*D) in-major, then the bias (T*D)
+  const float* cs0;     // (B, M, DH/2) rotary tables (T = 3 only)
   const float* sn0;
   const float* cs1;
   const float* sn1;
-  float* out0;  // image 0: q | k | v, each (B, H, M, DH)
-  float* out1;  // image 1: q | k | v, each (B, H, N, DH)
-  const float* w;  // (D, T*D) in-major, then the bias (T*D)
+  float* qkv0;  // image 0: q | k | v slots, each (B, H, M, DH)
+  float* qkv1;  // image 1: the same with N
   int B, M, N;
 };
 
-// T = 3: self-attention q, k, v with the rotary on q and k.
-// T = 2: cross-attention qk (into the q slot) and v (into the v slot).
-template <int D, int T>
-__global__ void __launch_bounds__(kThreads) proj_kernel(ProjArgs a) {
-  constexpr int DH = D / kHeads;
-  constexpr int kOut = T * D;
-  extern __shared__ float4 smem4[];
-  float* s_w = reinterpret_cast<float*>(smem4);  // D * kOut, then kOut
-  float* s_b = s_w + D * kOut;
-  float* xs = s_b + kOut + (threadIdx.x >> 5) * D;  // this warp's row
-  const int tid = threadIdx.x, lane = tid & 31;
+template <int D>
+__host__ __device__ constexpr int ffn_weights() {
+  return 7 * D * D + 8 * D;
+}
 
-  for (int e = tid; e < D * kOut + kOut; e += kThreads) s_w[e] = a.w[e];
+template <int D, int T>
+__host__ __device__ constexpr int proj_weights() {
+  return T * D * D + T * D;
+}
+
+// One row kernel for the three places a layer needs one:
+//   kFfn, T = 2: self block's out projection + FFN, then the cross q/k, v;
+//   kFfn, T = 3: cross block's FFN, then the next layer's self q, k, v;
+//   kFfn, T = 0: the last layer's cross FFN;   !kFfn, T = 3: the first
+//   layer's self projection of the input rows.
+// A block takes kRowRows rows of both images (image 0's B*M rows, then
+// image 1's), a warp kRowsPerWarp of them: every weight a lane reads from
+// shared memory feeds that many rows (register blocking), and the chain of
+// dependent FMAs is one row deep. The row a warp finishes stays in shared
+// memory for the projection that follows. Weights (at most 10 D^2 + 11 D
+// floats: 167 KB at D = 64, within the 227 KB a block can have) are staged
+// before the wait for the previous launch.
+template <int D, bool kFfn, int T>
+__global__ void __launch_bounds__(kRowThreads) row_kernel(RowArgs a) {
+  constexpr int D2 = 2 * D;
+  constexpr int DH = D / kHeads;
+  constexpr int R = kRowsPerWarp;
+  constexpr int kWf = kFfn ? ffn_weights<D>() : 0;
+  constexpr int kWp = proj_weights<D, T>();
+  constexpr int kRowBuf = 5 * D;  // [x | msg] (2D), ctx then y (D), h (2D)
+  extern __shared__ float4 smem4[];
+  float* s_ffn = reinterpret_cast<float*>(smem4);
+  float* s_proj = s_ffn + kWf;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* buf = s_proj + kWp + warp * R * kRowBuf;
+
+  {
+    const float4* src = reinterpret_cast<const float4*>(a.w_ffn);
+    float4* dst = reinterpret_cast<float4*>(s_ffn);
+    for (int e = tid; e < kWf / 4; e += kRowThreads) dst[e] = src[e];
+    src = reinterpret_cast<const float4*>(a.w_proj);
+    dst = reinterpret_cast<float4*>(s_proj);
+    for (int e = tid; e < kWp / 4; e += kRowThreads) dst[e] = src[e];
+  }
+  wait_previous_launch();
+  allow_next_launch();
   __syncthreads();
+
   const int rows0 = a.B * a.M, rows = rows0 + a.B * a.N;
-  const int r_end = min(rows, (blockIdx.x + 1) * kProjRows);
-  for (int r = blockIdx.x * kProjRows + (tid >> 5); r < r_end; r += kWarps) {
-    const int img = r >= rows0;
-    const int rr = img ? r - rows0 : r;  // row within its image's (B, n)
-    const int n = pick(img, a.M, a.N);
-    const int b = rr / n, i = rr % n;
-    const float* x = pick(img, a.x0, a.x1) + (long long)rr * D;
-    for (int c = lane; c < D; c += 32) xs[c] = x[c];
-    __syncwarp();
-    const long long slot = (long long)a.B * n * D;  // one of q, k, v
-    for (int p = lane; p < kOut / 2; p += 32) {
-      const int o = 2 * p;
-      float2 acc = *reinterpret_cast<const float2*>(s_b + o);
+  const int r0 = blockIdx.x * kRowRows + warp * R;
+  int img[R];
+  long long off[R];  // the row's element offset in its image's (B, n, D)
+  bool valid[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = r0 + r;
+    valid[r] = row < rows;
+    img[r] = row >= rows0;
+    off[r] = valid[r] ? (long long)(img[r] ? row - rows0 : row) * D : 0;
+  }
+  float* xm[R];
+  float* cy[R];
+  float* hb[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    xm[r] = buf + r * kRowBuf;
+    cy[r] = xm[r] + D2;
+    hb[r] = cy[r] + D;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float* x = pick(img[r], a.x0, a.x1) + off[r];
+    const float* ctx = pick(img[r], a.ctx0, a.ctx1) + off[r];
+    for (int c = lane; c < D; c += 32) {
+      xm[r][c] = valid[r] ? x[c] : 0.f;
+      if (kFfn) cy[r][c] = valid[r] ? ctx[c] : 0.f;
+    }
+  }
+  __syncwarp();
+
+  const float* y_rows[R];  // the rows the projection reads
+  if (kFfn) {
+    const float* s_wo = s_ffn;
+    const float* s_bo = s_wo + D * D;
+    const float* s_fc1 = s_bo + D;
+    const float* s_b1 = s_fc1 + D2 * D2;
+    const float* s_g = s_b1 + D2;
+    const float* s_beta = s_g + D2;
+    const float* s_fc2 = s_beta + D2;
+    const float* s_b2 = s_fc2 + D2 * D;
+    // msg = ctx wo + bo, beside x
+#pragma unroll
+    for (int u = 0; u < D / 32; ++u) {
+      const int o = lane + 32 * u;
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = s_bo[o];
 #pragma unroll 8
       for (int c = 0; c < D; ++c) {
-        const float xc = xs[c];
-        const float2 w = *reinterpret_cast<const float2*>(s_w + c * kOut + o);
-        acc.x = fmaf(xc, w.x, acc.x);
-        acc.y = fmaf(xc, w.y, acc.y);
+        const float w = s_wo[c * D + o];
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(cy[r][c], w, acc[r]);
       }
-      const int t = o / D, h = (o % D) / DH, j = o % DH;
-      if (T == 3 && t < 2) {
-        const long long ti = (long long)rr * (DH / 2) + j / 2;
-        const float c = pick(img, a.cs0, a.cs1)[ti];
-        const float s = pick(img, a.sn0, a.sn1)[ti];
-        acc = make_float2(acc.x * c - acc.y * s, acc.y * c + acc.x * s);
-      }
-      float* out = pick(img, a.out0, a.out1) + (T == 3 ? t : 2 * t) * slot +
-                   (((long long)b * kHeads + h) * n + i) * DH + j;
-      *reinterpret_cast<float2*>(out) = acc;
+#pragma unroll
+      for (int r = 0; r < R; ++r) xm[r][D + o] = acc[r];
     }
     __syncwarp();
+    // h = GELU(LN([x, msg] fc1 + b1))
+    constexpr int kPer = D2 / 32;
+    float hv[R][kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+#pragma unroll
+      for (int r = 0; r < R; ++r) hv[r][u] = s_b1[lane + 32 * u];
+#pragma unroll 4
+    for (int c = 0; c < D2; ++c) {
+      float w[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) w[u] = s_fc1[c * D2 + lane + 32 * u];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float xc = xm[r][c];
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) hv[r][u] = fmaf(xc, w[u], hv[r][u]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) sum += hv[r][u];
+      const float mu = nvs::warp_sum(sum) / D2;
+      float sq = 0.f;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) sq += (hv[r][u] - mu) * (hv[r][u] - mu);
+      const float rstd = rsqrtf(nvs::warp_sum(sq) / D2 + 1e-5f);
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int o = lane + 32 * u;
+        const float t = (hv[r][u] - mu) * rstd * s_g[o] + s_beta[o];
+        hb[r][o] = 0.5f * t * (1.f + erff(t * 0.70710678118654752f));
+      }
+    }
+    __syncwarp();
+    // y = x + h fc2 + b2: out to the rows, and kept (over ctx) to project
+#pragma unroll
+    for (int u = 0; u < D / 32; ++u) {
+      const int o = lane + 32 * u;
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = s_b2[o];
+#pragma unroll 8
+      for (int c = 0; c < D2; ++c) {
+        const float w = s_fc2[c * D + o];
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(hb[r][c], w, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float y = xm[r][o] + acc[r];
+        cy[r][o] = y;
+        if (valid[r]) pick(img[r], a.y0, a.y1)[off[r] + o] = y;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < R; ++r) y_rows[r] = cy[r];
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) y_rows[r] = xm[r];
+  }
+  if constexpr (T > 0) {
+    // projection: lane owns outputs lane + 32 u of (type, head, channel);
+    // the rotary pairs (even, odd) sit in neighbouring lanes
+    const float* s_wp = s_proj;
+    const float* s_bp = s_proj + T * D * D;
+    constexpr int kOut = T * D / 32;
+    float acc[R][kOut];
+#pragma unroll
+    for (int u = 0; u < kOut; ++u)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r][u] = s_bp[lane + 32 * u];
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float w[kOut];
+#pragma unroll
+      for (int u = 0; u < kOut; ++u) w[u] = s_wp[c * T * D + lane + 32 * u];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float yc = y_rows[r][c];
+#pragma unroll
+        for (int u = 0; u < kOut; ++u) acc[r][u] = fmaf(yc, w[u], acc[r][u]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int n = pick(img[r], a.M, a.N);
+      const long long rr = off[r] / D;  // row within its image's (B, n)
+      const long long b = rr / n, i = rr % n;
+      const long long slot = (long long)a.B * n * D;  // one of q, k, v
+      float* out = pick(img[r], a.qkv0, a.qkv1);
+#pragma unroll
+      for (int u = 0; u < kOut; ++u) {
+        const int o = lane + 32 * u;
+        const int t = o / D, h = (o % D) / DH, j = o % DH;
+        float v = acc[r][u];
+        if (T == 3 && t < 2) {  // rotary on q and k, interleaved pairs
+          const float other = __shfl_xor_sync(0xffffffffu, v, 1);
+          const long long ti = rr * (DH / 2) + j / 2;
+          const float c = valid[r] ? pick(img[r], a.cs0, a.cs1)[ti] : 0.f;
+          const float s = valid[r] ? pick(img[r], a.sn0, a.sn1)[ti] : 0.f;
+          v = (j & 1) ? v * c + other * s : v * c - other * s;
+        }
+        if (valid[r])
+          out[(T == 3 ? t : 2 * t) * slot +
+              ((b * kHeads + h) * n + i) * DH + j] = v;
+      }
+    }
   }
 }
 
@@ -141,225 +344,265 @@ struct AttnArgs {
   float scale_log2;  // log2(e) / sqrt(DH)
 };
 
+// 3xTF32 on the tensor cores: x = hi + lo with hi = tf32(x) and lo =
+// tf32(x - hi); a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi keeps float32
+// accuracy (plain TF32 keeps about three digits).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// d += a b, one m16n8k8 TF32 product: a 16x8 (row), b 8x8 (col).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// 16 bytes global -> shared, zero-filled when !in (src is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// A block takes 32 query rows in 2 groups of 16 and walks the keys in
+// 128-key tiles of K and V, loaded with cp.async into one of two buffers
+// while the other is in use. Two warps share a group, each with its own
+// online softmax over its 64 keys of every tile; they merge through shared
+// memory at the end, which halves the dependent chain a warp runs. Per 8
+// keys: q k^T is one m16n8k8 product per
+// 8 channels (DH / 8 k-steps), p v one per 8 output channels, each as
+// 3xTF32. The scores' accumulator layout (row g = lane / 4, keys 2t, 2t+1
+// with t = lane % 4) is reused as p's operand layout by taking key 2t as
+// k-index t and key 2t+1 as t + 4; v's operand follows the same order.
 template <int DH>
 __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   constexpr int kStride = DH + 4;  // padded key row: no bank conflicts
-  constexpr int kVec = DH / 4;
-  constexpr int kPer = kKeyTile / kSplit;
-  __shared__ __align__(16) float s_k[kKeyTile * kStride];
-  __shared__ __align__(16) float s_v[kKeyTile * kStride];
-  __shared__ bool s_valid[kKeyTile];
+  constexpr int kSteps = DH / 8;   // k-steps of q k^T, n-tiles of p v
+  constexpr int kChunks = 64 / 8;  // 8-key chunks of a warp's share
+  __shared__ __align__(16) float s_k[2][kKeyTile * kStride];
+  __shared__ __align__(16) float s_v[2][kKeyTile * kStride];
+  __shared__ bool s_valid[2][kKeyTile];
 
+  wait_previous_launch();
+  allow_next_launch();
   const AttnProblem P = (blockIdx.z & 1) ? a.p1 : a.p0;
   const int b = blockIdx.z >> 1, h = blockIdx.y;
   const int row0 = blockIdx.x * kQRows;
   if (row0 >= P.nq) return;  // the whole block: this problem is shorter
-  const int tid = threadIdx.x, split = tid % kSplit;
-  const int i = row0 + tid / kSplit;
-  const bool active = i < P.nq;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warp = tid >> 5, half = warp / kQGroups;  // half: 64-key share
+  const int qr = row0 + (warp % kQGroups) * 16;  // the group's first row
+  const bool active = qr < P.nq;
   const long long bh = (long long)b * kHeads + h;
-
-  float q[DH], acc[DH];
-  const float* qr = P.q + (bh * P.nq + (active ? i : row0)) * DH;
-#pragma unroll
-  for (int j = 0; j < DH; ++j) {
-    q[j] = qr[j] * a.scale_log2;
-    acc[j] = 0.f;
-  }
-  const float neg_inf = -__int_as_float(0x7f800000);
-  float m = neg_inf, l = 0.f;
   const float* kb = P.k + bh * P.nk * DH;
   const float* vb = P.v + bh * P.nk * DH;
   const unsigned char* mb = P.kmask ? P.kmask + (long long)b * P.nk : nullptr;
 
-  for (int k0 = 0; k0 < P.nk; k0 += kKeyTile) {
-    __syncthreads();
-    for (int e = tid; e < kKeyTile * kVec; e += kAttnThreads) {
-      const int kk = e / kVec, c4 = e % kVec, key = k0 + kk;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (key < P.nk) {
-        kv = reinterpret_cast<const float4*>(kb + (long long)key * DH)[c4];
-        vv = reinterpret_cast<const float4*>(vb + (long long)key * DH)[c4];
-      }
-      *reinterpret_cast<float4*>(s_k + kk * kStride + 4 * c4) = kv;
-      *reinterpret_cast<float4*>(s_v + kk * kStride + 4 * c4) = vv;
+  auto load_tile = [&](int tile, int buf) {
+    const int k0 = tile * kKeyTile;
+    for (int e = tid; e < kKeyTile * DH / 4; e += kAttnThreads) {
+      const int kk = e / (DH / 4), c = 4 * (e % (DH / 4)), key = k0 + kk;
+      const bool in = key < P.nk;
+      const long long src = (long long)(in ? key : 0) * DH + c;
+      cp_async16(&s_k[buf][kk * kStride + c], kb + src, in);
+      cp_async16(&s_v[buf][kk * kStride + c], vb + src, in);
     }
     for (int kk = tid; kk < kKeyTile; kk += kAttnThreads) {
       const int key = k0 + kk;
-      s_valid[kk] = key < P.nk && (mb == nullptr || mb[key]);
+      s_valid[buf][kk] = key < P.nk && (mb == nullptr || mb[key]);
+    }
+    cp_async_commit();
+  };
+
+  // q's operand (rows g, g + 8; channels t, t + 4 of each k-step), with
+  // log2(e) / sqrt(DH) folded in
+  uint32_t qh[kSteps][4], ql[kSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = qr + g + 8 * (i & 1), col = 8 * ks + t + 4 * (i >> 1);
+      const float v = row < P.nq
+                          ? P.q[(bh * P.nq + row) * DH + col] * a.scale_log2
+                          : 0.f;
+      split_tf32(v, qh[ks][i], ql[ks][i]);
+    }
+  const float neg_inf = -__int_as_float(0x7f800000);
+  // p v accumulates in two sets (even and odd 8-key chunks): two shorter
+  // chains of dependent products
+  float o[2][kSteps][4] = {}, m[2] = {neg_inf, neg_inf}, l[2] = {0.f, 0.f};
+
+  const int n_tiles = (P.nk + kKeyTile - 1) / kKeyTile;
+  load_tile(0, 0);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < n_tiles) {
+      load_tile(tile + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    float s[kPer];
-    float mt = neg_inf;
+    if (active) {
+      const float* sk = s_k[buf] + 64 * half * kStride;
+      const float* sv = s_v[buf] + 64 * half * kStride;
+      const bool* valid = s_valid[buf] + 64 * half;
+      float s[kChunks][4];
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int kk = split + kSplit * u;
-      const float* kr = s_k + kk * kStride;
-      float dot = 0.f;
+      for (int ch = 0; ch < kChunks; ++ch) {
+        s[ch][0] = s[ch][1] = s[ch][2] = s[ch][3] = 0.f;
+        const float* kr = sk + (8 * ch + g) * kStride;
 #pragma unroll
-      for (int j = 0; j < DH; j += 4) {
-        const float4 k4 = *reinterpret_cast<const float4*>(kr + j);
-        dot = fmaf(q[j], k4.x, dot);
-        dot = fmaf(q[j + 1], k4.y, dot);
-        dot = fmaf(q[j + 2], k4.z, dot);
-        dot = fmaf(q[j + 3], k4.w, dot);
+        for (int ks = 0; ks < kSteps; ++ks) {
+          uint32_t kh[2], kl[2];
+          split_tf32(kr[8 * ks + t], kh[0], kl[0]);
+          split_tf32(kr[8 * ks + t + 4], kh[1], kl[1]);
+          mma_3xtf32(s[ch], qh[ks], ql[ks], kh, kl);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (!valid[8 * ch + 2 * t + (i & 1)]) s[ch][i] = neg_inf;
       }
-      s[u] = s_valid[kk] ? dot : neg_inf;
-      mt = fmaxf(mt, s[u]);
-    }
-    if (mt == neg_inf) continue;  // no valid key in this thread's share
-    if (mt > m) {
-      const float alpha = exp2f(m - mt);  // 0 while m is -inf
-      l *= alpha;
+      // online softmax of rows g (values 0, 1) and g + 8 (values 2, 3)
+      float mt[2] = {m[0], m[1]};
 #pragma unroll
-      for (int j = 0; j < DH; ++j) acc[j] *= alpha;
-      m = mt;
-    }
+      for (int ch = 0; ch < kChunks; ++ch) {
+        mt[0] = fmaxf(mt[0], fmaxf(s[ch][0], s[ch][1]));
+        mt[1] = fmaxf(mt[1], fmaxf(s[ch][2], s[ch][3]));
+      }
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const float p = exp2f(s[u] - m);  // 0 for an invalid key
-      l += p;
-      const float* vr = s_v + (split + kSplit * u) * kStride;
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float alpha = mt[r] == neg_inf ? 1.f : exp2f(m[r] - mt[r]);
+        m[r] = mt[r];
+        l[r] *= alpha;
 #pragma unroll
-      for (int j = 0; j < DH; j += 4) {
-        const float4 v4 = *reinterpret_cast<const float4*>(vr + j);
-        acc[j] = fmaf(p, v4.x, acc[j]);
-        acc[j + 1] = fmaf(p, v4.y, acc[j + 1]);
-        acc[j + 2] = fmaf(p, v4.z, acc[j + 2]);
-        acc[j + 3] = fmaf(p, v4.w, acc[j + 3]);
+        for (int nt = 0; nt < kSteps; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            o[e][nt][2 * r] *= alpha;
+            o[e][nt][2 * r + 1] *= alpha;
+          }
+      }
+#pragma unroll
+      for (int ch = 0; ch < kChunks; ++ch) {
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float mr = m[i >> 1];  // -inf: no valid key yet, p = 0
+          p[i] = mr == neg_inf ? 0.f : exp2f(s[ch][i] - mr);
+        }
+        l[0] += p[0] + p[1];
+        l[1] += p[2] + p[3];
+        uint32_t ph[4], pl[4];  // k-index t: key 2t; t + 4: key 2t + 1
+        split_tf32(p[0], ph[0], pl[0]);
+        split_tf32(p[2], ph[1], pl[1]);
+        split_tf32(p[1], ph[2], pl[2]);
+        split_tf32(p[3], ph[3], pl[3]);
+        const float* vr = sv + (8 * ch + 2 * t) * kStride + g;
+#pragma unroll
+        for (int nt = 0; nt < kSteps; ++nt) {
+          uint32_t vh[2], vl[2];
+          split_tf32(vr[8 * nt], vh[0], vl[0]);
+          split_tf32(vr[kStride + 8 * nt], vh[1], vl[1]);
+          mma_3xtf32(o[ch & 1][nt], ph, pl, vh, vl);
+        }
       }
     }
+    __syncthreads();  // the buffer is read before the next load overwrites
   }
 
-  // merge the kSplit partial softmaxes of a row (adjacent lanes)
-  float m_all = m;
+  // the two halves of a group merge: half 1 leaves its m, l and context
+  // in shared memory (the tiles' space: every read of it is done), half 0
+  // rescales both to the common maximum and writes
+  constexpr int kPart = 4 + 4 * kSteps;  // m, l of two rows; o
+  float* part = s_k[0] + ((warp % kQGroups) * 32 + lane) * kPart;
+  static_assert(kQGroups * 32 * kPart <= kKeyTile * kStride,
+                "the merge fits in a tile buffer");
 #pragma unroll
-  for (int o = 1; o < kSplit; o <<= 1)
-    m_all = fmaxf(m_all, __shfl_xor_sync(0xffffffffu, m_all, o));
-  const float f = m == neg_inf ? 0.f : exp2f(m - m_all);
-  l *= f;
-#pragma unroll
-  for (int j = 0; j < DH; ++j) acc[j] *= f;
-#pragma unroll
-  for (int o = 1; o < kSplit; o <<= 1) {
-    l += __shfl_xor_sync(0xffffffffu, l, o);
-#pragma unroll
-    for (int j = 0; j < DH; ++j)
-      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  if (active && split == 0) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;  // no valid key: zero
-    float* out = P.ctx + ((long long)b * P.nq + i) * (kHeads * DH) + h * DH;
+  if (half == 1) {
 #pragma unroll
-    for (int j = 0; j < DH; j += 4)
-      *reinterpret_cast<float4*>(out + j) =
-          make_float4(acc[j] * inv, acc[j + 1] * inv, acc[j + 2] * inv,
-                      acc[j + 3] * inv);
+    for (int r = 0; r < 2; ++r) {
+      part[r] = m[r];
+      part[2 + r] = l[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kSteps; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        part[4 + 4 * nt + i] = o[0][nt][i] + o[1][nt][i];
   }
-}
-
-// ------------------------------------------------- out projection and FFN
-
-struct FfnArgs {
-  const float* x0;  // (B, M, D) residual input
-  const float* x1;
-  const float* ctx0;  // (B, M, D) attention context
-  const float* ctx1;
-  float* y0;  // (B, M, D) output; may be x0 (in place, row by row)
-  float* y1;
-  const float* w;  // wo (D,D), bo, fc1 (2D,2D), b1, ln_g, ln_b, fc2 (2D,D), b2
-  int rows0, rows1;  // B*M, B*N
-};
-
-template <int D>
-__host__ __device__ constexpr int ffn_weights() {
-  return 7 * D * D + 8 * D;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) ffn_kernel(FfnArgs a) {
-  constexpr int D2 = 2 * D;
-  constexpr int kPer = D2 / 32;
-  extern __shared__ float4 smem4[];
-  float* s_wo = reinterpret_cast<float*>(smem4);
-  float* s_bo = s_wo + D * D;
-  float* s_fc1 = s_bo + D;
-  float* s_b1 = s_fc1 + D2 * D2;
-  float* s_g = s_b1 + D2;
-  float* s_beta = s_g + D2;
-  float* s_fc2 = s_beta + D2;
-  float* s_b2 = s_fc2 + D2 * D;
-  const int tid = threadIdx.x, lane = tid & 31;
-  float* xm = s_wo + ffn_weights<D>() + (tid >> 5) * (5 * D);  // [x | msg]
-  float* cx = xm + D2;  // ctx
-  float* hb = cx + D;   // GELU(LN(fc1)), 2D
-
-  for (int e = tid; e < ffn_weights<D>(); e += kThreads) s_wo[e] = a.w[e];
   __syncthreads();
-  const int rows = a.rows0 + a.rows1;
-  const int r_end = min(rows, (blockIdx.x + 1) * kFfnRows);
-  for (int r = blockIdx.x * kFfnRows + (tid >> 5); r < r_end; r += kWarps) {
-    const int img = r >= a.rows0;
-    const long long off = (long long)(img ? r - a.rows0 : r) * D;
-    const float* x = pick(img, a.x0, a.x1) + off;
-    const float* ctx = pick(img, a.ctx0, a.ctx1) + off;
-    for (int c = lane; c < D; c += 32) {
-      xm[c] = x[c];
-      cx[c] = ctx[c];
-    }
-    __syncwarp();
-    for (int o = lane; o < D; o += 32) {
-      float acc = s_bo[o];
-#pragma unroll 8
-      for (int c = 0; c < D; ++c) acc = fmaf(cx[c], s_wo[c * D + o], acc);
-      xm[D + o] = acc;
-    }
-    __syncwarp();
-    float hv[kPer];
-    float sum = 0.f;
+  if (half == 1 || !active) return;
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int o = lane + 32 * u;
-      float acc = s_b1[o];
-#pragma unroll 8
-      for (int c = 0; c < D2; ++c) acc = fmaf(xm[c], s_fc1[c * D2 + o], acc);
-      hv[u] = acc;
-      sum += acc;
-    }
-    const float mu = nvs::warp_sum(sum) / D2;
-    float sq = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = qr + g + 8 * r;
+    const float m1 = part[r], mm = fmaxf(m[r], m1);
+    const float f0 = m[r] == neg_inf ? 0.f : exp2f(m[r] - mm);
+    const float f1 = m1 == neg_inf ? 0.f : exp2f(m1 - mm);
+    const float lr = l[r] * f0 + part[2 + r] * f1;
+    if (row >= P.nq) continue;
+    const float inv = lr > 0.f ? 1.f / lr : 0.f;  // no valid key: zero
+    float* out = P.ctx + ((long long)b * P.nq + row) * (kHeads * DH) +
+                 h * DH + 2 * t;
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) sq += (hv[u] - mu) * (hv[u] - mu);
-    const float rstd = rsqrtf(nvs::warp_sum(sq) / D2 + 1e-5f);
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int o = lane + 32 * u;
-      const float t = (hv[u] - mu) * rstd * s_g[o] + s_beta[o];
-      hb[o] = 0.5f * t * (1.f + erff(t * 0.70710678118654752f));
+    for (int nt = 0; nt < kSteps; ++nt) {
+      const float* o1 = part + 4 + 4 * nt + 2 * r;
+      *reinterpret_cast<float2*>(out + 8 * nt) = make_float2(
+          ((o[0][nt][2 * r] + o[1][nt][2 * r]) * f0 + o1[0] * f1) * inv,
+          ((o[0][nt][2 * r + 1] + o[1][nt][2 * r + 1]) * f0 + o1[1] * f1) *
+              inv);
     }
-    __syncwarp();
-    float* y = pick(img, a.y0, a.y1) + off;
-    for (int o = lane; o < D; o += 32) {
-      float acc = s_b2[o];
-#pragma unroll 8
-      for (int c = 0; c < D2; ++c) acc = fmaf(hb[c], s_fc2[c * D + o], acc);
-      y[o] = xm[o] + acc;
-    }
-    __syncwarp();
   }
 }
 
 // ------------------------------------------------------------------- host
 
-template <int D, int T>
-constexpr size_t proj_smem() {
-  return sizeof(float) * (D * T * D + T * D + kWarps * D);
+template <int D, bool kFfn, int T>
+constexpr size_t row_smem() {
+  return sizeof(float) * ((kFfn ? ffn_weights<D>() : 0) +
+                          proj_weights<D, T>() + kRowThreads / 32 *
+                          kRowsPerWarp * 5 * D);
 }
 
-template <int D>
-constexpr size_t ffn_smem() {
-  return sizeof(float) * (ffn_weights<D>() + kWarps * 5 * D);
+template <int D, bool kFfn, int T>
+cudaError_t set_row_smem() {
+  return cudaFuncSetAttribute(row_kernel<D, kFfn, T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)row_smem<D, kFfn, T>());
 }
 
 // Raises the dynamic shared-memory limits of the D-wide kernels once per
@@ -373,21 +616,38 @@ cudaError_t set_smem_limits() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < kMaxDevices && done[dev].load()))
     return err;
-  err = cudaFuncSetAttribute(proj_kernel<D, 3>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)proj_smem<D, 3>());
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(proj_kernel<D, 2>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)proj_smem<D, 2>());
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ffn_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)ffn_smem<D>());
+  if (err == cudaSuccess) err = set_row_smem<D, false, 3>();
+  if (err == cudaSuccess) err = set_row_smem<D, true, 2>();
+  if (err == cudaSuccess) err = set_row_smem<D, true, 3>();
+  if (err == cudaSuccess) err = set_row_smem<D, true, 0>();
   if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true);
   return err;
 }
 
+// Enqueues kernel<<<grid, block, smem, stream>>>(args), with programmatic
+// stream serialisation if pdl: it may then start while the previous kernel
+// drains.
+template <typename Args>
+cudaError_t launch(void (*kernel)(Args), dim3 grid, int threads, size_t smem,
+                   cudaStream_t stream, bool pdl, const Args& args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = pdl;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args);
+}
+
+// The launch plan of layers [l_begin, l_end): the first layer's self
+// projection, then per layer self attention, self FFN + cross projection,
+// cross attention, and cross FFN + the next layer's self projection (the
+// last layer's cross FFN alone): 4 (l_end - l_begin) + 1 launches. pdl:
+// the launches after the first are programmatic dependent launches.
 template <int D>
 cudaError_t run_layers(int l_begin, int l_end, const float* x0,
                        const float* x1, float* o0, float* o1,
@@ -395,8 +655,11 @@ cudaError_t run_layers(int l_begin, int l_end, const float* x0,
                        const float* sn1, const unsigned char* mask0,
                        const unsigned char* mask1, const float* packed,
                        float* scratch, long long layer_stride, int B, int M,
-                       int N, cudaStream_t stream) {
+                       int N, bool pdl, cudaStream_t stream) {
   constexpr int DH = D / kHeads;
+  constexpr int kSelf = 3 * D * D + 3 * D;  // self projection
+  constexpr int kCross = 2 * D * D + 2 * D;  // cross projection
+  constexpr int kBlock = kSelf + ffn_weights<D>();  // the self block
   cudaError_t err = set_smem_limits<D>();
   if (err != cudaSuccess) return err;
   // scratch: image 0 q | k | v | ctx, each (B, M, D) floats; then image 1
@@ -406,47 +669,52 @@ cudaError_t run_layers(int l_begin, int l_end, const float* x0,
   float* qkv1 = scratch + 4 * s0;
   float* ctx1 = qkv1 + 3 * s1;
   const int rows = B * (M + N);
-  const dim3 proj_grid((rows + kProjRows - 1) / kProjRows);
-  const dim3 ffn_grid((rows + kFfnRows - 1) / kFfnRows);
+  const dim3 row_grid((rows + kRowRows - 1) / kRowRows);
   const dim3 attn_grid(((M > N ? M : N) + kQRows - 1) / kQRows, kHeads,
                        2 * B);
   const float scale_log2 = kLog2e / sqrtf((float)DH);
+  auto layer = [&](int l) { return packed + l * layer_stride; };
 
+  err = launch(row_kernel<D, false, 3>, row_grid, kRowThreads,
+               row_smem<D, false, 3>(), stream, false,
+               RowArgs{x0, x1, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       layer(l_begin), cs0, sn0, cs1, sn1, qkv0, qkv1, B, M,
+                       N});
   const float* cur0 = x0;
   const float* cur1 = x1;
-  for (int l = l_begin; l < l_end; ++l) {
-    const float* w_self = packed + l * layer_stride;
-    const float* w_cross = w_self + 10 * D * D + 11 * D;
-    // self-attention: both images in each launch; writes o0/o1
-    proj_kernel<D, 3><<<proj_grid, kThreads, proj_smem<D, 3>(), stream>>>(
-        ProjArgs{cur0, cur1, cs0, sn0, cs1, sn1, qkv0, qkv1, w_self, B, M,
-                 N});
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    attn_kernel<DH><<<attn_grid, kAttnThreads, 0, stream>>>(AttnArgs{
-        {qkv0, qkv0 + s0, qkv0 + 2 * s0, mask0, ctx0, M, M},
-        {qkv1, qkv1 + s1, qkv1 + 2 * s1, mask1, ctx1, N, N}, scale_log2});
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ffn_kernel<D><<<ffn_grid, kThreads, ffn_smem<D>(), stream>>>(
-        FfnArgs{cur0, cur1, ctx0, ctx1, o0, o1, w_self + 3 * D * D + 3 * D,
-                B * M, B * N});
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  for (int l = l_begin; l < l_end && err == cudaSuccess; ++l) {
+    const float* w_cross = layer(l) + kBlock;
+    err = launch(attn_kernel<DH>, attn_grid, kAttnThreads, 0, stream, pdl,
+                 AttnArgs{{qkv0, qkv0 + s0, qkv0 + 2 * s0, mask0, ctx0, M, M},
+                          {qkv1, qkv1 + s1, qkv1 + 2 * s1, mask1, ctx1, N, N},
+                          scale_log2});
+    if (err != cudaSuccess) break;
+    // self FFN into o0/o1, then the cross projection: qk into the q slot,
+    // v into the v slot
+    err = launch(row_kernel<D, true, 2>, row_grid, kRowThreads,
+                 row_smem<D, true, 2>(), stream, pdl,
+                 RowArgs{cur0, cur1, ctx0, ctx1, o0, o1, layer(l) + kSelf,
+                         w_cross, nullptr, nullptr, nullptr, nullptr, qkv0,
+                         qkv1, B, M, N});
+    if (err != cudaSuccess) break;
     cur0 = o0;
     cur1 = o1;
-    // cross-attention: qk into the q slot, v into the v slot; in place
-    proj_kernel<D, 2><<<proj_grid, kThreads, proj_smem<D, 2>(), stream>>>(
-        ProjArgs{o0, o1, nullptr, nullptr, nullptr, nullptr, qkv0, qkv1,
-                 w_cross, B, M, N});
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    attn_kernel<DH><<<attn_grid, kAttnThreads, 0, stream>>>(AttnArgs{
-        {qkv0, qkv1, qkv1 + 2 * s1, mask1, ctx0, M, N},
-        {qkv1, qkv0, qkv0 + 2 * s0, mask0, ctx1, N, M}, scale_log2});
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ffn_kernel<D><<<ffn_grid, kThreads, ffn_smem<D>(), stream>>>(
-        FfnArgs{o0, o1, ctx0, ctx1, o0, o1, w_cross + 2 * D * D + 2 * D,
-                B * M, B * N});
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch(attn_kernel<DH>, attn_grid, kAttnThreads, 0, stream, pdl,
+                 AttnArgs{{qkv0, qkv1, qkv1 + 2 * s1, mask1, ctx0, M, N},
+                          {qkv1, qkv0, qkv0 + 2 * s0, mask0, ctx1, N, M},
+                          scale_log2});
+    if (err != cudaSuccess) break;
+    // cross FFN in place, then the next layer's self projection
+    const RowArgs ffn{o0, o1, ctx0, ctx1, o0, o1, w_cross + kCross,
+                      l + 1 < l_end ? layer(l + 1) : nullptr, cs0, sn0, cs1,
+                      sn1, qkv0, qkv1, B, M, N};
+    err = l + 1 < l_end
+              ? launch(row_kernel<D, true, 3>, row_grid, kRowThreads,
+                       row_smem<D, true, 3>(), stream, pdl, ffn)
+              : launch(row_kernel<D, true, 0>, row_grid, kRowThreads,
+                       row_smem<D, true, 0>(), stream, pdl, ffn);
   }
-  return cudaSuccess;
+  return err;
 }
 
 }  // namespace
@@ -454,14 +722,16 @@ cudaError_t run_layers(int l_begin, int l_end, const float* x0,
 // Layers [l_begin, l_end) of the stack. x0 (B,M,D), x1 (B,N,D) in; o0, o1
 // out (the same shapes, distinct from the inputs); cs/sn (B,n,DH/2); masks
 // (B,n) bytes or null; packed (L, layer_stride) floats; scratch
-// 4*B*(M+N)*D floats. All contiguous. D in {32, 64}, 4 heads. Returns the
-// first cudaError_t of the launches.
+// 4*B*(M+N)*D floats. All contiguous. D in {32, 64}, 4 heads. pdl 0 turns
+// programmatic dependent launch off for the whole call (same results), so
+// that a profiler's per-kernel durations do not overlap. Returns the first
+// cudaError_t of the launches.
 extern "C" int nvs_lightglue_layers(
     int l_begin, int l_end, const float* x0, const float* x1, float* o0,
     float* o1, const float* cs0, const float* sn0, const float* cs1,
     const float* sn1, const unsigned char* mask0,
     const unsigned char* mask1, const float* packed, float* scratch,
-    long long layer_stride, int B, int M, int N, int D,
+    long long layer_stride, int B, int M, int N, int D, int pdl,
     cudaStream_t stream) {
   if (B < 1 || 2 * B > 65535 || M < 1 || N < 1 || l_begin < 0 ||
       l_end < l_begin)
@@ -478,11 +748,11 @@ extern "C" int nvs_lightglue_layers(
     case 32:
       return (int)run_layers<32>(l_begin, l_end, x0, x1, o0, o1, cs0, sn0,
                                  cs1, sn1, mask0, mask1, packed, scratch,
-                                 layer_stride, B, M, N, stream);
+                                 layer_stride, B, M, N, pdl != 0, stream);
     case 64:
       return (int)run_layers<64>(l_begin, l_end, x0, x1, o0, o1, cs0, sn0,
                                  cs1, sn1, mask0, mask1, packed, scratch,
-                                 layer_stride, B, M, N, stream);
+                                 layer_stride, B, M, N, pdl != 0, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,4 +1,4 @@
-// Fused NetVLAD aggregation.
+// Fused NetVLAD aggregation, one launch a call.
 //
 // Replaces the TPU kernel nanovs_slam_tpu/ops/pallas/netvlad_kernel.py
 // (netvlad_pallas). For each image x (S pixels, C channels), assignment
@@ -10,195 +10,338 @@
 // with the normalisation of the module (modules/aggregators.NetVLAD).
 // The (K, C, S) residual tensor is never formed.
 //
-// Design: pass 1 splits the S pixels of each image over P blocks. A block
-// streams 32-pixel tiles through shared memory, normalises each pixel and
-// computes its K logits and softmax with one warp per pixel, and adds
-// a^T x and sum a into K*C + K sums in shared memory; it writes them as one
-// partial. Pass 2, one block per image, adds the P partials, subtracts the
-// centroid term and normalises. The TPU kernel carried everything in one
-// grid step per image; on Hopper one block per image would leave the card
-// idle at batch 1.
+// Design. A block takes kTile = 64 pixels of one image in one pass: it
+// stages them and W in shared memory, computes each pixel's K logits with
+// four threads a pixel (the pixel's squared norm in the same loop), the
+// softmax with two shuffles, and a^T x and sum a with a register tile of
+// 2-4 clusters by 4-8 channels a thread. At 240x320 (S = 4800) that is
+// 75 blocks at batch 1 (80 with the cluster padding), B times that at
+// batch B. Blocks form thread-block clusters of kCluster = 8: each rank
+// adds one slice of the eight blocks' sums through distributed shared
+// memory and writes it as the cluster's partial. A per-image counter in
+// global memory (atomicAdd after a __threadfence) finds the last cluster;
+// it adds the cluster partials in a fixed order, subtracts the centroid
+// term, normalises each cluster's row (one warp a row) and, after an
+// exchange of the eight ranks' sums of squares, the whole vector. Every sum
+// runs in a fixed order, so the result is the same from run to run. The
+// last cluster sets the counter back to 0, so the scratch is reused by the
+// next launch on the stream without a reset.
 //
 // Bound on an H100: operations, barely. At 240x320 (S = 4800, C = 48,
 // K = 32) an image is 2 * 2*S*C*K = 29.5 MFLOP against 0.9 MB read, about
-// 0.44 us at 67 TFLOP/s (float32, CUDA cores) and 0.28 us at 3.35 TB/s.
+// 0.44 us at 67 TFLOP/s (float32, CUDA cores) and 0.28 us at 3.35 TB/s. The
+// kernel is bound by the latency of its chain (stage, logits, sums, cluster
+// reduce, last-cluster finish), which the design keeps to one pass.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileS = 32;
-constexpr int kMaxK = 64;  // two clusters per lane
+constexpr int kTile = 64;       // pixels a block
+constexpr int kCluster = 8;     // blocks a cluster
+constexpr int kMaxK = 64;
+constexpr int kMaxC = 128;
+constexpr int kCGroups = 16;    // channel groups of the a^T x tile
 constexpr float kEps = 1e-12f;
 
 __device__ __forceinline__ float l2_denominator(float sumsq) {
   return fmaxf(sqrtf(sumsq + kEps * kEps), kEps);
 }
 
-__global__ void __launch_bounds__(kThreads)
-netvlad_partial_kernel(const float* __restrict__ x, long long sx_b,
-                       long long sx_s, long long sx_c,
-                       const float* __restrict__ assign_w,
-                       float* __restrict__ partial, int S, int C, int K,
-                       int pixels_per_block) {
-  extern __shared__ float smem[];
-  const int ldx = C + 1;  // padded row: no bank conflicts on the tile store
-  float* s_w = smem;                       // C*K
-  float* s_x = s_w + C * K;                // kTileS*(C+1)
-  float* s_a = s_x + kTileS * ldx;         // kTileS*K
-  float* s_acc = s_a + kTileS * K;         // K*C
-  float* s_mass = s_acc + K * C;           // K
+struct Args {
+  const float* x;  // (B, S, C) with element strides sx_b, sx_s, sx_c
+  long long sx_b, sx_s, sx_c;
+  const float* assign_w;   // (C, K)
+  const float* centroids;  // (K, C)
+  float* partial;          // (B, n_clusters, K*C + K)
+  unsigned int* counter;   // (B), 0 between launches
+  float* out;              // (B, K*C)
+  int S, C, K;
+};
 
+// KPT: clusters a thread takes in the logits (K <= 4 * KPT); RK, RC:
+// clusters and channels a thread takes in the a^T x tile
+// (K <= (kThreads / kCGroups) * RK, C <= kCGroups * RC).
+template <int KPT, int RK, int RC>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+netvlad_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  const int C = a.C, K = a.K, ldx = C + 1, lda = K + 1;
+  float* s_w = reinterpret_cast<float*>(smem4);  // C*K
+  float* s_x = s_w + C * K;                      // kTile*(C+1); later sums
+  float* s_a = s_x + kTile * ldx;                // kTile*(K+1)
+  float* s_inv = s_a + kTile * lda;              // kTile
+  float* s_red = s_inv + kTile;                  // kWarps
+  __shared__ float s_rank_ss;
+  __shared__ int s_last;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
-  const int s_begin = blockIdx.x * pixels_per_block;
-  const int s_end = min(S, s_begin + pixels_per_block);
-  const float* xb = x + (long long)b * sx_b;
+  const int s0 = blockIdx.x * kTile;
+  const int n = min(kTile, a.S - s0);  // may be <= 0: a padding block
+  const float* xb = a.x + (long long)b * a.sx_b;
 
-  for (int e = tid; e < C * K; e += kThreads) {
-    s_w[e] = assign_w[e];
-    s_acc[e] = 0.f;
-  }
-  for (int e = tid; e < K; e += kThreads) s_mass[e] = 0.f;
-
-  for (int s0 = s_begin; s0 < s_end; s0 += kTileS) {
-    __syncthreads();
-    for (int e = tid; e < kTileS * C; e += kThreads) {
-      const int s = e % kTileS, c = e / kTileS;
-      s_x[s * ldx + c] = (s0 + s < s_end) ? xb[(s0 + s) * sx_s + c * sx_c]
-                                          : 0.f;
+  // stage W and the tile (zeros past the image's last pixel)
+  for (int e = tid; e < C * K; e += kThreads) s_w[e] = a.assign_w[e];
+  if (a.sx_c == 1) {  // NHWC memory: neighbouring threads, channels
+    for (int e = tid; e < kTile * C; e += kThreads) {
+      const int s = e / C, c = e % C;
+      s_x[s * ldx + c] = s < n ? xb[(long long)(s0 + s) * a.sx_s + c] : 0.f;
     }
-    __syncthreads();
-    for (int s = warp; s < kTileS; s += kWarps) {
-      float* xs = s_x + s * ldx;
-      float ss = 0.f;
-      for (int c = lane; c < C; c += 32) ss += xs[c] * xs[c];
-      const float den = l2_denominator(nvs::warp_sum(ss));
-      __syncwarp();
-      for (int c = lane; c < C; c += 32) xs[c] /= den;
-      __syncwarp();
-      const float neg_inf = -__int_as_float(0x7f800000);
-      float lg[2] = {neg_inf, neg_inf};
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int k = lane + 32 * q;
-        if (k < K) {
-          float acc = 0.f;
-          for (int c = 0; c < C; ++c) acc = fmaf(xs[c], s_w[c * K + k], acc);
-          lg[q] = acc;
-        }
-      }
-      const float m = nvs::warp_max(fmaxf(lg[0], lg[1]));
-      float ex[2];
-      float sum = 0.f;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        ex[q] = (lane + 32 * q < K) ? expf(lg[q] - m) : 0.f;
-        sum += ex[q];
-      }
-      sum = nvs::warp_sum(sum);
-      const bool valid = s0 + s < s_end;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int k = lane + 32 * q;
-        if (k < K) s_a[s * K + k] = valid ? ex[q] / sum : 0.f;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < K * C; e += kThreads) {
-      const int k = e / C, c = e % C;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int s = 0; s < kTileS; ++s)
-        acc = fmaf(s_a[s * K + k], s_x[s * ldx + c], acc);
-      s_acc[e] += acc;
-    }
-    for (int k = tid; k < K; k += kThreads) {
-      float acc = 0.f;
-      for (int s = 0; s < kTileS; ++s) acc += s_a[s * K + k];
-      s_mass[k] += acc;
+  } else {  // NCHW memory: neighbouring threads, pixels
+    for (int e = tid; e < kTile * C; e += kThreads) {
+      const int s = e % kTile, c = e / kTile;
+      s_x[s * ldx + c] =
+          s < n ? xb[(long long)(s0 + s) * a.sx_s + (long long)c * a.sx_c]
+                : 0.f;
     }
   }
   __syncthreads();
-  float* out = partial + ((long long)b * gridDim.x + blockIdx.x) * (K * C + K);
-  for (int e = tid; e < K * C; e += kThreads) out[e] = s_acc[e];
-  for (int e = tid; e < K; e += kThreads) out[K * C + e] = s_mass[e];
-}
 
-__global__ void __launch_bounds__(kThreads)
-netvlad_finish_kernel(const float* __restrict__ partial,
-                      const float* __restrict__ centroids,
-                      float* __restrict__ out, int C, int K, int P) {
-  extern __shared__ float smem[];
-  float* s_v = smem;           // K*C
-  float* s_mass = s_v + K * C;  // K
-  float* s_red = s_mass + K;    // kWarps
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x;
-  const int n = K * C + K;
-  const float* pb = partial + (long long)b * P * n;
-
-  for (int e = tid; e < n; e += kThreads) {
-    float acc = 0.f;
-    for (int p = 0; p < P; ++p) acc += pb[(long long)p * n + e];
-    smem[e] = acc;  // s_v then s_mass, contiguous
-  }
-  __syncthreads();
-  for (int e = tid; e < K * C; e += kThreads)
-    s_v[e] -= s_mass[e / C] * centroids[e];
-  __syncthreads();
-  // intra-normalisation: one warp per cluster
-  for (int k = warp; k < K; k += kWarps) {
+  // logits and softmax: four threads a pixel, cluster k = j + 4u
+  {
+    const int p = tid >> 2, j = tid & 3;
+    const float* xs = s_x + p * ldx;
+    float acc[KPT];
+#pragma unroll
+    for (int u = 0; u < KPT; ++u) acc[u] = 0.f;
     float ss = 0.f;
-    for (int c = lane; c < C; c += 32) ss += s_v[k * C + c] * s_v[k * C + c];
-    const float den = l2_denominator(nvs::warp_sum(ss));
-    __syncwarp();
-    for (int c = lane; c < C; c += 32) s_v[k * C + c] /= den;
+    for (int c = 0; c < C; ++c) {
+      const float xc = xs[c];
+      ss = fmaf(xc, xc, ss);
+      const float* wr = s_w + c * K + j;
+#pragma unroll
+      for (int u = 0; u < KPT; ++u)
+        if (j + 4 * u < K) acc[u] = fmaf(xc, wr[4 * u], acc[u]);
+    }
+    const float den = l2_denominator(ss);
+    const float neg_inf = -__int_as_float(0x7f800000);
+    float m = neg_inf;
+#pragma unroll
+    for (int u = 0; u < KPT; ++u) {
+      acc[u] = j + 4 * u < K ? acc[u] / den : neg_inf;
+      m = fmaxf(m, acc[u]);
+    }
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < KPT; ++u) {
+      acc[u] = expf(acc[u] - m);  // 0 past K
+      sum += acc[u];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const bool valid = p < n;
+#pragma unroll
+    for (int u = 0; u < KPT; ++u)
+      if (j + 4 * u < K)
+        s_a[p * lda + j + 4 * u] = valid ? acc[u] / sum : 0.f;
+    if (j == 0) s_inv[p] = 1.f / den;
   }
   __syncthreads();
-  float ss = 0.f;
-  for (int e = tid; e < K * C; e += kThreads) ss += s_v[e] * s_v[e];
-  ss = nvs::warp_sum(ss);
-  if (lane == 0) s_red[warp] = ss;
+
+  // a^T x and sum a: thread (kg, cg) owns clusters kg + 16 r, channels
+  // cg + 16 i; every thread of a kg sums the mass, cg == 0 keeps it
+  const int cgp = tid % kCGroups, kg = tid / kCGroups;
+  constexpr int kKGroups = kThreads / kCGroups;
+  float acc[RK][RC], mass[RK];
+#pragma unroll
+  for (int r = 0; r < RK; ++r) {
+    mass[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < RC; ++i) acc[r][i] = 0.f;
+  }
+  if (n > 0) {
+    for (int s = 0; s < kTile; ++s) {
+      const float inv = s_inv[s];
+      float as[RK], xs[RC];
+#pragma unroll
+      for (int r = 0; r < RK; ++r) {
+        const int k = kg + kKGroups * r;
+        const float av = k < K ? s_a[s * lda + k] : 0.f;
+        mass[r] += av;
+        as[r] = av * inv;
+      }
+#pragma unroll
+      for (int i = 0; i < RC; ++i) {
+        const int c = cgp + kCGroups * i;
+        xs[i] = c < C ? s_x[s * ldx + c] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < RK; ++r)
+#pragma unroll
+        for (int i = 0; i < RC; ++i)
+          acc[r][i] = fmaf(as[r], xs[i], acc[r][i]);
+    }
+  }
+  __syncthreads();  // the tile is read: its space takes the block's sums
+  float* s_sum = s_x;  // K*C, then K masses (K <= kTile, so it fits)
+#pragma unroll
+  for (int r = 0; r < RK; ++r) {
+    const int k = kg + kKGroups * r;
+    if (k >= K) continue;
+#pragma unroll
+    for (int i = 0; i < RC; ++i) {
+      const int c = cgp + kCGroups * i;
+      if (c < C) s_sum[k * C + c] = acc[r][i];
+    }
+    if (cgp == 0) s_sum[K * C + k] = mass[r];
+  }
+  cluster.sync();
+
+  // rank r adds clusters [k0, k1) of the eight blocks (rows and masses)
+  const int per = (K + kCluster - 1) / kCluster;
+  const int k0 = min(K, rank * per), k1 = min(K, k0 + per);
+  const int ncl = gridDim.x / kCluster;
+  const int cl = blockIdx.x / kCluster;
+  const int nv = K * C + K;
+  float* part = a.partial + ((long long)b * ncl + cl) * nv;
+  const int rows = (k1 - k0) * C;
+  for (int e = tid; e < rows + (k1 - k0); e += kThreads) {
+    const int idx = e < rows ? k0 * C + e : K * C + k0 + (e - rows);
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q)
+      v += cluster.map_shared_rank(s_sum, q)[idx];
+    part[idx] = v;
+  }
+  __threadfence();
+  cluster.sync();  // partials written and fenced; remote reads done
+  if (rank == 0 && tid == 0) {
+    const unsigned int done = atomicAdd(a.counter + b, 1u) + 1;
+    const int last = done == (unsigned int)ncl;
+    if (last) a.counter[b] = 0;  // ready for the next launch
+    for (int q = 0; q < kCluster; ++q)
+      *cluster.map_shared_rank(&s_last, q) = last;
+  }
+  cluster.sync();
+  if (!s_last) return;  // the whole cluster: not the image's last
+  __threadfence();
+
+  // the last cluster: rank r finishes clusters [k0, k1), one warp a row
+  const float* pb = a.partial + (long long)b * ncl * nv;
+  float ss_rows = 0.f;
+  constexpr int kPerLane = kMaxC / 32;
+  for (int k = k0 + warp; k < k1; k += kWarps) {
+    float m = 0.f;
+    for (int q = 0; q < ncl; ++q)
+      m += __ldcg(pb + (long long)q * nv + K * C + k);
+    float v[kPerLane];
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = 0.f;
+      if (c < C) {
+        float acc_v = 0.f;
+        for (int q = 0; q < ncl; ++q)
+          acc_v += __ldcg(pb + (long long)q * nv + k * C + c);
+        v[i] = acc_v - m * a.centroids[k * C + c];
+      }
+      ss += v[i] * v[i];
+    }
+    const float den = l2_denominator(nvs::warp_sum(ss));
+    float ss_n = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      v[i] /= den;
+      ss_n += v[i] * v[i];
+      const int c = lane + 32 * i;
+      if (c < C) s_x[k * C + c] = v[i];  // this rank's rows, kept here
+    }
+    ss_rows += nvs::warp_sum(ss_n);
+  }
+  if (lane == 0) s_red[warp] = ss_rows;
   __syncthreads();
+  if (tid == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += s_red[w];
+    s_rank_ss = t;
+  }
+  cluster.sync();
   float total = 0.f;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) total += s_red[w];
+  for (int q = 0; q < kCluster; ++q)
+    total += *cluster.map_shared_rank(&s_rank_ss, q);
   const float den = l2_denominator(total);
-  for (int e = tid; e < K * C; e += kThreads)
-    out[(long long)b * K * C + e] = s_v[e] / den;
+  float* ob = a.out + (long long)b * K * C;
+  for (int e = k0 * C + tid; e < k1 * C; e += kThreads) ob[e] = s_x[e] / den;
+  cluster.sync();  // keep s_rank_ss alive until every rank has read it
+}
+
+size_t smem_bytes(int C, int K) {
+  return sizeof(float) *
+         (C * K + kTile * (C + 1) + kTile * (K + 1) + kTile + kWarps);
+}
+
+// The instances: KPT, RK by K (<= 32, <= 64), RC by C (<= 64, <= 128).
+void (*const kKernels[2][2])(Args) = {
+    {netvlad_kernel<8, 2, 4>, netvlad_kernel<8, 2, 8>},
+    {netvlad_kernel<16, 4, 4>, netvlad_kernel<16, 4, 8>}};
+
+// Raises the dynamic shared-memory limit of every instance once per device
+// to the most the widths can ask (C = 128, K = 64); until a call succeeds,
+// each call tries again and returns its error.
+cudaError_t set_smem_limits() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev].load()))
+    return err;
+  for (auto& row : kKernels)
+    for (auto kernel : row)
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem_bytes(kMaxC, kMaxK));
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true);
+  return err;
+}
+
+// Blocks a launch takes for one image of S pixels: a multiple of the
+// cluster size.
+int blocks_per_image(int S) {
+  const int p = (S + kTile - 1) / kTile;
+  return (p + kCluster - 1) / kCluster * kCluster;
 }
 
 }  // namespace
 
+// Floats of the partial scratch one image of S pixels needs at widths C, K:
+// one K*C + K partial a cluster.
+extern "C" int nvs_netvlad_partial_size(int S, int C, int K) {
+  return blocks_per_image(S) / kCluster * (K * C + K);
+}
+
 // x (B,S,C) with element strides [b, s, c]; assign_w (C,K), centroids (K,C)
-// contiguous; partial (B,P,K*C+K) scratch; out contiguous (B, K*C).
+// contiguous; partial (B, nvs_netvlad_partial_size) float scratch; counter (B)
+// unsigned ints, zero before the first launch (each launch leaves them
+// zero); out contiguous (B, K*C). One launch.
 extern "C" int nvs_netvlad(const float* x, const long long* sx,
                            const float* assign_w, const float* centroids,
-                           float* partial, float* out, int B, int S, int C,
-                           int K, int P, cudaStream_t stream) {
-  if (K < 1 || K > kMaxK || C < 1 || S < 1 || P < 1 || B < 1 || B > 65535)
+                           float* partial, unsigned int* counter, float* out,
+                           int B, int S, int C, int K, cudaStream_t stream) {
+  if (K < 1 || K > kMaxK || C < 1 || C > kMaxC || S < 1 || B < 1 ||
+      B > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem1 =
-      sizeof(float) * (C * K + kTileS * (C + 1) + kTileS * K + K * C + K);
-  const size_t smem2 = sizeof(float) * (K * C + K + kWarps);
-  cudaError_t err = cudaFuncSetAttribute(
-      netvlad_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem1);
+  cudaError_t err = set_smem_limits();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(netvlad_finish_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
-  if (err != cudaSuccess) return (int)err;
-  const int per_block = (S + P - 1) / P;
-  netvlad_partial_kernel<<<dim3(P, B), kThreads, smem1, stream>>>(
-      x, sx[0], sx[1], sx[2], assign_w, partial, S, C, K, per_block);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  netvlad_finish_kernel<<<B, kThreads, smem2, stream>>>(partial, centroids,
-                                                        out, C, K, P);
+  const Args args{x, sx[0], sx[1], sx[2], assign_w, centroids, partial,
+                  counter, out, S, C, K};
+  kKernels[K > 32][C > 64]<<<dim3(blocks_per_image(S), B), kThreads,
+                             smem_bytes(C, K), stream>>>(args);
   return (int)cudaGetLastError();
 }

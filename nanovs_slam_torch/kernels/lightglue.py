@@ -31,11 +31,19 @@ from .common import check_contiguous, check_kernel_inputs, device_of
 
 HEADS = 4
 DIMS = (32, 64)  # descriptor widths of the kp2dtiny configs
-KERNELS_PER_LAYER = 6  # self: proj, attention, FFN; cross: the same
+# launches a layer: self attention, self FFN + cross projection, cross
+# attention, cross FFN + the next layer's self projection; a call adds one,
+# the first layer's self projection
+KERNELS_PER_LAYER = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I, _I] + [_P] * 12 + [ctypes.c_longlong] + [_I] * 4 + [_P]
+_ARGTYPES = [_I, _I] + [_P] * 12 + [ctypes.c_longlong] + [_I] * 5 + [_P]
 
 Tensor = torch.Tensor
+
+
+def device_kernels(n_layers: int) -> int:
+    """Device kernels one call over ``n_layers`` layers enqueues."""
+    return KERNELS_PER_LAYER * n_layers + 1 if n_layers else 0
 
 
 def _block_fields(D: int, T: int):
@@ -220,6 +228,8 @@ def lightglue_transformer(x0: Tensor, x1: Tensor, cs0: Tensor, sn0: Tensor,
     check_contiguous(name, **floats, **masks)
     if D not in DIMS:
         raise ValueError(f"{name}: the kernel takes D in {DIMS}, got {D}")
+    if packed.data_ptr() % 16:
+        raise ValueError(f"{name}: packed must be 16-byte aligned")
     if B > 65535 // 2:
         raise ValueError(f"{name}: batch {B} > {65535 // 2}")
     o0 = torch.empty_like(x0)
@@ -235,10 +245,13 @@ def lightglue_transformer(x0: Tensor, x1: Tensor, cs0: Tensor, sn0: Tensor,
              o0.data_ptr(), o1.data_ptr(), cs0.data_ptr(), sn0.data_ptr(),
              cs1.data_ptr(), sn1.data_ptr(), ptr(mask0), ptr(mask1),
              packed.data_ptr(), scratch.data_ptr(), packed.shape[1], B, M, N,
-             D, _build.stream_ptr(dev))
+             D, int(lightglue_transformer.pdl), _build.stream_ptr(dev))
     _build.check(err, name)
     lightglue_transformer.launches += 1
     return o0, o1
 
 
 lightglue_transformer.launches = 0
+# programmatic dependent launch between the kernels of a call; False only to
+# read per-kernel device times with a profiler (the results are the same)
+lightglue_transformer.pdl = True

@@ -159,7 +159,9 @@ def test_fold_conv_bn_matches_jax_fold_batchnorm():
 
 # ------------------------------------------------------------------- netvlad
 
-def test_netvlad_plain_matches_pallas_and_module():
+@pytest.mark.parametrize("C,K", [(48, 32), (64, 64), (128, 64)])
+def test_netvlad_plain_matches_pallas_and_module(C, K):
+    """At the widths of configs N, S and F."""
     jnp = _jnp()
     import jax
     from nanovs_slam_tpu.modules.aggregators import NetVLAD as JaxNetVLAD
@@ -168,7 +170,7 @@ def test_netvlad_plain_matches_pallas_and_module():
     from nanovs_slam_torch.modules.aggregators import NetVLAD
 
     rs = np.random.RandomState(2)
-    B, H, W, C, K = 2, 12, 16, 48, 32
+    B, H, W = 2, 12, 16
     x = rs.randn(B, H, W, C).astype(np.float32)
     mod = JaxNetVLAD(num_clusters=K, dim=C)
     params = mod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
@@ -232,15 +234,22 @@ def test_stem_kernel_matches_plain(cuda, B, c2):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("B", [1, 8])
-def test_netvlad_kernel_matches_plain(cuda, B):
+@pytest.mark.parametrize("B,C,K,H,W", [
+    (1, 48, 32, 60, 80), (8, 48, 32, 60, 80), (1, 64, 64, 60, 80),
+    (2, 128, 64, 30, 40), (1, 48, 32, 37, 53)])
+def test_netvlad_kernel_matches_plain(cuda, B, C, K, H, W):
+    """Config N (B 1, 8), S and F widths and a ragged image, each for the
+    NCHW view and NHWC memory, then the view again: a launch reuses the
+    scratch (and the zeroed counters) the last one left."""
     rs = np.random.RandomState(9)
-    x = torch.from_numpy(rs.randn(B, 48, 60, 80).astype(np.float32)).to(cuda)
-    aw = torch.from_numpy(rs.randn(48, 32).astype(np.float32)).to(cuda)
-    cen = torch.from_numpy(rs.rand(32, 48).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rs.randn(B, C, H, W).astype(np.float32)).to(cuda)
+    aw = torch.from_numpy(rs.randn(C, K).astype(np.float32)).to(cuda)
+    cen = torch.from_numpy(rs.rand(K, C).astype(np.float32)).to(cuda)
     x_nhwc = x.permute(0, 2, 3, 1)
     want = netvlad_plain(x_nhwc, aw, cen)
-    for xv in (x_nhwc, x_nhwc.contiguous()):
+    for xv in (x_nhwc, x_nhwc.contiguous(), x_nhwc):
+        before = netvlad.launches
         got = netvlad(xv, aw, cen)
         torch.cuda.synchronize()
+        assert netvlad.launches == before + 1
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

@@ -525,10 +525,18 @@ def test_lightglue_kernel_matches_plain(cuda, B, M, N, D, pad0, pad1,
     assert lightglue_transformer.launches == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
-    part = lightglue_transformer(*args, layers=range(1, 3))
-    want = lightglue_transformer_plain(*args, range(1, 3))
-    for g, w in zip(part, want):
-        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+    lightglue_transformer.pdl = False  # launches in plain stream order
+    try:
+        serial = lightglue_transformer(*args)
+    finally:
+        lightglue_transformer.pdl = True
+    for g, s in zip(got, serial):
+        assert torch.equal(g, s)
+    for layers in (range(1, 3), *(range(l, l + 1) for l in range(4))):
+        part = lightglue_transformer(*args, layers=layers)
+        want = lightglue_transformer_plain(*args, layers)
+        for g, w in zip(part, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
 
 
 def test_lightglue_module_on_card_matches_cpu(cuda):
