@@ -2,6 +2,9 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace nvs {
 
@@ -20,6 +23,55 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float leaky(float v, float slope) {
   return v > 0.f ? v : slope * v;
+}
+
+// 3xTF32 on the tensor cores: x = hi + lo with hi = tf32(x) and lo =
+// tf32(x - hi); a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi keeps float32
+// accuracy (plain TF32 keeps about three digits).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// d += a b, one m16n8k8 TF32 product: a 16x8 (row), b 8x8 (col). With g =
+// lane / 4 and t = lane % 4: a = {(g, t), (g+8, t), (g, t+4), (g+8, t+4)},
+// b = {(t, g), (t+4, g)}, d = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// Calls set() once per device, e.g. to raise a kernel's dynamic
+// shared-memory limit, which holds for every later launch there. Until a
+// call succeeds, each call tries again and returns its error. Every call
+// site passes its own lambda, hence its own record of the devices done.
+template <typename F>
+cudaError_t once_per_device(F set) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev].load()))
+    return err;
+  err = set();
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true);
+  return err;
 }
 
 }  // namespace nvs

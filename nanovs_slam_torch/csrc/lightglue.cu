@@ -49,8 +49,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "common.cuh"
 
 namespace {
@@ -344,36 +342,6 @@ struct AttnArgs {
   float scale_log2;  // log2(e) / sqrt(DH)
 };
 
-// 3xTF32 on the tensor cores: x = hi + lo with hi = tf32(x) and lo =
-// tf32(x - hi); a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi keeps float32
-// accuracy (plain TF32 keeps about three digits).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-// d += a b, one m16n8k8 TF32 product: a 16x8 (row), b 8x8 (col).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
 // 16 bytes global -> shared, zero-filled when !in (src is then not read)
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool in) {
@@ -453,7 +421,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
       const float v = row < P.nq
                           ? P.q[(bh * P.nq + row) * DH + col] * a.scale_log2
                           : 0.f;
-      split_tf32(v, qh[ks][i], ql[ks][i]);
+      nvs::split_tf32(v, qh[ks][i], ql[ks][i]);
     }
   const float neg_inf = -__int_as_float(0x7f800000);
   // p v accumulates in two sets (even and odd 8-key chunks): two shorter
@@ -483,9 +451,9 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
 #pragma unroll
         for (int ks = 0; ks < kSteps; ++ks) {
           uint32_t kh[2], kl[2];
-          split_tf32(kr[8 * ks + t], kh[0], kl[0]);
-          split_tf32(kr[8 * ks + t + 4], kh[1], kl[1]);
-          mma_3xtf32(s[ch], qh[ks], ql[ks], kh, kl);
+          nvs::split_tf32(kr[8 * ks + t], kh[0], kl[0]);
+          nvs::split_tf32(kr[8 * ks + t + 4], kh[1], kl[1]);
+          nvs::mma_3xtf32(s[ch], qh[ks], ql[ks], kh, kl);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -524,17 +492,17 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
         l[0] += p[0] + p[1];
         l[1] += p[2] + p[3];
         uint32_t ph[4], pl[4];  // k-index t: key 2t; t + 4: key 2t + 1
-        split_tf32(p[0], ph[0], pl[0]);
-        split_tf32(p[2], ph[1], pl[1]);
-        split_tf32(p[1], ph[2], pl[2]);
-        split_tf32(p[3], ph[3], pl[3]);
+        nvs::split_tf32(p[0], ph[0], pl[0]);
+        nvs::split_tf32(p[2], ph[1], pl[1]);
+        nvs::split_tf32(p[1], ph[2], pl[2]);
+        nvs::split_tf32(p[3], ph[3], pl[3]);
         const float* vr = sv + (8 * ch + 2 * t) * kStride + g;
 #pragma unroll
         for (int nt = 0; nt < kSteps; ++nt) {
           uint32_t vh[2], vl[2];
-          split_tf32(vr[8 * nt], vh[0], vl[0]);
-          split_tf32(vr[kStride + 8 * nt], vh[1], vl[1]);
-          mma_3xtf32(o[ch & 1][nt], ph, pl, vh, vl);
+          nvs::split_tf32(vr[8 * nt], vh[0], vl[0]);
+          nvs::split_tf32(vr[kStride + 8 * nt], vh[1], vl[1]);
+          nvs::mma_3xtf32(o[ch & 1][nt], ph, pl, vh, vl);
         }
       }
     }
@@ -606,22 +574,16 @@ cudaError_t set_row_smem() {
 }
 
 // Raises the dynamic shared-memory limits of the D-wide kernels once per
-// device: the attribute holds for every later launch there. Until a call
-// succeeds, each call tries again and returns its error.
+// device.
 template <int D>
 cudaError_t set_smem_limits() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<bool> done[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < kMaxDevices && done[dev].load()))
+  return nvs::once_per_device([] {
+    cudaError_t err = set_row_smem<D, false, 3>();
+    if (err == cudaSuccess) err = set_row_smem<D, true, 2>();
+    if (err == cudaSuccess) err = set_row_smem<D, true, 3>();
+    if (err == cudaSuccess) err = set_row_smem<D, true, 0>();
     return err;
-  if (err == cudaSuccess) err = set_row_smem<D, false, 3>();
-  if (err == cudaSuccess) err = set_row_smem<D, true, 2>();
-  if (err == cudaSuccess) err = set_row_smem<D, true, 3>();
-  if (err == cudaSuccess) err = set_row_smem<D, true, 0>();
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true);
-  return err;
+  });
 }
 
 // Enqueues kernel<<<grid, block, smem, stream>>>(args), with programmatic

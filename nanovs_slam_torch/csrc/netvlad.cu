@@ -35,8 +35,6 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -292,23 +290,18 @@ void (*const kKernels[2][2])(Args) = {
     {netvlad_kernel<16, 4, 4>, netvlad_kernel<16, 4, 8>}};
 
 // Raises the dynamic shared-memory limit of every instance once per device
-// to the most the widths can ask (C = 128, K = 64); until a call succeeds,
-// each call tries again and returns its error.
+// to the most the widths can ask (C = 128, K = 64).
 cudaError_t set_smem_limits() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<bool> done[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < kMaxDevices && done[dev].load()))
+  return nvs::once_per_device([] {
+    cudaError_t err = cudaSuccess;
+    for (auto& row : kKernels)
+      for (auto kernel : row)
+        if (err == cudaSuccess)
+          err = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+              (int)smem_bytes(kMaxC, kMaxK));
     return err;
-  for (auto& row : kKernels)
-    for (auto kernel : row)
-      if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem_bytes(kMaxC, kMaxK));
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true);
-  return err;
+  });
 }
 
 // Blocks a launch takes for one image of S pixels: a multiple of the

@@ -8,23 +8,37 @@
 //             descriptor map (B, Hf, Wf, C) at coord, L2-normalised by
 //             max(||v||, 1e-12).
 // The TPU kernel computed the sample as a 36-tap hat stencil over stride-2
-// phase planes because Mosaic has no gather; here one warp takes one cell,
-// each lane a channel (and every 32nd after it), and reads the 4 bilinear
-// taps directly. The per-cell norm is a warp reduction over C.
+// phase planes because Mosaic has no gather; here each thread reads the 4
+// bilinear taps directly.
+//
+// Design: the model hands the kernel NHWC views of NCHW conv outputs, so
+// neighbouring channels of the descriptor map lie Hf*Wf floats apart and
+// neighbouring cells' taps about 2 floats apart. A block takes 32
+// consecutive cells (flattened over b, i, j), one a lane, and its 8 warps
+// split the channels (warp w takes w, w + 8, ...): for one channel and one
+// tap row a warp's loads cover about 66 contiguous floats, and at batch 1
+// the 4,800 cells still make 1,200 warps. Each value goes into a shared-
+// memory tile [cell][C + 1] (an odd stride: the lanes' cells fall on
+// distinct banks); the warps' partial sums of squares give each cell's
+// norm; then the block writes its 32*C descriptors as contiguous NHWC lines.
+// Score and coordinate reads and writes are coalesced along the cell row.
 //
 // Bound on an H100: memory. At 240x320 with C = 32 a frame reads 2.5 MB of
 // descriptors and writes 0.7 MB, about 1 us at 3.35 TB/s; at batch 1 the
 // launch dominates. Inputs are taken through their strides, so the NCHW
-// conv output is read in place (no transpose); outputs are NHWC.
+// conv output is read in place (no transpose), and any layout is right;
+// outputs are NHWC.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxChannelsPerLane = 4;  // C <= 128
+constexpr int kCells = 32;  // cells a block, one a lane
+constexpr int kWarps = 8;   // channel groups
+constexpr int kMaxChannels = 128;
 
-__global__ void postprocess_kernel(
+__global__ void __launch_bounds__(kCells * kWarps) postprocess_kernel(
     const float* __restrict__ score, long long ss_b, long long ss_h,
     long long ss_w, const float* __restrict__ shift, long long sh_b,
     long long sh_h, long long sh_w, long long sh_c,
@@ -33,10 +47,15 @@ __global__ void postprocess_kernel(
     float* __restrict__ coord_out, float* __restrict__ desc_out, int B,
     int Hc, int Wc, int Hf, int Wf, int C, int H, int W, float cellf,
     float step, float shift_scale) {
-  const int lane = threadIdx.x & 31;
-  const long long cell = (long long)blockIdx.x * (blockDim.x >> 5) +
-                         (threadIdx.x >> 5);
-  if (cell >= (long long)B * Hc * Wc) return;  // the whole warp leaves
+  __shared__ float s_desc[kCells * (kMaxChannels + 1)];
+  __shared__ float s_ss[kWarps][kCells];
+  __shared__ float s_norm[kCells];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n_cells = (long long)B * Hc * Wc;
+  const long long cell0 = (long long)blockIdx.x * kCells;
+  const bool live = cell0 + lane < n_cells;
+  // a lane past the last cell decodes that cell again and stores nothing
+  const long long cell = live ? cell0 + lane : n_cells - 1;
   const int j = (int)(cell % Wc);
   const int i = (int)((cell / Wc) % Hc);
   const long long b = cell / ((long long)Hc * Wc);
@@ -50,12 +69,11 @@ __global__ void postprocess_kernel(
                                0.f), (float)(W - 1));
   const float cy = fminf(fmaxf(__fadd_rn(by, __fmul_rn(sp[sh_c], shift_scale)),
                                0.f), (float)(H - 1));
-  if (lane == 0) {
+  if (warp == 0 && live) {
     const bool inner = i > 0 && i < Hc - 1 && j > 0 && j < Wc - 1;
     const float s = score[b * ss_b + i * ss_h + j * ss_w];
     score_out[cell] = inner ? s : 0.f;
-    coord_out[2 * cell] = cx;
-    coord_out[2 * cell + 1] = cy;
+    reinterpret_cast<float2*>(coord_out)[cell] = make_float2(cx, cy);
   }
 
   // image coords -> [-1, 1] -> feature-map pixels (ops/grid_sample order)
@@ -70,30 +88,35 @@ __global__ void postprocess_kernel(
   const bool iy0 = y0 >= 0 && y0 < Hf, iy1 = y1 >= 0 && y1 < Hf;
   const float* fb = feat + b * sf_b;
 
-  float v[kMaxChannelsPerLane];
+  const int stride = C + 1;
   float ss = 0.f;
-#pragma unroll
-  for (int q = 0; q < kMaxChannelsPerLane; ++q) {
-    const int c = lane + 32 * q;
-    v[q] = 0.f;
-    if (c < C) {
-      const float* fc = fb + c * sf_c;
-      const float v00 = (iy0 && ix0) ? fc[y0 * sf_h + x0 * sf_w] : 0.f;
-      const float v01 = (iy0 && ix1) ? fc[y0 * sf_h + x1 * sf_w] : 0.f;
-      const float v10 = (iy1 && ix0) ? fc[y1 * sf_h + x0 * sf_w] : 0.f;
-      const float v11 = (iy1 && ix1) ? fc[y1 * sf_h + x1 * sf_w] : 0.f;
-      const float top = v00 * (1.f - wx) + v01 * wx;
-      const float bot = v10 * (1.f - wx) + v11 * wx;
-      v[q] = top * (1.f - wy) + bot * wy;
-      ss += v[q] * v[q];
-    }
+#pragma unroll 4
+  for (int c = warp; c < C; c += kWarps) {
+    const float* fc = fb + c * sf_c;
+    const float v00 = (iy0 && ix0) ? fc[y0 * sf_h + x0 * sf_w] : 0.f;
+    const float v01 = (iy0 && ix1) ? fc[y0 * sf_h + x1 * sf_w] : 0.f;
+    const float v10 = (iy1 && ix0) ? fc[y1 * sf_h + x0 * sf_w] : 0.f;
+    const float v11 = (iy1 && ix1) ? fc[y1 * sf_h + x1 * sf_w] : 0.f;
+    const float top = v00 * (1.f - wx) + v01 * wx;
+    const float bot = v10 * (1.f - wx) + v11 * wx;
+    const float v = top * (1.f - wy) + bot * wy;
+    s_desc[lane * stride + c] = v;
+    ss += v * v;
   }
-  const float norm = fmaxf(sqrtf(nvs::warp_sum(ss)), 1e-12f);
-  float* out = desc_out + cell * C;
+  s_ss[warp][lane] = ss;
+  __syncthreads();
+  if (warp == 0) {
+    float total = 0.f;
 #pragma unroll
-  for (int q = 0; q < kMaxChannelsPerLane; ++q) {
-    const int c = lane + 32 * q;
-    if (c < C) out[c] = v[q] / norm;
+    for (int w = 0; w < kWarps; ++w) total += s_ss[w][lane];
+    s_norm[lane] = fmaxf(sqrtf(total), 1e-12f);
+  }
+  __syncthreads();
+  const int n = (int)min((long long)kCells, n_cells - cell0);
+  float* out = desc_out + cell0 * C;
+  for (int e = threadIdx.x; e < n * C; e += kCells * kWarps) {
+    const int k = e / C;
+    out[e] = s_desc[k * stride + e - k * C] / s_norm[k];
   }
 }
 
@@ -108,12 +131,11 @@ extern "C" int nvs_postprocess(const float* score, const long long* ss,
                                float* desc_out, int B, int Hc, int Wc, int Hf,
                                int Wf, int C, int H, int W, int cell,
                                float cross_ratio, cudaStream_t stream) {
-  if (C < 1 || C > 32 * kMaxChannelsPerLane) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
+  if (C < 1 || C > kMaxChannels) return (int)cudaErrorInvalidValue;
   const long long cells = (long long)B * Hc * Wc;
-  const long long blocks = (cells + threads / 32 - 1) / (threads / 32);
+  const long long blocks = (cells + kCells - 1) / kCells;
   const float step = (cell - 1) / 2.0f;
-  postprocess_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+  postprocess_kernel<<<(unsigned)blocks, kCells * kWarps, 0, stream>>>(
       score, ss[0], ss[1], ss[2], shift, sh[0], sh[1], sh[2], sh[3], feat,
       sf[0], sf[1], sf[2], sf[3], score_out, coord_out, desc_out, B, Hc, Wc,
       Hf, Wf, C, H, W, (float)cell, step, cross_ratio * step);

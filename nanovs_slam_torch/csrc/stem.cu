@@ -1,169 +1,280 @@
 // Fused backbone stem: conv3x3(3 -> C1) + bias, LeakyReLU (slope 0.01, or
 // 0 for the ReLU of the MCU configs), conv3x3(C1 -> C2) + bias, LeakyReLU,
-// 2x2 max-pool; SAME padding, with the
-// conv1 positions outside the image zeroed before conv2. The biases are the
-// folded BatchNorm of conv1a/conv1b.
+// 2x2 max-pool; SAME padding, with the conv1 positions outside the image
+// zeroed before conv2. The biases are the folded BatchNorm of
+// conv1a/conv1b.
 //
 // Replaces the TPU kernel nanovs_slam_tpu/ops/pallas/fused_stem.py
 // (fused_stem_pair_pool). On the TPU the 3-channel minor dim was padded to
 // (8, 128) tiles, which inflated its traffic 43.7x, so the JAX package left
 // the kernel off its path. Hopper has no such tiling rule.
 //
-// Design: a tiled direct convolution. A block owns an 8x8 tile of pooled
-// outputs (16x16 conv2 outputs). It stages the 20x20x3 halo'd input tile in
-// shared memory, computes conv1 (C1 channels) over the 18x18 tile plus ring
-// into shared memory, then each thread computes 4 conv2 outputs for C2/4
-// channels, applies bias and LeakyReLU, and writes only the pooled maximum.
+// Design: both convolutions are implicit GEMMs on the tensor cores
+// (mma.sync m16n8k8 TF32) in 3xTF32, which keeps float32 accuracy. A block
+// of 4 warps owns 8 conv2 rows by 16 columns (4 x 8 pooled outputs):
+//   1. it stages the 12x20x3 halo'd input tile and conv2's weights as B
+//      fragments, each value split into its TF32 hi and lo parts once;
+//   2. conv1 over the 10x18 tile with its one-pixel ring: M = 180 pixels
+//      in m-tiles of 16, N = C1, K = 27 taps x channels padded to 32 (A
+//      gathered from the input tile, B in registers). Bias, activation,
+//      zero outside the image; the result goes to shared memory channel-
+//      last, already split, laid out so that a lane's A values of a pixel
+//      are two 16-byte loads: with t = lane % 4, channels t + 4q (q < C1/4)
+//      hi, then lo, at float (t * C1/2) of the pixel, whose stride 2*C1 + 4
+//      keeps the 8 lanes of a quarter warp on distinct banks;
+//   3. conv2: a warp takes conv2 rows 2w and 2w+1 (two m-tiles of 16
+//      columns), N = C2 in n-tiles of 8, K = 9 taps x C1, one tap and 8
+//      channels a k-step;
+//   4. pool in registers: the two m-tiles give the vertical max in-thread,
+//      the accumulator rows g and g+1 (lanes 4 apart) the horizontal one by
+//      one shuffle; bias and activation come after the max, which is exact
+//      because both are monotonic. The pooled values go out through a
+//      warp-private shared-memory transpose as 32-byte NCHW runs.
 // Neither conv1 nor the full-resolution conv2 output touches device memory.
+// The code is generic in (C1, C2) with C1 % 16 == 0 and C2 % 8 == 0; the
+// instances are configs N (16, 24) and S/F (16, 32).
 //
 // Bound on an H100: operations. At 240x320, C1 = 16, C2 = 24 a frame is
-// 0.60 GFLOP (conv2 0.53) against 2.8 MB of input and output, about 9 us at
-// the 67 TFLOP/s float32 rate of the CUDA cores (no tensor cores here).
+// 0.60 GFLOP (conv2 0.53) against 4.6 MB of input and output: 3.6 us at the
+// 3xTF32 rate (three TF32 products a product at 495 TFLOP/s), 8.9 us at the
+// 67 TFLOP/s float32 rate of the CUDA cores.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 8;             // pooled outputs per block side
-constexpr int kOut = 2 * kTile;      // conv2 outputs per block side
-constexpr int kY1 = kOut + 2;        // conv1 tile side (with ring)
-constexpr int kIn = kOut + 4;        // input tile side (with halo)
-constexpr int kThreads = 4 * kTile * kTile;  // 64 pooled positions x 4
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileH = 2 * kWarps;  // conv2 rows a block: a row pair a warp
+constexpr int kTileW = 16;          // conv2 columns a block: one m-tile
+constexpr int kPoolH = kTileH / 2, kPoolW = kTileW / 2;
+constexpr int kY1H = kTileH + 2, kY1W = kTileW + 2;  // conv1 tile and ring
+constexpr int kY1Pix = kY1H * kY1W;
+constexpr int kInH = kTileH + 4, kInW = kTileW + 4;  // input tile and halo
+constexpr int kIn = 3 * kInH * kInW;
+constexpr int kK1 = 27;  // conv1's depth, padded to 4 k-steps of 8
 
 template <int C1, int C2>
-__global__ void __launch_bounds__(kThreads)
+struct StemSmem {
+  static constexpr int kPix = 2 * C1 + 4;  // floats a conv1 pixel
+  float4 w2[9 * (C1 / 8) * (C2 / 8) * 32];  // conv2's B fragments
+  float y1[kY1Pix * kPix];                  // conv1 tile, hi and lo
+  union {
+    float x[2][kIn];                     // input tile [ci][r][c], hi and lo
+    float out[kWarps][C2][kPoolW + 1];  // pooled outputs, a warp's own
+  } u;
+};
+
+__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
+
+template <int C1, int C2>
+__global__ void __launch_bounds__(kThreads, 3)
 stem_kernel(const float* __restrict__ x, long long sx_b, long long sx_h,
             long long sx_w, long long sx_c, const float* __restrict__ w1,
             const float* __restrict__ b1, const float* __restrict__ w2,
             const float* __restrict__ b2, float* __restrict__ out, int H,
             int W, float slope) {
-  static_assert(C2 % 4 == 0, "C2 must be a multiple of 4");
-  constexpr int CPT = C2 / 4;  // conv2 channels per thread
-  __shared__ float s_x[3][kIn][kIn];
-  __shared__ float s_y1[C1][kY1][kY1];
-  __shared__ float s_w1[C1 * 27];
-  __shared__ float s_w2[C2 * C1 * 9];
-  __shared__ float s_b1[C1];
-  __shared__ float s_b2[C2];
+  static_assert(C1 % 16 == 0 && C2 % 8 == 0, "C1 % 16, C2 % 8");
+  constexpr int KS = C1 / 8;     // conv2 k-steps a tap
+  constexpr int NT = C2 / 8;     // conv2 n-tiles
+  constexpr int NT1 = C1 / 8;    // conv1 n-tiles
+  constexpr int Q = C1 / 4;      // a lane's channels of a conv1 pixel
+  constexpr int PIX = StemSmem<C1, C2>::kPix;
+  extern __shared__ float4 smem_raw[];
+  auto& s = *reinterpret_cast<StemSmem<C1, C2>*>(smem_raw);
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z;
-  const int oy0 = blockIdx.y * kOut;  // first conv2 row of the tile
-  const int ox0 = blockIdx.x * kOut;
-  const float* xb = x + (long long)b * sx_b;
+  const int oy0 = blockIdx.y * kTileH;  // first conv2 row of the tile
+  const int ox0 = blockIdx.x * kTileW;
 
-  for (int e = tid; e < 3 * kIn * kIn; e += kThreads) {
-    const int ci = e / (kIn * kIn);
-    const int r = (e / kIn) % kIn;
-    const int c = e % kIn;
+  // 1. the input tile, zero outside the image, split
+  const float* xb = x + (long long)b * sx_b;
+  for (int e = tid; e < kIn; e += kThreads) {
+    const int ci = e / (kInH * kInW), r = e / kInW % kInH, c = e % kInW;
     const int gy = oy0 - 2 + r, gx = ox0 - 2 + c;
-    s_x[ci][r][c] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+    const float v = (gy >= 0 && gy < H && gx >= 0 && gx < W)
                         ? xb[gy * sx_h + gx * sx_w + ci * sx_c]
                         : 0.f;
+    uint32_t hi, lo;
+    nvs::split_tf32(v, hi, lo);
+    s.u.x[0][e] = __uint_as_float(hi);
+    s.u.x[1][e] = __uint_as_float(lo);
   }
-  for (int e = tid; e < C1 * 27; e += kThreads) s_w1[e] = w1[e];
-  for (int e = tid; e < C2 * C1 * 9; e += kThreads) s_w2[e] = w2[e];
-  for (int e = tid; e < C1; e += kThreads) s_b1[e] = b1[e];
-  for (int e = tid; e < C2; e += kThreads) s_b2[e] = b2[e];
+  // conv2's B fragments: slot ((tap * KS + ks) * NT + nt) * 32 + lane holds
+  // w2[nt*8 + g][ks*8 + t][tap] and the same at channel + 4, hi then lo
+  for (int e = tid; e < 9 * KS * NT * 32; e += kThreads) {
+    const int l = e & 31, nt = (e >> 5) % NT, ks = (e >> 5) / NT % KS;
+    const int tap = (e >> 5) / (NT * KS);
+    const float* wp = w2 + ((nt * 8 + (l >> 2)) * C1 + ks * 8 + (l & 3)) * 9
+                      + tap;
+    uint32_t h0, l0, h1, l1;
+    nvs::split_tf32(__ldg(wp), h0, l0);
+    nvs::split_tf32(__ldg(wp + 4 * 9), h1, l1);
+    s.w2[e] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                          __uint_as_float(l0), __uint_as_float(l1));
+  }
+  // conv1's B fragments, in registers: k = ci*9 + ky*3 + kx, zero from 27;
+  // koff: the lane's two k of each k-step as offsets into the input tile
+  uint32_t w1h[4][NT1][2], w1l[4][NT1][2];
+  int koff[4][2];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = ks * 8 + t + 4 * j;
+      koff[ks][j] = k < kK1 ? k / 9 * kInH * kInW + k % 9 / 3 * kInW + k % 3
+                            : 0;
+#pragma unroll
+      for (int nt = 0; nt < NT1; ++nt) {
+        const float v = k < kK1 ? __ldg(w1 + (nt * 8 + g) * kK1 + k) : 0.f;
+        nvs::split_tf32(v, w1h[ks][nt][j], w1l[ks][nt][j]);
+      }
+    }
+  float b1v[NT1][2];
+#pragma unroll
+  for (int nt = 0; nt < NT1; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) b1v[nt][j] = __ldg(b1 + nt * 8 + 2 * t + j);
   __syncthreads();
 
-  // conv1 over the tile and its one-pixel ring; zero outside the image.
-  // Each thread takes two positions in straight-line code and loads each
-  // weight once for both (a loop over positions lets the compiler hoist all
-  // C1*27 weights into registers, which spills).
-  static_assert(kY1 * kY1 <= 2 * kThreads, "two conv1 positions per thread");
-  {
-    const int p0 = tid, p1 = tid + kThreads;
-    const bool has1 = p1 < kY1 * kY1;
-    const int r0 = p0 / kY1, c0 = p0 % kY1;
-    const int r1 = has1 ? p1 / kY1 : 0, c1 = has1 ? p1 % kY1 : 0;
-    float acc0[C1], acc1[C1];
+  // 2. conv1: m-tiles of 16 tile pixels (row-major over kY1H x kY1W)
+  for (int m = warp; m < (kY1Pix + 15) / 16; m += kWarps) {
+    int poff[2];  // accumulator rows g and g + 8: their pixel's input offset
 #pragma unroll
-    for (int co = 0; co < C1; ++co) acc0[co] = acc1[co] = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int p = min(m * 16 + g + 8 * r, kY1Pix - 1);
+      poff[r] = p / kY1W * kInW + p % kY1W;
+    }
+    float acc[NT1][4] = {};
 #pragma unroll
-    for (int ci = 0; ci < 3; ++ci)
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t ah[4], al[4];
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky)
+      for (int q = 0; q < 4; ++q) {  // a0..a3: (row g | g+8) x (k | k + 4)
+        const bool valid = ks * 8 + t + 4 * (q >> 1) < kK1;
+        const int idx = koff[ks][q >> 1] + poff[q & 1];
+        ah[q] = valid ? bits(s.u.x[0][idx]) : 0u;
+        al[q] = valid ? bits(s.u.x[1][idx]) : 0u;
+      }
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float v0 = s_x[ci][r0 + ky][c0 + kx];
-          const float v1 = s_x[ci][r1 + ky][c1 + kx];
+      for (int nt = 0; nt < NT1; ++nt)
+        nvs::mma_3xtf32(acc[nt], ah, al, w1h[ks][nt], w1l[ks][nt]);
+    }
 #pragma unroll
-          for (int co = 0; co < C1; ++co) {
-            const float w = s_w1[co * 27 + ci * 9 + ky * 3 + kx];
-            acc0[co] = fmaf(w, v0, acc0[co]);
-            acc1[co] = fmaf(w, v1, acc1[co]);
+    for (int i = 0; i < 4; ++i) {
+      const int p = m * 16 + g + (i >> 1) * 8;
+      if (p >= kY1Pix) continue;
+      const int gy = oy0 - 1 + p / kY1W, gx = ox0 - 1 + p % kY1W;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+      for (int nt = 0; nt < NT1; ++nt) {
+        const int ch = nt * 8 + 2 * t + (i & 1);
+        const float v =
+            in ? nvs::leaky(acc[nt][i] + b1v[nt][i & 1], slope) : 0.f;
+        uint32_t hi, lo;
+        nvs::split_tf32(v, hi, lo);
+        float* py = s.y1 + p * PIX + (ch & 3) * (C1 / 2) + (ch >> 2);
+        py[0] = __uint_as_float(hi);
+        py[Q] = __uint_as_float(lo);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. conv2: the warp's m-tiles are conv2 rows 2w (j = 0) and 2w + 1
+  float acc[2][NT][4] = {};
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int ky = tap / 3, kx = tap % 3;
+    float a[2][2][2][Q];  // [m-tile][row g | g + 8][hi | lo][channel t + 4q]
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float* p = s.y1 + ((2 * warp + j + ky) * kY1W + g + 8 * r + kx)
+                                * PIX + t * (C1 / 2);
+#pragma unroll
+        for (int hl = 0; hl < 2; ++hl)
+#pragma unroll
+          for (int v = 0; v < Q / 4; ++v) {
+            const float4 f =
+                *reinterpret_cast<const float4*>(p + hl * Q + 4 * v);
+            a[j][r][hl][4 * v] = f.x;
+            a[j][r][hl][4 * v + 1] = f.y;
+            a[j][r][hl][4 * v + 2] = f.z;
+            a[j][r][hl][4 * v + 3] = f.w;
           }
+      }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      // k-step ks: column t is channel 8ks + t (q = 2ks), t + 4 is q + 1
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ah[j][q] = bits(a[j][q & 1][0][2 * ks + (q >> 1)]);
+          al[j][q] = bits(a[j][q & 1][1][2 * ks + (q >> 1)]);
         }
-    const int gy0 = oy0 - 1 + r0, gx0 = ox0 - 1 + c0;
-    const int gy1 = oy0 - 1 + r1, gx1 = ox0 - 1 + c1;
-    const bool in0 = gy0 >= 0 && gy0 < H && gx0 >= 0 && gx0 < W;
-    const bool in1 = gy1 >= 0 && gy1 < H && gx1 >= 0 && gx1 < W;
 #pragma unroll
-    for (int co = 0; co < C1; ++co) {
-      s_y1[co][r0][c0] = in0 ? nvs::leaky(acc0[co] + s_b1[co], slope) : 0.f;
-      if (has1)
-        s_y1[co][r1][c1] = in1 ? nvs::leaky(acc1[co] + s_b1[co], slope) : 0.f;
-    }
-  }
-  __syncthreads();
-
-  // conv2: thread -> one pooled position, CPT output channels, 4 phases
-  const int pos = tid % (kTile * kTile);
-  const int grp = tid / (kTile * kTile);
-  const int py = pos / kTile, px = pos % kTile;
-  float acc[CPT][4];
+      for (int nt = 0; nt < NT; ++nt) {
+        const float4 f = s.w2[((tap * KS + ks) * NT + nt) * 32 + lane];
+        const uint32_t bh[2] = {bits(f.x), bits(f.y)};
+        const uint32_t bl[2] = {bits(f.z), bits(f.w)};
 #pragma unroll
-  for (int k = 0; k < CPT; ++k)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[k][q] = 0.f;
-
-  for (int ci = 0; ci < C1; ++ci) {
-    float patch[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) patch[a][c] = s_y1[ci][2 * py + a][2 * px + c];
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const float* wk = s_w2 + ((grp * CPT + k) * C1 + ci) * 9;
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float w = wk[ky * 3 + kx];
-#pragma unroll
-          for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-            for (int dx = 0; dx < 2; ++dx)
-              acc[k][dy * 2 + dx] =
-                  fmaf(w, patch[dy + ky][dx + kx], acc[k][dy * 2 + dx]);
-        }
+        for (int j = 0; j < 2; ++j)
+          nvs::mma_3xtf32(acc[j][nt], ah[j], al[j], bh, bl);
+      }
     }
   }
 
+  // 4. pool: rows 2w, 2w + 1 in-thread; columns g, g + 1 from lane + 4.
+  // Lanes of even g hold pooled column g/2 (d0, d1) and 4 + g/2 (d2, d3).
+  float(*so)[kPoolW + 1] = s.u.out[warp];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = fmaxf(acc[0][nt][i], acc[1][nt][i]);
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+      if (!(g & 1)) {
+        const int ch = nt * 8 + 2 * t + (i & 1);
+        so[ch][(i >> 1) * 4 + g / 2] = nvs::leaky(v + __ldg(b2 + ch), slope);
+      }
+    }
+  __syncwarp();
   const int H2 = H / 2, W2 = W / 2;
-  const int oy = blockIdx.y * kTile + py, ox = blockIdx.x * kTile + px;
-  if (oy < H2 && ox < W2) {
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) {
-      const int co = grp * CPT + k;
-      float m = nvs::leaky(acc[k][0] + s_b2[co], slope);
-#pragma unroll
-      for (int q = 1; q < 4; ++q) m = fmaxf(m, nvs::leaky(acc[k][q] + s_b2[co], slope));
-      out[(((long long)b * C2 + co) * H2 + oy) * W2 + ox] = m;
+  const int py = blockIdx.y * kPoolH + warp, px0 = blockIdx.x * kPoolW;
+  if (py < H2) {
+    for (int e = lane; e < C2 * kPoolW; e += 32) {
+      const int ch = e / kPoolW, c = e % kPoolW;
+      if (px0 + c < W2)
+        out[(((long long)b * C2 + ch) * H2 + py) * W2 + px0 + c] = so[ch][c];
     }
   }
 }
 
 template <int C1, int C2>
-void launch(const float* x, const long long* sx, const float* w1,
-            const float* b1, const float* w2, const float* b2, float* out,
-            int B, int H, int W, float slope, cudaStream_t stream) {
-  const dim3 grid((W / 2 + kTile - 1) / kTile, (H / 2 + kTile - 1) / kTile, B);
-  stem_kernel<C1, C2><<<grid, kThreads, 0, stream>>>(
+cudaError_t launch(const float* x, const long long* sx, const float* w1,
+                   const float* b1, const float* w2, const float* b2,
+                   float* out, int B, int H, int W, float slope,
+                   cudaStream_t stream) {
+  constexpr int kSmem = sizeof(StemSmem<C1, C2>);
+  const cudaError_t err = nvs::once_per_device([] {
+    return cudaFuncSetAttribute(stem_kernel<C1, C2>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmem);
+  });
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W / 2 + kPoolW - 1) / kPoolW, (H / 2 + kPoolH - 1) / kPoolH,
+                  B);
+  stem_kernel<C1, C2><<<grid, kThreads, kSmem, stream>>>(
       x, sx[0], sx[1], sx[2], sx[3], w1, b1, w2, b2, out, H, W, slope);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -175,13 +286,14 @@ extern "C" int nvs_stem_pair_pool(const float* x, const long long* sx,
                                   const float* w2, const float* b2,
                                   float* out, int B, int H, int W, int C1,
                                   int C2, float slope, cudaStream_t stream) {
-  if (H % 2 || W % 2 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
-  if (C1 == 16 && C2 == 24) {
-    launch<16, 24>(x, sx, w1, b1, w2, b2, out, B, H, W, slope, stream);
-  } else if (C1 == 16 && C2 == 32) {
-    launch<16, 32>(x, sx, w1, b1, w2, b2, out, B, H, W, slope, stream);
-  } else {
+  if (H % 2 || W % 2 || H < 2 || W < 2 || B < 1 || B > 65535 ||
+      (H / 2 + kPoolH - 1) / kPoolH > 65535)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (C1 == 16 && C2 == 24)
+    return (int)launch<16, 24>(x, sx, w1, b1, w2, b2, out, B, H, W, slope,
+                               stream);
+  if (C1 == 16 && C2 == 32)
+    return (int)launch<16, 32>(x, sx, w1, b1, w2, b2, out, B, H, W, slope,
+                               stream);
+  return (int)cudaErrorInvalidValue;
 }

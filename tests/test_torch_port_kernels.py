@@ -10,11 +10,13 @@ the JAX tests skip. The card tests skip where CUDA is absent.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from nanovs_slam_torch.kernels import (fused_postprocess,
                                        fused_stem_pair_pool, netvlad,
                                        netvlad_plain, postprocess_plain,
                                        stem_plain)
+from nanovs_slam_torch.kernels.stem import SUPPORTED
 
 
 def _jnp():
@@ -33,11 +35,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _pp_inputs(B, H, W, cell, C=32, seed=1):
+def _pp_inputs(B, H, W, cell, C=32, seed=1, edge_shifts=False):
+    """With ``edge_shifts`` a third of the shifts are exactly -1 or 1, the
+    most a tanh head gives, which puts coordinates of the border cells on
+    the image's edge (the clip) and their samples on the map's last row or
+    column."""
     rs = np.random.RandomState(seed)
     Hc, Wc = H // cell, W // cell
     score = rs.rand(B, Hc, Wc, 1).astype(np.float32)
     shift = (rs.rand(B, Hc, Wc, 2).astype(np.float32) * 2 - 1)
+    if edge_shifts:
+        pick = rs.rand(B, Hc, Wc, 2) < 1 / 3
+        shift[pick] = np.sign(shift[pick])
     feat = rs.randn(B, 2 * Hc, 2 * Wc, C).astype(np.float32)
     return score, shift, feat
 
@@ -129,6 +138,40 @@ def test_stem_plain_matches_xla_chain(shape, c1, c2):
                                rtol=1e-4)
 
 
+def _tf32(a):
+    """``cvt.rna.tf32.f32``: round to nearest, ties away from zero, to a
+    10-bit mantissa (the low 13 bits of a float32 cleared)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    mag = ((u & 0x7FFFFFFF).astype(np.uint64) + 0x1000) & 0x7FFFE000
+    return ((u & 0x80000000) | mag).astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("c1,c2", SUPPORTED)
+def test_stem_conv2_needs_3xtf32_for_float32_accuracy(c1, c2):
+    """Why ``csrc/stem.cu`` runs conv2 on the tensor cores in 3xTF32 and not
+    in plain TF32: conv2 as an im2col product at 48x64 and the card test's
+    weight scales, with TF32 roundings emulated, against float64. 3xTF32
+    (a_lo b_hi + a_hi b_lo + a_hi b_hi, x = hi + lo) holds the stem's 1e-5;
+    plain TF32 misses the 1e-4 the slice keeps against the CPU."""
+    x, w1, b1, w2, b2 = _stem_inputs(1, 48, 64, c1, c2)
+    y1 = F.leaky_relu(F.conv2d(
+        torch.from_numpy(x).double().permute(0, 3, 1, 2),
+        _oihw(w1).double(), torch.from_numpy(b1).double(), padding=1), 0.01)
+    a = F.unfold(y1.float(), 3, padding=1)[0].T.numpy()  # (48*64, 9*c1)
+    b = _oihw(w2).reshape(c2, 9 * c1).T.numpy()
+    want = a.astype(np.float64) @ b.astype(np.float64)
+
+    def split(m):
+        hi = _tf32(m)
+        return hi.astype(np.float64), _tf32(m - hi).astype(np.float64)
+
+    (ah, al), (bh, bl) = split(a), split(b)
+    three = (al @ bh + ah @ bl + ah @ bh).astype(np.float32)
+    plain = (ah @ bh).astype(np.float32)
+    assert np.abs(three - want).max() <= 1e-5
+    assert np.abs(plain - want).max() > 1e-4
+
+
 def test_fold_conv_bn_matches_jax_fold_batchnorm():
     _jnp()
     from nanovs_slam_tpu.utils.fuse import fold_batchnorm
@@ -206,32 +249,47 @@ def test_netvlad_init_params_from_clusters_matches_jax():
 
 # --------------------------------------------------------- kernels on a card
 
-@pytest.mark.parametrize("B", [1, 8])
-def test_postprocess_kernel_matches_plain(cuda, B):
-    H, W, cell = 240, 320, 4
-    score, shift, feat = (torch.from_numpy(a).to(cuda)
-                          for a in _pp_inputs(B, H, W, cell))
-    # the model hands the kernel NHWC views of NCHW conv outputs
-    feat_view = feat.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+@pytest.mark.parametrize("B,H,W,C", [
+    (1, 240, 320, 32), (8, 240, 320, 32), (1, 240, 320, 64),
+    (2, 240, 320, 128), (2, 244, 332, 32)])
+def test_postprocess_kernel_matches_plain(cuda, B, H, W, C):
+    """The N slice at B 1 and 8, config F's C = 64, the most channels
+    (128) and a ragged cell grid (61x83), with shifts of exactly +-1 (the
+    clip at the border), for NCHW and NHWC memory of every input."""
+    cell = 4
+    score, shift, feat = (torch.from_numpy(a).to(cuda) for a in _pp_inputs(
+        B, H, W, cell, C, edge_shifts=True))
     want = postprocess_plain(score, shift, feat, H, W, cell)
-    for f in (feat, feat_view):
-        got = fused_postprocess(score, shift, f, H, W, cell)
+
+    def nchw(t):  # the model hands the kernel NHWC views of NCHW outputs
+        return t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+    for args in ((score, shift, feat), (nchw(score), nchw(shift), nchw(feat))):
+        got = fused_postprocess(*args, H, W, cell)
         torch.cuda.synchronize()
         torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
         torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
         assert (got[2] * want[2]).sum(-1).min().item() > 0.99999
 
 
-@pytest.mark.parametrize("B,c2", [(1, 24), (8, 24), (2, 32)])
-def test_stem_kernel_matches_plain(cuda, B, c2):
-    x, w1, b1, w2, b2 = _stem_inputs(B, 240, 320, 16, c2)
-    args = [torch.from_numpy(x), _oihw(w1), torch.from_numpy(b1), _oihw(w2),
-            torch.from_numpy(b2)]
+@pytest.mark.parametrize("B,H,W,c2,slope", [
+    (1, 240, 320, 24, 0.01), (8, 240, 320, 24, 0.01), (2, 240, 320, 32, 0.01),
+    (2, 250, 334, 24, 0.01), (2, 250, 334, 32, 0.0), (1, 96, 128, 32, 0.01),
+    (1, 240, 320, 24, 0.0)])
+def test_stem_kernel_matches_plain(cuda, B, H, W, c2, slope):
+    """The N slice at B 1 and 8, the S widths, a ragged size whose pooled
+    grid (125x167) fills no tile, the weights phase's 96x128, and the ReLU
+    (slope 0) of the MCU configs, for NHWC memory and the NHWC view of NCHW
+    memory that the model passes."""
+    x, w1, b1, w2, b2 = _stem_inputs(B, H, W, 16, c2)
+    args = [_oihw(w1), torch.from_numpy(b1), _oihw(w2), torch.from_numpy(b2)]
     args = [a.to(cuda) for a in args]
-    want = stem_plain(*args)
-    got = fused_stem_pair_pool(*args)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    x = torch.from_numpy(x).to(cuda)
+    want = stem_plain(x, *args, slope)
+    for xv in (x, x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)):
+        got = fused_stem_pair_pool(xv, *args, slope)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("B,C,K,H,W", [
