@@ -11,19 +11,23 @@ Phases, each of which raises (exit code != 0) on failure:
     where one exists, a library call, and the least time for the work
     (bytes at 3.35 TB/s or operations at 67 TFLOP/s float32; the stem's
     operations at the 3xTF32 rate of the tensor cores, its float32 bound
-    printed beside): the stem, NetVLAD and postprocess
-    kernels at the serving slice's shapes (KP2DTiny-N, 240x320) for batch 1
-    and 8, the stem at the match path's config S widths (16, 32) and
-    NetVLAD at config S's (C=64, K=64), with NetVLAD's device kernels a
-    call (one) counted by the profiler; the LightGlue transformer kernel
-    (pinned kp2dtiny_S weights) at
-    K=512 and K=1024, at M=512/N=384 with padding masks and with a fully
-    masked image, with its device kernels broken down by the profiler (4 a
-    layer and 1 a call) with programmatic dependent launch off, so that
-    the per-launch times do not overlap, and
-    one scaled_dot_product_attention call as the attention's yardstick
-    (its twin, ~600 launches a call, is timed by the profiler's summed
-    device time: more launches than the device queues behind a spin);
+    printed beside): the stem, NetVLAD and postprocess kernels at the
+    serving slice's shapes (KP2DTiny-N, 240x320) for batch 1 and 8, the
+    stem at config S widths (16, 32) and NetVLAD at config S's (C=64,
+    K=64) (the match path's and the V3 S_A cell's; batch 8 only the
+    latter's), the stem at config D's (64, 128) (an entry of its own in
+    the kernels line) and the postprocess at config D's C=128, both for
+    batch 1 and 8, each case's device kernels a call counted by the
+    profiler (one; two for the stem at (64, 128), whose weights a kernel
+    of their own splits and packs first); the LightGlue transformer
+    kernel (pinned kp2dtiny_S weights) at K=512 and K=1024, at
+    M=512/N=384 with padding masks and with a fully masked image, with its
+    device kernels broken down by the profiler (4 a layer and 1 a call)
+    with programmatic dependent launch off, so that the per-launch times
+    do not overlap, and one scaled_dot_product_attention call as the
+    attention's yardstick (its twin, ~600 launches a call, is timed by the
+    profiler's summed device time: more launches than the device queues
+    behind a spin);
  4. slice phase: KP2DTiny-N V2 (28 classes, seeded random weights and BN
     stats) served through make_infer_fn(top_k=1000, conf_threshold=0.7) on
     four uint8 requests (three at batch 1, one at batch 8), with its
@@ -39,13 +43,22 @@ Phases, each of which raises (exit code != 0) on failure:
     mutual) and compared with the same pipeline on the CPU; prints the
     precision against the homography, and the steady ms per pair and per
     match at K=512 and K=1024;
- 7. one JSON line describing each kernel, the card's line before it, and
+ 7. family phase: V3 S_A (decoder fusion, attention, NetVLAD) and V2 D
+    (attention, ConvAP, the stem at (64, 128)), 28 classes, seeded random
+    weights and BN stats, served at 240x320 like the slice phase at batch
+    1 and 8: the launch counts of the kernels on each path (one a
+    request), the batch-1 answer against the CPU and the steady median ms
+    per request; then one batch-1 request each of V2 N_A with depth, V2
+    GEM_N and V3 D_A with depth, against the CPU, depth included (atol
+    1e-4);
+ 8. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
-    the match path, K=512), ``_b8`` / ``_k1024`` / ``_s`` another size of
-    it (``_s``: NetVLAD at config S widths), and
-    ``launches_match`` / ``*_match`` the match path where it runs the
-    kernel too (its postprocess shapes are the N slice's B=1 ones).
+    the match path, K=512; the stem at (64, 128): the D cell), ``_b8`` /
+    ``_k1024`` / ``_s`` / ``_d`` another size of it (``_s``: config S
+    widths; ``_d``: the postprocess at config D's C=128), and
+    ``launches_<path>`` / ``*_match`` a later path that runs the kernel
+    too (the match path's postprocess shapes are the N slice's B=1 ones).
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 false. It imports neither jax nor nanovs_slam_tpu.
@@ -61,6 +74,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -71,6 +85,9 @@ TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 TF32_3X_FLOP_PER_S = TF32_FLOP_PER_S / 3
 H, W = 240, 320
 SEED = 0
+# the entry key of the stem at config D's widths, (C1, C2) = (64, 128),
+# which has an entry of its own in the kernels line
+STEM_D = "fused_stem_pair_pool_d"
 
 
 def log(msg: str) -> None:
@@ -134,15 +151,36 @@ def require(cond: bool, what: str) -> None:
 
 # --------------------------------------------------------------- kernel phase
 
-def kernel_cases(B: int, dev):
-    """(key suffix, name, source, replaces, wrapper, kernel call, plain
-    call, library call or None, bytes, flops, flop rate of the bound,
-    check) at the paths' shapes.
-    The N slice's shapes fill the unsuffixed keys at B=1 and the ``_b8``
-    keys at B=8; the stem at config S widths, the match path's, fills the
-    ``_match`` keys (the match path's postprocess has the N slice's B=1
-    shapes). Inputs are NHWC views of NCHW memory, as the model hands them
-    to the kernels."""
+class Case(NamedTuple):
+    """One kernel-phase case: ``entry`` is its entry's key in the kernels
+    line (and in the paths' launch counts), ``name`` that entry's name,
+    ``suffix`` the suffix of its keys there, ``device_kernels`` the device
+    kernels one call enqueues."""
+    entry: str
+    name: str
+    suffix: str
+    source: str
+    replaces: str
+    run: Callable
+    plain: Callable
+    library: Callable | None
+    nbytes: float
+    flops: float
+    rate: float
+    check: Callable
+    device_kernels: int = 1
+
+
+def kernel_cases(B: int, dev) -> list[Case]:
+    """The kernel phase's cases at the paths' shapes. The N slice's shapes
+    fill the unsuffixed keys at B=1 and the ``_b8`` keys at B=8; the stem
+    at config S widths (16, 32) fills the ``_match`` keys at B=1 (the
+    match path's, whose postprocess has the N slice's B=1 shapes) and,
+    with NetVLAD at config S's (64, 64), the ``_s`` keys (``_s_b8`` at
+    B=8: the V3 S_A cell's); the postprocess at config D's C=128 fills the
+    ``_d`` / ``_d_b8`` keys; the stem at config D's (64, 128) has an entry
+    of its own. Inputs are NHWC views of NCHW memory, as the model hands
+    them to the kernels."""
     import torch
     import torch.nn.functional as F
 
@@ -152,7 +190,7 @@ def kernel_cases(B: int, dev):
                                            stem_plain)
 
     rs = np.random.RandomState(SEED + B)
-    suffix = "" if B == 1 else f"_b{B}"
+    b8 = "" if B == 1 else f"_b{B}"
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -160,24 +198,40 @@ def kernel_cases(B: int, dev):
     def nhwc(a):  # NCHW memory, NHWC shape
         return t(a).permute(0, 2, 3, 1)
 
-    cell, C = 4, 32
+    cell = 4
     Hc, Wc, Hf, Wf = H // cell, W // cell, H // 2, W // 2
-    score = nhwc(rs.rand(B, 1, Hc, Wc))
-    shift = nhwc(rs.uniform(-1, 1, (B, 2, Hc, Wc)))
-    feat = nhwc(rs.randn(B, C, Hf, Wf))
-    pp = (score, shift, feat, H, W, cell, 2.0)
 
-    def pp_check(got, want):
-        require(max_err(got[0], want[0]) <= 1e-5, "postprocess score")
-        require(max_err(got[1], want[1]) <= 1e-5, "postprocess coord")
-        cos = (got[2] * want[2]).sum(-1).min().item()
-        require(cos > 0.99999, f"postprocess descriptor cosine {cos}")
+    def postprocess_case(suffix, C):
+        """The postprocess with C descriptor channels (N: 32; D: 128)."""
+        score = nhwc(rs.rand(B, 1, Hc, Wc))
+        shift = nhwc(rs.uniform(-1, 1, (B, 2, Hc, Wc)))
+        feat = nhwc(rs.randn(B, C, Hf, Wf))
+        pp = (score, shift, feat, H, W, cell, 2.0)
 
-    def stem_case(key, C1, C2):
-        """The stem at widths 3 -> C1 -> C2 (N: 16, 24; S: 16, 32)."""
+        def check(got, want):
+            require(max_err(got[0], want[0]) <= 1e-5, f"postprocess {C} score")
+            require(max_err(got[1], want[1]) <= 1e-5, f"postprocess {C} coord")
+            cos = (got[2] * want[2]).sum(-1).min().item()
+            require(cos > 0.99999, f"postprocess {C} descriptor cosine {cos}")
+
+        return Case("fused_postprocess", "fused_postprocess", suffix,
+                    "nanovs_slam_torch/csrc/postprocess.cu",
+                    "nanovs_slam_tpu/ops/pallas/postprocess_kernel.py:104",
+                    lambda: fused_postprocess(*pp),
+                    lambda: postprocess_plain(*pp), None,
+                    4 * (B * Hc * Wc * 3 + B * Hf * Wf * C
+                         + B * Hc * Wc * (3 + C)),
+                    B * Hc * Wc * C * 14, FP32_FLOP_PER_S, check)
+
+    def stem_case(suffix, C1, C2, entry="fused_stem_pair_pool",
+                  device_kernels=1):
+        """The stem at widths 3 -> C1 -> C2 (N: 16, 24; S: 16, 32; D: 64,
+        128), conv2's weights at 0.1 for C1 = 16 and scaled as 1/sqrt(C1)
+        beyond, so that its outputs keep their spread."""
         x = nhwc(rs.uniform(-1, 1, (B, 3, H, W)))
         w1, b1 = t(rs.randn(C1, 3, 3, 3) * 0.2), t(rs.randn(C1) * 0.1)
-        w2, b2 = t(rs.randn(C2, C1, 3, 3) * 0.1), t(rs.randn(C2) * 0.1)
+        w2 = t(rs.randn(C2, C1, 3, 3) * (0.1 * (16 / C1) ** 0.5))
+        b2 = t(rs.randn(C2) * 0.1)
         st = (x, w1, b1, w2, b2)
 
         def check(got, want):  # 3xTF32 keeps float32 accuracy
@@ -193,18 +247,20 @@ def kernel_cases(B: int, dev):
             finally:
                 torch.backends.cudnn.allow_tf32 = False
 
-        return (key, "fused_stem_pair_pool", "nanovs_slam_torch/csrc/stem.cu",
-                "nanovs_slam_tpu/ops/pallas/fused_stem.py:167",
-                fused_stem_pair_pool, lambda: fused_stem_pair_pool(*st),
-                lambda: stem_plain(*st), library,
-                4 * (B * H * W * 3 + C1 * 28 + C2 * (C1 * 9 + 1)
-                     + B * (H // 2) * (W // 2) * C2),
-                2 * B * H * W * (C1 * 27 + C2 * C1 * 9), TF32_3X_FLOP_PER_S,
-                check)
+        name = ("fused_stem_pair_pool" if entry == "fused_stem_pair_pool"
+                else f"fused_stem_pair_pool[{C1},{C2}]")
+        return Case(entry, name, suffix, "nanovs_slam_torch/csrc/stem.cu",
+                    "nanovs_slam_tpu/ops/pallas/fused_stem.py:167",
+                    lambda: fused_stem_pair_pool(*st),
+                    lambda: stem_plain(*st), library,
+                    4 * (B * H * W * 3 + C1 * 28 + C2 * (C1 * 9 + 1)
+                         + B * (H // 2) * (W // 2) * C2),
+                    2 * B * H * W * (C1 * 27 + C2 * C1 * 9),
+                    TF32_3X_FLOP_PER_S, check, device_kernels)
 
     S = Hc * Wc
 
-    def netvlad_case(key, Cv, K):
+    def netvlad_case(suffix, Cv, K):
         """NetVLAD at widths C, K (N: 48, 32; S: 64, 64)."""
         xv = nhwc(rs.randn(B, Cv, Hc, Wc))
         aw, cen = t(rs.randn(Cv, K) * 0.2), t(rs.rand(K, Cv))
@@ -213,24 +269,26 @@ def kernel_cases(B: int, dev):
         def check(got, want):
             require(max_err(got, want) <= 1e-5, f"netvlad {Cv}, {K}")
 
-        return (key, "netvlad", "nanovs_slam_torch/csrc/netvlad.cu",
-                "nanovs_slam_tpu/ops/pallas/netvlad_kernel.py:59",
-                netvlad, lambda: netvlad(*nv), lambda: netvlad_plain(*nv),
-                None, 4 * (B * S * Cv + 2 * Cv * K + B * K * Cv),
-                B * S * (4 * Cv * K + 3 * Cv + 3 * K), FP32_FLOP_PER_S, check)
+        return Case("netvlad", "netvlad", suffix,
+                    "nanovs_slam_torch/csrc/netvlad.cu",
+                    "nanovs_slam_tpu/ops/pallas/netvlad_kernel.py:59",
+                    lambda: netvlad(*nv), lambda: netvlad_plain(*nv), None,
+                    4 * (B * S * Cv + 2 * Cv * K + B * K * Cv),
+                    B * S * (4 * Cv * K + 3 * Cv + 3 * K), FP32_FLOP_PER_S,
+                    check)
 
-    cases = [
-        (suffix, "fused_postprocess", "nanovs_slam_torch/csrc/postprocess.cu",
-         "nanovs_slam_tpu/ops/pallas/postprocess_kernel.py:104",
-         fused_postprocess, lambda: fused_postprocess(*pp),
-         lambda: postprocess_plain(*pp), None,
-         4 * (B * Hc * Wc * 3 + B * Hf * Wf * C + B * Hc * Wc * (3 + C)),
-         B * Hc * Wc * C * 14, FP32_FLOP_PER_S, pp_check),
-        stem_case(suffix, 16, 24),
-        netvlad_case(suffix, 48, 32),
-    ]
+    # the order of the draws from rs keeps earlier cases' inputs as they were
+    cases = [postprocess_case(b8, 32), stem_case(b8, 16, 24),
+             netvlad_case(b8, 48, 32)]
     if B == 1:
         cases += [stem_case("_match", 16, 32), netvlad_case("_s", 64, 64)]
+    # the wide instance enqueues two device kernels: the weights' packing
+    # and the stem
+    cases.append(stem_case(b8, 64, 128, STEM_D, 2))
+    cases.append(postprocess_case("_d" + b8, 128))
+    if B != 1:
+        cases += [stem_case("_s" + b8, 16, 32),
+                  netvlad_case("_s" + b8, 64, 64)]
     return cases
 
 
@@ -239,38 +297,39 @@ def kernel_phase(dev):
 
     results = {}
     for B in (1, 8):
-        for (suffix, name, source, replaces, wrapper, run, plain, library,
-             nbytes, flops, rate, check) in kernel_cases(B, dev):
-            got = run()
-            want = plain()
+        for c in kernel_cases(B, dev):
+            tag = f"{c.name}{c.suffix or '_b1'}"
+            got = c.run()
+            want = c.plain()
             torch.cuda.synchronize()
-            check(got, want)
+            c.check(got, want)
             err = max_err(got, want)
-            ms = cuda_ms(run)
-            plain_ms = cuda_ms(plain)
-            library_ms = cuda_ms(library) if library is not None else None
-            b_ms, b_by = bound(nbytes, flops, rate)
+            ms = cuda_ms(c.run)
+            plain_ms = cuda_ms(c.plain)
+            library_ms = cuda_ms(c.library) if c.library is not None else None
+            b_ms, b_by = bound(c.nbytes, c.flops, c.rate)
             note = ""
-            if rate != FP32_FLOP_PER_S:  # the stem: print both bounds
+            if c.rate != FP32_FLOP_PER_S:  # the stem: print both bounds
                 note = (f", 3xTF32 on the tensor cores; float32 on the CUDA "
-                        f"cores {bound(nbytes, flops)[0]:.5f} ms")
-            if name == "netvlad":  # one launch a call
-                n_dev, _ = kernels_a_call(run, 1)
-                log(f"kernel netvlad{suffix or '_b1'}: {n_dev:g} device "
-                    f"kernels a call")
-                require(round(n_dev) == 1, f"netvlad: {n_dev} device "
-                        f"kernels a call, expected 1")
-            log(f"kernel {name}{suffix or '_b1'}: max_abs_err {err:.3g}, "
+                        f"cores {bound(c.nbytes, c.flops)[0]:.5f} ms")
+            n_dev, parts = kernels_a_call(c.run, c.device_kernels)
+            log(f"kernel {tag}: {n_dev:g} device kernels a call, "
+                + ", ".join(f"{t:.4f} ms {k[:48]}" for k, (_, t) in
+                            sorted(parts.items(), key=lambda kv: -kv[1][1])))
+            require(round(n_dev) == c.device_kernels,
+                    f"{tag}: {n_dev} device kernels a call, expected "
+                    f"{c.device_kernels}")
+            log(f"kernel {tag}: max_abs_err {err:.3g}, "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                 f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}"
                 f", bound {b_ms:.5f} ms ({b_by}{note})")
-            entry = results.setdefault(name, {
-                "name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "wrapper": wrapper})
+            entry = results.setdefault(c.entry, {
+                "name": c.name, "route": "cuda", "source": c.source,
+                "replaces": c.replaces})
             keys = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": library_ms}
-            entry.update({k + suffix: v for k, v in keys.items()})
+            entry.update({k + c.suffix: v for k, v in keys.items()})
     return results
 
 
@@ -302,6 +361,9 @@ def check_answer(out, B, h, w, cfg, top_k) -> None:
               "keypoints": (B, top_k, 2), "keypoint_scores": (B, top_k),
               "descriptors": (B, top_k, cfg.nfeatures),
               "keypoint_valid": (B, top_k)}
+    if cfg.depth:
+        shapes["depth"] = (B, 2 * hc, 2 * wc, 1)
+    require(set(out) == set(shapes), f"keys {sorted(out)}")
     for k, shape in shapes.items():
         require(tuple(out[k].shape) == shape,
                 f"{k} shape {tuple(out[k].shape)} != {shape}")
@@ -332,7 +394,32 @@ def compare_with_cpu(out, ref) -> dict:
     require(errs["feat_cos_min"] > 0.9999,
             f"descriptor cosine vs CPU {errs['feat_cos_min']}")
     require(errs["seg_agree"] >= 0.999, f"seg agreement {errs['seg_agree']}")
+    if "depth" in ref:
+        errs["depth"] = max_err(o["depth"], ref["depth"])
+        require(errs["depth"] <= 1e-4, f"depth vs CPU {errs['depth']}")
     return errs
+
+
+def spread_scores(model, frames) -> None:
+    """Random weights put every score within a few hundredths of one
+    value; spread the score logits and shift them so that a tenth of the
+    cells of ``frames`` (480 at 240x320, under top_k) pass the 0.7
+    threshold: the threshold and the top-K both select. The score is the
+    score head's output (V2) or channel 0 of the score+loc head (V3)."""
+    import torch
+
+    from nanovs_slam_torch.ops.image import to_model_input
+
+    head = (model.score_loc_head if hasattr(model, "score_loc_head")
+            else model.score_head)
+    with torch.no_grad():
+        conv = head.convDb
+        conv.weight[:1].mul_(10.0)
+        conv.bias[:1].zero_()
+        x = to_model_input(torch.from_numpy(frames)).permute(0, 3, 1, 2)
+        z = head(model.backbone(x)[0])[:, :1]
+        conv.bias[:1].fill_(math.log(0.7 / 0.3)
+                            - float(torch.quantile(z, 0.9)))
 
 
 def slice_phase(dev, kernels):
@@ -342,7 +429,6 @@ def slice_phase(dev, kernels):
     from nanovs_slam_torch.inference import make_infer_fn
     from nanovs_slam_torch.kernels import reset_launches
     from nanovs_slam_torch.models.kp2dtiny import init_model
-    from nanovs_slam_torch.ops.image import to_model_input
 
     cfg = get_config("N", n_classes=28)
     gen = torch.Generator().manual_seed(SEED)
@@ -351,17 +437,7 @@ def slice_phase(dev, kernels):
     rs = np.random.RandomState(SEED + 100)
     requests = [rs.randint(0, 256, (b, H, W, 3)).astype(np.uint8)
                 for b in (1, 1, 1, 8)]
-    with torch.no_grad():
-        # random weights put every score within a few hundredths of one
-        # value; spread the score logits and shift them so that a tenth
-        # of the cells of a frame (480, under top_k) pass the 0.7
-        # threshold: the threshold and the top-K both select
-        head = model.score_head.convDb
-        head.weight.mul_(10.0)
-        head.bias.zero_()
-        x = to_model_input(torch.from_numpy(requests[0])).permute(0, 3, 1, 2)
-        z = model.score_head(model.backbone(x)[0])
-        head.bias.fill_(math.log(0.7 / 0.3) - float(torch.quantile(z, 0.9)))
+    spread_scores(model, requests[0])
     cpu_model = copy.deepcopy(model)
     top_k = 1000
     infer = make_infer_fn(model, cfg, H, W, top_k=top_k, conf_threshold=0.7,
@@ -406,6 +482,96 @@ def slice_phase(dev, kernels):
     log("slice: steady-state median ms per request "
         + ", ".join(f"B={b}: {ms:.3f}" for b, ms in steady.items()))
     return launches, steady
+
+
+# --------------------------------------------------------------- family phase
+
+def family_cell(dev, name: str, v3: bool, depth: bool, kernels: dict,
+                steady: bool):
+    """Serves one config (28 classes, seeded random weights and BN stats,
+    scores spread as in the slice phase) through make_infer_fn(top_k=1000,
+    conf_threshold=0.7) on a batch-1 and, with ``steady``, a batch-8
+    request: the kernels' launch counts around them (one a request each),
+    the batch-1 answer against the same model on the CPU, and the steady
+    median ms per request. ``kernels``: {entry key: wrapper} of the kernels
+    on this config's path. Returns (launches by entry key, {B: ms})."""
+    import torch
+
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.inference import make_infer_fn
+    from nanovs_slam_torch.kernels import reset_launches
+    from nanovs_slam_torch.models.kp2dtiny import init_model
+
+    label = f"{name}{' V3' if v3 else ''}{' depth' if depth else ''}"
+    gen = torch.Generator().manual_seed(SEED + 500)
+    cfg = get_config(name, v3=v3, n_classes=28, depth=depth)
+    model = init_model(cfg, gen, "cpu")
+    randomize_bn(model, gen)
+    rs = np.random.RandomState(SEED + 600)
+    requests = [rs.randint(0, 256, (b, H, W, 3)).astype(np.uint8)
+                for b in ((1, 8) if steady else (1,))]
+    spread_scores(model, requests[0])
+    cpu_model = copy.deepcopy(model)
+    top_k = 1000
+    infer = make_infer_fn(model, cfg, H, W, top_k=top_k, conf_threshold=0.7,
+                          device=dev)
+    reset_launches()
+    answers = [infer(frames) for frames in requests]
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in kernels.items()}
+    log(f"family {label}: launches during {len(requests)} requests "
+        f"{launches}")
+    for k, n in launches.items():  # one launch a request
+        require(n == len(requests), f"family {label}: kernel {k} launched "
+                f"{n} times in {len(requests)} requests")
+    for frames, out in zip(requests, answers):
+        check_answer(out, len(frames), H, W, cfg, top_k)
+    ref = make_infer_fn(cpu_model, cfg, H, W, top_k=top_k,
+                        conf_threshold=0.7, device="cpu")(requests[0])
+    errs = compare_with_cpu(answers[0], ref)
+    n_valid = [int(a["keypoint_valid"].sum()) for a in answers]
+    log(f"family {label}: B=1 vs CPU {json.dumps(errs)}; valid keypoints "
+        f"{n_valid} (CPU {int(ref['keypoint_valid'].sum())})")
+    require(min(n_valid) > 0, f"family {label}: a request has no valid "
+            "keypoint")
+    ms = {}
+    if steady:
+        for frames in requests:
+            times = []
+            for _ in range(30):
+                t0 = time.perf_counter()
+                infer(frames)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[len(frames)] = statistics.median(times[5:])
+        log(f"family {label}: steady-state median ms per request "
+            + ", ".join(f"B={b}: {t:.3f}" for b, t in ms.items()))
+    return launches, ms
+
+
+def family_phase(dev) -> dict:
+    """The rest of the KP2DTiny family at 240x320: the cells V3 S_A (the
+    reference's smoke-test model: decoder fusion, attention, NetVLAD) and
+    V2 D (attention, ConvAP, the stem at (64, 128)), then one request each
+    of V2 N_A and V3 D_A with depth and of V2 GEM_N. Returns the cells'
+    launch counts by path."""
+    from nanovs_slam_torch.kernels import (fused_postprocess,
+                                           fused_stem_pair_pool, netvlad)
+
+    s_a = {"fused_stem_pair_pool": fused_stem_pair_pool, "netvlad": netvlad,
+           "fused_postprocess": fused_postprocess}
+    # D's only stem has (C1, C2) = (64, 128): its stem launches are the
+    # wide instance's
+    d = {STEM_D: fused_stem_pair_pool,
+         "fused_postprocess": fused_postprocess}
+    gem = {k: s_a[k] for k in ("fused_stem_pair_pool", "fused_postprocess")}
+    paths = {
+        "family_s_a_v3": family_cell(dev, "S_A", True, False, s_a, True)[0],
+        "family_d": family_cell(dev, "D", False, False, d, True)[0]}
+    family_cell(dev, "N_A", False, True, s_a, False)
+    family_cell(dev, "GEM_N", False, False, gem, False)
+    family_cell(dev, "D_A", True, True, d, False)
+    return paths
 
 
 # -------------------------------------------------------------- weights phase
@@ -556,8 +722,7 @@ def lightglue_kernel_phase(dev, repo: str) -> dict:
         f"layer, {L} layers, and the first layer's self projection)")
     entry = {"name": "lightglue_transformer", "route": "cuda",
              "source": "nanovs_slam_torch/csrc/lightglue.cu",
-             "replaces": "nanovs_slam_tpu/ops/pallas/lightglue_kernel.py:265",
-             "wrapper": lightglue_transformer}
+             "replaces": "nanovs_slam_tpu/ops/pallas/lightglue_kernel.py:265"}
     cases = [("K512", 512, 512, 0, 0, False),
              ("K1024", 1024, 1024, 0, 0, False),
              ("M512_N384_masked", 512, 384, 51, 154, False),
@@ -794,18 +959,19 @@ def main() -> int:
                                              fused_stem_pair_pool,
                                              lightglue_transformer))
 
+    paths.update(family_phase(dev))
+
     lines = []
-    for entry in kernels.values():
+    for key, entry in kernels.items():
         # `launches` is the count of the first path that runs the kernel,
         # whose shapes its unsuffixed keys carry; a later path's count goes
         # under `launches_<path>`, beside that path's `_<path>` keys
-        name = entry.pop("wrapper").__name__
-        first, *rest = [p for p in paths if name in paths[p]]
+        first, *rest = [p for p in paths if key in paths[p]]
         entry["path"] = first
-        entry["launches"] = paths[first][name]
-        entry.update({f"launches_{p}": paths[p][name] for p in rest})
+        entry["launches"] = paths[first][key]
+        entry.update({f"launches_{p}": paths[p][key] for p in rest})
         lines.append(entry)
-    require({k.__name__ for k in KERNELS} == set(kernels),
+    require(all(k.__name__ in kernels for k in KERNELS),
             "a kernel of KERNELS has no line")
     print(f"{card}")
     print(json.dumps({"kernels": lines}))

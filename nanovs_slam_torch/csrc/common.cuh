@@ -57,6 +57,23 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ah, bh);
 }
 
+// 16 bytes global -> shared, zero-filled when !in (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in = true) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
 // Calls set() once per device, e.g. to raise a kernel's dynamic
 // shared-memory limit, which holds for every later launch there. Until a
 // call succeeds, each call tries again and returns its error. Every call

@@ -342,22 +342,9 @@ struct AttnArgs {
   float scale_log2;  // log2(e) / sqrt(DH)
 };
 
-// 16 bytes global -> shared, zero-filled when !in (src is then not read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
+using nvs::cp_async16;
+using nvs::cp_async_commit;
+using nvs::cp_async_wait;
 
 // A block takes 32 query rows in 2 groups of 16 and walks the keys in
 // 128-key tiles of K and V, loaded with cp.async into one of two buffers

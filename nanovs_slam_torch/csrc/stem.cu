@@ -34,10 +34,33 @@
 // The code is generic in (C1, C2) with C1 % 16 == 0 and C2 % 8 == 0; the
 // instances are configs N (16, 24) and S/F (16, 32).
 //
+// The wide instance, config D's (64, 128), cannot hold that tile: conv2's
+// split weights alone take 576 KB. stem_wide_kernel keeps the tile's
+// geometry and its 3xTF32 products but
+//   - streams conv2's weights through shared memory a tap at a time (64 KB,
+//     hi and lo), double-buffered with cp.async from a copy that
+//     stem_pack_kernel writes at each call, already split and in fragment
+//     order, so that a tap's copy is coalesced 16-byte loads;
+//   - keeps conv1's tile raw, which leaves room for the two tap buffers, and
+//     splits a lane's A values where they are loaded, once for the warp's 8
+//     n-tiles;
+//   - runs 8 warps: a warp takes a conv2 row pair and half of C2 (2 m-tiles
+//     x 8 n-tiles);
+//   - lays conv1's tile out per pixel in chunks of 16 channels, a lane's
+//     four channels t + 4q of a chunk side by side, so that one 16-byte
+//     load gives a lane its A values of two k-steps; the pixel stride
+//     C1 + 16 keeps a quarter warp's loads on distinct banks;
+//   - sums a tap's products apart and adds the sum in float32: K = 576 in
+//     one chain of tensor-core sums lost up to 2.3e-05 against the twin.
+// Its shared memory (218 KB) allows one block an SM. Splitting C2 over the
+// grid instead (two blocks of 64 channels a tile, conv1's tile split once
+// when stored) took 1.45x as long on the card.
+//
 // Bound on an H100: operations. At 240x320, C1 = 16, C2 = 24 a frame is
 // 0.60 GFLOP (conv2 0.53) against 4.6 MB of input and output: 3.6 us at the
 // 3xTF32 rate (three TF32 products a product at 495 TFLOP/s), 8.9 us at the
-// 67 TFLOP/s float32 rate of the CUDA cores.
+// 67 TFLOP/s float32 rate of the CUDA cores. At C1 = 64, C2 = 128 a frame
+// is 11.59 GFLOP against 10.8 MB: 70.2 us at the 3xTF32 rate.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -277,15 +300,300 @@ cudaError_t launch(const float* x, const long long* sx, const float* w1,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ the wide instance (64, 128)
+
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+
+// floats at c, c + 4 of a k-step's fragment, split: (hi c, hi c+4, lo c,
+// lo c+4), the order mma_3xtf32's (bh, bl) take
+__device__ __forceinline__ float4 split_pair(float v0, float v1) {
+  uint32_t h0, l0, h1, l1;
+  nvs::split_tf32(v0, h0, l0);
+  nvs::split_tf32(v1, h1, l1);
+  return make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                     __uint_as_float(l0), __uint_as_float(l1));
+}
+
+// The weights as B fragments, split, with g = lane / 4 and t = lane % 4:
+// p1[(ks * C1/8 + nt) * 32 + lane]: conv1's k = 8 ks + t (and + 4; zero
+//   from 27, k = ci*9 + ky*3 + kx) of output channel 8 nt + g;
+// p2[((tap * C1/8 + ks) * C2/8 + nt) * 32 + lane]: conv2's input channel
+//   8 ks + t (and + 4) of output channel 8 nt + g at tap, so that a tap is
+//   one contiguous run.
+template <int C1, int C2>
+__global__ void stem_pack_kernel(const float* __restrict__ w1,
+                                 const float* __restrict__ w2,
+                                 float4* __restrict__ p1,
+                                 float4* __restrict__ p2) {
+  constexpr int N1 = 4 * (C1 / 8) * 32, N2 = 9 * (C1 / 8) * (C2 / 8) * 32;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < N1 + N2;
+       e += gridDim.x * blockDim.x) {
+    const int l = e & 31, g = l >> 2, t = l & 3;
+    if (e < N1) {
+      const int nt = (e >> 5) % (C1 / 8), k = (e >> 5) / (C1 / 8) * 8 + t;
+      const float* wp = w1 + (nt * 8 + g) * kK1;
+      p1[e] = split_pair(k < kK1 ? wp[k] : 0.f,
+                         k + 4 < kK1 ? wp[k + 4] : 0.f);
+    } else {
+      const int f = e - N1, r = f >> 5;
+      const int nt = r % (C2 / 8), ks = r / (C2 / 8) % (C1 / 8);
+      const int tap = r / (C2 / 8 * (C1 / 8));
+      const float* wp = w2 + ((nt * 8 + g) * C1 + ks * 8 + t) * 9 + tap;
+      p2[f] = split_pair(wp[0], wp[4 * 9]);
+    }
+  }
+}
+
+template <int C1, int C2>
+struct WideSmem {
+  static constexpr int kPix = C1 + 16;                   // floats a pixel
+  static constexpr int kTap = (C1 / 8) * (C2 / 8) * 32;  // float4 a tap
+  float4 w2[2][kTap];            // conv2's fragments of two taps
+  float4 w1[4 * (C1 / 8) * 32];  // conv1's fragments
+  float y1[kY1Pix * kPix];       // conv1 tile, raw
+  union {
+    float x[2][kIn];                               // input tile, hi and lo
+    float out[kWideWarps][C2 / 2][kPoolW + 1];  // pooled, a warp's own
+  } u;
+};
+
+__device__ __forceinline__ float part(const float4& f, int i) {
+  return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
+}
+
+template <int C1, int C2>
+__global__ void __launch_bounds__(kWideThreads, 1)
+stem_wide_kernel(const float* __restrict__ x, long long sx_b, long long sx_h,
+                 long long sx_w, long long sx_c,
+                 const float4* __restrict__ p1, const float4* __restrict__ p2,
+                 const float* __restrict__ b1, const float* __restrict__ b2,
+                 float* __restrict__ out, int H, int W, float slope) {
+  static_assert(C1 % 16 == 0 && C2 % 16 == 0, "widths");
+  constexpr int NT1 = C1 / 8;    // conv1 n-tiles
+  constexpr int NT = C2 / 8;     // conv2 n-tiles
+  constexpr int NTW = NT / 2;    // ... of a warp
+  constexpr int PIX = WideSmem<C1, C2>::kPix;
+  constexpr int TAP = WideSmem<C1, C2>::kTap;
+  extern __shared__ float4 smem_raw[];
+  auto& s = *reinterpret_cast<WideSmem<C1, C2>*>(smem_raw);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z;
+  const int oy0 = blockIdx.y * kTileH, ox0 = blockIdx.x * kTileW;
+
+  // conv1's fragments and conv2's first tap fly while the input is staged
+  for (int e = tid; e < 4 * NT1 * 32; e += kWideThreads)
+    nvs::cp_async16(&s.w1[e], p1 + e);
+  for (int e = tid; e < TAP; e += kWideThreads)
+    nvs::cp_async16(&s.w2[0][e], p2 + e);
+  nvs::cp_async_commit();
+
+  // 1. the input tile, zero outside the image, split
+  const float* xb = x + (long long)b * sx_b;
+  for (int e = tid; e < kIn; e += kWideThreads) {
+    const int ci = e / (kInH * kInW), r = e / kInW % kInH, c = e % kInW;
+    const int gy = oy0 - 2 + r, gx = ox0 - 2 + c;
+    const float v = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                        ? xb[gy * sx_h + gx * sx_w + ci * sx_c]
+                        : 0.f;
+    uint32_t hi, lo;
+    nvs::split_tf32(v, hi, lo);
+    s.u.x[0][e] = __uint_as_float(hi);
+    s.u.x[1][e] = __uint_as_float(lo);
+  }
+  int koff[4][2];  // the lane's k of each conv1 k-step, into the input tile
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = ks * 8 + t + 4 * j;
+      koff[ks][j] = k < kK1 ? k / 9 * kInH * kInW + k % 9 / 3 * kInW + k % 3
+                            : 0;
+    }
+  nvs::cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. conv1: units of an m-tile of 16 ring-tile pixels and half the
+  // n-tiles, three a warp
+  constexpr int M1 = (kY1Pix + 15) / 16, NH1 = NT1 / 2;
+  for (int u = warp; u < 2 * M1; u += kWideWarps) {
+    const int m = u >> 1, n0 = (u & 1) * NH1;
+    int poff[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = min(m * 16 + g + 8 * r, kY1Pix - 1);
+      poff[r] = p / kY1W * kInW + p % kY1W;
+    }
+    float acc[NH1][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool valid = ks * 8 + t + 4 * (q >> 1) < kK1;
+        const int idx = koff[ks][q >> 1] + poff[q & 1];
+        ah[q] = valid ? bits(s.u.x[0][idx]) : 0u;
+        al[q] = valid ? bits(s.u.x[1][idx]) : 0u;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NH1; ++nt) {
+        const float4 f = s.w1[(ks * NT1 + n0 + nt) * 32 + lane];
+        const uint32_t bh[2] = {bits(f.x), bits(f.y)};
+        const uint32_t bl[2] = {bits(f.z), bits(f.w)};
+        nvs::mma_3xtf32(acc[nt], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = m * 16 + g + (i >> 1) * 8;
+      if (p >= kY1Pix) continue;
+      const int gy = oy0 - 1 + p / kY1W, gx = ox0 - 1 + p % kY1W;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+      for (int nt = 0; nt < NH1; ++nt) {
+        const int ch = (n0 + nt) * 8 + 2 * t + (i & 1), q = ch >> 2;
+        s.y1[p * PIX + (q >> 2) * 16 + (ch & 3) * 4 + (q & 3)] =
+            in ? nvs::leaky(acc[nt][i] + __ldg(b1 + ch), slope) : 0.f;
+      }
+    }
+  }
+  for (int e = tid; e < TAP; e += kWideThreads)
+    nvs::cp_async16(&s.w2[1][e], p2 + TAP + e);
+  nvs::cp_async_commit();
+  __syncthreads();
+
+  // 3. conv2: rows 2 rp (j = 0) and 2 rp + 1 of the tile, n-tiles nh*NTW..;
+  // a tap's weights in s.w2[tap & 1], the next tap's in flight
+  const int rp = warp & 3, nh = warp >> 2;
+  float acc[2][NTW][4] = {};
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int ky = tap / 3, kx = tap % 3;
+    const float4* wb = s.w2[tap & 1];
+    // the tensor cores truncate as they accumulate, so the error grows with
+    // the products a sum takes in: a tap's 24 go into a sum of their own,
+    // which joins acc by a rounded float32 add
+    float psum[2][NTW][4] = {};
+#pragma unroll
+    for (int kp = 0; kp < C1 / 16; ++kp) {
+      float4 a4[2][2];  // [m-tile j][row g | g + 8], raw
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          a4[j][r] = *reinterpret_cast<const float4*>(
+              s.y1 + ((2 * rp + j + ky) * kY1W + g + 8 * r + kx) * PIX
+              + kp * 16 + t * 4);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        // k-step 2 kp + kk: column t is channel 16 kp + 8 kk + t, part 2 kk
+        // of the lane's float4; column t + 4 is part 2 kk + 1
+        const int ks = 2 * kp + kk;
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            nvs::split_tf32(part(a4[j][q & 1], 2 * kk + (q >> 1)), ah[j][q],
+                            al[j][q]);
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          const float4 f = wb[(ks * NT + nh * NTW + nt) * 32 + lane];
+          const uint32_t bh[2] = {bits(f.x), bits(f.y)};
+          const uint32_t bl[2] = {bits(f.z), bits(f.w)};
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            nvs::mma_3xtf32(psum[j][nt], ah[j], al[j], bh, bl);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][nt][i] += psum[j][nt][i];
+    nvs::cp_async_wait<0>();
+    __syncthreads();  // every warp is done with s.w2[tap & 1]
+    if (tap + 2 < 9) {
+      for (int e = tid; e < TAP; e += kWideThreads)
+        nvs::cp_async16(&s.w2[tap & 1][e], p2 + (tap + 2) * TAP + e);
+      nvs::cp_async_commit();
+    }
+  }
+
+  // 4. pool as in stem_kernel, the warp's channels through its own
+  // shared-memory transpose
+  float(*so)[kPoolW + 1] = s.u.out[warp];
+  const int c0 = nh * (C2 / 2);
+#pragma unroll
+  for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = fmaxf(acc[0][nt][i], acc[1][nt][i]);
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+      if (!(g & 1)) {
+        const int cl = nt * 8 + 2 * t + (i & 1);
+        so[cl][(i >> 1) * 4 + g / 2] =
+            nvs::leaky(v + __ldg(b2 + c0 + cl), slope);
+      }
+    }
+  __syncwarp();
+  const int H2 = H / 2, W2 = W / 2;
+  const int py = blockIdx.y * kPoolH + rp, px0 = blockIdx.x * kPoolW;
+  if (py < H2) {
+    for (int e = lane; e < C2 / 2 * kPoolW; e += 32) {
+      const int cl = e / kPoolW, c = e % kPoolW;
+      if (px0 + c < W2)
+        out[(((long long)b * C2 + c0 + cl) * H2 + py) * W2 + px0 + c] =
+            so[cl][c];
+    }
+  }
+}
+
+// scratch: at least (4*C1/8*32 + 9*C1/8*C2/8*32) float4, 16-byte aligned
+template <int C1, int C2>
+cudaError_t launch_wide(const float* x, const long long* sx, const float* w1,
+                        const float* b1, const float* w2, const float* b2,
+                        float* out, float* scratch, int B, int H, int W,
+                        float slope, cudaStream_t stream) {
+  constexpr int N1 = 4 * (C1 / 8) * 32, N2 = 9 * (C1 / 8) * (C2 / 8) * 32;
+  constexpr int kSmem = sizeof(WideSmem<C1, C2>);
+  if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = nvs::once_per_device([] {
+    return cudaFuncSetAttribute(stem_wide_kernel<C1, C2>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmem);
+  });
+  if (err != cudaSuccess) return err;
+  float4* p1 = reinterpret_cast<float4*>(scratch);
+  float4* p2 = p1 + N1;
+  stem_pack_kernel<C1, C2><<<(N1 + N2 + 255) / 256, 256, 0, stream>>>(
+      w1, w2, p1, p2);
+  const cudaError_t perr = cudaGetLastError();
+  if (perr != cudaSuccess) return perr;
+  const dim3 grid((W / 2 + kPoolW - 1) / kPoolW, (H / 2 + kPoolH - 1) / kPoolH,
+                  B);
+  stem_wide_kernel<C1, C2><<<grid, kWideThreads, kSmem, stream>>>(
+      x, sx[0], sx[1], sx[2], sx[3], p1, p2, b1, b2, out, H, W, slope);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (B,H,W,3) with element strides [b, h, w, c]; w1 (C1,3,3,3) and
-// w2 (C2,C1,3,3) contiguous OIHW; out contiguous NCHW (B,C2,H/2,W/2).
+// w2 (C2,C1,3,3) contiguous OIHW; out contiguous NCHW (B,C2,H/2,W/2);
+// scratch: the wide instance's split weights, 2*9*C1*C2 + 64*C1 floats,
+// 16-byte aligned (unused, and may be null, for the narrow ones).
 extern "C" int nvs_stem_pair_pool(const float* x, const long long* sx,
                                   const float* w1, const float* b1,
                                   const float* w2, const float* b2,
-                                  float* out, int B, int H, int W, int C1,
-                                  int C2, float slope, cudaStream_t stream) {
+                                  float* out, float* scratch, int B, int H,
+                                  int W, int C1, int C2, float slope,
+                                  cudaStream_t stream) {
   if (H % 2 || W % 2 || H < 2 || W < 2 || B < 1 || B > 65535 ||
       (H / 2 + kPoolH - 1) / kPoolH > 65535)
     return (int)cudaErrorInvalidValue;
@@ -295,5 +603,8 @@ extern "C" int nvs_stem_pair_pool(const float* x, const long long* sx,
   if (C1 == 16 && C2 == 32)
     return (int)launch<16, 32>(x, sx, w1, b1, w2, b2, out, B, H, W, slope,
                                stream);
+  if (C1 == 64 && C2 == 128)
+    return (int)launch_wide<64, 128>(x, sx, w1, b1, w2, b2, out, scratch, B,
+                                     H, W, slope, stream);
   return (int)cudaErrorInvalidValue;
 }

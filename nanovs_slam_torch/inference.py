@@ -23,8 +23,10 @@ Tensor = torch.Tensor
 def forward_post_process(model: nn.Module, cfg: KP2DTinyConfig, x: Tensor,
                          H: int, W: int, heads) -> Dict[str, Tensor]:
     """x (B, H, W, 3) model input in [-1, 1] on the model's device -> the
-    eval ``post_process`` of the asked-for heads, NHWC."""
-    out = model(x.permute(0, 3, 1, 2).contiguous(), heads=heads)
+    eval ``post_process`` of the asked-for heads (V2; V3 computes every
+    head), NHWC."""
+    kw = {} if cfg.variant == "v3" else {"heads": heads}
+    out = model(x.permute(0, 3, 1, 2).contiguous(), **kw)
     nhwc = {k: v.permute(0, 2, 3, 1) if v.dim() == 4 else v
             for k, v in out.items()}
     return post_process(nhwc, H, W, cfg.cell, cfg.cross_ratio, eval_mode=True)
@@ -43,14 +45,15 @@ def make_infer_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int,
 
     The result has the keys of the JAX ``infer``: score (B,Hc,Wc,1), coord
     (B,Hc,Wc,2), feat (B,Hc,Wc,C); seg (B,Hs,Ws,1) int32 if ``with_seg``;
-    vlad (B,D) if ``with_vlad``; and with ``top_k`` keypoints (B,K,2),
-    keypoint_scores (B,K), descriptors (B,K,C), keypoint_valid (B,K).
-    Heads whose output is not asked for are not computed.
+    vlad (B,D) if ``with_vlad``; depth (B,Hs,Ws,1) where the config has
+    it; and with ``top_k`` keypoints (B,K,2), keypoint_scores (B,K),
+    descriptors (B,K,C), keypoint_valid (B,K). V2 computes only the heads
+    whose output is asked for; V3, like the JAX model, computes them all.
     """
     dev = resolve_device(device)
     model.to(dev).eval()
     heads = ("score", "loc", "desc") + (("seg",) if with_seg else ()) \
-        + (("vlad",) if with_vlad else ())
+        + (("vlad",) if with_vlad else ()) + (("depth",) if cfg.depth else ())
 
     @torch.inference_mode()
     def infer(images) -> Dict[str, Tensor]:
@@ -66,6 +69,8 @@ def make_infer_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int,
             result["seg"] = post["seg"]
         if with_vlad:
             result["vlad"] = post["vlad"]
+        if "depth" in post:
+            result["depth"] = post["depth"]
         if top_k is not None:
             kp, s, d, valid = top_k_keypoints(
                 post["score"], post["coord"], post["feat"], top_k,

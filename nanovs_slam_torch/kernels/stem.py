@@ -18,10 +18,12 @@ from .common import (check_contiguous, check_kernel_inputs, check_nhwc_dense,
                      device_of)
 
 _P, _S, _I = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int
-_ARGTYPES = [_P, _S] + [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P]
-# (C1, C2) pairs the kernel is instantiated for: configs N (16, 24) and
-# S/F (16, 32)
-SUPPORTED = ((16, 24), (16, 32))
+_ARGTYPES = [_P, _S] + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]
+# (C1, C2) pairs the kernel is instantiated for: configs N (16, 24), S/F
+# (16, 32) and D (64, 128)
+SUPPORTED = ((16, 24), (16, 32), (64, 128))
+# the instances that stream conv2's weights from a split copy in scratch
+_WIDE = ((64, 128),)
 
 
 def stem_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -62,10 +64,15 @@ def fused_stem_pair_pool(x: torch.Tensor, w1: torch.Tensor,
         raise ValueError(f"{name}: (C1, C2)={(C1, C2)} not in {SUPPORTED}")
     out = torch.empty((B, C2, H // 2, W // 2), device=dev,
                       dtype=torch.float32)
+    scratch = None
+    if (C1, C2) in _WIDE:  # the weights split into TF32 hi and lo
+        scratch = torch.empty(2 * 9 * C1 * C2 + 64 * C1, device=dev,
+                              dtype=torch.float32)
     fn = _build.bind("nvs_stem_pair_pool", _ARGTYPES)
     err = fn(x.data_ptr(), _build.strides(x), w1.data_ptr(), b1.data_ptr(),
-             w2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, H, W, C1, C2,
-             negative_slope, _build.stream_ptr(dev))
+             w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), B, H, W, C1,
+             C2, negative_slope, _build.stream_ptr(dev))
     _build.check(err, name)
     fused_stem_pair_pool.launches += 1
     return out.permute(0, 2, 3, 1)

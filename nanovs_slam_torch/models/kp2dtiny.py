@@ -1,14 +1,20 @@
-"""KP2DTiny V2 ("dedicated decoders") in PyTorch, the counterpart of
-``KP2DTinyV2`` in ``nanovs_slam_tpu/models/kp2dtiny.py``.
+"""KP2DTiny in PyTorch, the counterparts of ``KP2DTinyV2`` and
+``KP2DTinyV3`` in ``nanovs_slam_tpu/models/kp2dtiny.py``.
 
-Shared BackBone + five heads: score (sigmoid, 1 ch), loc (tanh, 2 ch),
-dense descriptors (UpscaleHead), segmentation (SegmentationHead) and VPR
-(VPRHead). The forward takes and returns NCHW tensors: score (B,1,Hc,Wc),
-coord = tanh shift (B,2,Hc,Wc), feat (B,nfeat,Hs,Ws), seg logits
-(B,nCls,Hs,Ws), vlad (B,D) with Hc = H/cell and Hs = 2*Hc.
+V2 ("dedicated decoders"): a shared BackBone and the heads score (sigmoid,
+1 ch), loc (tanh, 2 ch), dense descriptors (UpscaleHead), segmentation
+(SegmentationHead, or SegmentationHeadATT with attention), VPR (VPRHead)
+and, with ``cfg.depth``, depth (the segmentation head's class with one
+channel, then a sigmoid). V3 ("decoder fusion"): a 3-channel score+loc
+head (sigmoid on channel 0, tanh on 1-2), a fused segmentation +
+descriptor (+ depth) head, a softmax over the classes at eval, and VPR.
 
-Not ported yet: V3, attention heads, the depth head, GeM, ConvAP and
-reduced-precision compute.
+The forward takes and returns NCHW tensors: score (B,1,Hc,Wc), coord =
+tanh shift (B,2,Hc,Wc), feat (B,nfeat,Hs,Ws), seg (B,nCls,Hs,Ws) (V2
+logits, V3 probabilities at eval), vlad (B,D), depth (B,1,Hs,Ws), with Hc =
+H/cell and Hs = 2*Hc.
+
+Not ported yet: reduced-precision compute.
 """
 
 from __future__ import annotations
@@ -23,46 +29,60 @@ from ..configs import KP2DTinyConfig
 from ..modules.aggregators import NetVLAD
 from ..modules.backbone import BackBone
 from ..modules.heads import SimpleTaskHead, UpscaleHead
-from ..modules.segmentation import SegmentationHead
+from ..modules.segmentation import (SegmentationFeatHeadLight,
+                                    SegmentationFeatHeadLightATT,
+                                    SegmentationHead, SegmentationHeadATT)
 from ..modules.vpr import VPRHead
 from ..utils.device import resolve_device
 
-ALL_HEADS = ("score", "loc", "desc", "seg", "vlad")
+ALL_HEADS = ("score", "loc", "desc", "seg", "vlad", "depth")
+
+
+def _check_dtype(cfg: KP2DTinyConfig) -> None:
+    if cfg.dtype != "float32":
+        raise NotImplementedError("reduced-precision compute is not "
+                                  "ported yet")
+
+
+def _backbone(cfg: KP2DTinyConfig) -> BackBone:
+    c1, c2, c3, c4 = cfg.channel_dims[:4]
+    return BackBone(c1, c2, c3, c4, cfg.downsample, cfg.with_drop,
+                    cfg.bn_momentum, cfg.leaky_relu)
+
+
+def _vpr_head(cfg: KP2DTinyConfig) -> VPRHead:
+    return VPRHead(cfg.channel_dims[3], cfg.enc_dim, cfg.num_clusters,
+                   cfg.with_drop, cfg.bn_momentum, cfg.remove_netvlad,
+                   cfg.leaky_relu, cfg.global_descriptor_method)
 
 
 class KP2DTinyV2(nn.Module):
     def __init__(self, cfg: KP2DTinyConfig):
         super().__init__()
-        if cfg.variant != "v2":
-            raise NotImplementedError("KP2DTinyV3 is not ported yet")
-        if cfg.use_attention:
-            raise NotImplementedError("attention heads are not ported yet")
-        if cfg.depth:
-            raise NotImplementedError("the depth head is not ported yet")
-        if cfg.dtype != "float32":
-            raise NotImplementedError("reduced-precision compute is not "
-                                      "ported yet")
+        _check_dtype(cfg)
         self.cfg = cfg
         c1, c2, c3, c4, c5, d1 = cfg.channel_dims
         m, drop, leaky = cfg.bn_momentum, cfg.with_drop, cfg.leaky_relu
         up = cfg.upscale_method
-        self.backbone = BackBone(c1, c2, c3, c4, cfg.downsample, drop, m,
-                                 leaky)
+        self.backbone = _backbone(cfg)
         self.score_head = SimpleTaskHead(c4, c4, 1, m, drop, leaky)
         self.loc_head = SimpleTaskHead(c4, c4, 2, m, drop, leaky)
         self.desc_head = UpscaleHead(c4, c4, c4, c3 * 4, c4, cfg.nfeatures,
                                      drop, m, up, leaky)
-        self.seg_head = SegmentationHead(c4, c4, c5, cfg.n_classes, d1, drop,
-                                         m, up, leaky)
-        self.vlad_head = VPRHead(c4, cfg.enc_dim, cfg.num_clusters, drop, m,
-                                 cfg.remove_netvlad, leaky,
-                                 cfg.global_descriptor_method)
+        seg_cls = SegmentationHeadATT if cfg.use_attention \
+            else SegmentationHead
+        self.seg_head = seg_cls(c4, c4, c5, cfg.n_classes, d1, drop, m, up,
+                                leaky)
+        self.vlad_head = _vpr_head(cfg)
+        if cfg.depth:
+            self.depth_head = seg_cls(c4, c4, c5, 1, d1, drop, m, up, leaky)
 
     def forward(self, x: torch.Tensor, only_encoder: bool = False,
                 heads: Sequence[str] = ALL_HEADS) -> Dict[str, torch.Tensor]:
         """x (B, 3, H, W) in [-1, 1]. ``heads`` selects the task heads to
-        compute; ``only_encoder`` returns the L2-normalised dense VPR
-        encoder map (for NetVLAD k-means init)."""
+        compute ("depth" only where the config has it); ``only_encoder``
+        returns the L2-normalised dense VPR encoder map (for NetVLAD k-means
+        init)."""
         unknown = set(heads) - set(ALL_HEADS)
         if unknown:
             raise ValueError(f"unknown heads {sorted(unknown)}")
@@ -80,11 +100,51 @@ class KP2DTinyV2(nn.Module):
             out["seg"] = self.seg_head(feat_x, skip)
         if "vlad" in heads:
             out["vlad"] = self.vlad_head(feat_x)
+        if self.cfg.depth and "depth" in heads:
+            out["depth"] = torch.sigmoid(self.depth_head(feat_x, skip))
+        return out
+
+
+class KP2DTinyV3(nn.Module):
+    """Every head is computed on each call, as in the JAX package. At eval
+    (``not self.training``) the class map is a softmax over the classes,
+    as the reference's forward gives it."""
+
+    def __init__(self, cfg: KP2DTinyConfig):
+        super().__init__()
+        _check_dtype(cfg)
+        self.cfg = cfg
+        c4, c5, d1 = cfg.channel_dims[3:]
+        m, drop, leaky = cfg.bn_momentum, cfg.with_drop, cfg.leaky_relu
+        self.backbone = _backbone(cfg)
+        self.score_loc_head = SimpleTaskHead(c4, c4, 3, m, drop, leaky)
+        seg_cls = SegmentationFeatHeadLightATT if cfg.use_attention \
+            else SegmentationFeatHeadLight
+        self.seg_head = seg_cls(c4, c4, c5, cfg.n_classes, cfg.nfeatures, d1,
+                                drop, m, cfg.upscale_method, leaky,
+                                cfg.depth)
+        self.vlad_head = _vpr_head(cfg)
+
+    def forward(self, x: torch.Tensor, only_encoder: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        """x (B, 3, H, W) in [-1, 1]; ``only_encoder`` as for V2."""
+        feat_x, skip = self.backbone(x)
+        if only_encoder:
+            return self.vlad_head(feat_x, only_encoder=True)
+        score_loc = self.score_loc_head(feat_x)
+        seg, feat, *depth = self.seg_head(feat_x, skip)
+        if not self.training:
+            seg = torch.softmax(seg, dim=1)
+        out = {"score": torch.sigmoid(score_loc[:, 0:1]),
+               "coord": torch.tanh(score_loc[:, 1:3]), "feat": feat,
+               "seg": seg, "vlad": self.vlad_head(feat_x)}
+        if depth:
+            out["depth"] = torch.sigmoid(depth[0])
         return out
 
 
 def build_model(cfg: KP2DTinyConfig) -> nn.Module:
-    return KP2DTinyV2(cfg)
+    return KP2DTinyV3(cfg) if cfg.variant == "v3" else KP2DTinyV2(cfg)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -101,9 +161,11 @@ def init_model(cfg: KP2DTinyConfig, generator: torch.Generator,
                device: Optional[torch.device] = None) -> nn.Module:
     """A new model with weights drawn from ``generator`` (a CPU generator,
     so the draw is the same for every device), following the JAX package's
-    initialisers: lecun-normal conv kernels and NetVLAD assignment, zero
-    biases, unit BN, uniform [0, 1) centroids. Returns it in eval mode on
-    ``device`` (default "cuda")."""
+    initialisers: lecun-normal conv kernels (a depthwise kernel's fan_in
+    is its 9 taps) and NetVLAD assignment, zero biases, unit BN, uniform
+    [0, 1) centroids; LayerNorm's g = 1, b = 0 and GeM's p = 3 as the
+    modules are built. Returns it in eval mode on ``device`` (default
+    "cuda")."""
     dev = resolve_device(device)
     model = build_model(cfg)
     for mod in model.modules():

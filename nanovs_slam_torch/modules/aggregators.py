@@ -1,11 +1,22 @@
-"""NetVLAD global-descriptor aggregation, the counterpart of ``NetVLAD`` in
+"""Global-descriptor aggregators (NCHW), the counterparts of
 ``nanovs_slam_tpu/modules/aggregators.py``.
 
-L2-normalise each pixel across channels, soft-assign with a 1x1 conv and a
-softmax over K clusters, sum the assignment-weighted residuals to the
-centroids over space as ``a^T x - (sum a) * centroids``, intra-normalise per
-cluster, flatten, L2. The forward is the NetVLAD kernel's wrapper: the CUDA
-kernel for CUDA tensors, its plain twin for CPU tensors.
+NetVLAD: L2-normalise each pixel across channels, soft-assign with a 1x1
+conv and a softmax over K clusters, sum the assignment-weighted residuals
+to the centroids over space as ``a^T x - (sum a) * centroids``,
+intra-normalise per cluster, flatten, L2. The forward is the NetVLAD
+kernel's wrapper: the CUDA kernel for CUDA tensors, its plain twin for CPU
+tensors.
+
+GeM: pixel-unshuffle by 4, ``clamp(min=eps) ** p``, mean over space,
+``** (1/p)``, with ``p`` a learned (1,) parameter (3 at init); the channel
+order is ``nn.PixelUnshuffle``'s, which the JAX package's NHWC
+``pixel_unshuffle`` mirrors.
+
+ConvAP: a 1x1 ``channel_pool`` conv with bias, adaptive average pooling to
+(s1, s2) bins (``F.adaptive_avg_pool2d``: bin i averages rows
+[floor(i H/s1), ceil((i+1) H/s1)), the JAX package's rule), flatten in
+(C, s1, s2) order, L2.
 """
 
 from __future__ import annotations
@@ -13,8 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..kernels.netvlad import netvlad
+from .blocks import l2_normalize
 
 
 class NetVLAD(nn.Module):
@@ -43,3 +56,31 @@ class NetVLAD(nn.Module):
         alpha = (-np.log(0.01) / np.mean(dots[0, :] - dots[1, :])).item()
         assign_w = (alpha * clsts_assign).T.astype(np.float32)  # (C, K)
         return assign_w, clsts.astype(np.float32)
+
+
+class GeM(nn.Module):
+    def __init__(self, eps: float = 1e-6, unshuffle: int = 4):
+        super().__init__()
+        self.eps = eps
+        self.unshuffle = unshuffle
+        self.p = nn.Parameter(torch.full((1,), 3.0))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, C, H, W) -> (B, C * unshuffle**2)."""
+        if self.unshuffle > 1:
+            x = F.pixel_unshuffle(x, self.unshuffle)
+        x = x.clamp(min=self.eps).pow(self.p).mean(dim=(2, 3))
+        return x.pow(1.0 / self.p)
+
+
+class ConvAP(nn.Module):
+    def __init__(self, c_in: int, out_channels: int = 512, s1: int = 2,
+                 s2: int = 2):
+        super().__init__()
+        self.bins = (s1, s2)
+        self.channel_pool = nn.Conv2d(c_in, out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, C, H, W) -> (B, out_channels * s1 * s2)."""
+        x = F.adaptive_avg_pool2d(self.channel_pool(x), self.bins)
+        return l2_normalize(x.flatten(1), dim=-1)

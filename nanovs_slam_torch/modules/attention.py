@@ -1,0 +1,91 @@
+"""SegFormer-style attention block (NCHW), the counterpart of
+``nanovs_slam_tpu/modules/attention.py``.
+
+- ``ChannelLayerNorm``: over the channels with the reference's formula
+  ``(x - mean) / (sqrt(biased var) + eps) * g + b`` (eps outside the
+  square root, so not ``F.layer_norm``);
+- ``EfficientSelfAttention``: q from a 1x1 conv, k and v from one 2x2
+  stride-2 conv with 2C outputs (k first, then v; no biases), 4 heads as
+  head-major channel groups, softmax over the keys, a 1x1 ``to_out``;
+- ``MixFeedForward``: 1x1 expand, depthwise 3x3, pointwise 1x1, exact-erf
+  GELU, 1x1 project (all with bias), expansion 2;
+- ``SegFormerAttentionModule``: norm, attention, norm, mix-FF, with no
+  residual connection (the trained weights expect none).
+
+The attention is ``torch.matmul``, softmax, ``torch.matmul`` in float32,
+as the JAX package computes it outside any kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class ChannelLayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(dim))
+        self.b = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=1, keepdim=True)
+        var = x.var(dim=1, unbiased=False, keepdim=True)
+        y = (x - mean) / (torch.sqrt(var) + self.eps)
+        return y * self.g[:, None, None] + self.b[:, None, None]
+
+
+class EfficientSelfAttention(nn.Module):
+    """Spatially reduced self-attention over a feature map."""
+
+    def __init__(self, dim: int, heads: int = 4, reduction_ratio: int = 2):
+        super().__init__()
+        self.heads = heads
+        r = reduction_ratio
+        self.to_q = nn.Conv2d(dim, dim, 1, bias=False)
+        self.to_kv = nn.Conv2d(dim, 2 * dim, r, stride=r, bias=False)
+        self.to_out = nn.Conv2d(dim, dim, 1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        h = self.heads
+        dh = C // h
+        k, v = self.to_kv(x).chunk(2, dim=1)
+
+        def to_heads(t):  # (B, h*dh, H', W') -> (B, h, H'*W', dh)
+            return t.reshape(B, h, dh, -1).transpose(2, 3)
+
+        q, k, v = to_heads(self.to_q(x)), to_heads(k), to_heads(v)
+        sim = torch.matmul(q, k.transpose(2, 3)) * dh ** -0.5
+        out = torch.matmul(sim.softmax(dim=-1), v)
+        return self.to_out(out.transpose(2, 3).reshape(B, C, H, W))
+
+
+class MixFeedForward(nn.Module):
+    def __init__(self, dim: int, expansion_factor: int = 2):
+        super().__init__()
+        hidden = dim * expansion_factor
+        self.expand = nn.Conv2d(dim, hidden, 1)
+        self.dw = nn.Conv2d(hidden, hidden, 3, padding=1, groups=hidden)
+        self.pw = nn.Conv2d(hidden, hidden, 1)
+        self.project = nn.Conv2d(hidden, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.pw(self.dw(self.expand(x)))
+        return self.project(F.gelu(x))
+
+
+class SegFormerAttentionModule(nn.Module):
+    """norm, attention, norm, mix-FF; no residuals (see the module doc)."""
+
+    def __init__(self, dim: int, heads: int = 4, reduction_ratio: int = 2):
+        super().__init__()
+        self.norm_att = ChannelLayerNorm(dim)
+        self.att = EfficientSelfAttention(dim, heads, reduction_ratio)
+        self.norm_mff = ChannelLayerNorm(dim)
+        self.mff = MixFeedForward(dim, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mff(self.norm_mff(self.att(self.norm_att(x))))

@@ -1,7 +1,9 @@
-"""VPR head (NCHW), the counterpart of ``nanovs_slam_tpu/modules/vpr.py``
-for the netvlad method: convlad1 ConvBNAct [+ drop] -> convlad2 -> convlad3
--> NetVLAD. ``only_encoder`` returns the L2-normalised dense map instead
-(for k-means cluster init); ``remove_netvlad`` (export) the raw map.
+"""VPR head (NCHW), the counterpart of ``nanovs_slam_tpu/modules/vpr.py``:
+convlad1 ConvBNAct [+ drop] -> convlad2 -> convlad3 -> the aggregator of
+``method`` (NetVLAD, GeM or ConvAP), named ``netvlad`` whatever it is, as in
+flax. ``only_encoder`` returns the L2-normalised dense map instead (for
+k-means cluster init); ``remove_netvlad`` (export) the raw map, for the
+netvlad method only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -9,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .aggregators import NetVLAD
+from .aggregators import ConvAP, GeM, NetVLAD
 from .blocks import ConvBNAct, Dropout2d, l2_normalize
 
 
@@ -19,17 +21,21 @@ class VPRHead(nn.Module):
                  remove_netvlad: bool = False, leaky_relu: bool = True,
                  method: str = "netvlad"):
         super().__init__()
-        if method != "netvlad":
-            raise NotImplementedError(
-                f"global descriptor method {method!r} is not ported yet")
         kw = dict(bn_momentum=bn_momentum, leaky_relu=leaky_relu)
-        self.remove_netvlad = remove_netvlad
+        self.remove_netvlad = remove_netvlad and method == "netvlad"
         self.convlad1 = ConvBNAct(c_in, encoder_dim, **kw)
         self.drop = Dropout2d(0.2) if with_drop else nn.Identity()
         self.convlad2 = ConvBNAct(encoder_dim, encoder_dim, **kw)
         self.convlad3 = ConvBNAct(encoder_dim, encoder_dim, **kw)
-        if not remove_netvlad:
-            self.netvlad = NetVLAD(num_clusters, encoder_dim)
+        if method == "netvlad":
+            if not remove_netvlad:
+                self.netvlad = NetVLAD(num_clusters, encoder_dim)
+        elif method == "gem":
+            self.netvlad = GeM(unshuffle=4)
+        elif method == "convap":
+            self.netvlad = ConvAP(encoder_dim, encoder_dim, 4, 4)
+        else:
+            raise ValueError(f"unknown global descriptor method {method}")
 
     def forward(self, x: torch.Tensor,
                 only_encoder: bool = False) -> torch.Tensor:

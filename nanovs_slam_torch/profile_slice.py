@@ -1,12 +1,15 @@
 """Where the time of the port's paths goes on the card.
 
     python -m nanovs_slam_torch.profile_slice [--path slice match]
-        [--batch 1 8] [--iters 20]
+        [--config NAME [--v3] [--depth]] [--batch 1 8] [--iters 20]
 
-``slice``: serves KP2DTiny-N (28 classes, seeded random weights) at
-240x320 through ``make_infer_fn(top_k=1000, conf_threshold=0.7)``, per
-batch size, and prints the device time of the top-K's stable sort beside
-that of ``torch.topk`` on the same scores. ``match``: matches one 240x320
+``slice``: serves a KP2DTiny config (default N, V2; 28 classes, seeded
+random weights) at 240x320 through ``make_infer_fn(top_k=1000,
+conf_threshold=0.7)``, per batch size, and prints the device time of the
+top-K's stable sort beside that of ``torch.topk`` on the same scores, and,
+where the config has attention, the device time of its attention blocks
+(``EfficientSelfAttention``, run alone on the inputs they had in a
+request). ``match``: matches one 240x320
 pair (seeded random frames) through ``matching.pair.make_pair_matcher``
 with the pinned S8 extractor and the pinned kp2dtiny_S LightGlue, at 512
 and 1024 keypoints. Each traces ``--iters`` steady calls with
@@ -67,14 +70,41 @@ def trace(label: str, call, iters: int) -> None:
               f"x{e.count // iters:<3d} {e.key[:90]}")
 
 
-def profile_slice(batches, iters: int, rs) -> None:
-    cfg = get_config("N", n_classes=28)
+def attention_inputs(model, call) -> list:
+    """(block, input) of every attention block of ``model`` in one
+    ``call``."""
+    from .modules.attention import EfficientSelfAttention
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: seen.append((m, args[0])))
+        for m in model.modules() if isinstance(m, EfficientSelfAttention)]
+    try:
+        call()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def profile_slice(name: str, v3: bool, depth: bool, batches, iters: int,
+                  rs) -> None:
+    cfg = get_config(name, v3=v3, n_classes=28, depth=depth)
     model = init_model(cfg, torch.Generator().manual_seed(0), "cuda")
     infer = make_infer_fn(model, cfg, H, W, top_k=1000, conf_threshold=0.7,
                           device="cuda")
+    label = f"slice {name}{' V3' if v3 else ''}{' depth' if depth else ''}"
     for b in batches:
         frames = rs.randint(0, 256, (b, H, W, 3)).astype(np.uint8)
-        trace(f"slice B={b}", lambda: infer(frames), iters)
+        trace(f"{label} B={b}", lambda: infer(frames), iters)
+        blocks = attention_inputs(model, lambda: infer(frames))
+        if blocks:
+            with torch.inference_mode():
+                att = device_ms(device_events(
+                    lambda: [m(x) for m, x in blocks], iters)[0], iters)
+            shapes = ", ".join(f"{x.shape[2]}x{x.shape[3]}" for _, x in blocks)
+            print(f"{label} B={b}: attention, {len(blocks)} blocks at "
+                  f"{shapes}: {att:.4f} ms device time per request")
         # the top-K's selection (ops/postprocess.top_k_keypoints) against
         # torch.topk, on this request's border-masked scores
         s = infer(frames)["score"].reshape(b, -1)
@@ -82,7 +112,7 @@ def profile_slice(batches, iters: int, rs) -> None:
             s, dim=1, descending=True, stable=True), iters)[0], iters)
         topk = device_ms(device_events(lambda: torch.topk(s, 1000, dim=1),
                                        iters)[0], iters)
-        print(f"slice B={b}: top-K selection over {s.shape[1]} cells, "
+        print(f"{label} B={b}: top-K selection over {s.shape[1]} cells, "
               f"stable sort {sort:.4f} ms, torch.topk {topk:.4f} ms "
               f"(device time per request)")
 
@@ -115,6 +145,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", nargs="+", choices=("slice", "match"),
                     default=["slice", "match"])
+    ap.add_argument("--config", default="N",
+                    help="the slice's config name (default N)")
+    ap.add_argument("--v3", action="store_true",
+                    help="the config from the V3 registry")
+    ap.add_argument("--depth", action="store_true",
+                    help="with the depth head")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
@@ -125,7 +161,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     rs = np.random.RandomState(0)
     if "slice" in args.path:
-        profile_slice(args.batch, args.iters, rs)
+        profile_slice(args.config, args.v3, args.depth, args.batch,
+                      args.iters, rs)
     if "match" in args.path:
         profile_match(args.iters, rs)
 

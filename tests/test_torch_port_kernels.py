@@ -52,11 +52,13 @@ def _pp_inputs(B, H, W, cell, C=32, seed=1, edge_shifts=False):
 
 
 def _stem_inputs(B, H, W, c1, c2, seed=0):
+    """conv2's weights at 0.1 for C1 = 16 and scaled as 1/sqrt(C1) beyond,
+    so that its outputs keep their spread at every width."""
     rs = np.random.RandomState(seed)
     x = rs.randn(B, H, W, 3).astype(np.float32)
     w1 = rs.randn(3, 3, 3, c1).astype(np.float32) * 0.2  # HWIO
     b1 = rs.randn(c1).astype(np.float32) * 0.1
-    w2 = rs.randn(3, 3, c1, c2).astype(np.float32) * 0.1
+    w2 = rs.randn(3, 3, c1, c2).astype(np.float32) * (0.1 * (16 / c1) ** 0.5)
     b2 = rs.randn(c2).astype(np.float32) * 0.1
     return x, w1, b1, w2, b2
 
@@ -114,7 +116,8 @@ def test_postprocess_wrapper_checks_inputs():
 # ---------------------------------------------------------------------- stem
 
 @pytest.mark.parametrize("shape,c1,c2", [((2, 48, 64), 16, 24),
-                                         ((1, 32, 48), 16, 32)])
+                                         ((1, 32, 48), 16, 32),
+                                         ((1, 32, 48), 64, 128)])
 def test_stem_plain_matches_xla_chain(shape, c1, c2):
     jnp = _jnp()
     import jax
@@ -275,13 +278,15 @@ def test_postprocess_kernel_matches_plain(cuda, B, H, W, C):
 @pytest.mark.parametrize("B,H,W,c2,slope", [
     (1, 240, 320, 24, 0.01), (8, 240, 320, 24, 0.01), (2, 240, 320, 32, 0.01),
     (2, 250, 334, 24, 0.01), (2, 250, 334, 32, 0.0), (1, 96, 128, 32, 0.01),
-    (1, 240, 320, 24, 0.0)])
+    (1, 240, 320, 24, 0.0), (2, 48, 64, 128, 0.01), (1, 250, 334, 128, 0.0)])
 def test_stem_kernel_matches_plain(cuda, B, H, W, c2, slope):
     """The N slice at B 1 and 8, the S widths, a ragged size whose pooled
-    grid (125x167) fills no tile, the weights phase's 96x128, and the ReLU
-    (slope 0) of the MCU configs, for NHWC memory and the NHWC view of NCHW
-    memory that the model passes."""
-    x, w1, b1, w2, b2 = _stem_inputs(B, H, W, 16, c2)
+    grid (125x167) fills no tile, the weights phase's 96x128, the ReLU
+    (slope 0) of the MCU configs, and config D's (64, 128) at a small size
+    and a ragged one, for NHWC memory and the NHWC view of NCHW memory that
+    the model passes."""
+    c1 = 64 if c2 == 128 else 16
+    x, w1, b1, w2, b2 = _stem_inputs(B, H, W, c1, c2)
     args = [_oihw(w1), torch.from_numpy(b1), _oihw(w2), torch.from_numpy(b2)]
     args = [a.to(cuda) for a in args]
     x = torch.from_numpy(x).to(cuda)

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_util import (assert_dense_outputs_match,
+                              assert_top_k_match_as_sets)
 from nanovs_slam_tpu.configs import get_config as jax_get_config
 from nanovs_slam_tpu.inference import make_infer_fn as jax_make_infer_fn
 from nanovs_slam_tpu.models.kp2dtiny import build_model as jax_build_model
@@ -55,41 +57,11 @@ def slice_outputs():
 
 
 def test_slice_dense_outputs_match(slice_outputs):
-    want, got = slice_outputs
-    assert set(got) == set(want)
-    for k in want:
-        assert got[k].shape == want[k].shape, k
-    np.testing.assert_allclose(got["score"], want["score"], atol=1e-4)
-    np.testing.assert_allclose(got["coord"], want["coord"], atol=1e-4)
-    assert np.sum(got["feat"] * want["feat"], -1).min() > 0.9999
-    np.testing.assert_allclose(got["vlad"], want["vlad"], atol=1e-4)
-    assert np.mean(got["seg"] == want["seg"]) >= 0.999
+    assert_dense_outputs_match(*slice_outputs)
 
 
 def test_slice_top_k_matches_as_sets(slice_outputs):
-    """Ties may reorder the top K, so the valid keypoints are compared as
-    sets; a keypoint in one set only must score within 1e-4 of a cut (the
-    threshold or the K-th score)."""
-    want, got = slice_outputs
-    for b in range(B):
-        sets, scores, descs = [], {}, []
-        for out in (want, got):
-            valid = out["keypoint_valid"][b]
-            kp = [tuple(p) for p in np.round(out["keypoints"][b][valid], 3)]
-            scores.update(zip(kp, out["keypoint_scores"][b][valid]))
-            descs.append(dict(zip(kp, out["descriptors"][b][valid])))
-            sets.append(set(kp))
-        assert sets[0], "no valid keypoints: the test input is too weak"
-        kth = min(want["keypoint_scores"][b][-1],
-                  got["keypoint_scores"][b][-1])
-        for key in sets[0] ^ sets[1]:
-            s = scores[key]
-            assert min(abs(s - CONF), abs(s - kth)) < 1e-4, (key, s)
-        for key in sets[0] & sets[1]:
-            assert float(np.dot(descs[0][key], descs[1][key])) > 0.9999
-    np.testing.assert_allclose(
-        np.sort(got["keypoint_scores"], -1),
-        np.sort(want["keypoint_scores"], -1), atol=1e-4)
+    assert_top_k_match_as_sets(*slice_outputs, CONF)
 
 
 def test_port_imports_no_jax():
