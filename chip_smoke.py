@@ -19,8 +19,11 @@ Phases, each of which raises (exit code != 0) on failure:
     the kernels line) and the postprocess at config D's C=128, both for
     batch 1 and 8, each case's device kernels a call counted by the
     profiler (one; two for the stem at (64, 128), whose weights a kernel
-    of their own splits and packs first); the LightGlue transformer
-    kernel (pinned kp2dtiny_S weights) at K=512 and K=1024, at
+    of their own splits and packs first), and the stem at an odd frame
+    size (241x321, floor pooling) at all three widths (an entry of its
+    own); the LightGlue transformer kernel (pinned kp2dtiny_S weights, and
+    config "default": D = 256, 9 layers, seeded weights, an entry of its
+    own) at K=512 and K=1024, at
     M=512/N=384 with padding masks and with a fully masked image, with its
     device kernels broken down by the profiler (4 a layer and 1 a call)
     with programmatic dependent launch off, so that the per-launch times
@@ -43,7 +46,21 @@ Phases, each of which raises (exit code != 0) on failure:
     mutual) and compared with the same pipeline on the CPU; prints the
     precision against the homography, and the steady ms per pair and per
     match at K=512 and K=1024;
- 7. family phase: V3 S_A (decoder fusion, attention, NetVLAD) and V2 D
+ 7. odd request: KP2DTiny-N at 241x321 (the stem pools with floor) through
+    make_infer_fn, against the CPU;
+ 8. LightGlue default: one match of the "default" config (D = 256, 9
+    layers, seeded weights) on the card against the CPU;
+ 9. vo phase: a corridor rendered on the card (KITTI's camera, 8 frames of
+    forward motion with a small yaw) through the pinned S8 frontend at
+    128x512 and nanovs_slam_torch.vo.visual_odometry.run_visual_odometry
+    (the loop of the VO CLI) with the host BF matcher and with pinned
+    LightGlue, both with the device RANSAC: every frame's features and
+    every pair's BF matches against the CPU's, one pair's RANSAC on the
+    card against the CPU under the same injected noise, the kernels'
+    launch counts (stem and postprocess on every frame, LightGlue on every
+    pair), no failed estimate; the error statistics beside the CPU's run
+    and the ms per frame of extraction, matching and pose;
+ 10. family phase: V3 S_A (decoder fusion, attention, NetVLAD) and V2 D
     (attention, ConvAP, the stem at (64, 128)), 28 classes, seeded random
     weights and BN stats, served at 240x320 like the slice phase at batch
     1 and 8: the launch counts of the kernels on each path (one a
@@ -51,12 +68,15 @@ Phases, each of which raises (exit code != 0) on failure:
     per request; then one batch-1 request each of V2 N_A with depth, V2
     GEM_N and V3 D_A with depth, against the CPU, depth included (atol
     1e-4);
- 8. one JSON line describing each kernel, the card's line before it, and
+ 11. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
-    the match path, K=512; the stem at (64, 128): the D cell), ``_b8`` /
+    the match path, K=512; the stem at (64, 128): the D cell; the odd
+    stem: the odd request; LightGlue at D = 256: its default match),
+    ``_b8`` /
     ``_k1024`` / ``_s`` / ``_d`` another size of it (``_s``: config S
-    widths; ``_d``: the postprocess at config D's C=128), and
+    widths; ``_d``: the postprocess at config D's C=128; ``_vo``: the
+    VO path's 128x512, config S), and
     ``launches_<path>`` / ``*_match`` a later path that runs the kernel
     too (the match path's postprocess shapes are the N slice's B=1 ones).
 
@@ -88,6 +108,11 @@ SEED = 0
 # the entry key of the stem at config D's widths, (C1, C2) = (64, 128),
 # which has an entry of its own in the kernels line
 STEM_D = "fused_stem_pair_pool_d"
+# ... and of the stem on odd frame sizes (all three widths), and its size
+STEM_ODD = "fused_stem_pair_pool_odd"
+ODD_HW = (241, 321)
+# the entry key of the LightGlue stack at D = 256 (config "default")
+LG_D256 = "lightglue_d256"
 
 
 def log(msg: str) -> None:
@@ -173,7 +198,9 @@ class Case(NamedTuple):
 
 def kernel_cases(B: int, dev) -> list[Case]:
     """The kernel phase's cases at the paths' shapes. The N slice's shapes
-    fill the unsuffixed keys at B=1 and the ``_b8`` keys at B=8; the stem
+    fill the unsuffixed keys at B=1 and the ``_b8`` keys at B=8; the VO
+    path's (config S at 128x512) the ``_vo`` keys of the stem and the
+    postprocess; the stem
     at config S widths (16, 32) fills the ``_match`` keys at B=1 (the
     match path's, whose postprocess has the N slice's B=1 shapes) and,
     with NetVLAD at config S's (64, 64), the ``_s`` keys (``_s_b8`` at
@@ -199,14 +226,15 @@ def kernel_cases(B: int, dev) -> list[Case]:
         return t(a).permute(0, 2, 3, 1)
 
     cell = 4
-    Hc, Wc, Hf, Wf = H // cell, W // cell, H // 2, W // 2
 
-    def postprocess_case(suffix, C):
-        """The postprocess with C descriptor channels (N: 32; D: 128)."""
+    def postprocess_case(suffix, C, h=H, w=W):
+        """The postprocess with C descriptor channels (N: 32; D: 128) on
+        h x w frames."""
+        Hc, Wc, Hf, Wf = h // cell, w // cell, h // 2, w // 2
         score = nhwc(rs.rand(B, 1, Hc, Wc))
         shift = nhwc(rs.uniform(-1, 1, (B, 2, Hc, Wc)))
         feat = nhwc(rs.randn(B, C, Hf, Wf))
-        pp = (score, shift, feat, H, W, cell, 2.0)
+        pp = (score, shift, feat, h, w, cell, 2.0)
 
         def check(got, want):
             require(max_err(got[0], want[0]) <= 1e-5, f"postprocess {C} score")
@@ -224,11 +252,12 @@ def kernel_cases(B: int, dev) -> list[Case]:
                     B * Hc * Wc * C * 14, FP32_FLOP_PER_S, check)
 
     def stem_case(suffix, C1, C2, entry="fused_stem_pair_pool",
-                  device_kernels=1):
+                  device_kernels=1, h=H, w=W):
         """The stem at widths 3 -> C1 -> C2 (N: 16, 24; S: 16, 32; D: 64,
-        128), conv2's weights at 0.1 for C1 = 16 and scaled as 1/sqrt(C1)
-        beyond, so that its outputs keep their spread."""
-        x = nhwc(rs.uniform(-1, 1, (B, 3, H, W)))
+        128) on h x w frames, conv2's weights at 0.1 for C1 = 16 and
+        scaled as 1/sqrt(C1) beyond, so that its outputs keep their
+        spread."""
+        x = nhwc(rs.uniform(-1, 1, (B, 3, h, w)))
         w1, b1 = t(rs.randn(C1, 3, 3, 3) * 0.2), t(rs.randn(C1) * 0.1)
         w2 = t(rs.randn(C2, C1, 3, 3) * (0.1 * (16 / C1) ** 0.5))
         b2 = t(rs.randn(C2) * 0.1)
@@ -247,17 +276,19 @@ def kernel_cases(B: int, dev) -> list[Case]:
             finally:
                 torch.backends.cudnn.allow_tf32 = False
 
-        name = ("fused_stem_pair_pool" if entry == "fused_stem_pair_pool"
-                else f"fused_stem_pair_pool[{C1},{C2}]")
+        name = {"fused_stem_pair_pool": "fused_stem_pair_pool",
+                STEM_D: f"fused_stem_pair_pool[{C1},{C2}]",
+                STEM_ODD: f"fused_stem_pair_pool[{h}x{w}]"}[entry]
         return Case(entry, name, suffix, "nanovs_slam_torch/csrc/stem.cu",
                     "nanovs_slam_tpu/ops/pallas/fused_stem.py:167",
                     lambda: fused_stem_pair_pool(*st),
                     lambda: stem_plain(*st), library,
-                    4 * (B * H * W * 3 + C1 * 28 + C2 * (C1 * 9 + 1)
-                         + B * (H // 2) * (W // 2) * C2),
-                    2 * B * H * W * (C1 * 27 + C2 * C1 * 9),
+                    4 * (B * h * w * 3 + C1 * 28 + C2 * (C1 * 9 + 1)
+                         + B * (h // 2) * (w // 2) * C2),
+                    2 * B * h * w * (C1 * 27 + C2 * C1 * 9),
                     TF32_3X_FLOP_PER_S, check, device_kernels)
 
+    Hc, Wc = H // cell, W // cell
     S = Hc * Wc
 
     def netvlad_case(suffix, Cv, K):
@@ -289,6 +320,13 @@ def kernel_cases(B: int, dev) -> list[Case]:
     if B != 1:
         cases += [stem_case("_s" + b8, 16, 32),
                   netvlad_case("_s" + b8, 64, 64)]
+    else:  # odd frame sizes (floor pooling), an entry of their own
+        cases += [stem_case(sfx, c1, c2, STEM_ODD, 1 + (c1 == 64), *ODD_HW)
+                  for sfx, c1, c2 in (("", 16, 24), ("_s", 16, 32),
+                                      ("_d", 64, 128))]
+        # the VO path's shapes: pinned S8 at 128x512
+        cases += [stem_case("_vo", 16, 32, h=VO_SIZE[0], w=VO_SIZE[1]),
+                  postprocess_case("_vo", 32, *VO_SIZE)]
     return cases
 
 
@@ -482,6 +520,410 @@ def slice_phase(dev, kernels):
     log("slice: steady-state median ms per request "
         + ", ".join(f"B={b}: {ms:.3f}" for b, ms in steady.items()))
     return launches, steady
+
+
+def odd_request_phase(dev) -> dict:
+    """One batch-1 request of KP2DTiny-N at an odd frame size (the stem
+    pools with floor) through make_infer_fn, against the CPU. Returns its
+    launch counts, the odd stem's under its own entry."""
+    import torch
+
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.inference import make_infer_fn
+    from nanovs_slam_torch.kernels import (fused_postprocess,
+                                           fused_stem_pair_pool, netvlad,
+                                           reset_launches)
+    from nanovs_slam_torch.models.kp2dtiny import init_model
+
+    h, w = ODD_HW
+    cfg = get_config("N", n_classes=28)
+    gen = torch.Generator().manual_seed(SEED + 800)
+    model = init_model(cfg, gen, "cpu")
+    randomize_bn(model, gen)
+    frames = np.random.RandomState(SEED + 800).randint(
+        0, 256, (1, h, w, 3)).astype(np.uint8)
+    spread_scores(model, frames)
+    cpu_model = copy.deepcopy(model)
+    infer = make_infer_fn(model, cfg, h, w, top_k=1000, conf_threshold=0.7,
+                          device=dev)
+    reset_launches()
+    out = infer(frames)
+    torch.cuda.synchronize()
+    launches = {STEM_ODD: fused_stem_pair_pool.launches,
+                "fused_postprocess": fused_postprocess.launches,
+                "netvlad": netvlad.launches}
+    require(all(n == 1 for n in launches.values()),
+            f"odd request: launches {launches}")
+    check_answer(out, 1, h, w, cfg, 1000)
+    ref = make_infer_fn(cpu_model, cfg, h, w, top_k=1000, conf_threshold=0.7,
+                        device="cpu")(frames)
+    errs = compare_with_cpu(out, ref)
+    log(f"odd request: N at {h}x{w}, launches {launches}, "
+        f"{int(out['keypoint_valid'].sum())} valid keypoints, vs CPU "
+        f"{json.dumps(errs)}")
+    return launches
+
+
+def lightglue_default_phase(dev) -> dict:
+    """One LightGlue match at config "default" (D = 256, 9 layers; seeded
+    weights) of 512 keypoints against a perturbed, shuffled copy, through
+    the module on the card and on the CPU: matches0 agree on >= 99.9% of
+    the entries."""
+    import torch
+
+    from nanovs_slam_torch.kernels import lightglue_transformer, reset_launches
+
+    lg = default_lightglue()
+    cpu_lg = copy.deepcopy(lg)
+    rs = np.random.RandomState(SEED + 900)
+    K, D = 512, lg.cfg.input_dim
+    kp0 = rs.uniform(-1, 1, (1, K, 2))
+    d0 = rs.randn(1, K, D)
+    perm = rs.permutation(K)
+    kp1 = kp0[:, perm] + 0.01 * rs.randn(1, K, 2)
+    d1 = d0[:, perm] + 0.3 * rs.randn(1, K, D)
+    data = {k: torch.from_numpy(v.astype(np.float32)) for k, v in
+            (("keypoints0", kp0), ("keypoints1", kp1),
+             ("descriptors0", d0 / np.linalg.norm(d0, axis=-1, keepdims=True)),
+             ("descriptors1", d1 / np.linalg.norm(d1, axis=-1,
+                                                  keepdims=True)))}
+    with torch.inference_mode():
+        ref = cpu_lg(data)
+        lg.to(dev)
+        reset_launches()
+        out = lg({k: v.to(dev) for k, v in data.items()})
+        torch.cuda.synchronize()
+    launches = {LG_D256: lightglue_transformer.launches}
+    require(launches[LG_D256] == 1, f"lightglue default: {launches}")
+    m0 = out["matches0"].cpu()
+    agree = float((m0 == ref["matches0"]).float().mean())
+    n = int((m0 >= 0).sum())
+    right = int((m0[0][m0[0] >= 0] == torch.from_numpy(
+        np.argsort(perm))[m0[0] >= 0]).sum())
+    log(f"lightglue default: {n} matches of {K} ({right} to the true "
+        f"keypoint), matches0 agree with the CPU on {agree:.4f} of the "
+        f"entries, launches {launches}")
+    require(agree >= 0.999, f"lightglue default: matches0 agree {agree}")
+    return launches
+
+
+# ------------------------------------------------------------------ vo phase
+
+KITTI_HW = (376, 1241)  # KITTI's grayscale frames
+VO_SIZE = (128, 512)  # vo_eval's default model input
+VO_FRAMES = 8
+
+
+def corridor_frames(dev, n: int, seed: int, step: float = 0.4,
+                    yaw_rate: float = 0.006):
+    """A corridor rendered on ``dev`` in torch: rays of the KITTI camera
+    (376x1241) meet two walls (x = +-7 m), the floor (y = 1.65 m, y down),
+    the ceiling (y = -6 m) and a far wall (z = 80 m); each plane's seeded
+    numpy texture (noise of several octaves) is sampled there with
+    F.grid_sample. The camera moves 0.4 m forward a frame and turns by a
+    small yaw. -> (BGR uint8 frames (n, 376, 1241, 3) on dev, camera-to-
+    world [R | t] poses (n, 3, 4) float64)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nanovs_slam_torch.vo.camera import kitti_params
+
+    rs = np.random.RandomState(seed)
+    fx, fy, cx, cy = kitti_params()
+    hh, ww = KITTI_HW
+    ppm = 36.0  # texels a metre
+
+    def texture(th=512, tw=2048):
+        t = torch.zeros(1, 1, th, tw)
+        for div, amp in ((64, 1.0), (16, 0.6), (4, 0.45), (1, 0.3)):
+            lo = torch.from_numpy(rs.rand(1, 1, th // div + 1,
+                                          tw // div + 1).astype(np.float32))
+            t += amp * F.interpolate(lo, size=(th, tw), mode="bilinear",
+                                     align_corners=True)
+        return ((t - t.min()) / (t.max() - t.min())).to(dev)
+
+    # (axis of the normal, its value, the two texture axes)
+    planes = [(0, -7.0, (2, 1)), (0, 7.0, (2, 1)), (1, 1.65, (0, 2)),
+              (1, -6.0, (0, 2)), (2, 80.0, (0, 1))]
+    textures = [texture() for _ in planes]
+    v, u = torch.meshgrid(torch.arange(hh, device=dev, dtype=torch.float64),
+                          torch.arange(ww, device=dev, dtype=torch.float64),
+                          indexing="ij")
+    rays = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)],
+                       -1)  # camera frame
+    frames, poses = [], []
+    R, p, yaw = np.eye(3), np.zeros(3), 0.0
+    for i in range(n):
+        c, s_ = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]])
+        poses.append(np.concatenate([R, p[:, None]], 1))
+        d = rays @ torch.from_numpy(R.T).to(dev)  # world directions
+        pt = torch.from_numpy(p).to(dev)
+        best = torch.full((hh, ww), float("inf"), device=dev,
+                          dtype=torch.float64)
+        img = torch.zeros((hh, ww), device=dev)
+        for (ax, val, (ta, tb)), tex in zip(planes, textures):
+            t = (val - pt[ax]) / d[..., ax]
+            t = torch.where(t > 0, t, torch.inf)
+            hit = pt + t[..., None] * d
+            th, tw = tex.shape[-2:]
+            gx = torch.remainder(hit[..., ta] * ppm, tw - 1) / (tw - 1) * 2 - 1
+            gy = torch.remainder(hit[..., tb] * ppm, th - 1) / (th - 1) * 2 - 1
+            grid = torch.nan_to_num(torch.stack([gx, gy], -1)).float()
+            val_ = F.grid_sample(tex, grid[None], mode="bilinear",
+                                 padding_mode="border",
+                                 align_corners=True)[0, 0]
+            nearer = t < best
+            img = torch.where(nearer, val_, img)
+            best = torch.where(nearer, t, best)
+        gray = torch.round(img * 255).clamp(0, 255).to(torch.uint8)
+        frames.append(gray[..., None].expand(hh, ww, 3).contiguous())
+        p = p + R @ np.array([0.0, 0.0, step])
+        yaw += yaw_rate * np.sin(2 * np.pi * i / max(n - 1, 1))
+    return torch.stack(frames), np.stack(poses)
+
+
+def compare_features(card, cpu) -> dict:
+    """Two frontends' (pts, feat) of one frame: the share of kept
+    keypoints (over the longer list) that the other device kept within
+    1e-4, wherever in the score order (near-equal scores may swap), and
+    the least descriptor cosine over those pairs."""
+    (p0, f0), (p1, f1) = (card[0], card[1]), (cpu[0], cpu[1])
+    d = np.abs(p0[:, None] - p1[None]).max(-1)
+    j = d.argmin(1)
+    same = d[np.arange(len(p0)), j] <= 1e-4
+    cos = float((f0[same] * f1[j[same]]).sum(-1).min()) if same.any() \
+        else float("nan")
+    return {"n_card": len(p0), "n_cpu": len(p1),
+            "kept_equal": float(same.sum() / max(len(p0), len(p1), 1)),
+            "cos_min": cos}
+
+
+def matched_pairs(m):
+    """A matcher's (kps0, kps1) as a set of coordinate pairs at 1e-3 px."""
+    return {tuple(np.round(np.concatenate([a, b]), 3)) for a, b in zip(*m)}
+
+
+def injected_noise(seed: int):
+    """A stand-in for vo.pose.gumbel_noise that draws the noise with numpy
+    from ``seed`` and copies it to the generator's device: the card and the
+    CPU then solve with the same samples."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+
+    def draw(shape, generator):
+        return torch.from_numpy(rs.gumbel(size=shape).astype(
+            np.float32)).to(generator.device)
+    return draw
+
+
+def host_ms(fn, n: int) -> list:
+    """Host-clock ms of ``n`` calls of fn(i), each ending in a
+    synchronise."""
+    import torch
+
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def vo_phase(dev, repo: str) -> dict:
+    """The visual-odometry path: the corridor (8 frames at 376x1241, on the
+    card) through the pinned S8 frontend at 128x512 (top_k 4000, nn_thresh
+    0.7) and run_visual_odometry, the loop the CLI drives, twice: the host
+    BF matcher (native where it builds) and pinned LightGlue (max_n 1024),
+    each with the device RANSAC (8192 hypotheses, 3 restarts). Checks:
+    every frame's keypoints and descriptors against the CPU frontend's,
+    the BF matches against the CPU's, one pair's RANSAC on the card
+    against the CPU with the same injected noise, the launch counts (the
+    stem and postprocess on every frame, LightGlue on every pair), no
+    failed estimate and finite poses. Prints the error statistics beside
+    the CPU's run and the ms per frame of each stage. Returns the launch
+    counts by path."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.kernels import (fused_postprocess,
+                                           fused_stem_pair_pool,
+                                           lightglue_transformer,
+                                           reset_launches)
+    from nanovs_slam_torch.models.kp2dtiny import init_model
+    from nanovs_slam_torch.utils.checkpoint import load_npz_checkpoint
+    from nanovs_slam_torch.utils.convert import load_jax_variables
+    from nanovs_slam_torch.vo import native
+    from nanovs_slam_torch.vo import pose as vo_pose
+    from nanovs_slam_torch.vo.camera import PinholeCamera, kitti_params
+    from nanovs_slam_torch.vo.frontend import KP2DTinyFrontend
+    from nanovs_slam_torch.vo.groundtruth import KittiVideoGroundTruth
+    from nanovs_slam_torch.vo.matcher import match_keypoints
+    from nanovs_slam_torch.vo.visual_odometry import (VisualOdometry,
+                                                      load_lightglue_for_vo,
+                                                      prep_frame,
+                                                      run_visual_odometry)
+
+    t_start = time.perf_counter()
+    frames, poses = corridor_frames(dev, VO_FRAMES, SEED + 700)
+    torch.cuda.synchronize()
+    log(f"vo: {VO_FRAMES} corridor frames {tuple(frames.shape[1:])} "
+        f"rendered on the card in {time.perf_counter() - t_start:.2f} s; "
+        f"host matcher: "
+        f"{'native' if native.native_available() else 'numpy'}")
+    tmp = tempfile.mkdtemp()
+    try:
+        np.savetxt(os.path.join(tmp, "06.txt"), poses.reshape(len(poses), 12))
+        gt = KittiVideoGroundTruth(tmp, "06.txt")
+    finally:
+        shutil.rmtree(tmp)
+    tree, _ = load_npz_checkpoint(
+        os.path.join(repo, "pinned", "extractor_S8.npz"))
+    cfg = get_config("S", n_classes=8)
+    ex = init_model(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    load_jax_variables(ex, tree["params"], tree["batch_stats"])
+    cpu_ex = copy.deepcopy(ex)
+    kw = dict(nn_thresh=0.7, top_k=4000)
+    fe = KP2DTinyFrontend(ex, cfg, VO_SIZE, device=dev, **kw)
+    cpu_fe = KP2DTinyFrontend(cpu_ex, cfg, VO_SIZE, device="cpu", **kw)
+    cpu_frames = frames.cpu()
+
+    # the frontend on every frame, and the BF matches of every pair
+    feats = [fe.run(prep_frame(f, VO_SIZE)) for f in frames]
+    cpu_feats = [cpu_fe.run(prep_frame(f, VO_SIZE)) for f in cpu_frames]
+    for i, (a, b) in enumerate(zip(feats, cpu_feats)):
+        c = compare_features(a, b)
+        require(c["kept_equal"] >= 0.999 and c["cos_min"] > 0.9999,
+                f"vo frame {i}: card vs CPU frontend {c}")
+    log(f"vo: frontend card vs CPU on every frame, e.g. the last "
+        f"{json.dumps(c)}")
+    agree = []
+    for i in range(1, VO_FRAMES):
+        m, mc = (matched_pairs(match_keypoints(f[i - 1][0], f[i - 1][1],
+                                               f[i][0], f[i][1]))
+                 for f in (feats, cpu_feats))
+        agree.append(len(m & mc) / max(len(m), len(mc), 1))
+        require(agree[-1] >= 0.99 and len(m) >= 8,
+                f"vo pair {i}: {len(m)} BF matches, {agree[-1]:.4f} "
+                "equal to the CPU's")
+    log(f"vo: BF matches equal to the CPU's on "
+        f"{', '.join(f'{a:.4f}' for a in agree)} of the entries")
+
+    # one pair's RANSAC, card against CPU, with the same injected noise
+    fx, fy, cx, cy = kitti_params()
+    sx, sy = KITTI_HW[1] / VO_SIZE[1], KITTI_HW[0] / VO_SIZE[0]
+    cam = PinholeCamera(KITTI_HW[1], KITTI_HW[0], fx, fy, cx, cy)
+    m0, m1 = match_keypoints(feats[3][0] * [sx, sy], feats[3][1],
+                             feats[4][0] * [sx, sy], feats[4][1])
+    got = []
+    draw = vo_pose.gumbel_noise
+    try:
+        for d in (dev, torch.device("cpu")):
+            vo_pose.gumbel_noise = injected_noise(SEED + 1000)
+            vo = VisualOdometry(None, cam, device_pose=True, device=d)
+            got.append(vo._estimate_pose_on_device(m0, m1))
+        # the same in float32 (the JAX package's dtype), printed only: the
+        # Sampson residual keeps ~3 digits there, and the devices' answers
+        # can part (why VisualOdometry solves in float64)
+        n, slots = len(m0), max(512, 1 << int(np.ceil(np.log2(len(m0)))))
+        a, b = (np.zeros((slots, 2), np.float32) for _ in range(2))
+        a[:n] = cam.unproject_points(m0)
+        b[:n] = cam.unproject_points(m1)
+        f32 = []
+        for d in (dev, torch.device("cpu")):
+            vo_pose.gumbel_noise = injected_noise(SEED + 1000)
+            out = vo_pose.ransac_essential_device(
+                torch.from_numpy(a).to(d), torch.from_numpy(b).to(d),
+                torch.Generator(device=d),
+                valid=torch.arange(slots, device=d) < n)
+            f32.append([x.cpu().numpy() for x in out])
+    finally:
+        vo_pose.gumbel_noise = draw
+    (R, t, inl), (Rc, tc, inlc) = got
+    r_err, t_err = float(np.abs(R - Rc).max()), float(np.abs(t - tc).max())
+    log(f"vo: RANSAC on pair 3-4 ({len(m0)} matches, {int(inl.sum())} "
+        f"inliers), card vs CPU with the same noise: R {r_err:.3g}, t "
+        f"{t_err:.3g}, inlier masks equal {bool((inl == inlc).all())} "
+        f"(float64; in float32: R {np.abs(f32[0][0] - f32[1][0]).max():.3g},"
+        f" t {np.abs(f32[0][1] - f32[1][1]).max():.3g}, inlier masks equal "
+        f"{bool((f32[0][2] == f32[1][2]).all())})")
+    require(r_err <= 1e-4 and t_err <= 1e-4 and bool((inl == inlc).all()),
+            "vo: the card's RANSAC differs from the CPU's")
+
+    paths = {}
+    for mode in ("bf", "lightglue"):
+        run_kw = dict(new_size=VO_SIZE, verbose=True, matcher=mode,
+                      device_pose=True, pose_hypotheses=8192,
+                      pose_restarts=3)
+
+        def lightglue():
+            return (load_lightglue_for_vo(
+                os.path.join(repo, "pinned", "lightglue_S.npz"),
+                cfg.nfeatures, KITTI_HW[::-1], max_n=1024)
+                if mode == "lightglue" else None)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run_visual_odometry(fe, frames, gt, lightglue=lightglue(),
+                                  device=dev, **run_kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / VO_FRAMES
+        launches = {"fused_stem_pair_pool": fused_stem_pair_pool.launches,
+                    "fused_postprocess": fused_postprocess.launches}
+        want = {"fused_stem_pair_pool": VO_FRAMES,
+                "fused_postprocess": VO_FRAMES}
+        if mode == "lightglue":
+            launches["lightglue_transformer"] = lightglue_transformer.launches
+            want["lightglue_transformer"] = VO_FRAMES - 1
+        log(f"vo {mode}: launches over {VO_FRAMES} frames {launches}")
+        require(launches == want, f"vo {mode}: launches {launches}, "
+                f"expected {want}")
+        require(res["estimation_fails"] == 0,
+                f"vo {mode}: {res['estimation_fails']} failed estimates")
+        require(bool(np.isfinite(res["trajectory"]).all())
+                and len(res["trajectory"]) == VO_FRAMES,
+                f"vo {mode}: trajectory {res['trajectory']}")
+        cpu = run_visual_odometry(cpu_fe, cpu_frames, gt,
+                                  lightglue=lightglue(), device="cpu",
+                                  **run_kw)
+        for part in ("translation", "rotation", "total"):
+            log(f"vo {mode}: {part} error mean {res[part]['mean']:.6f} max "
+                f"{res[part]['max']:.6f} (CPU run: mean "
+                f"{cpu[part]['mean']:.6f} max {cpu[part]['max']:.6f})")
+        log(f"vo {mode}: matches per pair mean "
+            f"{res['stats']['n_matches']['mean']:.1f}, inliers "
+            f"{res['stats']['n_inliers']['mean']:.1f}; the loop "
+            f"{wall:.2f} ms a frame (first calls included)")
+
+        # ms per frame of each stage, steady: extraction (frame in, trimmed
+        # keypoints out), matching (host BF or LightGlue on the card) and
+        # the device RANSAC
+        vo = VisualOdometry(None, cam, matcher=mode, lightglue=lightglue(),
+                            device_pose=True, device=dev)
+        scaled = [(f[0] * [sx, sy], f[1]) for f in feats]
+        ext = host_ms(lambda i: fe.run(prep_frame(frames[i % VO_FRAMES],
+                                                  VO_SIZE)), 2 * VO_FRAMES)
+        pairs = []
+
+        def match(i):
+            j = 1 + i % (VO_FRAMES - 1)
+            vo.kps_prev, vo.feat_prev = scaled[j - 1]
+            pairs.append(vo._match(*scaled[j], None))
+
+        mat = host_ms(match, 2 * (VO_FRAMES - 1))
+        pos = host_ms(lambda i: vo._estimate_pose_on_device(*pairs[i]),
+                      2 * (VO_FRAMES - 1))
+        med = {k: statistics.median(v[len(v) // 2:]) for k, v in
+               (("extract_ms", ext), ("match_ms", mat), ("pose_ms", pos))}
+        log(f"vo {mode}: steady median ms a frame (host clock, "
+            f"synchronised) {json.dumps(med)}")
+        paths[f"vo_{mode}"] = launches
+    return paths
 
 
 # --------------------------------------------------------------- family phase
@@ -706,7 +1148,22 @@ def device_sum_ms(run, iters: int = 10) -> float:
     return sum(n * t for n, t in device_breakdown(run, iters).values())
 
 
-def lightglue_kernel_phase(dev, repo: str) -> dict:
+def default_lightglue():
+    """LightGlue at config "default" (D = 256, 9 layers, 4 heads) with
+    PyTorch's initialisation drawn from the seed."""
+    import torch
+
+    from nanovs_slam_torch.matching.configs import LIGHTGLUE_CONFIGS
+    from nanovs_slam_torch.matching.lightglue import LightGlue
+
+    torch.manual_seed(SEED)
+    return LightGlue(LIGHTGLUE_CONFIGS["default"]).eval()
+
+
+def lightglue_kernel_phase(dev, lg, key: str, name: str) -> dict:
+    """The LightGlue stack of ``lg`` against its twin at K = 512 and 1024,
+    padded and with image 1 fully masked, timed at the two K; the kernels
+    line's entry ``key`` named ``name``."""
     import torch
     import torch.nn.functional as F
 
@@ -714,13 +1171,12 @@ def lightglue_kernel_phase(dev, repo: str) -> dict:
         HEADS, KERNELS_PER_LAYER, device_kernels, lightglue_transformer,
         lightglue_transformer_plain)
 
-    lg = pinned_lightglue(repo)
     D, L = lg.cfg.descriptor_dim, lg.cfg.n_layers
     P = lg.packed_weights().shape[1]
-    log(f"kernel lightglue_transformer: one call enqueues "
+    log(f"kernel {name}: one call enqueues "
         f"{device_kernels(L)} device kernels ({KERNELS_PER_LAYER} a "
         f"layer, {L} layers, and the first layer's self projection)")
-    entry = {"name": "lightglue_transformer", "route": "cuda",
+    entry = {"name": name, "route": "cuda",
              "source": "nanovs_slam_torch/csrc/lightglue.cu",
              "replaces": "nanovs_slam_tpu/ops/pallas/lightglue_kernel.py:265"}
     cases = [("K512", 512, 512, 0, 0, False),
@@ -734,11 +1190,11 @@ def lightglue_kernel_phase(dev, repo: str) -> dict:
         want = lightglue_transformer_plain(*args, range(L))
         torch.cuda.synchronize()
         err = max_err(got, want)
-        require(err <= 1e-4, f"lightglue_transformer {tag}: max_abs_err {err}")
+        require(err <= 1e-4, f"{name} {tag}: max_abs_err {err}")
         require(all(bool(torch.isfinite(g).all()) for g in got),
-                f"lightglue_transformer {tag}: not finite")
+                f"{name} {tag}: not finite")
         if tag not in ("K512", "K1024"):
-            log(f"kernel lightglue_transformer {tag}: max_abs_err {err:.3g}")
+            log(f"kernel {name} {tag}: max_abs_err {err:.3g}")
             entry[f"max_abs_err_{tag}"] = err
             continue
         ms = cuda_ms(lambda: lightglue_transformer(*args), inner=10)
@@ -760,13 +1216,13 @@ def lightglue_kernel_phase(dev, repo: str) -> dict:
         finally:
             lightglue_transformer.pdl = True
         require(round(per_call) == device_kernels(L),
-                f"lightglue_transformer {tag}: {per_call} device kernels a "
+                f"{name} {tag}: {per_call} device kernels a "
                 f"call, expected {device_kernels(L)}")
-        attn = [t for name, (_, t) in parts.items() if "attn_kernel" in name]
+        attn = [t for k, (_, t) in parts.items() if "attn_kernel" in k]
         attn_ms = statistics.mean(attn) if attn else None
         work = lightglue_work(1, M, N, D, L, P)
         b_ms, b_by = bound(*work[:2])
-        log(f"kernel lightglue_transformer {tag}: max_abs_err {err:.3g}, "
+        log(f"kernel {name} {tag}: max_abs_err {err:.3g}, "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.5f} ms ({b_by}; with the attention in 3xTF32 on the "
             f"tensor cores {bound_3xtf32(*work):.5f} ms); attention launch "
@@ -774,8 +1230,8 @@ def lightglue_kernel_phase(dev, repo: str) -> dict:
             f"{'n/a' if attn_ms is None else f'{attn_ms:.4f} ms'}, sdpa "
             f"{library_ms:.4f} ms")
         log("  per launch, PDL off:")
-        for name, (n, t) in sorted(parts.items(), key=lambda kv: -kv[1][1]):
-            log(f"  {t:.4f} ms x{n:g} a call  {name[:80]}")
+        for kname, (n, t) in sorted(parts.items(), key=lambda kv: -kv[1][1]):
+            log(f"  {t:.4f} ms x{n:g} a call  {kname[:80]}")
         keys = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                 "attn_launch_ms": attn_ms}  # PDL off: one launch's own time
@@ -784,7 +1240,7 @@ def lightglue_kernel_phase(dev, repo: str) -> dict:
     entry["library"] = ("torch.nn.functional.scaled_dot_product_attention, "
                         "one call over the two images of one self-attention "
                         "launch; the stack has no single library call")
-    return {"lightglue_transformer": entry}
+    return {key: entry}
 
 
 # ---------------------------------------------------------------- match phase
@@ -951,14 +1407,20 @@ def main() -> int:
                 log("ptxas: " + line.strip())
 
     kernels = kernel_phase(dev)
-    kernels.update(lightglue_kernel_phase(dev, repo))
+    kernels.update(lightglue_kernel_phase(dev, pinned_lightglue(repo),
+                                          "lightglue_transformer",
+                                          "lightglue_transformer"))
+    kernels.update(lightglue_kernel_phase(dev, default_lightglue(), LG_D256,
+                                          "lightglue_transformer[256]"))
     paths = {"n_slice": slice_phase(dev, (fused_postprocess,
                                           fused_stem_pair_pool, netvlad))[0]}
     weights_phase(dev, repo)
     paths["match"] = match_phase(dev, repo, (fused_postprocess,
                                              fused_stem_pair_pool,
                                              lightglue_transformer))
-
+    paths["odd_request"] = odd_request_phase(dev)
+    paths["lightglue_default"] = lightglue_default_phase(dev)
+    paths.update(vo_phase(dev, repo))
     paths.update(family_phase(dev))
 
     lines = []

@@ -25,14 +25,27 @@
 //     residual; the projection applies the rotary to the interleaved (even,
 //     odd) pairs in neighbouring lanes, in the module's basis (no
 //     half-basis permutation). q, k, v go out as (B, H, n, DH).
+//   row_tiled_kernel (D = 256, config "default"): a layer's weights (2.6
+//     MB) cannot sit in a block's shared memory, so a block of 8 warps owns
+//     16 rows across the full output width and streams each weight matrix
+//     through shared memory in chunks of 32 input rows, double-buffered
+//     with cp.async. A thread keeps a 4-row by 4-column tile of a 256-wide
+//     slab of outputs in registers (the columns 64 apart, so that a warp
+//     reads a chunk row without bank conflicts and the rotary pairs sit in
+//     neighbouring lanes). The fc1 outputs go to shared memory, where a
+//     warp a row takes the LayerNorm over 2D = 512 and the GELU; the FFN
+//     is fused with the projection that follows it as for D <= 64. It
+//     stages nothing before its wait for the previous launch: its weights
+//     stream with its rows.
 //   attn_kernel: flash-style online softmax on the tensor cores. A block
 //     takes 32 query rows of one head of one problem (self: image 0 and
 //     image 1; cross: the two directions), 16 rows and half the keys a
 //     warp; its four warps share each 128-key tile of K and V,
 //     double-buffered with cp.async.
 //     q k^T and p v are m16n8k8 TF32 products (DH = 8 is one k-step; DH =
-//     16 two) in 3xTF32, which keeps float32 accuracy. exp2 with log2(e)
-//     folded into the scale.
+//     16 two; DH = 64 eight) in 3xTF32, which keeps float32 accuracy. exp2
+//     with log2(e) folded into the scale. Its tiles are in dynamic shared
+//     memory: 139 KB at DH = 64.
 // Every launch of a call but the first is a programmatic dependent launch
 // (Hopper): the next kernel starts while this one runs, stages its weights,
 // and waits (griddepcontrol.wait) before it reads what this one writes. The
@@ -44,7 +57,9 @@
 // Bound on an H100: operations. Per layer 38 (M+N) D^2 + 4 (M^2+N^2) D +
 // 6 M N D flops: at M = N = 512, D = 32, L = 4 that is 0.63 GFLOP, 9.4 us at
 // 67 TFLOP/s (float32, CUDA cores); at 1024, 2.2 GFLOP, 33 us. The bytes
-// (weights 80 KB a layer, activations < 1 MB) move in well under that.
+// (weights 80 KB a layer, activations < 1 MB) move in well under that. At
+// D = 256, L = 9, M = N = 1024: 80 GFLOP, 1.2 ms (2.6 MB of weights a
+// layer).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -326,6 +341,212 @@ __global__ void __launch_bounds__(kRowThreads) row_kernel(RowArgs a) {
   }
 }
 
+// ------------------------------------- FFN and/or projection, D = 256
+
+constexpr int kTileRows = 16;   // rows a block of the tiled row kernel
+constexpr int kTileThreads = 256;
+constexpr int kSlab = 256;      // output columns a pass
+constexpr int kChunk = 32;      // weight rows a shared-memory chunk
+constexpr int kRowGroups = kTileThreads / (kSlab / 4);  // 4 rows a thread
+constexpr int kRowsPerThread = kTileRows / kRowGroups;
+
+// acc[r][j] += sum over k < K of A[r0 + r][k] W[k][n0 + cg + 64 j], with
+// r0 = 4 (tid / 64) and cg = tid % 64: A (kTileRows, lda) in shared memory,
+// W (K, ldw) in device memory, streamed through s_w (2 x kChunk x kSlab
+// floats) in chunks of kChunk rows. Starts and ends with a block barrier,
+// so A may be written just before and s_w reused just after.
+__device__ __forceinline__ void tile_gemm(
+    const float* A, int lda, const float* __restrict__ W, int ldw, int n0,
+    int K, float* s_w, float (&acc)[kRowsPerThread][4]) {
+  const int tid = threadIdx.x, cg = tid % 64, rg = tid / 64;
+  const int n_chunks = K / kChunk;
+  auto load = [&](int c, int buf) {
+    float* dst = s_w + buf * kChunk * kSlab;
+    for (int e = tid; e < kChunk * kSlab / 4; e += kTileThreads) {
+      const int kk = e / (kSlab / 4), c4 = 4 * (e % (kSlab / 4));
+      nvs::cp_async16(dst + kk * kSlab + c4,
+                      W + (long long)(c * kChunk + kk) * ldw + n0 + c4);
+    }
+    nvs::cp_async_commit();
+  };
+  __syncthreads();
+  load(0, 0);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      load(c + 1, (c + 1) & 1);
+      nvs::cp_async_wait<1>();
+    } else {
+      nvs::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* w = s_w + (c & 1) * kChunk * kSlab + cg;
+    const float* a = A + rg * kRowsPerThread * lda + c * kChunk;
+#pragma unroll 8
+    for (int kk = 0; kk < kChunk; ++kk) {
+      float av[kRowsPerThread], wv[4];
+#pragma unroll
+      for (int r = 0; r < kRowsPerThread; ++r) av[r] = a[r * lda + kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = w[kk * kSlab + 64 * j];
+#pragma unroll
+      for (int r = 0; r < kRowsPerThread; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(av[r], wv[j], acc[r][j]);
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+}
+
+template <bool kFfn>
+struct TiledSmem {
+  static constexpr int D = 256;
+  float w[2 * kChunk * kSlab];  // weight chunks
+  float xm[kTileRows][2 * D];   // [x | msg]
+  float cy[kTileRows][D];       // ctx, then the FFN's output y
+  float h[kFfn ? kTileRows : 1][2 * D];  // fc1, then LN and GELU
+};
+
+// The row kernel of D = 256: what row_kernel<256, kFfn, T> would compute,
+// with the weights streamed (see the file's head). A block takes
+// kTileRows rows of both images (image 0's B*M rows, then image 1's).
+template <bool kFfn, int T>
+__global__ void __launch_bounds__(kTileThreads) row_tiled_kernel(RowArgs a) {
+  constexpr int D = 256, D2 = 2 * D, DH = D / kHeads;
+  constexpr int RT = kRowsPerThread;
+  extern __shared__ float4 tiled_smem4[];
+  auto& s = *reinterpret_cast<TiledSmem<kFfn>*>(tiled_smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cg = tid % 64, rg = tid / 64;
+  wait_previous_launch();
+  allow_next_launch();
+
+  const int rows0 = a.B * a.M, rows = rows0 + a.B * a.N;
+  const int row_base = blockIdx.x * kTileRows;
+  // the rows this thread's accumulators hold
+  int img[RT];
+  long long off[RT];  // the row's element offset in its image's (B, n, D)
+  bool valid[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int row = row_base + rg * RT + r;
+    valid[r] = row < rows;
+    img[r] = row >= rows0;
+    off[r] = valid[r] ? (long long)(img[r] ? row - rows0 : row) * D : 0;
+  }
+  for (int e = tid; e < kTileRows * D; e += kTileThreads) {
+    const int i = e / D, c = e % D, row = row_base + i;
+    const bool in = row < rows;
+    const int im = row >= rows0;
+    const long long o = in ? (long long)(im ? row - rows0 : row) * D + c : 0;
+    s.xm[i][c] = in ? pick(im, a.x0, a.x1)[o] : 0.f;
+    if (kFfn) s.cy[i][c] = in ? pick(im, a.ctx0, a.ctx1)[o] : 0.f;
+  }
+  float acc[RT][4];
+  auto init = [&](const float* bias, int n0) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = bias[n0 + cg + 64 * j];
+  };
+
+  const float* y_rows = &s.xm[0][0];  // the rows the projection reads
+  int y_ld = D2;
+  if constexpr (kFfn) {
+    const float* w_wo = a.w_ffn;
+    const float* w_bo = w_wo + D * D;
+    const float* w_fc1 = w_bo + D;
+    const float* w_b1 = w_fc1 + D2 * D2;
+    const float* w_g = w_b1 + D2;
+    const float* w_beta = w_g + D2;
+    const float* w_fc2 = w_beta + D2;
+    const float* w_b2 = w_fc2 + D2 * D;
+    // msg = ctx wo + bo, beside x
+    init(w_bo, 0);
+    tile_gemm(&s.cy[0][0], D, w_wo, D, 0, D, s.w, acc);
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s.xm[rg * RT + r][D + cg + 64 * j] = acc[r][j];
+    // fc1 over [x, msg], in two slabs
+    for (int n0 = 0; n0 < D2; n0 += kSlab) {
+      init(w_b1, n0);
+      tile_gemm(&s.xm[0][0], D2, w_fc1, D2, n0, D2, s.w, acc);
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s.h[rg * RT + r][n0 + cg + 64 * j] = acc[r][j];
+    }
+    __syncthreads();
+    // LayerNorm (eps 1e-5) and exact GELU, a warp a row
+    for (int i = warp; i < kTileRows; i += kTileThreads / 32) {
+      constexpr int kPer = D2 / 32;
+      float v[kPer], sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) sum += (v[u] = s.h[i][lane + 32 * u]);
+      const float mu = nvs::warp_sum(sum) / D2;
+      float sq = 0.f;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) sq += (v[u] - mu) * (v[u] - mu);
+      const float rstd = rsqrtf(nvs::warp_sum(sq) / D2 + 1e-5f);
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int o = lane + 32 * u;
+        const float t = (v[u] - mu) * rstd * w_g[o] + w_beta[o];
+        s.h[i][o] = 0.5f * t * (1.f + erff(t * 0.70710678118654752f));
+      }
+    }
+    // y = x + h fc2 + b2: out to the rows, and kept (over ctx) to project
+    init(w_b2, 0);
+    tile_gemm(&s.h[0][0], D2, w_fc2, D, 0, D2, s.w, acc);
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = rg * RT + r, o = cg + 64 * j;
+        const float y = s.xm[i][o] + acc[r][j];
+        s.cy[i][o] = y;
+        if (valid[r]) pick(img[r], a.y0, a.y1)[off[r] + o] = y;
+      }
+    y_rows = &s.cy[0][0];
+    y_ld = D;
+  }
+  if constexpr (T > 0) {
+    // projection: slab p holds outputs 256 p + cg + 64 j of (type, head,
+    // channel); the rotary pairs (even, odd) sit in neighbouring lanes
+    const float* w_bp = a.w_proj + T * D * D;
+    for (int n0 = 0; n0 < T * D; n0 += kSlab) {
+      init(w_bp, n0);
+      tile_gemm(y_rows, y_ld, a.w_proj, T * D, n0, D, s.w, acc);
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const int n = pick(img[r], a.M, a.N);
+        const long long rr = off[r] / D;  // row within its image's (B, n)
+        const long long b = rr / n, i = rr % n;
+        const long long slot = (long long)a.B * n * D;  // one of q, k, v
+        float* out = pick(img[r], a.qkv0, a.qkv1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int o = n0 + cg + 64 * j;
+          const int t = o / D, h = (o % D) / DH, jj = o % DH;
+          float v = acc[r][j];
+          if (T == 3 && t < 2) {  // rotary on q and k, interleaved pairs
+            const float other = __shfl_xor_sync(0xffffffffu, v, 1);
+            const long long ti = rr * (DH / 2) + jj / 2;
+            const float c = valid[r] ? pick(img[r], a.cs0, a.cs1)[ti] : 0.f;
+            const float sn = valid[r] ? pick(img[r], a.sn0, a.sn1)[ti] : 0.f;
+            v = (jj & 1) ? v * c + other * sn : v * c - other * sn;
+          }
+          if (valid[r])
+            out[(T == 3 ? t : 2 * t) * slot +
+                ((b * kHeads + h) * n + i) * DH + jj] = v;
+        }
+      }
+    }
+  }
+}
+
 // -------------------------------------------------------------- attention
 
 struct AttnProblem {
@@ -357,13 +578,26 @@ using nvs::cp_async_wait;
 // with t = lane % 4) is reused as p's operand layout by taking key 2t as
 // k-index t and key 2t+1 as t + 4; v's operand follows the same order.
 template <int DH>
+struct AttnSmem {
+  static constexpr int kStride = DH + 4;  // padded key row: no bank conflicts
+  float k[2][kKeyTile * kStride];
+  float v[2][kKeyTile * kStride];
+  bool valid[2][kKeyTile];
+};
+
+template <int DH>
 __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
-  constexpr int kStride = DH + 4;  // padded key row: no bank conflicts
+  constexpr int kStride = AttnSmem<DH>::kStride;
   constexpr int kSteps = DH / 8;   // k-steps of q k^T, n-tiles of p v
   constexpr int kChunks = 64 / 8;  // 8-key chunks of a warp's share
-  __shared__ __align__(16) float s_k[2][kKeyTile * kStride];
-  __shared__ __align__(16) float s_v[2][kKeyTile * kStride];
-  __shared__ bool s_valid[2][kKeyTile];
+  // p v accumulates in two sets (even and odd 8-key chunks), two shorter
+  // chains of dependent products, while that costs few registers
+  constexpr int kSets = kSteps >= 4 ? 1 : 2;
+  extern __shared__ float4 attn_smem4[];
+  auto& sm = *reinterpret_cast<AttnSmem<DH>*>(attn_smem4);
+  auto& s_k = sm.k;
+  auto& s_v = sm.v;
+  auto& s_valid = sm.valid;
 
   wait_previous_launch();
   allow_next_launch();
@@ -411,9 +645,8 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
       nvs::split_tf32(v, qh[ks][i], ql[ks][i]);
     }
   const float neg_inf = -__int_as_float(0x7f800000);
-  // p v accumulates in two sets (even and odd 8-key chunks): two shorter
-  // chains of dependent products
-  float o[2][kSteps][4] = {}, m[2] = {neg_inf, neg_inf}, l[2] = {0.f, 0.f};
+  float o[kSets][kSteps][4] = {}, m[2] = {neg_inf, neg_inf};
+  float l[2] = {0.f, 0.f};
 
   const int n_tiles = (P.nk + kKeyTile - 1) / kKeyTile;
   load_tile(0, 0);
@@ -463,7 +696,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
 #pragma unroll
         for (int nt = 0; nt < kSteps; ++nt)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
+          for (int e = 0; e < kSets; ++e) {
             o[e][nt][2 * r] *= alpha;
             o[e][nt][2 * r + 1] *= alpha;
           }
@@ -489,7 +722,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
           uint32_t vh[2], vl[2];
           nvs::split_tf32(vr[8 * nt], vh[0], vl[0]);
           nvs::split_tf32(vr[kStride + 8 * nt], vh[1], vl[1]);
-          nvs::mma_3xtf32(o[ch & 1][nt], ph, pl, vh, vl);
+          nvs::mma_3xtf32(o[ch % kSets][nt], ph, pl, vh, vl);
         }
       }
     }
@@ -501,6 +734,12 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
   // rescales both to the common maximum and writes
   constexpr int kPart = 4 + 4 * kSteps;  // m, l of two rows; o
   float* part = s_k[0] + ((warp % kQGroups) * 32 + lane) * kPart;
+  auto osum = [&](int nt, int i) {
+    float v = o[0][nt][i];
+#pragma unroll
+    for (int e = 1; e < kSets; ++e) v += o[e][nt][i];
+    return v;
+  };
   static_assert(kQGroups * 32 * kPart <= kKeyTile * kStride,
                 "the merge fits in a tile buffer");
 #pragma unroll
@@ -517,8 +756,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
 #pragma unroll
     for (int nt = 0; nt < kSteps; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        part[4 + 4 * nt + i] = o[0][nt][i] + o[1][nt][i];
+      for (int i = 0; i < 4; ++i) part[4 + 4 * nt + i] = osum(nt, i);
   }
   __syncthreads();
   if (half == 1 || !active) return;
@@ -537,38 +775,52 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
     for (int nt = 0; nt < kSteps; ++nt) {
       const float* o1 = part + 4 + 4 * nt + 2 * r;
       *reinterpret_cast<float2*>(out + 8 * nt) = make_float2(
-          ((o[0][nt][2 * r] + o[1][nt][2 * r]) * f0 + o1[0] * f1) * inv,
-          ((o[0][nt][2 * r + 1] + o[1][nt][2 * r + 1]) * f0 + o1[1] * f1) *
-              inv);
+          (osum(nt, 2 * r) * f0 + o1[0] * f1) * inv,
+          (osum(nt, 2 * r + 1) * f0 + o1[1] * f1) * inv);
     }
   }
 }
 
 // ------------------------------------------------------------------- host
 
+// The row stage of width D: row_kernel up to D = 64, row_tiled_kernel
+// at D = 256; its kernel, threads, rows a block and dynamic shared memory.
 template <int D, bool kFfn, int T>
-constexpr size_t row_smem() {
-  return sizeof(float) * ((kFfn ? ffn_weights<D>() : 0) +
-                          proj_weights<D, T>() + kRowThreads / 32 *
-                          kRowsPerWarp * 5 * D);
-}
-
-template <int D, bool kFfn, int T>
-cudaError_t set_row_smem() {
-  return cudaFuncSetAttribute(row_kernel<D, kFfn, T>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)row_smem<D, kFfn, T>());
-}
+struct RowStage {
+  static constexpr bool kTiled = D > 64;
+  static constexpr int kThreads = kTiled ? kTileThreads : kRowThreads;
+  static constexpr int kRows = kTiled ? kTileRows : kRowRows;
+  static constexpr size_t kSmem =
+      kTiled ? sizeof(TiledSmem<kFfn>)
+             : sizeof(float) * ((kFfn ? ffn_weights<D>() : 0) +
+                                proj_weights<D, T>() + kRowThreads / 32 *
+                                kRowsPerWarp * 5 * D);
+  static void (*kernel())(RowArgs) {
+    if constexpr (kTiled)
+      return row_tiled_kernel<kFfn, T>;
+    else
+      return row_kernel<D, kFfn, T>;
+  }
+  static cudaError_t set_smem() {
+    return cudaFuncSetAttribute(kernel(),
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kSmem);
+  }
+};
 
 // Raises the dynamic shared-memory limits of the D-wide kernels once per
 // device.
 template <int D>
 cudaError_t set_smem_limits() {
   return nvs::once_per_device([] {
-    cudaError_t err = set_row_smem<D, false, 3>();
-    if (err == cudaSuccess) err = set_row_smem<D, true, 2>();
-    if (err == cudaSuccess) err = set_row_smem<D, true, 3>();
-    if (err == cudaSuccess) err = set_row_smem<D, true, 0>();
+    cudaError_t err = RowStage<D, false, 3>::set_smem();
+    if (err == cudaSuccess) err = RowStage<D, true, 2>::set_smem();
+    if (err == cudaSuccess) err = RowStage<D, true, 3>::set_smem();
+    if (err == cudaSuccess) err = RowStage<D, true, 0>::set_smem();
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_kernel<D / kHeads>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)sizeof(AttnSmem<D / kHeads>));
     return err;
   });
 }
@@ -618,37 +870,41 @@ cudaError_t run_layers(int l_begin, int l_end, const float* x0,
   float* qkv1 = scratch + 4 * s0;
   float* ctx1 = qkv1 + 3 * s1;
   const int rows = B * (M + N);
-  const dim3 row_grid((rows + kRowRows - 1) / kRowRows);
   const dim3 attn_grid(((M > N ? M : N) + kQRows - 1) / kQRows, kHeads,
                        2 * B);
   const float scale_log2 = kLog2e / sqrtf((float)DH);
   auto layer = [&](int l) { return packed + l * layer_stride; };
+  constexpr size_t kAttnSmem = sizeof(AttnSmem<DH>);
+  auto row = [&](auto stage, bool dep, const RowArgs& args) {
+    using S = decltype(stage);
+    return launch(S::kernel(), dim3((rows + S::kRows - 1) / S::kRows),
+                  S::kThreads, S::kSmem, stream, dep, args);
+  };
 
-  err = launch(row_kernel<D, false, 3>, row_grid, kRowThreads,
-               row_smem<D, false, 3>(), stream, false,
-               RowArgs{x0, x1, nullptr, nullptr, nullptr, nullptr, nullptr,
-                       layer(l_begin), cs0, sn0, cs1, sn1, qkv0, qkv1, B, M,
-                       N});
+  err = row(RowStage<D, false, 3>{}, false,
+            RowArgs{x0, x1, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    layer(l_begin), cs0, sn0, cs1, sn1, qkv0, qkv1, B, M, N});
   const float* cur0 = x0;
   const float* cur1 = x1;
   for (int l = l_begin; l < l_end && err == cudaSuccess; ++l) {
     const float* w_cross = layer(l) + kBlock;
-    err = launch(attn_kernel<DH>, attn_grid, kAttnThreads, 0, stream, pdl,
+    err = launch(attn_kernel<DH>, attn_grid, kAttnThreads, kAttnSmem,
+                 stream, pdl,
                  AttnArgs{{qkv0, qkv0 + s0, qkv0 + 2 * s0, mask0, ctx0, M, M},
                           {qkv1, qkv1 + s1, qkv1 + 2 * s1, mask1, ctx1, N, N},
                           scale_log2});
     if (err != cudaSuccess) break;
     // self FFN into o0/o1, then the cross projection: qk into the q slot,
     // v into the v slot
-    err = launch(row_kernel<D, true, 2>, row_grid, kRowThreads,
-                 row_smem<D, true, 2>(), stream, pdl,
-                 RowArgs{cur0, cur1, ctx0, ctx1, o0, o1, layer(l) + kSelf,
-                         w_cross, nullptr, nullptr, nullptr, nullptr, qkv0,
-                         qkv1, B, M, N});
+    err = row(RowStage<D, true, 2>{}, pdl,
+              RowArgs{cur0, cur1, ctx0, ctx1, o0, o1, layer(l) + kSelf,
+                      w_cross, nullptr, nullptr, nullptr, nullptr, qkv0, qkv1,
+                      B, M, N});
     if (err != cudaSuccess) break;
     cur0 = o0;
     cur1 = o1;
-    err = launch(attn_kernel<DH>, attn_grid, kAttnThreads, 0, stream, pdl,
+    err = launch(attn_kernel<DH>, attn_grid, kAttnThreads, kAttnSmem,
+                 stream, pdl,
                  AttnArgs{{qkv0, qkv1, qkv1 + 2 * s1, mask1, ctx0, M, N},
                           {qkv1, qkv0, qkv0 + 2 * s0, mask0, ctx1, N, M},
                           scale_log2});
@@ -657,11 +913,8 @@ cudaError_t run_layers(int l_begin, int l_end, const float* x0,
     const RowArgs ffn{o0, o1, ctx0, ctx1, o0, o1, w_cross + kCross,
                       l + 1 < l_end ? layer(l + 1) : nullptr, cs0, sn0, cs1,
                       sn1, qkv0, qkv1, B, M, N};
-    err = l + 1 < l_end
-              ? launch(row_kernel<D, true, 3>, row_grid, kRowThreads,
-                       row_smem<D, true, 3>(), stream, pdl, ffn)
-              : launch(row_kernel<D, true, 0>, row_grid, kRowThreads,
-                       row_smem<D, true, 0>(), stream, pdl, ffn);
+    err = l + 1 < l_end ? row(RowStage<D, true, 3>{}, pdl, ffn)
+                        : row(RowStage<D, true, 0>{}, pdl, ffn);
   }
   return err;
 }
@@ -671,7 +924,7 @@ cudaError_t run_layers(int l_begin, int l_end, const float* x0,
 // Layers [l_begin, l_end) of the stack. x0 (B,M,D), x1 (B,N,D) in; o0, o1
 // out (the same shapes, distinct from the inputs); cs/sn (B,n,DH/2); masks
 // (B,n) bytes or null; packed (L, layer_stride) floats; scratch
-// 4*B*(M+N)*D floats. All contiguous. D in {32, 64}, 4 heads. pdl 0 turns
+// 4*B*(M+N)*D floats. All contiguous. D in {32, 64, 256}, 4 heads. pdl 0 turns
 // programmatic dependent launch off for the whole call (same results), so
 // that a profiler's per-kernel durations do not overlap. Returns the first
 // cudaError_t of the launches.
@@ -702,6 +955,10 @@ extern "C" int nvs_lightglue_layers(
       return (int)run_layers<64>(l_begin, l_end, x0, x1, o0, o1, cs0, sn0,
                                  cs1, sn1, mask0, mask1, packed, scratch,
                                  layer_stride, B, M, N, pdl != 0, stream);
+    case 256:
+      return (int)run_layers<256>(l_begin, l_end, x0, x1, o0, o1, cs0, sn0,
+                                  cs1, sn1, mask0, mask1, packed, scratch,
+                                  layer_stride, B, M, N, pdl != 0, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -585,7 +585,10 @@ cudaError_t launch_wide(const float* x, const long long* sx, const float* w1,
 }  // namespace
 
 // x (B,H,W,3) with element strides [b, h, w, c]; w1 (C1,3,3,3) and
-// w2 (C2,C1,3,3) contiguous OIHW; out contiguous NCHW (B,C2,H/2,W/2);
+// w2 (C2,C1,3,3) contiguous OIHW; out contiguous NCHW (B,C2,H/2,W/2),
+// floor for an odd H or W (the pool's last row and column pair are conv2's
+// rows H-3, H-2 and columns W-3, W-2; conv2's SAME padding reads conv1 up
+// to row H-1, which the tile bounds-checks against the full H, W);
 // scratch: the wide instance's split weights, 2*9*C1*C2 + 64*C1 floats,
 // 16-byte aligned (unused, and may be null, for the narrow ones).
 extern "C" int nvs_stem_pair_pool(const float* x, const long long* sx,
@@ -594,7 +597,7 @@ extern "C" int nvs_stem_pair_pool(const float* x, const long long* sx,
                                   float* out, float* scratch, int B, int H,
                                   int W, int C1, int C2, float slope,
                                   cudaStream_t stream) {
-  if (H % 2 || W % 2 || H < 2 || W < 2 || B < 1 || B > 65535 ||
+  if (H < 2 || W < 2 || B < 1 || B > 65535 ||
       (H / 2 + kPoolH - 1) / kPoolH > 65535)
     return (int)cudaErrorInvalidValue;
   if (C1 == 16 && C2 == 24)

@@ -30,7 +30,7 @@ from . import _build
 from .common import check_contiguous, check_kernel_inputs, device_of
 
 HEADS = 4
-DIMS = (32, 64)  # descriptor widths of the kp2dtiny configs
+DIMS = (32, 64, 256)  # descriptor widths: kp2dtiny S/A, F and "default"
 # launches a layer: self attention, self FFN + cross projection, cross
 # attention, cross FFN + the next layer's self projection; a call adds one,
 # the first layer's self projection
@@ -187,7 +187,7 @@ def lightglue_transformer(x0: Tensor, x1: Tensor, cs0: Tensor, sn0: Tensor,
     ``pack_weights``; ``layers`` a step-1 range of layer indices (default
     all L) -> the descriptors (B,M,D), (B,N,D) after those layers.
 
-    H = 4 heads, D in {32, 64}, float32."""
+    H = 4 heads, D in {32, 64, 256}, float32."""
     name = "lightglue_transformer"
     L = packed.shape[0]
     layers = range(L) if layers is None else layers

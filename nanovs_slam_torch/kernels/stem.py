@@ -40,10 +40,13 @@ def fused_stem_pair_pool(x: torch.Tensor, w1: torch.Tensor,
                          b1: torch.Tensor, w2: torch.Tensor,
                          b2: torch.Tensor, negative_slope: float = 0.01
                          ) -> torch.Tensor:
-    """x (B,H,W,3) NHWC with H, W even; w1 (C1,3,3,3) and w2 (C2,C1,3,3)
+    """x (B,H,W,3) NHWC with H, W >= 2; w1 (C1,3,3,3) and w2 (C2,C1,3,3)
     OIHW conv weights with BN folded in, b1 (C1,), b2 (C2,);
     ``negative_slope`` 0.01 (LeakyReLU) or 0 (ReLU) ->
-    (B,H/2,W/2,C2) float32 NHWC (for the kernel, a view of NCHW memory)."""
+    (B,H//2,W//2,C2) float32 NHWC (for the kernel, a view of NCHW memory).
+    An odd H or W pools with floor, as ``F.max_pool2d`` and flax's VALID
+    ``max_pool`` do; the convolutions' SAME padding is taken against the
+    full frame, so the last pooled row still sees input row H-1."""
     name = "fused_stem_pair_pool"
     check_nhwc_dense(name, x=x)
     B, H, W, c0 = x.shape
@@ -53,8 +56,8 @@ def fused_stem_pair_pool(x: torch.Tensor, w1: torch.Tensor,
             or tuple(b2.shape) != (C2,)):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, w1 "
                          f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}")
-    if H % 2 or W % 2:
-        raise ValueError(f"{name}: H={H}, W={W} must be even")
+    if H < 2 or W < 2:
+        raise ValueError(f"{name}: H={H}, W={W} must be at least 2")
     dev = device_of(name, x, w1, b1, w2, b2)
     if dev.type == "cpu":
         return stem_plain(x, w1, b1, w2, b2, negative_slope)

@@ -41,15 +41,17 @@ def post_process(out: Dict[str, Tensor], H: int, W: int, cell: int,
 
 
 def top_k_keypoints(score: Tensor, coord: Tensor, feat: Tensor, k: int,
-                    conf_threshold: float = 0.0):
+                    conf_threshold: float = 0.0, with_indices: bool = False):
     """Fixed-shape top-K keypoint selection over all cells.
 
     score (B,Hc,Wc,1), coord (B,Hc,Wc,2), feat (B,Hc,Wc,C) ->
     (kp_xy (B,K,2), kp_score (B,K), desc (B,K,C), valid (B,K) bool) with
-    K = min(k, Hc*Wc). Entries at or below ``conf_threshold`` are marked
-    invalid; their data is still the next-best cells. Equal scores keep
-    the lower cell index first, as ``jax.lax.top_k`` orders them (a
-    saturated score head gives many cells a score of exactly 1).
+    K = min(k, Hc*Wc), and with ``with_indices`` the selected cells' flat
+    indices (B,K) int64 after them. Entries at or below
+    ``conf_threshold`` are marked invalid; their data is still the
+    next-best cells. Equal scores keep the lower cell index first, as
+    ``jax.lax.top_k`` orders them (a saturated score head gives many cells
+    a score of exactly 1).
     """
     B, Hc, Wc, _ = score.shape
     k = min(k, Hc * Wc)
@@ -61,4 +63,6 @@ def top_k_keypoints(score: Tensor, coord: Tensor, feat: Tensor, k: int,
     C = feat.shape[-1]
     ds = torch.gather(feat.reshape(B, Hc * Wc, C), 1,
                       idx[..., None].expand(B, k, C))
+    if with_indices:
+        return kp, top_s, ds, top_s > conf_threshold, idx
     return kp, top_s, ds, top_s > conf_threshold

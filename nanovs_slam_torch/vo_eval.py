@@ -1,0 +1,126 @@
+"""VO trajectory evaluation on a KITTI-style sequence with the port:
+
+    python -m nanovs_slam_torch.vo_eval --kitti_path DIR [--device cuda]
+        [--model_path CKPT.npz] [--matcher bf|flann|crosscheck|semantic|
+        lightglue --lg_ckpt LG.npz] [--device_pose] ...
+
+The counterpart of the root ``vo_eval.py``, with its flags and defaults and
+the same JSON keys: runs the online VO over ``kitti_path/video_name``
+against ``kitti_path/gt_name``, prints the results and writes them with
+the arguments to ``--out``. ``--device`` (default cuda) runs the frontend,
+LightGlue and the device RANSAC there. Reading the video needs cv2, as
+does the default host pose tail (without ``--device_pose``).
+Not ported yet, and raising: ``--offline``, ``--matcher dense``,
+``--plot`` and checkpoints other than ``.npz`` (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--kitti_path", required=True)
+    p.add_argument("--gt_name", default="06.txt")
+    p.add_argument("--video_name", default="06.mp4")
+    p.add_argument("--model_path", default=None,
+                   help=".npz checkpoint (flax tree with __meta__)")
+    p.add_argument("--config", default="N")
+    p.add_argument("--model_type", default="KP2DtinyV2")
+    p.add_argument("--n_classes", type=int, default=28)
+    p.add_argument("--im_h", type=int, default=128)
+    p.add_argument("--im_w", type=int, default=512)
+    p.add_argument("--top_k", type=int, default=4000)
+    p.add_argument("--nn_thresh", type=float, default=0.7,
+                   help="keypoint confidence threshold")
+    p.add_argument("--matcher", default="bf",
+                   choices=["bf", "flann", "crosscheck", "semantic",
+                            "lightglue", "dense"])
+    p.add_argument("--lg_ckpt", default=None,
+                   help=".npz LightGlue checkpoint for --matcher lightglue")
+    p.add_argument("--lg_threshold", type=float, default=0.0,
+                   help="LightGlue match filter threshold")
+    p.add_argument("--lg_width", type=float, default=-1.0,
+                   help="LightGlue width pruning confidence (<= 0 off; not "
+                        "ported yet above 0)")
+    p.add_argument("--offline", action="store_true",
+                   help="sequence-level offline VO (not ported yet)")
+    p.add_argument("--dense_rel_conf", type=float, default=0.1,
+                   help="dense matcher threshold (the dense matcher is not "
+                        "ported yet)")
+    p.add_argument("--device_pose", action="store_true",
+                   help="the device RANSAC (pose.ransac_essential_device) "
+                        "in place of the host cv2 USAC_MSAC pose tail")
+    p.add_argument("--pose_hypotheses", type=int, default=8192,
+                   help="device-RANSAC hypotheses a stage")
+    p.add_argument("--pose_restarts", type=int, default=3,
+                   help="device-RANSAC streams; the largest final "
+                        "consensus wins")
+    p.add_argument("--semantic_filter", action="store_true")
+    p.add_argument("--classes_to_filter", type=int, nargs="+", default=[21])
+    p.add_argument("--max_frames", type=int, default=None)
+    p.add_argument("--out", default="vo_results.json")
+    p.add_argument("--plot", action="store_true",
+                   help="save the trajectory plot (not ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.offline:
+        raise NotImplementedError("--offline (vo/offline.py) is not ported "
+                                  "yet: ROADMAP.md Queue 1 item 3")
+    if args.plot:
+        raise NotImplementedError("--plot (utils/plot.py) is not ported "
+                                  "yet: ROADMAP.md Queue 1 item 7")
+    import torch
+
+    from .configs import get_config
+    from .models.kp2dtiny import init_model
+    from .utils.device import resolve_device
+    from .vo.frontend import KP2DTinyFrontend
+    from .vo.visual_odometry import DENSE_NOT_PORTED, evaluate_visual_odometry
+
+    if args.matcher == "dense":
+        raise NotImplementedError(DENSE_NOT_PORTED)
+    dev = resolve_device(args.device)
+    v3 = args.model_type in ("KP2DtinyV3", "DF")
+    cfg = get_config(args.config, v3=v3, n_classes=args.n_classes)
+    model = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    if args.model_path:
+        if not args.model_path.endswith(".npz"):
+            raise NotImplementedError(
+                "the port reads .npz checkpoints only (utils/checkpoint.py)")
+        from .utils.checkpoint import load_npz_checkpoint
+        from .utils.convert import load_jax_variables
+
+        tree, _ = load_npz_checkpoint(args.model_path)
+        load_jax_variables(model, tree["params"], tree["batch_stats"])
+    H, W = args.im_h, args.im_w
+    fe = KP2DTinyFrontend(
+        model, cfg, (H, W), nn_thresh=args.nn_thresh, top_k=args.top_k,
+        semantic_filter=args.semantic_filter,
+        classes_to_filter=args.classes_to_filter,
+        with_seg=args.matcher == "semantic", device=dev)
+    results = evaluate_visual_odometry(
+        fe, args.kitti_path, args.gt_name, args.video_name, new_size=(H, W),
+        max_frames=args.max_frames, verbose=True, matcher=args.matcher,
+        lightglue=args.lg_ckpt if args.matcher == "lightglue" else None,
+        device_pose=args.device_pose, lg_width=args.lg_width,
+        lg_threshold=args.lg_threshold,
+        pose_hypotheses=args.pose_hypotheses,
+        pose_restarts=args.pose_restarts, device=dev)
+    print(json.dumps(results, indent=2, default=str))
+    with open(args.out, "w") as f:
+        json.dump({"args": vars(args), "results": results}, f, indent=2,
+                  default=str)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -117,7 +117,8 @@ def test_postprocess_wrapper_checks_inputs():
 
 @pytest.mark.parametrize("shape,c1,c2", [((2, 48, 64), 16, 24),
                                          ((1, 32, 48), 16, 32),
-                                         ((1, 32, 48), 64, 128)])
+                                         ((1, 32, 48), 64, 128),
+                                         ((1, 33, 47), 16, 24)])
 def test_stem_plain_matches_xla_chain(shape, c1, c2):
     jnp = _jnp()
     import jax
@@ -278,13 +279,16 @@ def test_postprocess_kernel_matches_plain(cuda, B, H, W, C):
 @pytest.mark.parametrize("B,H,W,c2,slope", [
     (1, 240, 320, 24, 0.01), (8, 240, 320, 24, 0.01), (2, 240, 320, 32, 0.01),
     (2, 250, 334, 24, 0.01), (2, 250, 334, 32, 0.0), (1, 96, 128, 32, 0.01),
-    (1, 240, 320, 24, 0.0), (2, 48, 64, 128, 0.01), (1, 250, 334, 128, 0.0)])
+    (1, 240, 320, 24, 0.0), (2, 48, 64, 128, 0.01), (1, 250, 334, 128, 0.0),
+    (2, 241, 321, 24, 0.01), (1, 241, 321, 32, 0.01), (1, 241, 321, 128, 0.01),
+    (1, 49, 64, 24, 0.01), (1, 48, 65, 128, 0.0)])
 def test_stem_kernel_matches_plain(cuda, B, H, W, c2, slope):
     """The N slice at B 1 and 8, the S widths, a ragged size whose pooled
     grid (125x167) fills no tile, the weights phase's 96x128, the ReLU
-    (slope 0) of the MCU configs, and config D's (64, 128) at a small size
-    and a ragged one, for NHWC memory and the NHWC view of NCHW memory that
-    the model passes."""
+    (slope 0) of the MCU configs, config D's (64, 128) at a small size
+    and a ragged one, and odd frame sizes (floor pooling) at all three
+    widths, for NHWC memory and the NHWC view of NCHW memory that the
+    model passes."""
     c1 = 64 if c2 == 128 else 16
     x, w1, b1, w2, b2 = _stem_inputs(B, H, W, c1, c2)
     args = [_oihw(w1), torch.from_numpy(b1), _oihw(w2), torch.from_numpy(b2)]

@@ -133,7 +133,7 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("name", ["kp2dtiny_S", "kp2dtiny_F"])
+@pytest.mark.parametrize("name", ["kp2dtiny_S", "kp2dtiny_F", "default"])
 def test_lightglue_matches_flax(flax_params, name, case):
     params = flax_params(name)
     data = _pair_data(D=LIGHTGLUE_CONFIGS[name].input_dim, B=2, seed=3,
@@ -492,8 +492,9 @@ def test_make_pair_matcher_without_card_raises():
 
 # --------------------------------------------------------- kernel on a card
 
-def _kernel_inputs(B, M, N, D, dev, seed=0, pad0=0, pad1=0, empty1=False):
-    cfg = LightGlueConfig(input_dim=D, descriptor_dim=D, n_layers=4,
+def _kernel_inputs(B, M, N, D, dev, seed=0, pad0=0, pad1=0, empty1=False,
+                   L=4):
+    cfg = LightGlueConfig(input_dim=D, descriptor_dim=D, n_layers=L,
                           num_heads=4)
     torch.manual_seed(seed)
     port = LightGlue(cfg).eval()
@@ -512,13 +513,20 @@ def _kernel_inputs(B, M, N, D, dev, seed=0, pad0=0, pad1=0, empty1=False):
     (1, 300, 200, 32, 120, 7, False),
     (2, 256, 192, 32, 30, 0, True),
     (2, 256, 320, 64, 20, 40, False),
+    (1, 512, 512, 256, 0, 0, False),
+    (1, 1024, 1024, 256, 0, 0, False),
+    (1, 512, 384, 256, 51, 154, False),
+    (2, 256, 192, 256, 30, 0, True),
 ])
 def test_lightglue_kernel_matches_plain(cuda, B, M, N, D, pad0, pad1,
                                         empty1):
-    args = _kernel_inputs(B, M, N, D, cuda, 1, pad0, pad1, empty1)
+    """D = 32 and 64 over 4 layers; D = 256 (the "default" config) over
+    its 9, at K = 512 and 1024, padded, and with image 1 fully masked."""
+    L = 9 if D == 256 else 4
+    args = _kernel_inputs(B, M, N, D, cuda, 1, pad0, pad1, empty1, L)
     if not (pad0 or pad1 or empty1):
         args[6] = args[7] = None
-    want = lightglue_transformer_plain(*args, range(4))
+    want = lightglue_transformer_plain(*args, range(L))
     before = lightglue_transformer.launches
     got = lightglue_transformer(*args)
     torch.cuda.synchronize()
