@@ -30,12 +30,24 @@ Phases, each of which raises (exit code != 0) on failure:
     do not overlap, and one scaled_dot_product_attention call as the
     attention's yardstick (its twin, ~600 launches a call, is timed by the
     profiler's summed device time: more launches than the device queues
-    behind a spin);
+    behind a spin); and the bfloat16 instances against their bf16 twins at
+    the bf16 cells' shapes, batch 1 and 8: the stem at (16, 24), (16, 32)
+    and (64, 128) within one bf16 ulp (library: cuDNN's bf16 chain; bound
+    at bf16 bytes and 989 TFLOP/s), the postprocess at C = 32 and 128 and
+    NetVLAD at (48, 32) and (64, 64) within 1e-5 (bf16 inputs read, float32
+    computed: bound at those bytes and the float32 rate);
  4. slice phase: KP2DTiny-N V2 (28 classes, seeded random weights and BN
     stats) served through make_infer_fn(top_k=1000, conf_threshold=0.7) on
     four uint8 requests (three at batch 1, one at batch 8), with its
     kernels' launch counts read around those requests, and the batch-1
     answer compared with the same model on the CPU;
+ 4b. bf16 phase: KP2DTiny-N as __graft_entry__.entry() runs it (28
+    classes, dtype bfloat16, top_k 1000, conf 0.7), V3 S_A and V2 D, each
+    at batch 1 and 8: the bf16 kernels launched once a request (and no
+    float32 instance), the batch-1 answer held against the CPU's bf16
+    answer relative to the card's float32 answer (the criteria of
+    tests/test_torch_port_bf16.py), and the steady ms per request and
+    device busy share at bf16 and float32, in turns;
  5. weights phase: the pinned S8 checkpoint (config S, 8 classes) loaded
     through utils/convert.py answers one 96x128 request, compared with the
     CPU;
@@ -59,7 +71,10 @@ Phases, each of which raises (exit code != 0) on failure:
     card against the CPU under the same injected noise, the kernels'
     launch counts (stem and postprocess on every frame, LightGlue on every
     pair), no failed estimate; the error statistics beside the CPU's run
-    and the ms per frame of extraction, matching and pose;
+    and the ms per frame of extraction, matching and pose; the native BF
+    matcher is required (its build messages printed); then VO-BF again with
+    the extractor at bf16 and uint8 frames: the bf16 kernels on every
+    frame, no failed estimate, the errors beside the float32 run's;
  10. family phase: V3 S_A (decoder fusion, attention, NetVLAD) and V2 D
     (attention, ConvAP, the stem at (64, 128)), 28 classes, seeded random
     weights and BN stats, served at 240x320 like the slice phase at batch
@@ -79,6 +94,9 @@ Phases, each of which raises (exit code != 0) on failure:
     VO path's 128x512, config S), and
     ``launches_<path>`` / ``*_match`` a later path that runs the kernel
     too (the match path's postprocess shapes are the N slice's B=1 ones).
+    The bfloat16 instances have entries of their own (``*_bf16``, named
+    ``...[bf16]``): unsuffixed the N cell's shapes, ``_s`` S_A's, ``_d``
+    D's, and ``launches`` the bf16 N cell's.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 false. It imports neither jax nor nanovs_slam_tpu.
@@ -101,6 +119,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # float32 accuracy on the tensor cores: 3xTF32, three TF32 products a product
 TF32_3X_FLOP_PER_S = TF32_FLOP_PER_S / 3
 H, W = 240, 320
@@ -113,6 +132,11 @@ STEM_ODD = "fused_stem_pair_pool_odd"
 ODD_HW = (241, 321)
 # the entry key of the LightGlue stack at D = 256 (config "default")
 LG_D256 = "lightglue_d256"
+# the entry keys of the bfloat16 instances (every width of a kernel under
+# one key, as for the float32 instances' suffixes)
+STEM_BF16 = "fused_stem_pair_pool_bf16"
+PP_BF16 = "fused_postprocess_bf16"
+NV_BF16 = "netvlad_bf16"
 
 
 def log(msg: str) -> None:
@@ -166,7 +190,19 @@ def max_err(a, b) -> float:
 
     if isinstance(a, (tuple, list)):
         return max(max_err(x, y) for x, y in zip(a, b))
-    return float(torch.max(torch.abs(a - b)).item())
+    return float(torch.max(torch.abs(a.float() - b.float())).item())
+
+
+def bf16_ulps(got, want) -> float:
+    """max |got - want| in bfloat16 ulps of the output, the ulp of
+    max |want|. Not each element's own ulp: a rounding of conv1's
+    activation that the sums' order moves by one changes a near-zero
+    output by several of its own ulps."""
+    import math
+
+    g, w = got.float(), want.float()
+    _, e = math.frexp(float(w.abs().max()))
+    return float((g - w).abs().max()) / 2.0 ** (e - 8)
 
 
 def require(cond: bool, what: str) -> None:
@@ -227,13 +263,17 @@ def kernel_cases(B: int, dev) -> list[Case]:
 
     cell = 4
 
-    def postprocess_case(suffix, C, h=H, w=W):
+    def postprocess_case(suffix, C, h=H, w=W, bf16=False):
         """The postprocess with C descriptor channels (N: 32; D: 128) on
-        h x w frames."""
+        h x w frames; with ``bf16``, bfloat16 inputs (float32 out)."""
         Hc, Wc, Hf, Wf = h // cell, w // cell, h // 2, w // 2
         score = nhwc(rs.rand(B, 1, Hc, Wc))
         shift = nhwc(rs.uniform(-1, 1, (B, 2, Hc, Wc)))
         feat = nhwc(rs.randn(B, C, Hf, Wf))
+        nin = 2 if bf16 else 4  # bytes an input element
+        if bf16:
+            score, shift, feat = (a.to(torch.bfloat16)
+                                  for a in (score, shift, feat))
         pp = (score, shift, feat, h, w, cell, 2.0)
 
         def check(got, want):
@@ -242,13 +282,15 @@ def kernel_cases(B: int, dev) -> list[Case]:
             cos = (got[2] * want[2]).sum(-1).min().item()
             require(cos > 0.99999, f"postprocess {C} descriptor cosine {cos}")
 
-        return Case("fused_postprocess", "fused_postprocess", suffix,
+        entry, name = (PP_BF16, "fused_postprocess[bf16]") if bf16 else (
+            "fused_postprocess", "fused_postprocess")
+        return Case(entry, name, suffix,
                     "nanovs_slam_torch/csrc/postprocess.cu",
                     "nanovs_slam_tpu/ops/pallas/postprocess_kernel.py:104",
                     lambda: fused_postprocess(*pp),
                     lambda: postprocess_plain(*pp), None,
-                    4 * (B * Hc * Wc * 3 + B * Hf * Wf * C
-                         + B * Hc * Wc * (3 + C)),
+                    nin * (B * Hc * Wc * 3 + B * Hf * Wf * C)
+                    + 4 * B * Hc * Wc * (3 + C),
                     B * Hc * Wc * C * 14, FP32_FLOP_PER_S, check)
 
     def stem_case(suffix, C1, C2, entry="fused_stem_pair_pool",
@@ -256,55 +298,75 @@ def kernel_cases(B: int, dev) -> list[Case]:
         """The stem at widths 3 -> C1 -> C2 (N: 16, 24; S: 16, 32; D: 64,
         128) on h x w frames, conv2's weights at 0.1 for C1 = 16 and
         scaled as 1/sqrt(C1) beyond, so that its outputs keep their
-        spread."""
+        spread. The entry STEM_BF16 takes a bfloat16 x (the bfloat16
+        instances)."""
+        bf16 = entry == STEM_BF16
         x = nhwc(rs.uniform(-1, 1, (B, 3, h, w)))
         w1, b1 = t(rs.randn(C1, 3, 3, 3) * 0.2), t(rs.randn(C1) * 0.1)
         w2 = t(rs.randn(C2, C1, 3, 3) * (0.1 * (16 / C1) ** 0.5))
         b2 = t(rs.randn(C2) * 0.1)
+        if bf16:
+            x = x.to(torch.bfloat16)
         st = (x, w1, b1, w2, b2)
 
-        def check(got, want):  # 3xTF32 keeps float32 accuracy
-            require(max_err(got, want) <= 1e-5, f"stem {C1}, {C2}")
+        def check(got, want):
+            if bf16:  # one rounding of conv1's activation or of the output
+                ulps = bf16_ulps(got, want)
+                require(ulps <= 1.0, f"stem[bf16] {C1}, {C2}: {ulps} ulps")
+            else:  # 3xTF32 keeps float32 accuracy
+                require(max_err(got, want) <= 1e-5, f"stem {C1}, {C2}")
 
-        def library():  # cuDNN's default: TF32 convolutions
+        lib_w = [a.to(x.dtype) for a in (w1, b1, w2, b2)]
+
+        def library():  # cuDNN's default: TF32 convolutions; or bf16 ones
             torch.backends.cudnn.allow_tf32 = True
             try:
-                y = F.leaky_relu(F.conv2d(x.permute(0, 3, 1, 2), w1, b1,
-                                          padding=1), 0.01)
-                y = F.leaky_relu(F.conv2d(y, w2, b2, padding=1), 0.01)
+                y = F.leaky_relu(F.conv2d(x.permute(0, 3, 1, 2), lib_w[0],
+                                          lib_w[1], padding=1), 0.01)
+                y = F.leaky_relu(F.conv2d(y, lib_w[2], lib_w[3], padding=1),
+                                 0.01)
                 return F.max_pool2d(y, 2, 2)
             finally:
                 torch.backends.cudnn.allow_tf32 = False
 
         name = {"fused_stem_pair_pool": "fused_stem_pair_pool",
                 STEM_D: f"fused_stem_pair_pool[{C1},{C2}]",
-                STEM_ODD: f"fused_stem_pair_pool[{h}x{w}]"}[entry]
+                STEM_ODD: f"fused_stem_pair_pool[{h}x{w}]",
+                STEM_BF16: "fused_stem_pair_pool[bf16]"}[entry]
+        nio = 2 if bf16 else 4  # bytes an element of x and of the output
         return Case(entry, name, suffix, "nanovs_slam_torch/csrc/stem.cu",
                     "nanovs_slam_tpu/ops/pallas/fused_stem.py:167",
                     lambda: fused_stem_pair_pool(*st),
                     lambda: stem_plain(*st), library,
-                    4 * (B * h * w * 3 + C1 * 28 + C2 * (C1 * 9 + 1)
-                         + B * (h // 2) * (w // 2) * C2),
+                    nio * (B * h * w * 3 + B * (h // 2) * (w // 2) * C2)
+                    + 4 * (C1 * 28 + C2 * (C1 * 9 + 1)),
                     2 * B * h * w * (C1 * 27 + C2 * C1 * 9),
-                    TF32_3X_FLOP_PER_S, check, device_kernels)
+                    BF16_FLOP_PER_S if bf16 else TF32_3X_FLOP_PER_S, check,
+                    device_kernels)
 
     Hc, Wc = H // cell, W // cell
     S = Hc * Wc
 
-    def netvlad_case(suffix, Cv, K):
-        """NetVLAD at widths C, K (N: 48, 32; S: 64, 64)."""
+    def netvlad_case(suffix, Cv, K, bf16=False):
+        """NetVLAD at widths C, K (N: 48, 32; S: 64, 64); with ``bf16``, a
+        bfloat16 x."""
         xv = nhwc(rs.randn(B, Cv, Hc, Wc))
         aw, cen = t(rs.randn(Cv, K) * 0.2), t(rs.rand(K, Cv))
+        if bf16:
+            xv = xv.to(torch.bfloat16)
         nv = (xv, aw, cen)
 
         def check(got, want):
             require(max_err(got, want) <= 1e-5, f"netvlad {Cv}, {K}")
 
-        return Case("netvlad", "netvlad", suffix,
+        entry, name = (NV_BF16, "netvlad[bf16]") if bf16 else (
+            "netvlad", "netvlad")
+        return Case(entry, name, suffix,
                     "nanovs_slam_torch/csrc/netvlad.cu",
                     "nanovs_slam_tpu/ops/pallas/netvlad_kernel.py:59",
                     lambda: netvlad(*nv), lambda: netvlad_plain(*nv), None,
-                    4 * (B * S * Cv + 2 * Cv * K + B * K * Cv),
+                    (2 if bf16 else 4) * B * S * Cv
+                    + 4 * (2 * Cv * K + B * K * Cv),
                     B * S * (4 * Cv * K + 3 * Cv + 3 * K), FP32_FLOP_PER_S,
                     check)
 
@@ -327,6 +389,15 @@ def kernel_cases(B: int, dev) -> list[Case]:
         # the VO path's shapes: pinned S8 at 128x512
         cases += [stem_case("_vo", 16, 32, h=VO_SIZE[0], w=VO_SIZE[1]),
                   postprocess_case("_vo", 32, *VO_SIZE)]
+    # the bfloat16 instances at the bf16 cells' shapes: N (unsuffixed), S_A
+    # (_s) and D (_d); the (64, 128) instance packs its weights first
+    cases += [stem_case(b8, 16, 24, STEM_BF16),
+              stem_case("_s" + b8, 16, 32, STEM_BF16),
+              stem_case("_d" + b8, 64, 128, STEM_BF16, 2),
+              postprocess_case(b8, 32, bf16=True),
+              postprocess_case("_d" + b8, 128, bf16=True),
+              netvlad_case(b8, 48, 32, bf16=True),
+              netvlad_case("_s" + b8, 64, 64, bf16=True)]
     return cases
 
 
@@ -347,9 +418,11 @@ def kernel_phase(dev):
             library_ms = cuda_ms(c.library) if c.library is not None else None
             b_ms, b_by = bound(c.nbytes, c.flops, c.rate)
             note = ""
-            if c.rate != FP32_FLOP_PER_S:  # the stem: print both bounds
+            if c.rate == TF32_3X_FLOP_PER_S:  # the stem: print both bounds
                 note = (f", 3xTF32 on the tensor cores; float32 on the CUDA "
                         f"cores {bound(c.nbytes, c.flops)[0]:.5f} ms")
+            elif c.rate == BF16_FLOP_PER_S:
+                note = ", bf16 on the tensor cores"
             n_dev, parts = kernels_a_call(c.run, c.device_kernels)
             log(f"kernel {tag}: {n_dev:g} device kernels a call, "
                 + ", ".join(f"{t:.4f} ms {k[:48]}" for k, (_, t) in
@@ -367,6 +440,8 @@ def kernel_phase(dev):
             keys = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": library_ms}
+            if c.entry == STEM_BF16:
+                keys["max_bf16_ulps"] = bf16_ulps(got, want)
             entry.update({k + c.suffix: v for k, v in keys.items()})
     return results
 
@@ -755,7 +830,8 @@ def vo_phase(dev, repo: str) -> dict:
                                            fused_stem_pair_pool,
                                            lightglue_transformer,
                                            reset_launches)
-    from nanovs_slam_torch.models.kp2dtiny import init_model
+    from nanovs_slam_torch.models.kp2dtiny import build_model, init_model
+    from nanovs_slam_torch.ops.image import quantize_u8
     from nanovs_slam_torch.utils.checkpoint import load_npz_checkpoint
     from nanovs_slam_torch.utils.convert import load_jax_variables
     from nanovs_slam_torch.vo import native
@@ -773,9 +849,15 @@ def vo_phase(dev, repo: str) -> dict:
     frames, poses = corridor_frames(dev, VO_FRAMES, SEED + 700)
     torch.cuda.synchronize()
     log(f"vo: {VO_FRAMES} corridor frames {tuple(frames.shape[1:])} "
-        f"rendered on the card in {time.perf_counter() - t_start:.2f} s; "
-        f"host matcher: "
-        f"{'native' if native.native_available() else 'numpy'}")
+        f"rendered on the card in {time.perf_counter() - t_start:.2f} s")
+    # the host BF matcher must be the native one: the numpy fallback is a
+    # different program to time
+    built = native.native_available()
+    if native.build_log:
+        log(f"vo: native matcher build messages:\n{native.build_log}")
+    require(built, "vo: the native matcher did not build")
+    log(f"vo: host matcher native, {native.SOURCE.name} built into "
+        f"{native.BUILD_ROOT}")
     tmp = tempfile.mkdtemp()
     try:
         np.savetxt(os.path.join(tmp, "06.txt"), poses.reshape(len(poses), 12))
@@ -855,7 +937,7 @@ def vo_phase(dev, repo: str) -> dict:
     require(r_err <= 1e-4 and t_err <= 1e-4 and bool((inl == inlc).all()),
             "vo: the card's RANSAC differs from the CPU's")
 
-    paths = {}
+    paths, runs = {}, {}
     for mode in ("bf", "lightglue"):
         run_kw = dict(new_size=VO_SIZE, verbose=True, matcher=mode,
                       device_pose=True, pose_hypotheses=8192,
@@ -923,6 +1005,46 @@ def vo_phase(dev, repo: str) -> dict:
         log(f"vo {mode}: steady median ms a frame (host clock, "
             f"synchronised) {json.dumps(med)}")
         paths[f"vo_{mode}"] = launches
+        runs[mode] = res
+
+    # VO-BF with the extractor at bfloat16, frames in as uint8 (the JAX
+    # VO's transfer for a bf16 model)
+    cfg16 = get_config("S", n_classes=8, dtype="bfloat16")
+    ex16 = build_model(cfg16)
+    ex16.load_state_dict(cpu_ex.state_dict())
+    fe16 = KP2DTinyFrontend(ex16, cfg16, VO_SIZE, device=dev, **kw)
+    reset_launches()
+    res = run_visual_odometry(fe16, frames, gt, device=dev, new_size=VO_SIZE,
+                              verbose=True, matcher="bf", device_pose=True,
+                              pose_hypotheses=8192, pose_restarts=3)
+    torch.cuda.synchronize()
+    launches = {STEM_BF16: fused_stem_pair_pool.launches_bf16,
+                PP_BF16: fused_postprocess.launches_bf16}
+    f32 = (fused_stem_pair_pool.launches, fused_postprocess.launches)
+    log(f"vo bf bf16: launches over {VO_FRAMES} frames {launches}, float32 "
+        f"instances {f32}")
+    require(all(n == VO_FRAMES for n in launches.values()) and f32 == (0, 0),
+            f"vo bf bf16: launches {launches}, float32 instances {f32}")
+    require(res["estimation_fails"] == 0
+            and bool(np.isfinite(res["trajectory"]).all()),
+            f"vo bf bf16: {res['estimation_fails']} failed estimates")
+    require(res["stats"]["n_matches"]["min"] >= 8,
+            f"vo bf bf16: matches {res['stats']['n_matches']}")
+    for part in ("translation", "rotation", "total"):
+        log(f"vo bf bf16: {part} error mean {res[part]['mean']:.6f} max "
+            f"{res[part]['max']:.6f} (float32 run: mean "
+            f"{runs['bf'][part]['mean']:.6f} max "
+            f"{runs['bf'][part]['max']:.6f})")
+    f16 = [fe16.run(quantize_u8(prep_frame(f, VO_SIZE))) for f in frames]
+    ext = host_ms(lambda i: fe16.run(quantize_u8(prep_frame(
+        frames[i % VO_FRAMES], VO_SIZE))), 2 * VO_FRAMES)
+    log(f"vo bf bf16: matches per pair mean "
+        f"{res['stats']['n_matches']['mean']:.1f}, inliers "
+        f"{res['stats']['n_inliers']['mean']:.1f}, keypoints a frame "
+        f"{statistics.mean(len(f[0]) for f in f16):.1f} (float32 "
+        f"{statistics.mean(len(f[0]) for f in feats):.1f}); steady median "
+        f"extract ms a frame {statistics.median(ext[len(ext) // 2:]):.3f}")
+    paths["vo_bf_bf16"] = launches
     return paths
 
 
@@ -1014,6 +1136,152 @@ def family_phase(dev) -> dict:
     family_cell(dev, "GEM_N", False, False, gem, False)
     family_cell(dev, "D_A", True, True, d, False)
     return paths
+
+
+# ---------------------------------------------------------------- bf16 phase
+
+def hold_bf16(label: str, got, peer, ref, conf: float) -> dict:
+    """The card's bfloat16 answer ``got`` against the CPU's bfloat16 answer
+    ``peer``, both measured from the card's float32 answer ``ref`` (all on
+    the CPU), with the criteria of tests/test_torch_port_bf16.py: per
+    output, got's error against ref is at most twice peer's plus 1e-3; the
+    class map agrees with peer's no less than peer's agrees with ref's,
+    minus one point; a cell that one side's top-K selects and the other's
+    does not scores within the score tolerance of a cut."""
+    import torch
+
+    from nanovs_slam_torch.ops.postprocess import top_k_keypoints
+
+    errs = {}
+    for k in ("score", "coord", "feat", "vlad", "depth"):
+        if k in ref:
+            e, e_peer = max_err(got[k], ref[k]), max_err(peer[k], ref[k])
+            errs[k] = {"card": e, "cpu": e_peer}
+            require(e <= 2 * e_peer + 1e-3, f"{label}: {k} error against "
+                    f"float32 {e} > 2 x the CPU's {e_peer} + 1e-3")
+    agree = float((got["seg"] == peer["seg"]).float().mean())
+    agree_peer = float((peer["seg"] == ref["seg"]).float().mean())
+    errs["seg_agree"] = {"card_cpu": agree, "cpu_f32": agree_peer}
+    require(agree >= agree_peer - 0.01, f"{label}: class maps agree on "
+            f"{agree}, the CPU's with float32 on {agree_peer}")
+    tol = 2 * errs["score"]["cpu"] + 1e-3
+    k = got["keypoints"].shape[1]
+    sides = [top_k_keypoints(a["score"], a["coord"], a["feat"], k, conf,
+                             with_indices=True) for a in (got, peer)]
+    n_diff = 0
+    for b in range(got["score"].shape[0]):
+        cells = [set(s[4][b][s[3][b]].tolist()) for s in sides]
+        kth = min(float(s[1][b][-1]) for s in sides)
+        for cell in cells[0] ^ cells[1]:
+            n_diff += 1
+            for a in (got, peer):
+                sc = float(a["score"][b].reshape(-1)[cell])
+                require(min(abs(sc - conf), abs(sc - kth)) <= tol,
+                        f"{label}: cell {cell} (score {sc}) selected on "
+                        "one side only, away from the cuts")
+    errs["top_k_cells_one_side"] = n_diff
+    errs["valid"] = {"card": int(got["keypoint_valid"].sum()),
+                     "cpu": int(peer["keypoint_valid"].sum())}
+    require(bool(torch.isfinite(got["descriptors"]).all()),
+            f"{label}: descriptors")
+    return errs
+
+
+def busy_share(call, iters: int = 10) -> tuple:
+    """(device ms a call, its share of the host's wall time) over ``iters``
+    steady calls, by torch.profiler."""
+    from nanovs_slam_torch.profile_slice import device_events, device_ms
+
+    events, wall_ms = device_events(call, iters)
+    dev_ms = device_ms(events, iters)
+    return dev_ms, dev_ms * iters / wall_ms
+
+
+def bf16_cell(dev, name: str, v3: bool, kernels: dict, seed: int):
+    """One config at 240x320, 28 classes, seeded random weights and BN
+    stats (scores spread as in the slice phase), served at bfloat16 through
+    make_infer_fn(top_k=1000, conf_threshold=0.7) as entry() serves config
+    N, on a batch-1 and a batch-8 uint8 request: the bfloat16 kernels'
+    launch counts around them (one a request each; no float32 instance),
+    the batch-1 answer held against the CPU's bfloat16 answer and the
+    card's float32 answer (hold_bf16), and the steady median ms per request
+    and device busy share at bfloat16 and float32, timed in turns.
+    ``kernels``: {entry key: wrapper} of the bf16 kernels on the path.
+    Returns the launches by entry key."""
+    import torch
+
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.inference import make_infer_fn
+    from nanovs_slam_torch.kernels import KERNELS, reset_launches
+    from nanovs_slam_torch.models.kp2dtiny import build_model, init_model
+
+    label = f"bf16 {name}{' V3' if v3 else ''}"
+    cfg32 = get_config(name, v3=v3, n_classes=28)
+    cfg16 = get_config(name, v3=v3, n_classes=28, dtype="bfloat16")
+    gen = torch.Generator().manual_seed(seed)
+    model32 = init_model(cfg32, gen, "cpu")
+    randomize_bn(model32, gen)
+    rs = np.random.RandomState(seed)
+    requests = [rs.randint(0, 256, (b, H, W, 3)).astype(np.uint8)
+                for b in (1, 8)]
+    spread_scores(model32, requests[0])
+    model16 = build_model(cfg16).eval()
+    model16.load_state_dict(model32.state_dict())
+    cpu16 = copy.deepcopy(model16)
+    kw = dict(top_k=1000, conf_threshold=0.7)
+    infer16 = make_infer_fn(model16, cfg16, H, W, device=dev, **kw)
+    infer32 = make_infer_fn(model32, cfg32, H, W, device=dev, **kw)
+
+    reset_launches()
+    answers = [infer16(frames) for frames in requests]
+    torch.cuda.synchronize()
+    launches = {k: w.launches_bf16 for k, w in kernels.items()}
+    f32 = {k.__name__: k.launches for k in KERNELS if k.launches}
+    log(f"{label}: launches during {len(requests)} requests {launches}, "
+        f"float32 instances {f32}")
+    require(all(n == len(requests) for n in launches.values()) and not f32,
+            f"{label}: launches {launches}, float32 instances {f32}")
+    for frames, out in zip(requests, answers):
+        check_answer(out, len(frames), H, W, cfg16, kw["top_k"])
+    ref = {k: v.cpu() for k, v in infer32(requests[0]).items()}
+    peer = make_infer_fn(cpu16, cfg16, H, W, device="cpu",
+                         **kw)(requests[0])
+    errs = hold_bf16(label, {k: v.cpu() for k, v in answers[0].items()},
+                     peer, ref, kw["conf_threshold"])
+    log(f"{label}: B=1 vs the CPU at bf16 and the card at float32 "
+        f"{json.dumps(errs)}")
+
+    ms = {}
+    for frames in requests:
+        times = {"float32": [], "bfloat16": []}
+        for dt in ("float32", "bfloat16", "bfloat16", "float32") * 8:
+            infer = infer16 if dt == "bfloat16" else infer32
+            t0 = time.perf_counter()
+            infer(frames)
+            torch.cuda.synchronize()
+            times[dt].append((time.perf_counter() - t0) * 1e3)
+        for dt, infer in (("float32", infer32), ("bfloat16", infer16)):
+            dev_ms, share = busy_share(lambda: infer(frames))
+            ms[f"{dt}_B{len(frames)}"] = {
+                "ms": statistics.median(times[dt][4:]), "device_ms": dev_ms,
+                "busy": share}
+    log(f"{label}: steady median ms per request (host clock, float32 and "
+        f"bf16 in turns) and device busy share {json.dumps(ms)}")
+    return launches
+
+
+def bf16_phase(dev) -> dict:
+    """The bfloat16 cells: KP2DTiny-N as entry() runs it, V3 S_A and V2 D,
+    each at batch 1 and 8 (bf16_cell). Returns their launches by path."""
+    from nanovs_slam_torch.kernels import (fused_postprocess,
+                                           fused_stem_pair_pool, netvlad)
+
+    n = {STEM_BF16: fused_stem_pair_pool, PP_BF16: fused_postprocess,
+         NV_BF16: netvlad}
+    d = {STEM_BF16: fused_stem_pair_pool, PP_BF16: fused_postprocess}
+    return {"n_bf16": bf16_cell(dev, "N", False, n, SEED + 1100),
+            "s_a_v3_bf16": bf16_cell(dev, "S_A", True, n, SEED + 1200),
+            "d_bf16": bf16_cell(dev, "D", False, d, SEED + 1300)}
 
 
 # -------------------------------------------------------------- weights phase
@@ -1414,6 +1682,7 @@ def main() -> int:
                                           "lightglue_transformer[256]"))
     paths = {"n_slice": slice_phase(dev, (fused_postprocess,
                                           fused_stem_pair_pool, netvlad))[0]}
+    paths.update(bf16_phase(dev))
     weights_phase(dev, repo)
     paths["match"] = match_phase(dev, repo, (fused_postprocess,
                                              fused_stem_pair_pool,
@@ -1433,8 +1702,9 @@ def main() -> int:
         entry["launches"] = paths[first][key]
         entry.update({f"launches_{p}": paths[p][key] for p in rest})
         lines.append(entry)
-    require(all(k.__name__ in kernels for k in KERNELS),
-            "a kernel of KERNELS has no line")
+    require(all(k.__name__ in kernels for k in KERNELS)
+            and all(k in kernels for k in (STEM_BF16, PP_BF16, NV_BF16)),
+            "a kernel of KERNELS, or a bfloat16 instance, has no line")
     print(f"{card}")
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

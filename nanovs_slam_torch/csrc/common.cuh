@@ -1,6 +1,7 @@
 // Helpers shared by the port's kernels.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,6 +56,33 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, al, bh);
   mma_tf32(d, ah, bl);
   mma_tf32(d, ah, bh);
+}
+
+// Two floats rounded to bfloat16 (to nearest even) in one register, lo in
+// the low half: the order of an mma.sync operand's pair.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a b, one m16n8k16 bfloat16 product with float32 accumulation: a
+// 16x16 (row), b 16x8 (col), two bf16 a register with the lower k in the
+// low half. With g = lane / 4 and t = lane % 4: a = {(g, 2t..2t+1),
+// (g+8, 2t..2t+1), (g, 2t+8..2t+9), (g+8, 2t+8..2t+9)}, b = {(2t..2t+1, g),
+// (2t+8..2t+9, g)}, d as for mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A float32 or bfloat16 element read as float32.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // 16 bytes global -> shared, zero-filled when !in (src is then not read)

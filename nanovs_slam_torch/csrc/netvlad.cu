@@ -8,7 +8,10 @@
 //   vlad  <- sum_s a_s^T x_s - (sum_s a_s) * centroids   (K, C)
 //   vlad  <- intra-normalise per cluster, then global L2 over K*C
 // with the normalisation of the module (modules/aggregators.NetVLAD).
-// The (K, C, S) residual tensor is never formed.
+// The (K, C, S) residual tensor is never formed. The bfloat16 instance reads
+// a bf16 x and computes in float32 as the module does at bf16: it rounds
+// the normalised x_s to bf16 (the module normalises in its compute dtype)
+// and takes everything after it in float32.
 //
 // Design. A block takes kTile = 64 pixels of one image in one pass: it
 // stages them and W in shared memory, computes each pixel's K logits with
@@ -35,6 +38,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -55,7 +60,7 @@ __device__ __forceinline__ float l2_denominator(float sumsq) {
 }
 
 struct Args {
-  const float* x;  // (B, S, C) with element strides sx_b, sx_s, sx_c
+  const void* x;  // (B, S, C) float or bf16, element strides sx_b, sx_s, sx_c
   long long sx_b, sx_s, sx_c;
   const float* assign_w;   // (C, K)
   const float* centroids;  // (K, C)
@@ -67,10 +72,11 @@ struct Args {
 
 // KPT: clusters a thread takes in the logits (K <= 4 * KPT); RK, RC:
 // clusters and channels a thread takes in the a^T x tile
-// (K <= (kThreads / kCGroups) * RK, C <= kCGroups * RC).
-template <int KPT, int RK, int RC>
+// (K <= (kThreads / kCGroups) * RK, C <= kCGroups * RC). T: x's type.
+template <int KPT, int RK, int RC, typename T>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 netvlad_kernel(Args a) {
+  constexpr bool kRoundX = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ float4 smem4[];
   const int C = a.C, K = a.K, ldx = C + 1, lda = K + 1;
   float* s_w = reinterpret_cast<float*>(smem4);  // C*K
@@ -87,24 +93,40 @@ netvlad_kernel(Args a) {
   const int b = blockIdx.y;
   const int s0 = blockIdx.x * kTile;
   const int n = min(kTile, a.S - s0);  // may be <= 0: a padding block
-  const float* xb = a.x + (long long)b * a.sx_b;
+  const T* xb = static_cast<const T*>(a.x) + (long long)b * a.sx_b;
 
   // stage W and the tile (zeros past the image's last pixel)
   for (int e = tid; e < C * K; e += kThreads) s_w[e] = a.assign_w[e];
   if (a.sx_c == 1) {  // NHWC memory: neighbouring threads, channels
     for (int e = tid; e < kTile * C; e += kThreads) {
       const int s = e / C, c = e % C;
-      s_x[s * ldx + c] = s < n ? xb[(long long)(s0 + s) * a.sx_s + c] : 0.f;
+      s_x[s * ldx + c] =
+          s < n ? nvs::to_f32(xb[(long long)(s0 + s) * a.sx_s + c]) : 0.f;
     }
   } else {  // NCHW memory: neighbouring threads, pixels
     for (int e = tid; e < kTile * C; e += kThreads) {
       const int s = e % kTile, c = e / kTile;
       s_x[s * ldx + c] =
-          s < n ? xb[(long long)(s0 + s) * a.sx_s + (long long)c * a.sx_c]
+          s < n ? nvs::to_f32(
+                      xb[(long long)(s0 + s) * a.sx_s + (long long)c * a.sx_c])
                 : 0.f;
     }
   }
   __syncthreads();
+  if constexpr (kRoundX) {
+    // x_s / den rounded to bf16, in place, by the pixel's four threads
+    // (one warp): the logits below then take den = 1
+    const int p = tid >> 2, j = tid & 3;
+    float* xs = s_x + p * ldx;
+    float ss = 0.f;
+    for (int c = j; c < C; c += 4) ss = fmaf(xs[c], xs[c], ss);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+    const float den = l2_denominator(ss);
+    for (int c = j; c < C; c += 4)
+      xs[c] = __bfloat162float(__float2bfloat16_rn(xs[c] / den));
+    __syncwarp();
+  }
 
   // logits and softmax: four threads a pixel, cluster k = j + 4u
   {
@@ -122,7 +144,7 @@ netvlad_kernel(Args a) {
       for (int u = 0; u < KPT; ++u)
         if (j + 4 * u < K) acc[u] = fmaf(xc, wr[4 * u], acc[u]);
     }
-    const float den = l2_denominator(ss);
+    const float den = kRoundX ? 1.f : l2_denominator(ss);
     const float neg_inf = -__int_as_float(0x7f800000);
     float m = neg_inf;
 #pragma unroll
@@ -284,22 +306,28 @@ size_t smem_bytes(int C, int K) {
          (C * K + kTile * (C + 1) + kTile * (K + 1) + kTile + kWarps);
 }
 
-// The instances: KPT, RK by K (<= 32, <= 64), RC by C (<= 64, <= 128).
-void (*const kKernels[2][2])(Args) = {
-    {netvlad_kernel<8, 2, 4>, netvlad_kernel<8, 2, 8>},
-    {netvlad_kernel<16, 4, 4>, netvlad_kernel<16, 4, 8>}};
+// The instances: x's type (float, bf16); KPT, RK by K (<= 32, <= 64); RC
+// by C (<= 64, <= 128).
+void (*const kKernels[2][2][2])(Args) = {
+    {{netvlad_kernel<8, 2, 4, float>, netvlad_kernel<8, 2, 8, float>},
+     {netvlad_kernel<16, 4, 4, float>, netvlad_kernel<16, 4, 8, float>}},
+    {{netvlad_kernel<8, 2, 4, __nv_bfloat16>,
+      netvlad_kernel<8, 2, 8, __nv_bfloat16>},
+     {netvlad_kernel<16, 4, 4, __nv_bfloat16>,
+      netvlad_kernel<16, 4, 8, __nv_bfloat16>}}};
 
 // Raises the dynamic shared-memory limit of every instance once per device
 // to the most the widths can ask (C = 128, K = 64).
 cudaError_t set_smem_limits() {
   return nvs::once_per_device([] {
     cudaError_t err = cudaSuccess;
-    for (auto& row : kKernels)
-      for (auto kernel : row)
-        if (err == cudaSuccess)
-          err = cudaFuncSetAttribute(
-              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-              (int)smem_bytes(kMaxC, kMaxK));
+    for (auto& type : kKernels)
+      for (auto& row : type)
+        for (auto kernel : row)
+          if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)smem_bytes(kMaxC, kMaxK));
     return err;
   });
 }
@@ -311,6 +339,22 @@ int blocks_per_image(int S) {
   return (p + kCluster - 1) / kCluster * kCluster;
 }
 
+int launch(const void* x, bool bf16, const long long* sx,
+           const float* assign_w, const float* centroids, float* partial,
+           unsigned int* counter, float* out, int B, int S, int C, int K,
+           cudaStream_t stream) {
+  if (K < 1 || K > kMaxK || C < 1 || C > kMaxC || S < 1 || B < 1 ||
+      B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem_limits();
+  if (err != cudaSuccess) return (int)err;
+  const Args args{x, sx[0], sx[1], sx[2], assign_w, centroids, partial,
+                  counter, out, S, C, K};
+  kKernels[bf16][K > 32][C > 64]<<<dim3(blocks_per_image(S), B), kThreads,
+                                   smem_bytes(C, K), stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Floats of the partial scratch one image of S pixels needs at widths C, K:
@@ -319,22 +363,24 @@ extern "C" int nvs_netvlad_partial_size(int S, int C, int K) {
   return blocks_per_image(S) / kCluster * (K * C + K);
 }
 
-// x (B,S,C) with element strides [b, s, c]; assign_w (C,K), centroids (K,C)
-// contiguous; partial (B, nvs_netvlad_partial_size) float scratch; counter (B)
-// unsigned ints, zero before the first launch (each launch leaves them
-// zero); out contiguous (B, K*C). One launch.
+// x (B,S,C) float32 with element strides [b, s, c]; assign_w (C,K),
+// centroids (K,C) contiguous; partial (B, nvs_netvlad_partial_size) float
+// scratch; counter (B) unsigned ints, zero before the first launch (each
+// launch leaves them zero); out contiguous (B, K*C). One launch.
 extern "C" int nvs_netvlad(const float* x, const long long* sx,
                            const float* assign_w, const float* centroids,
                            float* partial, unsigned int* counter, float* out,
                            int B, int S, int C, int K, cudaStream_t stream) {
-  if (K < 1 || K > kMaxK || C < 1 || C > kMaxC || S < 1 || B < 1 ||
-      B > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_smem_limits();
-  if (err != cudaSuccess) return (int)err;
-  const Args args{x, sx[0], sx[1], sx[2], assign_w, centroids, partial,
-                  counter, out, S, C, K};
-  kKernels[K > 32][C > 64]<<<dim3(blocks_per_image(S), B), kThreads,
-                             smem_bytes(C, K), stream>>>(args);
-  return (int)cudaGetLastError();
+  return launch(x, false, sx, assign_w, centroids, partial, counter, out, B,
+                S, C, K, stream);
+}
+
+// The same with a bfloat16 x; everything else float32.
+extern "C" int nvs_netvlad_bf16(const __nv_bfloat16* x, const long long* sx,
+                                const float* assign_w, const float* centroids,
+                                float* partial, unsigned int* counter,
+                                float* out, int B, int S, int C, int K,
+                                cudaStream_t stream) {
+  return launch(x, true, sx, assign_w, centroids, partial, counter, out, B,
+                S, C, K, stream);
 }

@@ -61,6 +61,21 @@
 // 3xTF32 rate (three TF32 products a product at 495 TFLOP/s), 8.9 us at the
 // 67 TFLOP/s float32 rate of the CUDA cores. At C1 = 64, C2 = 128 a frame
 // is 11.59 GFLOP against 10.8 MB: 70.2 us at the 3xTF32 rate.
+//
+// The bfloat16 instances (stem_bf16_kernel, all three widths) compute what
+// the model computes at bf16: x and the folded weights rounded to bf16,
+// both convolutions one pass of mma.sync m16n8k16 bf16 with float32
+// accumulation (no split: the operands are exact in bf16), bias and
+// activation in float32, conv1's activation rounded to bf16 before conv2
+// reads it, and the pooled output rounded to bf16. The tile's geometry is
+// the float32 kernel's; conv1's tile is bf16 channel-last with a pixel
+// stride of C1 + 8 (a quarter warp's 32-bit A loads on distinct banks), and
+// a k-step of conv2 is 16 channels of one tap. The weights sit in shared
+// memory as B fragments for the whole block: gathered and rounded by each
+// block at (16, 24) and (16, 32) (9 KB); at (64, 128) (147 KB)
+// stem_pack_bf16_kernel writes them once a call and one block an SM copies
+// them with cp.async, then walks over tiles. At 240x320 and (64, 128) a
+// frame is 11.59 GFLOP against 5.4 MB: 11.7 us at 989 TFLOP/s.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -582,6 +597,289 @@ cudaError_t launch_wide(const float* x, const long long* sx, const float* w1,
   return cudaGetLastError();
 }
 
+// ------------------------------------------- the bfloat16 instances
+
+// Tile geometry as above; the warps of a row pair share its C2 channels
+// kSplit ways (two at C2 = 128).
+template <int C1, int C2>
+struct Bf16Cfg {
+  static constexpr int kSplit = C2 >= 64 ? 2 : 1;
+  static constexpr int kWarps = 4 * kSplit;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int KS = C1 / 16;  // conv2 k-steps a tap
+  static constexpr int NT = C2 / 8;   // conv2 n-tiles
+  static constexpr int NTW = NT / kSplit;
+  static constexpr int NT1 = C1 / 8;  // conv1 n-tiles
+  static constexpr int NT1W = NT1 / kSplit;
+  static constexpr int kPix = C1 + 8;  // bf16 a conv1 pixel
+  static constexpr int kW1 = 2 * NT1 * 32;       // conv1's B fragments
+  static constexpr int kW2 = 9 * KS * NT * 32;   // conv2's
+  // the weights come from stem_pack_bf16_kernel's copy, and a block walks
+  // over several tiles
+  static constexpr bool kPacked = C1 >= 64;
+};
+
+template <int C1, int C2>
+struct Bf16Smem {
+  using Cfg = Bf16Cfg<C1, C2>;
+  uint2 w2[Cfg::kW2];  // then w1: one run, as stem_pack_bf16_kernel packs
+  uint2 w1[Cfg::kW1];
+  __nv_bfloat16 y1[kY1Pix * Cfg::kPix];  // conv1 tile, channel-last
+  union {
+    unsigned short x[kIn];  // input tile [ci][r][c], bf16 bits
+    float out[Cfg::kWarps][C2 / Cfg::kSplit][kPoolW + 1];
+  } u;
+};
+
+// conv1's B fragment e = (ks * C1/8 + nt) * 32 + lane, with g = lane / 4
+// and t = lane % 4: k = 16 ks + 2t (+1) and 16 ks + 2t + 8 (+9) of output
+// channel 8 nt + g (k = ci*9 + ky*3 + kx, zero from 27), rounded to bf16
+template <int C1>
+__device__ __forceinline__ uint2 w1_fragment(const float* w1, int e) {
+  const int l = e & 31, g = l >> 2, t = l & 3;
+  const int nt = (e >> 5) % (C1 / 8), k = (e >> 5) / (C1 / 8) * 16 + 2 * t;
+  const float* wp = w1 + (nt * 8 + g) * kK1;
+  auto w = [&](int kk) { return kk < kK1 ? __ldg(wp + kk) : 0.f; };
+  return make_uint2(nvs::pack_bf16(w(k), w(k + 1)),
+                    nvs::pack_bf16(w(k + 8), w(k + 9)));
+}
+
+// conv2's B fragment e = ((tap * C1/16 + ks) * C2/8 + nt) * 32 + lane:
+// input channels 16 ks + 2t (+1) and + 8 (+9) of output channel 8 nt + g
+// at tap, rounded to bf16
+template <int C1, int C2>
+__device__ __forceinline__ uint2 w2_fragment(const float* w2, int e) {
+  const int l = e & 31, g = l >> 2, t = l & 3, r = e >> 5;
+  const int nt = r % (C2 / 8), ks = r / (C2 / 8) % (C1 / 16);
+  const int tap = r / (C2 / 8 * (C1 / 16));
+  const float* wp = w2 + ((nt * 8 + g) * C1 + ks * 16 + 2 * t) * 9 + tap;
+  return make_uint2(nvs::pack_bf16(__ldg(wp), __ldg(wp + 9)),
+                    nvs::pack_bf16(__ldg(wp + 8 * 9), __ldg(wp + 9 * 9)));
+}
+
+// conv2's fragments, then conv1's, in the order of Bf16Smem
+template <int C1, int C2>
+__global__ void stem_pack_bf16_kernel(const float* __restrict__ w1,
+                                      const float* __restrict__ w2,
+                                      uint2* __restrict__ p) {
+  using Cfg = Bf16Cfg<C1, C2>;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x;
+       e < Cfg::kW2 + Cfg::kW1; e += gridDim.x * blockDim.x)
+    p[e] = e < Cfg::kW2 ? w2_fragment<C1, C2>(w2, e)
+                        : w1_fragment<C1>(w1, e - Cfg::kW2);
+}
+
+template <int C1, int C2>
+__global__ void __launch_bounds__(Bf16Cfg<C1, C2>::kThreads)
+stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
+                 long long sx_h, long long sx_w, long long sx_c,
+                 const float* __restrict__ w1, const float* __restrict__ w2,
+                 const uint2* __restrict__ packed,
+                 const float* __restrict__ b1, const float* __restrict__ b2,
+                 __nv_bfloat16* __restrict__ out, int B, int H, int W,
+                 float slope) {
+  using Cfg = Bf16Cfg<C1, C2>;
+  static_assert(C1 % 16 == 0 && C2 % (8 * Cfg::kSplit) == 0, "widths");
+  constexpr int PIX = Cfg::kPix, KS = Cfg::KS, NT = Cfg::NT;
+  constexpr int NTW = Cfg::NTW, NT1 = Cfg::NT1, NT1W = Cfg::NT1W;
+  constexpr int kT = Cfg::kThreads;
+  extern __shared__ float4 smem_raw[];
+  auto& s = *reinterpret_cast<Bf16Smem<C1, C2>*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // the weights, once a block
+  if constexpr (Cfg::kPacked) {
+    constexpr int n16 = (Cfg::kW2 + Cfg::kW1) / 2;
+    const float4* src = reinterpret_cast<const float4*>(packed);
+    float4* dst = reinterpret_cast<float4*>(s.w2);
+    for (int e = tid; e < n16; e += kT) nvs::cp_async16(dst + e, src + e);
+    nvs::cp_async_commit();
+  } else {
+    for (int e = tid; e < Cfg::kW2; e += kT)
+      s.w2[e] = w2_fragment<C1, C2>(w2, e);
+    for (int e = tid; e < Cfg::kW1; e += kT) s.w1[e] = w1_fragment<C1>(w1, e);
+  }
+  // the lane's conv1 k = 16 ks + 2t + (j & 1) + 8 (j >> 1) as offsets into
+  // the input tile, -1 from 27
+  int koff[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = ks * 16 + 2 * t + (j & 1) + 8 * (j >> 1);
+      koff[ks][j] =
+          k < kK1 ? k / 9 * kInH * kInW + k % 9 / 3 * kInW + k % 3 : -1;
+    }
+
+  const int H2 = H / 2, W2 = W / 2;
+  const int nx = (W2 + kPoolW - 1) / kPoolW, ny = (H2 + kPoolH - 1) / kPoolH;
+  for (int tile = blockIdx.x; tile < nx * ny * B; tile += gridDim.x) {
+    const int b = tile / (nx * ny), ty = tile / nx % ny, tx = tile % nx;
+    const int oy0 = ty * kTileH, ox0 = tx * kTileW;
+    __syncthreads();  // the last tile's reads of s.y1 and s.u are done
+
+    // 1. the input tile, zero outside the image
+    const __nv_bfloat16* xb = x + (long long)b * sx_b;
+    for (int e = tid; e < kIn; e += kT) {
+      const int ci = e / (kInH * kInW), r = e / kInW % kInH, c = e % kInW;
+      const int gy = oy0 - 2 + r, gx = ox0 - 2 + c;
+      s.u.x[e] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                     ? __bfloat16_as_ushort(xb[gy * sx_h + gx * sx_w +
+                                               ci * sx_c])
+                     : (unsigned short)0;
+    }
+    if constexpr (Cfg::kPacked) nvs::cp_async_wait<0>();
+    __syncthreads();
+
+    // 2. conv1: units of an m-tile of 16 ring-tile pixels and NT1W n-tiles
+    constexpr int M1 = (kY1Pix + 15) / 16;
+    for (int u = warp; u < M1 * Cfg::kSplit; u += Cfg::kWarps) {
+      const int m = u / Cfg::kSplit, n0 = u % Cfg::kSplit * NT1W;
+      int poff[2];  // rows g and g + 8: their pixel's input offset
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = min(m * 16 + g + 8 * r, kY1Pix - 1);
+        poff[r] = p / kY1W * kInW + p % kY1W;
+      }
+      float acc[NT1W][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t a[4];  // row g + 8 (q & 1), k pair 2t + 8 (q >> 1)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k0 = koff[ks][2 * (q >> 1)], k1 = koff[ks][2 * (q >> 1) + 1];
+          const uint32_t lo = k0 >= 0 ? s.u.x[k0 + poff[q & 1]] : 0u;
+          const uint32_t hi = k1 >= 0 ? s.u.x[k1 + poff[q & 1]] : 0u;
+          a[q] = lo | hi << 16;
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT1W; ++nt) {
+          const uint2 f = s.w1[(ks * NT1 + n0 + nt) * 32 + lane];
+          const uint32_t bw[2] = {f.x, f.y};
+          nvs::mma_bf16(acc[nt], a, bw);
+        }
+      }
+      // bias and activation in float32, zero outside the image, rounded
+      // to bf16 as conv2 reads it
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = m * 16 + g + 8 * h;
+        if (p >= kY1Pix) continue;
+        const int gy = oy0 - 1 + p / kY1W, gx = ox0 - 1 + p % kY1W;
+        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+        for (int nt = 0; nt < NT1W; ++nt) {
+          const int ch = (n0 + nt) * 8 + 2 * t;
+          const float v0 =
+              in ? nvs::leaky(acc[nt][2 * h] + __ldg(b1 + ch), slope) : 0.f;
+          const float v1 =
+              in ? nvs::leaky(acc[nt][2 * h + 1] + __ldg(b1 + ch + 1), slope)
+                 : 0.f;
+          *reinterpret_cast<uint32_t*>(s.y1 + p * PIX + ch) =
+              nvs::pack_bf16(v0, v1);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. conv2: rows 2 rp (j = 0) and 2 rp + 1 of the tile, n-tiles
+    // nh * NTW ..; a k-step is 16 channels of one tap
+    const int rp = warp & 3, nh = warp >> 2;
+    float acc[2][NTW][4] = {};
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[2][4];  // [m-tile j][row g + 8 (q & 1), k + 8 (q >> 1)]
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            a[j][q] = *reinterpret_cast<const uint32_t*>(
+                s.y1 + ((2 * rp + j + ky) * kY1W + g + 8 * (q & 1) + kx) * PIX
+                + ks * 16 + 2 * t + 8 * (q >> 1));
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          const uint2 f = s.w2[((tap * KS + ks) * NT + nh * NTW + nt) * 32
+                               + lane];
+          const uint32_t bw[2] = {f.x, f.y};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) nvs::mma_bf16(acc[j][nt], a[j], bw);
+        }
+      }
+    }
+
+    // 4. pool as in stem_kernel, then bias and activation in float32, one
+    // rounding to bf16 as the pooled values go out
+    float(*so)[kPoolW + 1] = s.u.out[warp];
+    const int c0 = nh * (C2 / Cfg::kSplit);
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float v = fmaxf(acc[0][nt][i], acc[1][nt][i]);
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        if (!(g & 1)) {
+          const int cl = nt * 8 + 2 * t + (i & 1);
+          so[cl][(i >> 1) * 4 + g / 2] =
+              nvs::leaky(v + __ldg(b2 + c0 + cl), slope);
+        }
+      }
+    __syncwarp();
+    const int py = ty * kPoolH + rp, px0 = tx * kPoolW;
+    if (py < H2) {
+      for (int e = lane; e < C2 / Cfg::kSplit * kPoolW; e += 32) {
+        const int cl = e / kPoolW, c = e % kPoolW;
+        if (px0 + c < W2)
+          out[(((long long)b * C2 + c0 + cl) * H2 + py) * W2 + px0 + c] =
+              __float2bfloat16_rn(so[cl][c]);
+      }
+    }
+  }
+}
+
+// scratch: the packed instances' fragments, (kW2 + kW1) uint2, 16-byte
+// aligned (unused, and may be null, for the others)
+template <int C1, int C2>
+cudaError_t launch_bf16(const __nv_bfloat16* x, const long long* sx,
+                        const float* w1, const float* b1, const float* w2,
+                        const float* b2, __nv_bfloat16* out, void* scratch,
+                        int B, int H, int W, float slope,
+                        cudaStream_t stream) {
+  using Cfg = Bf16Cfg<C1, C2>;
+  constexpr int kSmem = sizeof(Bf16Smem<C1, C2>);
+  cudaError_t err = nvs::once_per_device([] {
+    return cudaFuncSetAttribute(stem_bf16_kernel<C1, C2>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmem);
+  });
+  if (err != cudaSuccess) return err;
+  int grid = (W / 2 + kPoolW - 1) / kPoolW * ((H / 2 + kPoolH - 1) / kPoolH)
+             * B;
+  uint2* packed = nullptr;
+  if constexpr (Cfg::kPacked) {
+    if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16)
+      return cudaErrorInvalidValue;
+    packed = static_cast<uint2*>(scratch);
+    stem_pack_bf16_kernel<C1, C2>
+        <<<(Cfg::kW2 + Cfg::kW1 + 255) / 256, 256, 0, stream>>>(w1, w2,
+                                                                 packed);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    // one block an SM (its shared memory), each walking over tiles
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return err;
+    grid = grid < sms ? grid : sms;
+  }
+  stem_bf16_kernel<C1, C2><<<grid, Cfg::kThreads, kSmem, stream>>>(
+      x, sx[0], sx[1], sx[2], sx[3], w1, w2, packed, b1, b2, out, B, H, W,
+      slope);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (B,H,W,3) with element strides [b, h, w, c]; w1 (C1,3,3,3) and
@@ -608,6 +906,34 @@ extern "C" int nvs_stem_pair_pool(const float* x, const long long* sx,
                                stream);
   if (C1 == 64 && C2 == 128)
     return (int)launch_wide<64, 128>(x, sx, w1, b1, w2, b2, out, scratch, B,
+                                     H, W, slope, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bfloat16 instances: x (B,H,W,3) bf16 with element strides [b, h, w,
+// c]; the weights and biases float32 as above (the weights rounded to bf16
+// in the kernel); out contiguous NCHW (B,C2,H/2,W/2) bf16; scratch: for
+// (64, 128), 9*C1*C2/2 + 16*C1 floats, 16-byte aligned.
+extern "C" int nvs_stem_pair_pool_bf16(const __nv_bfloat16* x,
+                                       const long long* sx, const float* w1,
+                                       const float* b1, const float* w2,
+                                       const float* b2, __nv_bfloat16* out,
+                                       void* scratch, int B, int H, int W,
+                                       int C1, int C2, float slope,
+                                       cudaStream_t stream) {
+  if (H < 2 || W < 2 || B < 1 || B > 65535 ||
+      (long long)((W / 2 + kPoolW - 1) / kPoolW) *
+              ((H / 2 + kPoolH - 1) / kPoolH) * B >
+          0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (C1 == 16 && C2 == 24)
+    return (int)launch_bf16<16, 24>(x, sx, w1, b1, w2, b2, out, scratch, B,
+                                    H, W, slope, stream);
+  if (C1 == 16 && C2 == 32)
+    return (int)launch_bf16<16, 32>(x, sx, w1, b1, w2, b2, out, scratch, B,
+                                    H, W, slope, stream);
+  if (C1 == 64 && C2 == 128)
+    return (int)launch_bf16<64, 128>(x, sx, w1, b1, w2, b2, out, scratch, B,
                                      H, W, slope, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain twins.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
-its ``launches`` attribute; for CPU tensors it runs the plain PyTorch twin
-of the same module. The library is built from ``csrc/`` at first launch.
+its ``launches`` attribute (a bfloat16 instance's in ``launches_bf16``);
+for CPU tensors it runs the plain PyTorch twin of the same module. The
+library is built from ``csrc/`` at first launch.
 """
 
 from .lightglue import (lightglue_transformer,  # noqa: F401
@@ -13,9 +14,13 @@ from .stem import fused_stem_pair_pool, stem_plain  # noqa: F401
 
 KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad,
            lightglue_transformer)
+# the wrappers that have bfloat16 instances too
+BF16_KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad)
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch counts to 0."""
     for k in KERNELS:
         k.launches = 0
+    for k in BF16_KERNELS:
+        k.launches_bf16 = 0

@@ -17,12 +17,21 @@ def device_of(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def check_kernel_inputs(name: str, **tensors: torch.Tensor) -> None:
-    """What every kernel takes: float32, no autograd (the kernels have no
-    backward)."""
+FLOAT32 = (torch.float32,)
+FLOAT32_OR_BF16 = (torch.float32, torch.bfloat16)
+
+
+def check_kernel_inputs(name: str, dtypes=None, **tensors: torch.Tensor
+                        ) -> None:
+    """What every kernel takes: each argument in its allowed dtypes
+    (``dtypes`` maps an argument's name to them; float32 where it is not
+    named), no autograd (the kernels have no backward)."""
     for arg, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        allowed = (dtypes or {}).get(arg, FLOAT32)
+        if t.dtype not in allowed:
+            raise TypeError(f"{name}: {arg} must be "
+                            f"{' or '.join(map(str, allowed))}, got "
+                            f"{t.dtype}")
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(f"{name}: {arg} requires grad, but the CUDA "
                                "kernel has no backward; call it under "

@@ -15,8 +15,8 @@ import torch
 
 from ..modules.blocks import l2_normalize
 from . import _build
-from .common import (check_contiguous, check_kernel_inputs, check_nhwc_dense,
-                     device_of)
+from .common import (FLOAT32_OR_BF16, check_contiguous, check_kernel_inputs,
+                     check_nhwc_dense, device_of)
 
 _P, _S, _I = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int
 _ARGTYPES = [_P, _S] + [_P] * 5 + [_I] * 4 + [_P]
@@ -44,10 +44,14 @@ def _scratch_for(dev: torch.device, stream: int, n_partial: int,
 def netvlad_plain(x: torch.Tensor, assign_w: torch.Tensor,
                   centroids: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch (einsum chain), with the
-    normalisation of ``modules/aggregators.NetVLAD``."""
+    normalisation of ``modules/aggregators.NetVLAD``. A bfloat16 x is
+    normalised in float32 and rounded to bfloat16, as the module normalises
+    in its compute dtype; the rest is float32."""
     B, H, W, C = x.shape
     K = assign_w.shape[1]
     xf = l2_normalize(x.reshape(B, H * W, C).float(), dim=-1)
+    if x.dtype == torch.bfloat16:
+        xf = xf.to(torch.bfloat16).float()
     a = torch.softmax(torch.einsum("bsc,ck->bsk", xf, assign_w), dim=-1)
     weighted = torch.einsum("bsk,bsc->bkc", a, xf)
     vlad = weighted - a.sum(dim=1)[..., None] * centroids[None]
@@ -57,8 +61,8 @@ def netvlad_plain(x: torch.Tensor, assign_w: torch.Tensor,
 
 def netvlad(x: torch.Tensor, assign_w: torch.Tensor,
             centroids: torch.Tensor) -> torch.Tensor:
-    """x (B,H,W,C) dense features, assign_w (C,K), centroids (K,C) ->
-    (B, K*C) float32 global descriptors."""
+    """x (B,H,W,C) dense features (float32 or bfloat16), assign_w (C,K),
+    centroids (K,C) float32 -> (B, K*C) float32 global descriptors."""
     name = "netvlad"
     check_nhwc_dense(name, x=x)
     B, H, W, C = x.shape
@@ -70,7 +74,8 @@ def netvlad(x: torch.Tensor, assign_w: torch.Tensor,
     dev = device_of(name, x, assign_w, centroids)
     if dev.type == "cpu":
         return netvlad_plain(x, assign_w, centroids)
-    check_kernel_inputs(name, x=x, assign_w=assign_w, centroids=centroids)
+    check_kernel_inputs(name, {"x": FLOAT32_OR_BF16}, x=x,
+                        assign_w=assign_w, centroids=centroids)
     check_contiguous(name, assign_w=assign_w, centroids=centroids)
     if K > MAX_CLUSTERS or C > MAX_CHANNELS:
         raise ValueError(f"{name}: the kernel takes K <= {MAX_CLUSTERS} and "
@@ -84,13 +89,19 @@ def netvlad(x: torch.Tensor, assign_w: torch.Tensor,
     out = torch.empty((B, K * C), device=dev, dtype=torch.float32)
     # H and W are adjacent in both NHWC and NCHW memory: one pixel stride
     sx = (ctypes.c_longlong * 3)(x.stride(0), x.stride(2), x.stride(3))
-    fn = _build.bind("nvs_netvlad", _ARGTYPES)
+    bf16 = x.dtype == torch.bfloat16
+    fn = _build.bind("nvs_netvlad_bf16" if bf16 else "nvs_netvlad",
+                     _ARGTYPES)
     err = fn(x.data_ptr(), sx, assign_w.data_ptr(), centroids.data_ptr(),
              partial.data_ptr(), counter.data_ptr(), out.data_ptr(), B, S, C,
              K, stream)
     _build.check(err, name)
-    netvlad.launches += 1
+    if bf16:
+        netvlad.launches_bf16 += 1
+    else:
+        netvlad.launches += 1
     return out
 
 
 netvlad.launches = 0
+netvlad.launches_bf16 = 0

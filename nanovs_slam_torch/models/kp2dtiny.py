@@ -14,7 +14,9 @@ tanh shift (B,2,Hc,Wc), feat (B,nfeat,Hs,Ws), seg (B,nCls,Hs,Ws) (V2
 logits, V3 probabilities at eval), vlad (B,D), depth (B,1,Hs,Ws), with Hc =
 H/cell and Hs = 2*Hc.
 
-Not ported yet: reduced-precision compute.
+``cfg.dtype`` is the compute dtype (float32 or bfloat16), as in flax: the
+forward casts its input to it once, every conv computes in it, the
+parameters and BN statistics stay float32 (``modules/blocks.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch.nn as nn
 from ..configs import KP2DTinyConfig
 from ..modules.aggregators import NetVLAD
 from ..modules.backbone import BackBone
+from ..modules.blocks import set_compute_dtype
 from ..modules.heads import SimpleTaskHead, UpscaleHead
 from ..modules.segmentation import (SegmentationFeatHeadLight,
                                     SegmentationFeatHeadLightATT,
@@ -36,12 +39,6 @@ from ..modules.vpr import VPRHead
 from ..utils.device import resolve_device
 
 ALL_HEADS = ("score", "loc", "desc", "seg", "vlad", "depth")
-
-
-def _check_dtype(cfg: KP2DTinyConfig) -> None:
-    if cfg.dtype != "float32":
-        raise NotImplementedError("reduced-precision compute is not "
-                                  "ported yet")
 
 
 def _backbone(cfg: KP2DTinyConfig) -> BackBone:
@@ -59,7 +56,6 @@ def _vpr_head(cfg: KP2DTinyConfig) -> VPRHead:
 class KP2DTinyV2(nn.Module):
     def __init__(self, cfg: KP2DTinyConfig):
         super().__init__()
-        _check_dtype(cfg)
         self.cfg = cfg
         c1, c2, c3, c4, c5, d1 = cfg.channel_dims
         m, drop, leaky = cfg.bn_momentum, cfg.with_drop, cfg.leaky_relu
@@ -76,6 +72,7 @@ class KP2DTinyV2(nn.Module):
         self.vlad_head = _vpr_head(cfg)
         if cfg.depth:
             self.depth_head = seg_cls(c4, c4, c5, 1, d1, drop, m, up, leaky)
+        set_compute_dtype(self, cfg.compute_dtype)
 
     def forward(self, x: torch.Tensor, only_encoder: bool = False,
                 heads: Sequence[str] = ALL_HEADS) -> Dict[str, torch.Tensor]:
@@ -86,7 +83,7 @@ class KP2DTinyV2(nn.Module):
         unknown = set(heads) - set(ALL_HEADS)
         if unknown:
             raise ValueError(f"unknown heads {sorted(unknown)}")
-        feat_x, skip = self.backbone(x)
+        feat_x, skip = self.backbone(x.to(self.cfg.compute_dtype))
         if only_encoder:
             return self.vlad_head(feat_x, only_encoder=True)
         out: Dict[str, torch.Tensor] = {}
@@ -112,7 +109,6 @@ class KP2DTinyV3(nn.Module):
 
     def __init__(self, cfg: KP2DTinyConfig):
         super().__init__()
-        _check_dtype(cfg)
         self.cfg = cfg
         c4, c5, d1 = cfg.channel_dims[3:]
         m, drop, leaky = cfg.bn_momentum, cfg.with_drop, cfg.leaky_relu
@@ -124,11 +120,12 @@ class KP2DTinyV3(nn.Module):
                                 drop, m, cfg.upscale_method, leaky,
                                 cfg.depth)
         self.vlad_head = _vpr_head(cfg)
+        set_compute_dtype(self, cfg.compute_dtype)
 
     def forward(self, x: torch.Tensor, only_encoder: bool = False
                 ) -> Dict[str, torch.Tensor]:
         """x (B, 3, H, W) in [-1, 1]; ``only_encoder`` as for V2."""
-        feat_x, skip = self.backbone(x)
+        feat_x, skip = self.backbone(x.to(self.cfg.compute_dtype))
         if only_encoder:
             return self.vlad_head(feat_x, only_encoder=True)
         score_loc = self.score_loc_head(feat_x)

@@ -27,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.netvlad import netvlad
-from .blocks import l2_normalize
+from .blocks import Conv2d, l2_normalize
 
 
 class NetVLAD(nn.Module):
@@ -78,7 +78,7 @@ class ConvAP(nn.Module):
                  s2: int = 2):
         super().__init__()
         self.bins = (s1, s2)
-        self.channel_pool = nn.Conv2d(c_in, out_channels, 1)
+        self.channel_pool = Conv2d(c_in, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) -> (B, out_channels * s1 * s2)."""

@@ -12,8 +12,14 @@
 - ``SegFormerAttentionModule``: norm, attention, norm, mix-FF, with no
   residual connection (the trained weights expect none).
 
-The attention is ``torch.matmul``, softmax, ``torch.matmul`` in float32,
-as the JAX package computes it outside any kernel.
+The attention is ``torch.matmul``, softmax, ``torch.matmul`` outside any
+kernel, as the JAX package computes it: q k^T of the compute-dtype q and k
+in float32 (flax's ``preferred_element_type=float32``), the softmax in
+float32 and its weights rounded to the compute dtype, then their product
+with v accumulated in float32 and rounded once to the compute dtype (flax
+rounds it there too, as ``to_out`` casts its input). At bfloat16 the
+LayerNorm's output is float32 (bf16 normalised values times the float32
+``g``), as in flax.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .blocks import Conv2d
 
 
 class ChannelLayerNorm(nn.Module):
@@ -44,9 +52,9 @@ class EfficientSelfAttention(nn.Module):
         super().__init__()
         self.heads = heads
         r = reduction_ratio
-        self.to_q = nn.Conv2d(dim, dim, 1, bias=False)
-        self.to_kv = nn.Conv2d(dim, 2 * dim, r, stride=r, bias=False)
-        self.to_out = nn.Conv2d(dim, dim, 1, bias=False)
+        self.to_q = Conv2d(dim, dim, 1, bias=False)
+        self.to_kv = Conv2d(dim, 2 * dim, r, stride=r, bias=False)
+        self.to_out = Conv2d(dim, dim, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
@@ -58,8 +66,8 @@ class EfficientSelfAttention(nn.Module):
             return t.reshape(B, h, dh, -1).transpose(2, 3)
 
         q, k, v = to_heads(self.to_q(x)), to_heads(k), to_heads(v)
-        sim = torch.matmul(q, k.transpose(2, 3)) * dh ** -0.5
-        out = torch.matmul(sim.softmax(dim=-1), v)
+        sim = torch.matmul(q.float(), k.float().transpose(2, 3)) * dh ** -0.5
+        out = torch.matmul(sim.softmax(dim=-1).to(v.dtype), v)
         return self.to_out(out.transpose(2, 3).reshape(B, C, H, W))
 
 
@@ -67,10 +75,10 @@ class MixFeedForward(nn.Module):
     def __init__(self, dim: int, expansion_factor: int = 2):
         super().__init__()
         hidden = dim * expansion_factor
-        self.expand = nn.Conv2d(dim, hidden, 1)
-        self.dw = nn.Conv2d(hidden, hidden, 3, padding=1, groups=hidden)
-        self.pw = nn.Conv2d(hidden, hidden, 1)
-        self.project = nn.Conv2d(hidden, dim, 1)
+        self.expand = Conv2d(dim, hidden, 1)
+        self.dw = Conv2d(hidden, hidden, 3, padding=1, groups=hidden)
+        self.pw = Conv2d(hidden, hidden, 1)
+        self.project = Conv2d(hidden, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.pw(self.dw(self.expand(x)))

@@ -7,7 +7,8 @@ if >= 1. Dropout2d(0.2) after each pair when ``with_drop``.
 
 In eval mode on CUDA with downsample >= 2, ``conv1a -> conv1b -> maxpool``
 runs as the fused stem kernel on BN-folded weights (dropout is the identity
-in eval mode). In train mode, and on the CPU, it runs the plain chain.
+in eval mode), its bfloat16 instance for a bfloat16 input. In train mode,
+and on the CPU, it runs the plain chain.
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .blocks import ConvBNAct, Dropout2d, Upsampler
+from .blocks import Conv2d, ConvBNAct, Dropout2d, Upsampler
 
 
 class SimpleTaskHead(nn.Module):
@@ -23,7 +23,7 @@ class SimpleTaskHead(nn.Module):
         super().__init__()
         self.convDa = ConvBNAct(c_in, c_hidden, bn_momentum, leaky_relu)
         self.drop = Dropout2d(0.2) if with_drop else nn.Identity()
-        self.convDb = nn.Conv2d(c_hidden, c_out, 3, padding=1, bias=True)
+        self.convDb = Conv2d(c_hidden, c_out, 3, padding=1, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.convDb(self.drop(self.convDa(x)))
@@ -39,12 +39,12 @@ class UpscaleHead(nn.Module):
         super().__init__()
         self.convA = ConvBNAct(c_in, c1, bn_momentum, leaky_relu)
         self.drop = Dropout2d(0.2) if with_drop else nn.Identity()
-        self.convB = nn.Conv2d(c1, c2, 3, padding=1, bias=True)
+        self.convB = Conv2d(c1, c2, 3, padding=1, bias=True)
         self.upsample1 = Upsampler(c2, upscale_method, bn_momentum,
                                    leaky_relu)
         self.convAa = ConvBNAct(c2 // 4 + c_skip, c4, bn_momentum,
                                 leaky_relu)
-        self.convBb = nn.Conv2d(c4, c5, 3, padding=1, bias=True)
+        self.convBb = Conv2d(c4, c5, 3, padding=1, bias=True)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         x = self.convB(self.drop(self.convA(x)))

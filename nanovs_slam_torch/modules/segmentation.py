@@ -25,11 +25,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .attention import SegFormerAttentionModule
-from .blocks import ConvBNAct, Dropout2d, Upsampler
+from .blocks import Conv2d, ConvBNAct, Dropout2d, Upsampler
 
 
-def _conv3(c_in: int, c_out: int, bias: bool = True) -> nn.Conv2d:
-    return nn.Conv2d(c_in, c_out, 3, padding=1, bias=bias)
+def _conv3(c_in: int, c_out: int, bias: bool = True) -> Conv2d:
+    return Conv2d(c_in, c_out, 3, padding=1, bias=bias)
 
 
 class SegmentationHead(nn.Module):
@@ -108,7 +108,7 @@ class SegmentationHeadATT(nn.Module):
         return self.convs_7(self.trunk(x, skip))
 
 
-def _split_heads(y: torch.Tensor, seg_conv: nn.Conv2d, featB: nn.Conv2d,
+def _split_heads(y: torch.Tensor, seg_conv: Conv2d, featB: Conv2d,
                  featD) -> tuple:
     """The V3 heads on the fused trunk's output: (seg, feat[, depth])."""
     ds = featB.in_channels

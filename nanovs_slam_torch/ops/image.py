@@ -14,3 +14,12 @@ def to_model_input(raw: torch.Tensor) -> torch.Tensor:
     if raw.dtype == torch.uint8:
         x = x / 255.0
     return (x - 0.5) * 2.0
+
+
+def quantize_u8(frames01: torch.Tensor) -> torch.Tensor:
+    """float frames in [0, 1] -> uint8 (round to nearest even, clipped):
+    the inverse of ``to_model_input``'s /255 branch up to the 2/255 step,
+    which at bfloat16 compute equals the input cast's ulp near +-1. Resize
+    in float first; only the transfer quantizes."""
+    x = torch.as_tensor(frames01)
+    return torch.clamp(torch.round(x * 255.0), 0, 255).to(torch.uint8)

@@ -1,7 +1,8 @@
 """Where the time of the port's paths goes on the card.
 
     python -m nanovs_slam_torch.profile_slice [--path slice match]
-        [--config NAME [--v3] [--depth]] [--batch 1 8] [--iters 20]
+        [--config NAME [--v3] [--depth]] [--dtype bfloat16]
+        [--batch 1 8] [--iters 20]
 
 ``slice``: serves a KP2DTiny config (default N, V2; 28 classes, seeded
 random weights) at 240x320 through ``make_infer_fn(top_k=1000,
@@ -12,10 +13,12 @@ where the config has attention, the device time of its attention blocks
 request). ``match``: matches one 240x320
 pair (seeded random frames) through ``matching.pair.make_pair_matcher``
 with the pinned S8 extractor and the pinned kp2dtiny_S LightGlue, at 512
-and 1024 keypoints. Each traces ``--iters`` steady calls with
+and 1024 keypoints. ``--dtype`` is the extractor's compute dtype (float32
+by default; LightGlue stays float32). Each traces ``--iters`` steady calls with
 ``torch.profiler`` and prints the host ms per call, the device busy share
-(the sum of kernel times over the wall time) and the kernels with the
-most device time. Needs a CUDA device.
+(the sum of kernel times over the wall time), the device time of cuDNN's
+convolutions and of its layout changes, and the kernels with the most
+device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,6 +60,12 @@ def device_ms(events, iters: int) -> float:
     return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
+# device kernels of cuDNN's convolutions, and of its layout changes around
+# them, by name
+CONV_KERNELS = ("fprop", "winograd", "conv", "fft")
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+
+
 def trace(label: str, call, iters: int) -> None:
     events, wall_ms = device_events(call, iters)
     dev_ms = device_ms(events, iters)
@@ -65,6 +74,13 @@ def trace(label: str, call, iters: int) -> None:
           f"device busy {dev_ms:.3f} ms per call "
           f"({100 * dev_ms * iters / wall_ms:.1f}% of wall), "
           f"{n_kernels:.0f} device ops per call")
+    for what, keys in (("convolutions", CONV_KERNELS),
+                       ("layout changes", LAYOUT_KERNELS)):
+        sel = [e for e in events if any(k in e.key for k in keys)]
+        ms = device_ms(sel, iters)
+        print(f"  {what}: {ms:.3f} ms ({100 * ms / dev_ms:.1f}% of the "
+              f"device time), {sum(e.count for e in sel) / iters:.0f} "
+              "kernels per call")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3 / iters:8.4f} ms "
               f"x{e.count // iters:<3d} {e.key[:90]}")
@@ -87,13 +103,14 @@ def attention_inputs(model, call) -> list:
     return seen
 
 
-def profile_slice(name: str, v3: bool, depth: bool, batches, iters: int,
-                  rs) -> None:
-    cfg = get_config(name, v3=v3, n_classes=28, depth=depth)
+def profile_slice(name: str, v3: bool, depth: bool, dtype: str, batches,
+                  iters: int, rs) -> None:
+    cfg = get_config(name, v3=v3, n_classes=28, depth=depth, dtype=dtype)
     model = init_model(cfg, torch.Generator().manual_seed(0), "cuda")
     infer = make_infer_fn(model, cfg, H, W, top_k=1000, conf_threshold=0.7,
                           device="cuda")
-    label = f"slice {name}{' V3' if v3 else ''}{' depth' if depth else ''}"
+    label = (f"slice {name}{' V3' if v3 else ''}{' depth' if depth else ''}"
+             f" {dtype}")
     for b in batches:
         frames = rs.randint(0, 256, (b, H, W, 3)).astype(np.uint8)
         trace(f"{label} B={b}", lambda: infer(frames), iters)
@@ -117,7 +134,7 @@ def profile_slice(name: str, v3: bool, depth: bool, batches, iters: int,
               f"(device time per request)")
 
 
-def profile_match(iters: int, rs) -> None:
+def profile_match(dtype: str, iters: int, rs) -> None:
     from .matching.configs import LIGHTGLUE_CONFIGS
     from .matching.lightglue import LightGlue
     from .matching.pair import make_pair_matcher
@@ -125,7 +142,7 @@ def profile_match(iters: int, rs) -> None:
     from .utils.convert import load_jax_lightglue, load_jax_variables
 
     tree, _ = load_npz_checkpoint(os.path.join(PINNED, "extractor_S8.npz"))
-    cfg = get_config("S", n_classes=8)
+    cfg = get_config("S", n_classes=8, dtype=dtype)
     ex = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     load_jax_variables(ex, tree["params"], tree["batch_stats"])
     lg_tree, meta = load_npz_checkpoint(os.path.join(PINNED,
@@ -138,7 +155,7 @@ def profile_match(iters: int, rs) -> None:
     for k in (512, 1024):
         match = make_pair_matcher(ex, cfg, lg, H, W, max_keypoints=k,
                                   conf_threshold=0.0, device="cuda")
-        trace(f"match K={k}", lambda: match(img0, img1), iters)
+        trace(f"match K={k} {dtype}", lambda: match(img0, img1), iters)
 
 
 def main() -> None:
@@ -151,6 +168,8 @@ def main() -> None:
                     help="the config from the V3 registry")
     ap.add_argument("--depth", action="store_true",
                     help="with the depth head")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32", help="the extractor's compute dtype")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
@@ -161,10 +180,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     rs = np.random.RandomState(0)
     if "slice" in args.path:
-        profile_slice(args.config, args.v3, args.depth, args.batch,
-                      args.iters, rs)
+        profile_slice(args.config, args.v3, args.depth, args.dtype,
+                      args.batch, args.iters, rs)
     if "match" in args.path:
-        profile_match(args.iters, rs)
+        profile_match(args.dtype, args.iters, rs)
 
 
 if __name__ == "__main__":

@@ -1,47 +1,99 @@
 """ctypes bindings for the native C++ matcher (``native/matcher.cpp``), a
-copy of ``nanovs_slam_tpu/vo/native.py``.
+copy of ``nanovs_slam_tpu/vo/native.py``'s bindings.
 
-The library is framework-neutral; it is built with ``make -C native`` on
-first use when ``native/libmatcher.so`` is missing. Where it cannot be
-built or loaded, ``ratio_match_native`` runs the numpy matcher
-(``vo/matcher.py``), whose results are the same; ``native_available``
-says which one runs.
+The library is built on first use by a C++ compiler itself, with the
+flags of ``native/Makefile``, into ``nanovs_slam_torch/_build/matcher-<hash
+of the source, compiler and flags>/``; ``native/`` is only read. The
+compilers are tried in turn, ``$CXX``, then ``c++``, then ``g++``, until
+one builds: a ``$CXX`` installed without its OpenMP runtime (``-fopenmp``
+finds no ``libgomp.spec``) makes ``make -C native`` fail where the
+system's ``c++`` builds. A later process with the same source loads the library
+that is there. Where none builds or loads, ``ratio_match_native`` runs the
+numpy matcher (``vo/matcher.py``), whose results are the same;
+``native_available`` says which one runs, and ``build_log`` keeps what the
+compilers (or the loader) said.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG.parent / "native" / "matcher.cpp"
+BUILD_ROOT = _PKG / "_build"
+# native/Makefile's CXXFLAGS
+CXXFLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+            "-std=c++17"]
+
 _LIB = None
 _TRIED = False
+# each failed compiler's command and output (or the loader's error); None
+# when the first compiler built the library and it loaded
+build_log: Optional[str] = None
 
 
-def _native_dir() -> str:
-    return os.path.join(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))), "native")
+def _compilers() -> list:
+    """$CXX, c++ and g++ as paths, each once, in that order."""
+    found = []
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        path = shutil.which(name) if name else None
+        if path and os.path.realpath(path) not in map(os.path.realpath,
+                                                      found):
+            found.append(path)
+    return found
+
+
+def _build(cxx: str) -> Path:
+    """The library built from SOURCE (or already there); raises
+    RuntimeError with the compiler's output if the build fails."""
+    h = hashlib.sha256(" ".join([cxx, *CXXFLAGS]).encode())
+    h.update(SOURCE.read_bytes())
+    out_dir = BUILD_ROOT / f"matcher-{h.hexdigest()[:16]}"
+    so = out_dir / "libmatcher.so"
+    if so.exists():
+        return so
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
+        staged = Path(tmp) / "done"
+        staged.mkdir()
+        cmd = [cxx, *CXXFLAGS, str(SOURCE), "-o", str(staged / so.name)]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} exited with {r.returncode}:"
+                               f"\n{r.stdout}{r.stderr}")
+        try:
+            os.replace(staged, out_dir)
+        except OSError:
+            if not so.exists():  # not a concurrent build
+                raise
+    return so
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED
+    global _LIB, _TRIED, build_log
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    d = _native_dir()
-    so = os.path.join(d, "libmatcher.so")
-    if not os.path.exists(so):
+    failures, lib = [], None
+    for cxx in _compilers():
         try:
-            subprocess.run(["make", "-C", d], check=True,
-                           capture_output=True, timeout=120)
-        except (OSError, subprocess.SubprocessError):
-            return None
-    try:
-        lib = ctypes.CDLL(so)
-    except OSError:
+            lib = ctypes.CDLL(str(_build(cxx)))
+            break
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            failures.append(str(e))
+    if failures or lib is None:
+        build_log = "\n".join(failures) or (
+            "no C++ compiler: $CXX, c++ and g++ are not on PATH")
+    if lib is None:
         return None
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -64,8 +116,8 @@ def knn2_native(desc1: np.ndarray, desc2: np.ndarray
                 ) -> Tuple[np.ndarray, np.ndarray]:
     lib = _load()
     if lib is None:
-        raise RuntimeError("native/libmatcher.so could not be built or "
-                           "loaded")
+        raise RuntimeError(f"the native matcher could not be built or "
+                           f"loaded:\n{build_log}")
     d1 = np.ascontiguousarray(desc1, np.float32)
     d2 = np.ascontiguousarray(desc2, np.float32)
     n1 = len(d1)

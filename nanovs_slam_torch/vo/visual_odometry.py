@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.image import quantize_u8
 from ..utils.device import resolve_device
 from .camera import PinholeCamera, kitti_params
 from .groundtruth import KittiVideoGroundTruth
@@ -364,6 +365,11 @@ def run_visual_odometry(frontend, frames: Iterable, gt, new_size=None,
     (model, size, max_n) tuple or a ``.npz`` path (loaded with
     load_lightglue_for_vo at the frames' size).
 
+    A model that computes in bfloat16 gets each resized frame as uint8
+    (``ops.image.quantize_u8``), as the JAX VO ships frames to it: the
+    2/255 step equals the input cast's ulp there. Frames are resized in
+    float either way.
+
     The loop is pipelined: frame t+1's extraction is enqueued before frame
     t's matching and pose run, so that the device extracts while the host
     solves; the results are those of the sequential loop."""
@@ -378,8 +384,11 @@ def run_visual_odometry(frontend, frames: Iterable, gt, new_size=None,
     fx, fy, cx, cy = kitti_params()
     cam = PinholeCamera(size[1], size[0], fx, fy, cx, cy)
 
+    transfer_u8 = frontend.cfg.dtype == "bfloat16"
+
     def prep(f):
-        return prep_frame(f, new_size, dev)
+        img01 = prep_frame(f, new_size, dev)
+        return quantize_u8(img01) if transfer_u8 else img01
 
     sx = size[1] / (new_size[1] if new_size else size[1])
     sy = size[0] / (new_size[0] if new_size else size[0])

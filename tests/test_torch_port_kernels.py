@@ -320,3 +320,94 @@ def test_netvlad_kernel_matches_plain(cuda, B, C, K, H, W):
         torch.cuda.synchronize()
         assert netvlad.launches == before + 1
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------ bfloat16 instances on a card
+
+def _bf16_ulps(got, want):
+    """max |got - want| in bfloat16 ulps of the output, the ulp of
+    max |want|. Not each element's own ulp: a rounding of conv1's
+    activation that the sums' order moves by one changes a near-zero
+    output by several of its own ulps."""
+    import math
+
+    g, w = got.float(), want.float()
+    _, e = math.frexp(float(w.abs().max()))
+    return float((g - w).abs().max()) / 2.0 ** (e - 8)
+
+
+@pytest.mark.parametrize("B,H,W,c2,slope", [
+    (1, 240, 320, 24, 0.01), (8, 240, 320, 24, 0.01), (2, 240, 320, 32, 0.01),
+    (1, 240, 320, 128, 0.01), (2, 250, 334, 128, 0.0), (2, 241, 321, 24, 0.01),
+    (1, 49, 65, 32, 0.0), (1, 128, 512, 32, 0.01)])
+def test_stem_bf16_kernel_matches_plain(cuda, B, H, W, c2, slope):
+    """The bfloat16 instances at the N slice's B 1 and 8, S and D widths,
+    ragged and odd sizes, the ReLU and the VO frames' 128x512, for NHWC
+    memory and the NHWC view of NCHW memory: within one bfloat16 ulp of
+    the output of the twin (the sums' order can move a rounding of conv1's
+    activation or of the output by one)."""
+    c1 = 64 if c2 == 128 else 16
+    x, w1, b1, w2, b2 = _stem_inputs(B, H, W, c1, c2)
+    args = [_oihw(w1), torch.from_numpy(b1), _oihw(w2), torch.from_numpy(b2)]
+    args = [a.to(cuda) for a in args]
+    x = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    want = stem_plain(x, *args, slope)
+    assert want.dtype == torch.bfloat16
+    for xv in (x, x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)):
+        before = (fused_stem_pair_pool.launches,
+                  fused_stem_pair_pool.launches_bf16)
+        got = fused_stem_pair_pool(xv, *args, slope)
+        torch.cuda.synchronize()
+        assert (fused_stem_pair_pool.launches,
+                fused_stem_pair_pool.launches_bf16) == (before[0],
+                                                         before[1] + 1)
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert _bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("B,H,W,C", [
+    (1, 240, 320, 32), (8, 240, 320, 32), (2, 240, 320, 128),
+    (2, 244, 332, 32)])
+def test_postprocess_bf16_kernel_matches_plain(cuda, B, H, W, C):
+    """bfloat16 score, shift and descriptors, float32 out: the N slice at B
+    1 and 8, config D's C = 128 and a ragged grid, shifts of exactly +-1
+    included, for NCHW and NHWC memory."""
+    cell = 4
+    score, shift, feat = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+                          for a in _pp_inputs(B, H, W, cell, C,
+                                              edge_shifts=True))
+    want = postprocess_plain(score, shift, feat, H, W, cell)
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+    for args in ((score, shift, feat), (nchw(score), nchw(shift), nchw(feat))):
+        before = fused_postprocess.launches_bf16
+        got = fused_postprocess(*args, H, W, cell)
+        torch.cuda.synchronize()
+        assert fused_postprocess.launches_bf16 == before + 1
+        assert all(g.dtype == torch.float32 for g in got)
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+        torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
+        assert (got[2] * want[2]).sum(-1).min().item() > 0.99999
+
+
+@pytest.mark.parametrize("B,C,K,H,W", [
+    (1, 48, 32, 60, 80), (8, 48, 32, 60, 80), (1, 64, 64, 60, 80),
+    (2, 128, 64, 30, 40), (1, 48, 32, 37, 53)])
+def test_netvlad_bf16_kernel_matches_plain(cuda, B, C, K, H, W):
+    """A bfloat16 x at config N (B 1, 8), S and F widths and a ragged
+    image, for the NCHW view and NHWC memory: within 1e-5 of the twin."""
+    rs = np.random.RandomState(9)
+    x = torch.from_numpy(rs.randn(B, C, H, W).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    aw = torch.from_numpy(rs.randn(C, K).astype(np.float32)).to(cuda)
+    cen = torch.from_numpy(rs.rand(K, C).astype(np.float32)).to(cuda)
+    x_nhwc = x.permute(0, 2, 3, 1)
+    want = netvlad_plain(x_nhwc, aw, cen)
+    for xv in (x_nhwc, x_nhwc.contiguous(), x_nhwc):
+        before = netvlad.launches_bf16
+        got = netvlad(xv, aw, cen)
+        torch.cuda.synchronize()
+        assert netvlad.launches_bf16 == before + 1
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

@@ -37,6 +37,39 @@ H, W = 96, 320
 
 # ------------------------------------------------------------------- ops
 
+def test_native_matcher_builds_and_matches_numpy(tmp_path, monkeypatch):
+    """The native BF matcher, built from native/matcher.cpp by the C++
+    compiler itself into a new build directory, past a $CXX that fails as
+    a compiler without its OpenMP runtime does: the next compiler (c++ or
+    g++) builds it, the failure's message is kept in ``build_log``, and
+    its matches equal the numpy matcher's (distances within 1e-5)."""
+    from nanovs_slam_torch.vo import native
+    from nanovs_slam_torch.vo.matcher import ratio_test_match_one_to_one
+
+    bad = tmp_path / "bad-c++"
+    bad.write_text("#!/bin/sh\necho \"fatal error: cannot read spec file "
+                   "'libgomp.spec'\" >&2\nexit 1\n")
+    bad.chmod(0o755)
+    monkeypatch.setenv("CXX", str(bad))
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "build")
+    for attr, v in (("_LIB", None), ("_TRIED", False), ("build_log", None)):
+        monkeypatch.setattr(native, attr, v)
+    assert native.native_available()
+    assert "libgomp.spec" in native.build_log
+    assert list((tmp_path / "build").glob("matcher-*/libmatcher.so"))
+    rs = np.random.RandomState(3)
+    d0 = rs.randn(400, 32).astype(np.float32)
+    d1 = np.concatenate([d0[:300] + 0.2 * rs.randn(300, 32),
+                         rs.randn(150, 32)]).astype(np.float32)
+    for ratio in (0.7, 0.9):
+        got = native.ratio_match_native(d0, d1, ratio)
+        want = ratio_test_match_one_to_one(d0, d1, ratio)
+        assert len(got[0]) > 50
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=1e-5)
+
+
 def test_grid_sample_nearest_matches_jax():
     """Exact, with points exactly on the .5 ties of both axes and points
     outside [-0.5, size - 0.5] (zero). W - 1 = 8 and H - 1 = 4 make the
@@ -383,3 +416,46 @@ def test_datasets_match_jax(tmp_path):
         assert len(got) == len(want) == 3
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+def test_vo_loop_at_bf16_ships_uint8_frames(corridor, monkeypatch):
+    """The VO loop with pinned S8 at bfloat16 turns on the uint8 transfer
+    by itself, as the JAX VO does for a bf16 model: the frontend receives
+    every frame as uint8, with the bytes the JAX VO ships. Against the
+    float32 loop: no failed estimate, matches a pair within 10%, the total
+    error's mean within 0.15 (0.455 against 0.383 here). The JAX VO at
+    bf16 is no reference for these numbers: its XLA ``post_process``
+    decodes and samples on the bf16 grid (ROADMAP, Queue 3)."""
+    import nanovs_slam_tpu.vo.visual_odometry as jvo
+    from nanovs_slam_tpu.ops.image import quantize_u8 as jquantize
+
+    (_, _, variables), (port32, cfg) = _pinned_pair()
+    cfg16 = cfg.replace(dtype="bfloat16")
+    port16 = load_jax_variables(build_model(cfg16), variables["params"],
+                                variables["batch_stats"])
+    kw = dict(nn_thresh=0.7, top_k=512)
+    runs, seen = [], []
+    n_matches = _record_matches(monkeypatch, port_vo.VisualOdometry)
+    orig = KP2DTinyFrontend.run_async
+
+    def run_async(self, img):
+        seen.append(img)
+        return orig(self, img)
+
+    monkeypatch.setattr(KP2DTinyFrontend, "run_async", run_async)
+    for model, c in ((port32, cfg), (port16, cfg16)):
+        seen.clear()
+        runs.append(port_vo.evaluate_visual_odometry(
+            KP2DTinyFrontend(model, c, (H, W), device="cpu", **kw),
+            corridor, "06.txt", "06.mp4", new_size=(H, W), verbose=True,
+            device="cpu"))
+    frames = _frames(corridor)
+    assert len(seen) == len(frames) and all(s.dtype == torch.uint8
+                                            for s in seen)
+    np.testing.assert_array_equal(
+        seen[1].numpy(), jquantize(jvo.prep_frame(frames[1], (H, W))))
+    assert runs[0]["estimation_fails"] == runs[1]["estimation_fails"] == 0
+    assert len(n_matches) == 10  # the float32 loop's 5 pairs, then bf16's
+    for w, g in zip(n_matches[:5], n_matches[5:]):
+        assert abs(g - w) <= 0.1 * w, n_matches
+    assert abs(runs[1]["total"]["mean"] - runs[0]["total"]["mean"]) <= 0.15
