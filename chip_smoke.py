@@ -83,7 +83,27 @@ Phases, each of which raises (exit code != 0) on failure:
     per request; then one batch-1 request each of V2 N_A with depth, V2
     GEM_N and V3 D_A with depth, against the CPU, depth included (atol
     1e-4);
- 11. one JSON line describing each kernel, the card's line before it, and
+ 11. dense VO phases on the vo phase's corridor (pinned S8, 128x512):
+    VO-dense-128x512, the online VO with the dense matcher (k = top_k =
+    4000, device RANSAC 8192 x 3): the stem on every frame, no failed
+    estimate, every pair's kept matches against the CPU's, the errors
+    beside the CPU run's and the ms a frame of extraction, match and pose;
+    VO-offline-{dense,bf,lg}-128x512, vo.offline.OfflineVO.relative_poses
+    over the 8 frames (one batch of 16 padded frames; k = 512 dense, 1024
+    BF and LightGlue): the launch counts, finite poses and >= 8 matches a
+    pair, the match map against the CPU's, the errors against the ground
+    truth and the ms a sequence and of its extract / match-map / pose-map
+    stages; and the kernel phase times the stem and the postprocess at
+    that batch (``_vo_b16`` keys);
+ 12. LightGlue's adaptive paths at K = 1024 on the match phase's pair:
+    LG-adaptive-K1024 (AdaptiveLightGlue, depth_confidence 0.95: the exit
+    layer, one kernel call a layer) and LG-width-K1024 (width_confidence
+    0.99: engaged_width_forward's keep counts and buckets, and
+    width_pruned_forward with side 1 floored at 256, so that layers run at
+    M != N), each against the CPU on the same inputs and timed beside the
+    static forward; the kernel phase holds single-layer calls at (M, N) =
+    (512, 256) and (128, 128) against the twin;
+ 13. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
     the match path, K=512; the stem at (64, 128): the D cell; the odd
@@ -93,7 +113,10 @@ Phases, each of which raises (exit code != 0) on failure:
     widths; ``_d``: the postprocess at config D's C=128; ``_vo``: the
     VO path's 128x512, config S), and
     ``launches_<path>`` / ``*_match`` a later path that runs the kernel
-    too (the match path's postprocess shapes are the N slice's B=1 ones).
+    too (the match path's postprocess shapes are the N slice's B=1 ones;
+    the paths of phases 11 and 12: ``vo_dense``, ``vo_offline_dense``,
+    ``vo_offline_bf``, ``vo_offline_lg``, ``lg_adaptive`` and
+    ``lg_width``).
     The bfloat16 instances have entries of their own (``*_bf16``, named
     ``...[bf16]``): unsuffixed the N cell's shapes, ``_s`` S_A's, ``_d``
     D's, and ``launches`` the bf16 N cell's.
@@ -135,6 +158,8 @@ LG_D256 = "lightglue_d256"
 # the entry keys of the bfloat16 instances (every width of a kernel under
 # one key, as for the float32 instances' suffixes)
 STEM_BF16 = "fused_stem_pair_pool_bf16"
+# the offline VO extracts its 8 frames padded to one batch of 16
+OFFLINE_BATCH = 16
 PP_BF16 = "fused_postprocess_bf16"
 NV_BF16 = "netvlad_bf16"
 
@@ -370,6 +395,9 @@ def kernel_cases(B: int, dev) -> list[Case]:
                     B * S * (4 * Cv * K + 3 * Cv + 3 * K), FP32_FLOP_PER_S,
                     check)
 
+    if B == OFFLINE_BATCH:  # the offline VO's batch of padded frames
+        return [stem_case("_vo" + b8, 16, 32, h=VO_SIZE[0], w=VO_SIZE[1]),
+                postprocess_case("_vo" + b8, 32, *VO_SIZE)]
     # the order of the draws from rs keeps earlier cases' inputs as they were
     cases = [postprocess_case(b8, 32), stem_case(b8, 16, 24),
              netvlad_case(b8, 48, 32)]
@@ -405,7 +433,7 @@ def kernel_phase(dev):
     import torch
 
     results = {}
-    for B in (1, 8):
+    for B in (1, 8, OFFLINE_BATCH):
         for c in kernel_cases(B, dev):
             tag = f"{c.name}{c.suffix or '_b1'}"
             got = c.run()
@@ -807,57 +835,39 @@ def host_ms(fn, n: int) -> list:
     return times
 
 
-def vo_phase(dev, repo: str) -> dict:
-    """The visual-odometry path: the corridor (8 frames at 376x1241, on the
-    card) through the pinned S8 frontend at 128x512 (top_k 4000, nn_thresh
-    0.7) and run_visual_odometry, the loop the CLI drives, twice: the host
-    BF matcher (native where it builds) and pinned LightGlue (max_n 1024),
-    each with the device RANSAC (8192 hypotheses, 3 restarts). Checks:
-    every frame's keypoints and descriptors against the CPU frontend's,
-    the BF matches against the CPU's, one pair's RANSAC on the card
-    against the CPU with the same injected noise, the launch counts (the
-    stem and postprocess on every frame, LightGlue on every pair), no
-    failed estimate and finite poses. Prints the error statistics beside
-    the CPU's run and the ms per frame of each stage. Returns the launch
-    counts by path."""
+class Corridor(NamedTuple):
+    """The VO phases' input: the corridor frames on the card and the CPU,
+    its ground truth, pinned S8 on the card and a copy on the CPU, and
+    KITTI's camera at the frames' size."""
+    frames: object
+    cpu_frames: object
+    gt: object
+    cfg: object
+    ex: object
+    cpu_ex: object
+    cam: object
+
+
+def corridor_setup(dev, repo: str) -> Corridor:
+    """Renders the corridor (8 frames at 376x1241, on the card), writes and
+    reads its ground truth, and loads pinned S8 (config S, 8 classes)."""
     import shutil
     import tempfile
 
     import torch
 
     from nanovs_slam_torch.configs import get_config
-    from nanovs_slam_torch.kernels import (fused_postprocess,
-                                           fused_stem_pair_pool,
-                                           lightglue_transformer,
-                                           reset_launches)
-    from nanovs_slam_torch.models.kp2dtiny import build_model, init_model
-    from nanovs_slam_torch.ops.image import quantize_u8
+    from nanovs_slam_torch.models.kp2dtiny import init_model
     from nanovs_slam_torch.utils.checkpoint import load_npz_checkpoint
     from nanovs_slam_torch.utils.convert import load_jax_variables
-    from nanovs_slam_torch.vo import native
-    from nanovs_slam_torch.vo import pose as vo_pose
     from nanovs_slam_torch.vo.camera import PinholeCamera, kitti_params
-    from nanovs_slam_torch.vo.frontend import KP2DTinyFrontend
     from nanovs_slam_torch.vo.groundtruth import KittiVideoGroundTruth
-    from nanovs_slam_torch.vo.matcher import match_keypoints
-    from nanovs_slam_torch.vo.visual_odometry import (VisualOdometry,
-                                                      load_lightglue_for_vo,
-                                                      prep_frame,
-                                                      run_visual_odometry)
 
     t_start = time.perf_counter()
     frames, poses = corridor_frames(dev, VO_FRAMES, SEED + 700)
     torch.cuda.synchronize()
     log(f"vo: {VO_FRAMES} corridor frames {tuple(frames.shape[1:])} "
         f"rendered on the card in {time.perf_counter() - t_start:.2f} s")
-    # the host BF matcher must be the native one: the numpy fallback is a
-    # different program to time
-    built = native.native_available()
-    if native.build_log:
-        log(f"vo: native matcher build messages:\n{native.build_log}")
-    require(built, "vo: the native matcher did not build")
-    log(f"vo: host matcher native, {native.SOURCE.name} built into "
-        f"{native.BUILD_ROOT}")
     tmp = tempfile.mkdtemp()
     try:
         np.savetxt(os.path.join(tmp, "06.txt"), poses.reshape(len(poses), 12))
@@ -870,10 +880,54 @@ def vo_phase(dev, repo: str) -> dict:
     ex = init_model(cfg, torch.Generator().manual_seed(SEED), "cpu")
     load_jax_variables(ex, tree["params"], tree["batch_stats"])
     cpu_ex = copy.deepcopy(ex)
+    fx, fy, cx, cy = kitti_params()
+    cam = PinholeCamera(KITTI_HW[1], KITTI_HW[0], fx, fy, cx, cy)
+    return Corridor(frames, frames.cpu(), gt, cfg, ex.to(dev), cpu_ex, cam)
+
+
+def vo_phase(dev, repo: str, cor: Corridor) -> dict:
+    """The visual-odometry path: the corridor (8 frames at 376x1241, on the
+    card) through the pinned S8 frontend at 128x512 (top_k 4000, nn_thresh
+    0.7) and run_visual_odometry, the loop the CLI drives, twice: the host
+    BF matcher (native where it builds) and pinned LightGlue (max_n 1024),
+    each with the device RANSAC (8192 hypotheses, 3 restarts). Checks:
+    every frame's keypoints and descriptors against the CPU frontend's,
+    the BF matches against the CPU's, one pair's RANSAC on the card
+    against the CPU with the same injected noise, the launch counts (the
+    stem and postprocess on every frame, LightGlue on every pair), no
+    failed estimate and finite poses. Prints the error statistics beside
+    the CPU's run and the ms per frame of each stage. Returns the launch
+    counts by path."""
+    import torch
+
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.kernels import (fused_postprocess,
+                                           fused_stem_pair_pool,
+                                           lightglue_transformer,
+                                           reset_launches)
+    from nanovs_slam_torch.models.kp2dtiny import build_model
+    from nanovs_slam_torch.ops.image import quantize_u8
+    from nanovs_slam_torch.vo import native
+    from nanovs_slam_torch.vo import pose as vo_pose
+    from nanovs_slam_torch.vo.frontend import KP2DTinyFrontend
+    from nanovs_slam_torch.vo.matcher import match_keypoints
+    from nanovs_slam_torch.vo.visual_odometry import (VisualOdometry,
+                                                      load_lightglue_for_vo,
+                                                      prep_frame,
+                                                      run_visual_odometry)
+
+    frames, cpu_frames, gt, cfg, ex, cpu_ex, cam = cor
+    # the host BF matcher must be the native one: the numpy fallback is a
+    # different program to time
+    built = native.native_available()
+    if native.build_log:
+        log(f"vo: native matcher build messages:\n{native.build_log}")
+    require(built, "vo: the native matcher did not build")
+    log(f"vo: host matcher native, {native.SOURCE.name} built into "
+        f"{native.BUILD_ROOT}")
     kw = dict(nn_thresh=0.7, top_k=4000)
     fe = KP2DTinyFrontend(ex, cfg, VO_SIZE, device=dev, **kw)
     cpu_fe = KP2DTinyFrontend(cpu_ex, cfg, VO_SIZE, device="cpu", **kw)
-    cpu_frames = frames.cpu()
 
     # the frontend on every frame, and the BF matches of every pair
     feats = [fe.run(prep_frame(f, VO_SIZE)) for f in frames]
@@ -897,9 +951,7 @@ def vo_phase(dev, repo: str) -> dict:
         f"{', '.join(f'{a:.4f}' for a in agree)} of the entries")
 
     # one pair's RANSAC, card against CPU, with the same injected noise
-    fx, fy, cx, cy = kitti_params()
     sx, sy = KITTI_HW[1] / VO_SIZE[1], KITTI_HW[0] / VO_SIZE[0]
-    cam = PinholeCamera(KITTI_HW[1], KITTI_HW[0], fx, fy, cx, cy)
     m0, m1 = match_keypoints(feats[3][0] * [sx, sy], feats[3][1],
                              feats[4][0] * [sx, sy], feats[4][1])
     got = []
@@ -1045,6 +1097,363 @@ def vo_phase(dev, repo: str) -> dict:
         f"{statistics.mean(len(f[0]) for f in feats):.1f}); steady median "
         f"extract ms a frame {statistics.median(ext[len(ext) // 2:]):.3f}")
     paths["vo_bf_bf16"] = launches
+    return paths
+
+
+# ------------------------------------------------------- dense VO phases
+
+def steady(times: list) -> float:
+    """The median of the second half of host-clock times."""
+    return statistics.median(times[len(times) // 2:])
+
+
+def log_breakdown(name: str, run, wall_ms: float, iters: int = 10) -> None:
+    """Prints the profiler's device time of one call of ``run`` beside its
+    steady host-clock ms: the device busy share of the call, its device
+    kernels and the four that take the most time."""
+    parts = device_breakdown(run, iters)
+    dev_ms = sum(n * t for n, t in parts.values())
+    top = sorted(parts.items(), key=lambda kv: -kv[1][0] * kv[1][1])[:4]
+    log(f"{name}: device {dev_ms:.3f} ms a call, {100 * dev_ms / wall_ms:.1f}"
+        f"% of {wall_ms:.3f} ms wall, "
+        f"{sum(n for n, _ in parts.values()):g} device kernels a call; "
+        + ", ".join(f"{n * t:.3f} ms x{n:g} {k[:40]}"
+                    for k, (n, t) in top))
+
+
+def vo_dense_phase(dev, cor: Corridor) -> dict:
+    """VO-dense-128x512: the online VO with the dense matcher (pinned S8,
+    k = top_k = 4000 match slots, relative threshold 0.1 topped up to 400)
+    through run_visual_odometry with the device RANSAC (8192 hypotheses, 3
+    restarts), on the card and on the CPU. Checks: the stem kernel on every
+    frame and no other kernel, no failed estimate, finite poses, and every
+    pair's kept matches against the CPU's (as sets at 1e-3 px). Prints the
+    errors beside the CPU run's and the steady ms a frame of the
+    extraction, the match and the pose."""
+    import torch
+
+    from nanovs_slam_torch.kernels import (fused_postprocess,
+                                           fused_stem_pair_pool,
+                                           lightglue_transformer,
+                                           reset_launches)
+    from nanovs_slam_torch.matching.dense import DenseMatcher
+    from nanovs_slam_torch.vo.frontend import KP2DTinyFrontend
+    from nanovs_slam_torch.vo.visual_odometry import (VisualOdometry,
+                                                      _ScaledDense,
+                                                      prep_frame,
+                                                      run_visual_odometry)
+
+    frames, cpu_frames, gt, cfg, ex, cpu_ex, cam = cor
+    kw = dict(nn_thresh=0.7, top_k=4000)
+    run_kw = dict(new_size=VO_SIZE, verbose=True, matcher="dense",
+                  device_pose=True, pose_hypotheses=8192, pose_restarts=3)
+    fe = KP2DTinyFrontend(ex, cfg, VO_SIZE, device=dev, **kw)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_visual_odometry(fe, frames, gt, device=dev, **run_kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / VO_FRAMES
+    launches = {"fused_stem_pair_pool": fused_stem_pair_pool.launches}
+    others = (fused_postprocess.launches, lightglue_transformer.launches)
+    log(f"vo dense: launches over {VO_FRAMES} frames {launches}, "
+        f"postprocess and lightglue {others}")
+    require(launches["fused_stem_pair_pool"] == VO_FRAMES
+            and others == (0, 0), f"vo dense: launches {launches} {others}")
+    require(res["estimation_fails"] == 0
+            and bool(np.isfinite(res["trajectory"]).all())
+            and len(res["trajectory"]) == VO_FRAMES,
+            f"vo dense: {res['estimation_fails']} failed estimates")
+    cpu = run_visual_odometry(
+        KP2DTinyFrontend(cpu_ex, cfg, VO_SIZE, device="cpu", **kw),
+        cpu_frames, gt, device="cpu", **run_kw)
+    for part in ("translation", "rotation", "total"):
+        log(f"vo dense: {part} error mean {res[part]['mean']:.6f} max "
+            f"{res[part]['max']:.6f} (CPU run: mean {cpu[part]['mean']:.6f} "
+            f"max {cpu[part]['max']:.6f})")
+    log(f"vo dense: matches per pair mean "
+        f"{res['stats']['n_matches']['mean']:.1f}, inliers "
+        f"{res['stats']['n_inliers']['mean']:.1f}; the loop {wall:.2f} ms a "
+        "frame (first calls included)")
+
+    # every pair's kept matches, card against CPU: the VO's own filter
+    sx, sy = KITTI_HW[1] / VO_SIZE[1], KITTI_HW[0] / VO_SIZE[0]
+    vos, imgs = [], []
+    for d, m, fr in ((dev, ex, frames), ("cpu", cpu_ex, cpu_frames)):
+        dm = _ScaledDense(DenseMatcher(m, cfg, VO_SIZE, k=4000, device=d),
+                          sx, sy)
+        vos.append(VisualOdometry(None, cam, matcher="dense", dense=dm,
+                                  device_pose=True, device=d))
+        imgs.append([prep_frame(f, VO_SIZE) for f in fr])
+    agree, pairs = [], []
+    for i in range(1, VO_FRAMES):
+        got = []
+        for vo, im in zip(vos, imgs):
+            vo.fmap_prev = vo.dense.extract(im[i - 1])
+            got.append(vo._match_dense(im[i]))
+        m, mc = (matched_pairs(g) for g in got)
+        agree.append(len(m & mc) / max(len(m), len(mc), 1))
+        require(agree[-1] >= 0.99 and len(m) >= 8,
+                f"vo dense pair {i}: {len(m)} matches, {agree[-1]:.4f} "
+                "equal to the CPU's")
+        pairs.append(got[0])
+    log(f"vo dense: kept matches equal to the CPU's on "
+        f"{', '.join(f'{a:.4f}' for a in agree)} of the entries")
+
+    vo, im = vos[0], imgs[0]
+    maps = [vo.dense.extract(x) for x in im]
+    ext = host_ms(lambda i: vo.dense.extract(im[i % VO_FRAMES]),
+                  2 * VO_FRAMES)
+
+    def match(i):
+        j = 1 + i % (VO_FRAMES - 1)
+        [t.cpu() for t in vo.dense.dm.match_maps(maps[j - 1], maps[j])]
+
+    mat = host_ms(match, 2 * (VO_FRAMES - 1))
+    pos = host_ms(lambda i: vo._estimate_pose_on_device(
+        *pairs[i % (VO_FRAMES - 1)]), 2 * (VO_FRAMES - 1))
+    med = {"extract_ms": steady(ext), "match_ms": steady(mat),
+           "pose_ms": steady(pos)}
+    log(f"vo dense: steady median ms a frame (host clock, synchronised) "
+        f"{json.dumps(med)}")
+    log_breakdown("vo dense extract", lambda: vo.dense.extract(im[1]),
+                  med["extract_ms"])
+    log_breakdown("vo dense match", lambda: vo.dense.dm.match_maps(
+        maps[0], maps[1]), med["match_ms"])
+    return {"vo_dense": launches}
+
+
+def match_map_agreement(card, cpu) -> float:
+    """The least share, over the pairs of two match maps (kpn0, kpn1,
+    valid), of the valid correspondences that the other side has within
+    1e-4 (normalised image-plane units), over the larger count: compared as
+    sets, since near-equal scores may swap two slots."""
+    shares = []
+    for i in range(card[0].shape[0]):
+        a, b = (np.concatenate([k0[i][v[i]], k1[i][v[i]]], -1)
+                for k0, k1, v in ([x.cpu().numpy() for x in mm]
+                                  for mm in (card, cpu)))
+        n = max(len(a), len(b), 1)
+        if not len(a) or not len(b):
+            shares.append(float(len(a) == len(b)))
+            continue
+        d = np.abs(a[:, None] - b[None]).max(-1)
+        shares.append(float((d.min(1) <= 1e-4).sum()) / n)
+    return min(shares)
+
+
+def vo_offline_phase(dev, repo: str, cor: Corridor) -> dict:
+    """VO-offline-{dense,bf,lg}-128x512: vo.offline.OfflineVO on the
+    corridor's 8 frames at 128x512 (pinned S8; dense: k = 512, bf and
+    lightglue: k = min(top_k 4000, 1024) = 1024, pinned LightGlue on
+    keypoints scaled to KITTI's frame; device RANSAC 8192 hypotheses, 3
+    restarts). relative_poses on the card: the launch counts (the stem once
+    for the batch of 16 padded frames; the postprocess once for the sparse
+    modes; LightGlue once a pair), finite poses and at least 8 matches a
+    pair; the match map against the CPU's (every pair, as sets); the
+    errors against the ground truth; and the steady ms a sequence and of
+    its extract, match-map and pose-map stages."""
+    import torch
+
+    from nanovs_slam_torch.kernels import (fused_postprocess,
+                                           fused_stem_pair_pool,
+                                           lightglue_transformer,
+                                           reset_launches)
+    from nanovs_slam_torch.vo.offline import OfflineVO, offline_results
+    from nanovs_slam_torch.vo.visual_odometry import (load_lightglue_for_vo,
+                                                      prep_frame)
+
+    frames, cpu_frames, gt, cfg, ex, cpu_ex, cam = cor
+    stack = torch.stack([prep_frame(f, VO_SIZE) for f in frames])
+    cpu_stack = stack.cpu()
+    paths = {}
+    for mode, tag in (("dense", "dense"), ("bf", "bf"), ("lightglue", "lg")):
+        name = f"vo offline {tag}"
+        kw = dict(k=512 if mode == "dense" else 1024, matcher=mode,
+                  n_hypotheses=8192, restarts=3)
+
+        def lightglue():
+            return (load_lightglue_for_vo(
+                os.path.join(repo, "pinned", "lightglue_S.npz"),
+                cfg.nfeatures, KITTI_HW[::-1], max_n=1024)
+                if mode == "lightglue" else None)
+
+        vo = OfflineVO(ex, cfg, VO_SIZE, cam, lightglue=lightglue(),
+                       device=dev, **kw)
+        reset_launches()
+        t0 = time.perf_counter()
+        R, t, ninl, nmat = vo.relative_poses(stack)
+        first = (time.perf_counter() - t0) * 1e3
+        launches = {"fused_stem_pair_pool": fused_stem_pair_pool.launches}
+        want = {"fused_stem_pair_pool": 1}
+        if mode != "dense":
+            launches["fused_postprocess"] = fused_postprocess.launches
+            want["fused_postprocess"] = 1
+        if mode == "lightglue":
+            launches["lightglue_transformer"] = lightglue_transformer.launches
+            want["lightglue_transformer"] = VO_FRAMES - 1
+        log(f"{name}: launches over a sequence of {VO_FRAMES} frames "
+            f"{launches}")
+        require(launches == want, f"{name}: launches {launches}, expected "
+                f"{want}")
+        require(bool(np.isfinite(R).all() and np.isfinite(t).all())
+                and int(nmat.min()) >= 8 and int(ninl.min()) >= 8,
+                f"{name}: a failed pair, matches {nmat}, inliers {ninl}")
+        res = offline_results(gt, R, t, ninl, nmat, verbose=True)
+        log(f"{name}: total error mean {res['total']['mean']:.6f} max "
+            f"{res['total']['max']:.6f}; matches a pair {nmat.tolist()}, "
+            f"inliers {ninl.tolist()}; the first sequence {first:.1f} ms")
+
+        reps = vo.extract(stack)
+        mm = vo.match_map(reps)
+        cvo = OfflineVO(cpu_ex, cfg, VO_SIZE, cam, lightglue=lightglue(),
+                        device="cpu", **kw)
+        agree = match_map_agreement(mm, cvo.match_map(cvo.extract(cpu_stack)))
+        log(f"{name}: match map vs CPU, every pair's correspondences equal "
+            f"on {agree:.4f} or more")
+        require(agree >= 0.99, f"{name}: match map vs CPU {agree:.4f}")
+
+        seq = host_ms(lambda i: vo.relative_poses(stack), 4)
+        ext = host_ms(lambda i: vo.extract(stack), 6)
+        mat = host_ms(lambda i: vo.match_map(reps), 6)
+        pos = host_ms(lambda i: vo.pose_map(*mm), 4)
+        med = {"sequence_ms": steady(seq), "extract_ms": steady(ext),
+               "match_map_ms": steady(mat), "pose_map_ms": steady(pos),
+               "pose_ms_a_pair": steady(pos) / (VO_FRAMES - 1)}
+        log(f"{name}: steady median (host clock, synchronised) "
+            f"{json.dumps(med)}")
+        log_breakdown(f"{name} extract", lambda: vo.extract(stack),
+                      med["extract_ms"], 4)
+        log_breakdown(f"{name} match map", lambda: vo.match_map(reps),
+                      med["match_map_ms"], 4)
+        paths[f"vo_offline_{tag}"] = launches
+    return paths
+
+
+def lightglue_depth_width_phase(dev, repo: str) -> dict:
+    """LG-adaptive-K1024 and LG-width-K1024: pinned S8 extracts 1024
+    keypoints from the textured 240x320 frame and its homography-warped
+    copy on the card; pinned LightGlue matches them (the CPU matches the
+    same inputs) with
+    - AdaptiveLightGlue at depth_confidence 0.95: the exit layer equal to
+      the CPU's, one kernel call a layer run;
+    - engaged_width_forward at width_confidence 0.99: the keep counts and
+      the buckets they choose;
+    - width_pruned_forward at 0.99 with side 1 floored at 256: the halving
+      schedule 1024 -> 512 -> 256 -> 128 on side 0, so that the last layer
+      runs at (M, N) = (128, 256), one kernel call a layer;
+    each with matches0 equal to the CPU's on >= 99.9% of the entries,
+    scores within 1e-4 (and prune0 / prune1 on >= 99.9%), and its steady
+    ms a pair beside the static forward's."""
+    import torch
+
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.kernels import lightglue_transformer, \
+        reset_launches
+    from nanovs_slam_torch.matching import width_pruning as wp
+    from nanovs_slam_torch.matching.adaptive import AdaptiveLightGlue
+    from nanovs_slam_torch.matching.extractor import make_extractor
+    from nanovs_slam_torch.matching.lightglue import normalize_keypoints
+    from nanovs_slam_torch.matching.synthetic import textured_frame, \
+        warp_frame
+    from nanovs_slam_torch.models.kp2dtiny import init_model
+    from nanovs_slam_torch.utils.checkpoint import load_npz_checkpoint
+    from nanovs_slam_torch.utils.convert import load_jax_variables
+
+    K = 1024
+    tree, _ = load_npz_checkpoint(
+        os.path.join(repo, "pinned", "extractor_S8.npz"))
+    cfg = get_config("S", n_classes=8)
+    ex = init_model(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    load_jax_variables(ex, tree["params"], tree["batch_stats"])
+    img0 = textured_frame(H, W, SEED + 300)
+    img1 = warp_frame(img0)
+    extract = make_extractor(ex, cfg, H, W, max_keypoints=K, device=dev)
+    e0, e1 = extract(img0[None] * 2 - 1), extract(img1[None] * 2 - 1)
+    data = {"keypoints0": normalize_keypoints(e0["keypoints"], (W, H)),
+            "keypoints1": normalize_keypoints(e1["keypoints"], (W, H)),
+            "descriptors0": e0["descriptors"],
+            "descriptors1": e1["descriptors"],
+            "mask0": e0["mask"], "mask1": e1["mask"]}
+    cpu_data = {k: v.cpu() for k, v in data.items()}
+    lg = pinned_lightglue(repo).to(dev)
+    cpu_lg = pinned_lightglue(repo)
+    L = lg.cfg.n_layers
+
+    def hold(name, out, ref, keys=()):
+        agree = float((out["matches0"].cpu() == ref["matches0"]).float()
+                      .mean())
+        err = max_err(out["matching_scores0"].cpu(), ref["matching_scores0"])
+        same = {k: float((out[k].cpu() == ref[k]).float().mean())
+                for k in keys}
+        log(f"{name}: vs CPU matches0 agree {agree:.4f}, scores max err "
+            f"{err:.3g}, {json.dumps(same)}, "
+            f"{int((out['matches0'] >= 0).sum())} matches")
+        require(agree >= 0.999 and err <= 1e-4
+                and all(v >= 0.999 for v in same.values()),
+                f"{name}: card vs CPU {agree}, {err}, {same}")
+
+    def timed(fn):
+        with torch.inference_mode():
+            return steady(host_ms(lambda i: fn(), 30))
+
+    static_ms = timed(lambda: lg(data))
+    paths = {}
+
+    alg = AdaptiveLightGlue(lg, 0.95)
+    reset_launches()
+    out = alg(data)
+    torch.cuda.synchronize()
+    n = lightglue_transformer.launches
+    ref = AdaptiveLightGlue(cpu_lg, 0.95)(cpu_data)
+    log(f"lg adaptive: exit layer {out['exit_layer']} (CPU "
+        f"{ref['exit_layer']}) of {L}, {n} kernel calls")
+    require(out["exit_layer"] == ref["exit_layer"]
+            and n == out["exit_layer"] + 1,
+            f"lg adaptive: exit {out['exit_layer']} vs {ref['exit_layer']}, "
+            f"{n} launches")
+    hold("lg adaptive", out, ref)
+    ms = timed(lambda: alg(data))
+    log(f"lg adaptive: steady median ms a pair {ms:.3f}, the static "
+        f"forward {static_ms:.3f} (host clock, synchronised)")
+    with torch.inference_mode():
+        log_breakdown("lg static", lambda: lg(data), static_ms)
+        log_breakdown("lg adaptive", lambda: alg(data), ms)
+    paths["lg_adaptive"] = {"lightglue_transformer": n}
+
+    counts = wp._keep_count_probe(lg, data, 0.99).tolist()
+    floors = [wp._pow2_at_least(int(c), 128) for c in counts]
+    buckets = [wp.prune_schedule(K, L, 128, None, min(f, K)) for f in floors]
+    reset_launches()
+    out = wp.engaged_width_forward(lg, data, 0.99)
+    torch.cuda.synchronize()
+    n_engaged = lightglue_transformer.launches
+    ref = wp.engaged_width_forward(cpu_lg, cpu_data, 0.99)
+    log(f"lg width engaged: keep counts {counts}, floors {floors}, buckets "
+        f"{buckets} ({'plain forward' if min(floors) >= K else 'pruned'}), "
+        f"{n_engaged} kernel calls")
+    hold("lg width engaged", out, ref, ("prune0", "prune1"))
+    engaged_ms = timed(lambda: wp.engaged_width_forward(lg, data, 0.99))
+
+    sched = [wp.prune_schedule(K, L, 128), wp.prune_schedule(K, L, 128, None,
+                                                             256)]
+    reset_launches()
+    out = wp.width_pruned_forward(lg, data, 0.99, floor1=256)
+    torch.cuda.synchronize()
+    n_pruned = lightglue_transformer.launches
+    ref = wp.width_pruned_forward(cpu_lg, cpu_data, 0.99, floor1=256)
+    log(f"lg width pruned: buckets {sched}, {n_pruned} kernel calls")
+    require(n_pruned == L, f"lg width pruned: {n_pruned} launches")
+    hold("lg width pruned", out, ref, ("prune0", "prune1"))
+    pruned_ms = timed(lambda: wp.width_pruned_forward(lg, data, 0.99,
+                                                      floor1=256))
+    log(f"lg width: steady median ms a pair engaged {engaged_ms:.3f}, "
+        f"pruned {pruned_ms:.3f}, the static forward {static_ms:.3f} (host "
+        "clock, synchronised)")
+    log_breakdown("lg width engaged", lambda: wp.engaged_width_forward(
+        lg, data, 0.99), engaged_ms)
+    log_breakdown("lg width pruned", lambda: wp.width_pruned_forward(
+        lg, data, 0.99, floor1=256), pruned_ms)
+    paths["lg_width"] = {"lightglue_transformer": n_engaged + n_pruned}
     return paths
 
 
@@ -1430,7 +1839,9 @@ def default_lightglue():
 
 def lightglue_kernel_phase(dev, lg, key: str, name: str) -> dict:
     """The LightGlue stack of ``lg`` against its twin at K = 512 and 1024,
-    padded and with image 1 fully masked, timed at the two K; the kernels
+    padded and with image 1 fully masked, timed at the two K; and one
+    layer a call (the adaptive-depth and width-pruning paths' calls) at
+    the buckets (M, N) = (512, 256) and (128, 128), timed; the kernels
     line's entry ``key`` named ``name``."""
     import torch
     import torch.nn.functional as F
@@ -1447,20 +1858,31 @@ def lightglue_kernel_phase(dev, lg, key: str, name: str) -> dict:
     entry = {"name": name, "route": "cuda",
              "source": "nanovs_slam_torch/csrc/lightglue.cu",
              "replaces": "nanovs_slam_tpu/ops/pallas/lightglue_kernel.py:265"}
-    cases = [("K512", 512, 512, 0, 0, False),
-             ("K1024", 1024, 1024, 0, 0, False),
-             ("M512_N384_masked", 512, 384, 51, 154, False),
-             ("image1_empty", 512, 384, 0, 0, True)]
-    for seed, (tag, M, N, pad0, pad1, empty1) in enumerate(cases):
+    every = range(L)
+    cases = [("K512", 512, 512, 0, 0, False, every),
+             ("K1024", 1024, 1024, 0, 0, False, every),
+             ("M512_N384_masked", 512, 384, 51, 154, False, every),
+             ("image1_empty", 512, 384, 0, 0, True, every),
+             ("layer1_M512_N256", 512, 256, 0, 40, False, range(1, 2)),
+             ("layer3_M128_N128", 128, 128, 9, 0, False, range(3, 4))]
+    for seed, (tag, M, N, pad0, pad1, empty1, layers) in enumerate(cases):
         args = lightglue_args(lg, dev, 1, M, N, pad0, pad1, empty1,
                               SEED + 400 + seed)
-        got = lightglue_transformer(*args)
-        want = lightglue_transformer_plain(*args, range(L))
+        got = lightglue_transformer(*args, layers)
+        want = lightglue_transformer_plain(*args, layers)
         torch.cuda.synchronize()
         err = max_err(got, want)
         require(err <= 1e-4, f"{name} {tag}: max_abs_err {err}")
         require(all(bool(torch.isfinite(g).all()) for g in got),
                 f"{name} {tag}: not finite")
+        if layers != every:  # one layer a call: checked and timed
+            ms = cuda_ms(lambda: lightglue_transformer(*args, layers))
+            b_ms, b_by = bound(*lightglue_work(1, M, N, D, 1, P)[:2])
+            log(f"kernel {name} {tag}: max_abs_err {err:.3g}, kernel "
+                f"{ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+            entry.update({f"max_abs_err_{tag}": err, f"ms_{tag}": ms,
+                          f"bound_ms_{tag}": b_ms})
+            continue
         if tag not in ("K512", "K1024"):
             log(f"kernel {name} {tag}: max_abs_err {err:.3g}")
             entry[f"max_abs_err_{tag}"] = err
@@ -1689,8 +2111,12 @@ def main() -> int:
                                              lightglue_transformer))
     paths["odd_request"] = odd_request_phase(dev)
     paths["lightglue_default"] = lightglue_default_phase(dev)
-    paths.update(vo_phase(dev, repo))
+    cor = corridor_setup(dev, repo)
+    paths.update(vo_phase(dev, repo, cor))
     paths.update(family_phase(dev))
+    paths.update(vo_dense_phase(dev, cor))
+    paths.update(vo_offline_phase(dev, repo, cor))
+    paths.update(lightglue_depth_width_phase(dev, repo))
 
     lines = []
     for key, entry in kernels.items():

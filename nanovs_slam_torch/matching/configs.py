@@ -22,7 +22,7 @@ class LightGlueConfig:
     add_scale_ori: bool = False
     filter_threshold: float = 0.0
     depth_confidence: float = -1.0  # >0 enables early exit at inference
-    # >0 enables adaptive width pruning at inference (not ported yet)
+    # >0 enables adaptive width pruning at inference
     width_confidence: float = -1.0
     nll_balancing: float = 0.5
     loss_gamma: float = 1.0

@@ -20,6 +20,9 @@ kernel (``kernels/lightglue.lightglue_transformer``): all layers in one
 call at static depth, one layer per call with ``depth_confidence > 0``.
 On the CPU it runs the blocks below. The embedding and the assignment tail
 are plain PyTorch on both. Training (deep supervision) is not ported yet.
+Host-staged adaptive depth is ``matching/adaptive.py``; width pruning,
+which ``inference_forward`` runs for ``width_confidence > 0``, is
+``matching/width_pruning.py``; both run one layer a kernel call.
 """
 
 from __future__ import annotations
@@ -286,7 +289,9 @@ class LightGlue(nn.Module):
 
     def run_layer(self, i: int, desc0, desc1, enc0, enc1,
                   mask0=None, mask1=None):
-        """One self+cross transformer layer, through the plain blocks."""
+        """One self+cross transformer layer, through the plain blocks on
+        every device; ``run_layers(range(i, i + 1), ...)`` launches the
+        kernel on a CUDA device."""
         return getattr(self, f"transformers_{i}")(desc0, desc1, enc0, enc1,
                                                   mask0, mask1)
 
@@ -297,6 +302,17 @@ class LightGlue(nn.Module):
         thr = confidence_threshold(i, self.cfg.n_layers)
         conf = torch.cat([t0, t1], -1)
         return 1.0 - (conf < thr).float().mean()
+
+    def matchability(self, i: int, desc) -> Tensor:
+        """sigmoid matchability of layer i's assigner (:577,583), the
+        width-pruning keep signal; desc (B, N, D) -> (B, N)."""
+        z = getattr(self, f"log_assignment_{i}").matchability(desc)
+        return torch.sigmoid(z)[..., 0]
+
+    def token_confidence(self, i: int, desc0, desc1):
+        """TokenConfidence head i's outputs (width pruning never prunes a
+        low-confidence point, :619-624)."""
+        return getattr(self, f"token_confidence_{i}")(desc0, desc1)
 
     def finalize(self, i: int, desc0, desc1, mask0=None, mask1=None
                  ) -> Dict[str, Tensor]:
@@ -373,10 +389,15 @@ class LightGlue(nn.Module):
 
 def inference_forward(model: LightGlue, data: Dict[str, Tensor]
                       ) -> Dict[str, Tensor]:
-    """Config-dispatched inference entry (the JAX ``inference_forward``).
-    Width pruning (``cfg.width_confidence > 0``) is not ported yet and
-    raises; otherwise the module's forward."""
+    """Config-dispatched inference entry (the JAX ``inference_forward``):
+    ``cfg.width_confidence > 0`` runs ``width_pruning.
+    engaged_width_forward`` (one keep-count read picks the bucket floor,
+    so a fully matchable pair runs the plain forward); otherwise the
+    module's forward. Host-staged adaptive depth stays an explicit opt-in
+    (``matching/adaptive.py``)."""
     if model.cfg.width_confidence > 0:
-        raise NotImplementedError("LightGlue width pruning "
-                                  "(width_confidence > 0) is not ported yet")
+        from .width_pruning import engaged_width_forward
+
+        return engaged_width_forward(model, data,
+                                     model.cfg.width_confidence)
     return model(data)

@@ -40,6 +40,14 @@ def post_process(out: Dict[str, Tensor], H: int, W: int, cell: int,
     return out
 
 
+def stable_top_k(values: Tensor, k: int):
+    """(top values, their indices) of the last dim, descending, equal
+    values with the lower index first, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` does not promise an order among ties)."""
+    top, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return top[..., :k], idx[..., :k]
+
+
 def top_k_keypoints(score: Tensor, coord: Tensor, feat: Tensor, k: int,
                     conf_threshold: float = 0.0, with_indices: bool = False):
     """Fixed-shape top-K keypoint selection over all cells.
@@ -55,9 +63,7 @@ def top_k_keypoints(score: Tensor, coord: Tensor, feat: Tensor, k: int,
     """
     B, Hc, Wc, _ = score.shape
     k = min(k, Hc * Wc)
-    s = score.reshape(B, Hc * Wc)
-    top_s, idx = torch.sort(s, dim=1, descending=True, stable=True)
-    top_s, idx = top_s[:, :k], idx[:, :k]
+    top_s, idx = stable_top_k(score.reshape(B, Hc * Wc), k)
     kp = torch.gather(coord.reshape(B, Hc * Wc, 2), 1,
                       idx[..., None].expand(B, k, 2))
     C = feat.shape[-1]

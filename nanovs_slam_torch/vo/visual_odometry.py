@@ -5,8 +5,9 @@ src/evaluation/visual_odometry.py:200-332).
 
 Per frame: resize -> extract keypoints and descriptors (the frontend, on
 the device) -> match against the previous frame (host BF ratio test,
-FLANN, crosscheck, per-class, or LightGlue on the device) -> essential-
-matrix pose (host cv2 USAC_MSAC, or ``ransac_essential_device``) ->
+FLANN, crosscheck, per-class, or LightGlue on the device; or, detector-
+free, the dense matcher on the device) -> essential-matrix pose (host cv2
+USAC_MSAC, or ``ransac_essential_device``) ->
 integrate ``cur_t += scale * cur_R @ t; cur_R = cur_R @ R``; then the
 per-frame relative errors against the ground truth.
 
@@ -36,10 +37,6 @@ from .matcher import (match_crosscheck_fundamental, match_keypoints,
 from .pose import (assemble_vo_error_stats, calculate_error_stats,
                    calculate_relative_error, estimate_pose,
                    ransac_essential_device)
-
-DENSE_NOT_PORTED = ("the dense matcher (matching/dense.py) is not ported "
-                    "yet: ROADMAP.md Queue 1 item 3")
-
 
 class TooFewMatchesError(RuntimeError):
     """Fewer matches than the device solver's 8-point samples need."""
@@ -76,25 +73,35 @@ class VisualOdometry:
     + ratio + one-to-one, the native matcher where it loads), "flann"
     (approximate kNN, same tail), "crosscheck" (mutual NN + fundamental
     fit), "semantic" (per-class BF; needs a frontend with with_seg or the
-    semantic filter), "lightglue" (the port's LightGlue on the device).
-    "dense" is not ported yet and raises.
+    semantic filter), "lightglue" (the port's LightGlue on the device),
+    "dense" (detector-free image-pair matching, ``matching/dense.py``: the
+    frontend is bypassed, and the previous frame's dense map stays on the
+    device).
+
+    Dense filtering: with ``dense_rel_conf`` > 0 a pair keeps the matches
+    whose confidence exceeds dense_rel_conf * its largest (0: the absolute
+    ``dense_conf``), topped up by rank to ``DENSE_MIN_MATCHES`` (never with
+    a non-mutual, zero-confidence match).
 
     ``device`` (default "cuda"; a CUDA device without a card raises) runs
-    LightGlue and, with ``device_pose``, the RANSAC; the frontend runs on
-    its own."""
+    LightGlue and, with ``device_pose``, the RANSAC; the frontend and the
+    dense matcher run on their own."""
 
     MATCHERS = ("bf", "flann", "crosscheck", "semantic", "lightglue",
                 "dense")
+    DENSE_MIN_MATCHES = 400
 
     def __init__(self, frontend, cam: PinholeCamera, matcher: str = "bf",
-                 lightglue=None, top_k_matches: int = 1000,
+                 lightglue=None, dense=None, top_k_matches: int = 1000,
                  ratio_test: float = 0.7, n_classes: int = 28,
+                 dense_conf: float = 0.05, dense_rel_conf: float = 0.1,
                  device_pose: bool = False, pose_hypotheses: int = 8192,
                  pose_restarts: int = 3, device=None):
         if matcher not in self.MATCHERS:
             raise ValueError(f"matcher must be one of {self.MATCHERS}")
-        if matcher == "dense":
-            raise NotImplementedError(DENSE_NOT_PORTED)
+        if matcher == "dense" and dense is None:
+            raise ValueError("matcher='dense' needs a DenseMatcher "
+                             "(matching/dense.py) via dense=")
         if matcher == "lightglue" and lightglue is None:
             raise ValueError("matcher='lightglue' needs lightglue= (the "
                              "load_lightglue_for_vo tuple; CLI: pass "
@@ -107,6 +114,10 @@ class VisualOdometry:
         self.lightglue = lightglue
         if lightglue is not None:
             lightglue[0].to(self.device).eval()
+        self.dense = dense
+        self.dense_conf = dense_conf
+        self.dense_rel_conf = dense_rel_conf
+        self.fmap_prev = None  # the previous dense map, on the device
         self.device_pose = device_pose
         self.pose_hypotheses = pose_hypotheses
         self.pose_restarts = pose_restarts
@@ -142,13 +153,44 @@ class VisualOdometry:
     def begin_extract(self, img01):
         """Enqueue the frame's extraction without waiting; pass the handle
         to process_image(..., prefetched=). The device extracts frame t+1
-        while the host matches and solves frame t."""
+        while the host matches and solves frame t. None in dense mode,
+        which extracts as it matches."""
+        if self.matcher == "dense":
+            return None
         return self.frontend.run_async(img01)
 
     def init(self, img01):
-        self.kps_prev, self.feat_prev, out = self._extract(img01)
-        self.seg_prev = out.get("kp_class")
+        if self.matcher == "dense":
+            t0 = time.perf_counter()
+            self.fmap_prev = self.dense.extract(img01)
+            self.stats.network_inference_timing.append(
+                time.perf_counter() - t0)
+        else:
+            self.kps_prev, self.feat_prev, out = self._extract(img01)
+            self.seg_prev = out.get("kp_class")
         self.trajectory.append(self.cur_t.copy())
+
+    def _match_dense(self, img01):
+        """Detector-free pair matching (reference LoFTR branch,
+        visual_odometry.py:296-310): the new frame's dense map (timed as
+        the extraction), matched against the previous one on the device,
+        filtered on the host."""
+        t0 = time.perf_counter()
+        fmap = self.dense.extract(img01)
+        self.stats.network_inference_timing.append(time.perf_counter() - t0)
+        kp0, kp1, conf = (t.cpu().numpy() if isinstance(t, torch.Tensor)
+                          else np.asarray(t)
+                          for t in self.dense.match_maps(self.fmap_prev, fmap))
+        thr = self.dense_rel_conf * conf.max() if self.dense_rel_conf > 0 \
+            else self.dense_conf
+        keep = conf > thr
+        if keep.sum() < self.DENSE_MIN_MATCHES:
+            # top up by rank to the pose budget; a zero confidence is a
+            # pair that failed the mutual check, never admitted
+            keep = np.argsort(-conf)[:self.DENSE_MIN_MATCHES]
+            keep = keep[conf[keep] > 0.0]
+        self.fmap_prev = fmap
+        return kp0[keep], kp1[keep]
 
     def _match(self, kps, feat, seg):
         if self.matcher == "lightglue":
@@ -206,10 +248,15 @@ class VisualOdometry:
                       prefetched=None):
         """Returns (R, t, n_matches); updates the integrated pose.
         ``prefetched``: an optional handle from begin_extract(img01)."""
-        kps, feat, out = self._extract(img01, prefetched)
-        seg = out.get("kp_class")
+        dense = self.matcher == "dense"
+        if dense:
+            kps = feat = seg = None
+            dense_kps = self._match_dense(img01)  # times its extraction
+        else:
+            kps, feat, out = self._extract(img01, prefetched)
+            seg = out.get("kp_class")
         t0 = time.perf_counter()
-        m_kps0, m_kps1 = self._match(kps, feat, seg)
+        m_kps0, m_kps1 = dense_kps if dense else self._match(kps, feat, seg)
         try:
             if self.device_pose:
                 R, t, mask_match = self._estimate_pose_on_device(m_kps0,
@@ -235,7 +282,8 @@ class VisualOdometry:
         self.cur_t = self.cur_t + absolute_scale * self.cur_R.dot(t)
         self.cur_R = self.cur_R.dot(R)
         self.trajectory.append(self.cur_t.copy())
-        self.kps_prev, self.feat_prev, self.seg_prev = kps, feat, seg
+        if not dense:
+            self.kps_prev, self.feat_prev, self.seg_prev = kps, feat, seg
         return R, t, len(m_kps0)
 
     def _estimate_pose_on_device(self, m_kps0, m_kps1):
@@ -352,10 +400,29 @@ class _ScaledFrontend:
         return self.fetch(self.run_async(img01))
 
 
+class _ScaledDense:
+    """Scales dense-match coordinates from the resized frame back to the
+    camera frame (reference visual_odometry.py:310); numpy out."""
+
+    def __init__(self, dm, sx: float, sy: float):
+        self.dm = dm
+        self.scale = np.array([sx, sy], np.float32)
+
+    def extract(self, img01):
+        return self.dm.extract(img01)
+
+    def match_maps(self, f0, f1):
+        kp0, kp1, conf = (t.cpu().numpy() for t in self.dm.match_maps(f0,
+                                                                      f1))
+        return kp0 * self.scale, kp1 * self.scale, conf
+
+
 def run_visual_odometry(frontend, frames: Iterable, gt, new_size=None,
                         max_frames: Optional[int] = None,
                         verbose: bool = False, matcher: str = "bf",
-                        lightglue=None, device_pose: bool = False,
+                        lightglue=None, dense=None,
+                        device_pose: bool = False,
+                        dense_rel_conf: float = 0.1,
                         lg_width: float = -1.0, lg_threshold: float = 0.0,
                         pose_hypotheses: int = 8192, pose_restarts: int = 3,
                         device=None) -> Dict:
@@ -363,7 +430,9 @@ def run_visual_odometry(frontend, frames: Iterable, gt, new_size=None,
     (H, W, 3), numpy or tensors) against ``gt`` (a KittiVideoGroundTruth):
     per-frame relative pose errors. ``lightglue``: the
     (model, size, max_n) tuple or a ``.npz`` path (loaded with
-    load_lightglue_for_vo at the frames' size).
+    load_lightglue_for_vo at the frames' size). ``dense``: the dense
+    matcher of ``matcher="dense"``; where none is given, a DenseMatcher on
+    the frontend's model with k = its top_k, as the JAX CLI builds it.
 
     A model that computes in bfloat16 gets each resized frame as uint8
     (``ops.image.quantize_u8``), as the JAX VO ships frames to it: the
@@ -373,8 +442,6 @@ def run_visual_odometry(frontend, frames: Iterable, gt, new_size=None,
     The loop is pipelined: frame t+1's extraction is enqueued before frame
     t's matching and pose run, so that the device extracts while the host
     solves; the results are those of the sequential loop."""
-    if matcher == "dense":
-        raise NotImplementedError(DENSE_NOT_PORTED)
     dev = resolve_device(device)
     it = iter(frames)
     frame = next(it, None)
@@ -398,8 +465,17 @@ def run_visual_odometry(frontend, frames: Iterable, gt, new_size=None,
         lightglue = load_lightglue_for_vo(
             lightglue, frontend.cfg.nfeatures, (size[1], size[0]),
             max_n=max_n, threshold=lg_threshold, width_confidence=lg_width)
+    if matcher == "dense" and dense is None:
+        from ..matching.dense import DenseMatcher
+
+        dense = DenseMatcher(frontend.model, frontend.cfg,
+                             new_size or size[:2], k=frontend.top_k,
+                             device=dev)
     vo = VisualOdometry(_ScaledFrontend(frontend, sx, sy), cam,
                         matcher=matcher, lightglue=lightglue,
+                        dense=None if dense is None
+                        else _ScaledDense(dense, sx, sy),
+                        dense_rel_conf=dense_rel_conf,
                         device_pose=device_pose,
                         pose_hypotheses=pose_hypotheses,
                         pose_restarts=pose_restarts, device=dev)

@@ -333,11 +333,19 @@ def test_lightglue_wrapper_checks_inputs():
 
 
 def test_inference_forward_width_pruning_raises():
+    """Width pruning is ported: inference_forward with width_confidence >
+    0 runs it (prune0 / prune1 in the result; a pair of 8 points has
+    nothing to prune, so the matches are the plain forward's). Training
+    still raises."""
     cfg = dataclasses.replace(LIGHTGLUE_CONFIGS["kp2dtiny_S"],
                               width_confidence=0.99)
     data = _torch_data(_pair_data(8, 8, 32))
-    with pytest.raises(NotImplementedError, match="width pruning"):
-        inference_forward(LightGlue(cfg), data)
+    torch.manual_seed(0)
+    lg = LightGlue(cfg).eval()
+    pruned = inference_forward(lg, data)
+    assert (pruned["prune0"] == cfg.n_layers).all()
+    with torch.no_grad():
+        assert torch.equal(pruned["matches0"], lg(data)["matches0"])
     with pytest.raises(NotImplementedError, match="training"):
         LightGlue(LIGHTGLUE_CONFIGS["kp2dtiny_S"])(data, train=True)
     with torch.no_grad():
