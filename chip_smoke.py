@@ -103,7 +103,27 @@ Phases, each of which raises (exit code != 0) on failure:
     M != N), each against the CPU on the same inputs and timed beside the
     static forward; the kernel phase holds single-layer calls at (M, N) =
     (512, 256) and (128, 128) against the twin;
- 13. one JSON line describing each kernel, the card's line before it, and
+ 13. train phase: the multitask training path of config S V2 (28
+    classes, 120x160, batch 4, Adam 5e-4 on the cosine warm restarts,
+    top_k 300; seeded init_model weights and inlier net; a batch of the
+    trainer's synthetic fallback data): one train step on the card
+    against one on the CPU with dropout at rate 0 on both sides (loss
+    terms within 1e-4, grad_norm 1e-4 relative, gradients 5e-2 in
+    relative L2, parameters 1e-5 where both gradients are at least 1e-6
+    and agree in sign, BN buffers 1e-5: compare_train_steps says why);
+    20 steps with dropout on through make_train_step on a fixed batch
+    (finite losses; the loss without the gated IO term falls, and so does
+    the IO term over the steps where it is open; NetVLAD's forward and
+    backward kernels twice a step, the stem and postprocess kernels
+    never), the steady ms a step, steps a second, peak memory and the
+    device breakdown; then
+    ``python -m nanovs_slam_torch.train_multitask --no_eval --n_epochs 1
+    --max_steps_per_epoch 5`` in a subprocess on the card, whose .npz
+    loads back into the port. The kernel phase holds ``netvlad_backward``
+    (two device kernels a call) against its twin, autograd through
+    netvlad_plain, at the train shape (unsuffixed) and config N's
+    (``_n``), its dW and dcen equal across two launches;
+ 14. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
     the match path, K=512; the stem at (64, 128): the D cell; the odd
@@ -115,8 +135,9 @@ Phases, each of which raises (exit code != 0) on failure:
     ``launches_<path>`` / ``*_match`` a later path that runs the kernel
     too (the match path's postprocess shapes are the N slice's B=1 ones;
     the paths of phases 11 and 12: ``vo_dense``, ``vo_offline_dense``,
-    ``vo_offline_bf``, ``vo_offline_lg``, ``lg_adaptive`` and
-    ``lg_width``).
+    ``vo_offline_bf``, ``vo_offline_lg``, ``lg_adaptive``,
+    ``lg_width`` and ``train``; ``netvlad_backward``'s first path is
+    ``train``).
     The bfloat16 instances have entries of their own (``*_bf16``, named
     ``...[bf16]``): unsuffixed the N cell's shapes, ``_s`` S_A's, ``_d``
     D's, and ``launches`` the bf16 N cell's.
@@ -241,7 +262,9 @@ class Case(NamedTuple):
     """One kernel-phase case: ``entry`` is its entry's key in the kernels
     line (and in the paths' launch counts), ``name`` that entry's name,
     ``suffix`` the suffix of its keys there, ``device_kernels`` the device
-    kernels one call enqueues."""
+    kernels one call enqueues, ``plain_inner`` the calls of the twin a
+    timed run takes (fewer for a twin of many launches, so that they all
+    queue behind the spin)."""
     entry: str
     name: str
     suffix: str
@@ -255,6 +278,7 @@ class Case(NamedTuple):
     rate: float
     check: Callable
     device_kernels: int = 1
+    plain_inner: int = 20
 
 
 def kernel_cases(B: int, dev) -> list[Case]:
@@ -274,8 +298,10 @@ def kernel_cases(B: int, dev) -> list[Case]:
 
     from nanovs_slam_torch.kernels import (fused_postprocess,
                                            fused_stem_pair_pool, netvlad,
-                                           netvlad_plain, postprocess_plain,
-                                           stem_plain)
+                                           netvlad_backward,
+                                           netvlad_backward_plain,
+                                           netvlad_plain, netvlad_residuals,
+                                           postprocess_plain, stem_plain)
 
     rs = np.random.RandomState(SEED + B)
     b8 = "" if B == 1 else f"_b{B}"
@@ -395,6 +421,44 @@ def kernel_cases(B: int, dev) -> list[Case]:
                     B * S * (4 * Cv * K + 3 * Cv + 3 * K), FP32_FLOP_PER_S,
                     check)
 
+    def netvlad_backward_case(suffix, Bb, h, w, Cv, K):
+        """The NetVLAD backward at x (Bb, h, w, Cv) as NCHW memory (the
+        VPR head's), K clusters: the train path's (4, 30, 40, 64) at
+        K = 64 (config S, 120x160, batch 4) and config N's (1, 60, 80, 48)
+        at K = 32, with inputs of their own draw. The forward's residuals
+        come from its kernel (netvlad_residuals), as the train path's
+        backward gets them. Each gradient within 1e-5 of its largest
+        magnitude against the twin (autograd through netvlad_plain); dW and
+        dcen equal across two launches (fixed-order reductions). Bound: five
+        S x K x C products an image (logits, da, a du, dl W^T, x^T dl) and
+        x, gy, u, m, W, cen read once, dx, dW, dcen written once."""
+        rb = np.random.RandomState(SEED + 500 + Bb)
+        xb = t(rb.randn(Bb, Cv, h, w)).permute(0, 2, 3, 1)
+        aw, cen = t(rb.randn(Cv, K) * 0.3), t(rb.rand(K, Cv))
+        gy = t(rb.randn(Bb, K * Cv))
+        _, u, m = netvlad_residuals(xb, aw, cen)
+        args = (gy, xb, aw, cen)
+
+        def check(got, want):
+            for g, w_, name in zip(got, want, ("dx", "dW", "dcen")):
+                err = max_err(g, w_)
+                lim = 1e-5 * float(w_.abs().max())
+                require(err <= lim, f"netvlad_backward {name}: {err} > {lim}")
+            again = netvlad_backward(*args, u, m)
+            require(torch.equal(got[1], again[1])
+                    and torch.equal(got[2], again[2]),
+                    "netvlad_backward: dW or dcen differ across launches")
+
+        S_b = h * w
+        return Case("netvlad_backward", "netvlad_backward", suffix,
+                    "nanovs_slam_torch/csrc/netvlad.cu",
+                    "nanovs_slam_tpu/modules/aggregators.py:40",
+                    lambda: netvlad_backward(*args, u, m),
+                    lambda: netvlad_backward_plain(*args), None,
+                    4 * (2 * Bb * S_b * Cv + 2 * Bb * K * Cv + Bb * K
+                         + 4 * Cv * K),
+                    10 * Bb * S_b * K * Cv, FP32_FLOP_PER_S, check, 2, 4)
+
     if B == OFFLINE_BATCH:  # the offline VO's batch of padded frames
         return [stem_case("_vo" + b8, 16, 32, h=VO_SIZE[0], w=VO_SIZE[1]),
                 postprocess_case("_vo" + b8, 32, *VO_SIZE)]
@@ -426,6 +490,9 @@ def kernel_cases(B: int, dev) -> list[Case]:
               postprocess_case("_d" + b8, 128, bf16=True),
               netvlad_case(b8, 48, 32, bf16=True),
               netvlad_case("_s" + b8, 64, 64, bf16=True)]
+    if B == 1:  # the train path's backward (unsuffixed) and config N's
+        cases += [netvlad_backward_case("", 4, 30, 40, 64, 64),
+                  netvlad_backward_case("_n", 1, 60, 80, 48, 32)]
     return cases
 
 
@@ -442,7 +509,7 @@ def kernel_phase(dev):
             c.check(got, want)
             err = max_err(got, want)
             ms = cuda_ms(c.run)
-            plain_ms = cuda_ms(c.plain)
+            plain_ms = cuda_ms(c.plain, inner=c.plain_inner)
             library_ms = cuda_ms(c.library) if c.library is not None else None
             b_ms, b_by = bound(c.nbytes, c.flops, c.rate)
             note = ""
@@ -2062,6 +2129,217 @@ def match_phase(dev, repo: str, kernels) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- train phase
+
+TRAIN_HW, TRAIN_B = (120, 160), 4  # the COCO-Stuff train config's
+
+
+def train_batch(seed: int) -> dict:
+    """One training batch of the trainer's fallback data at its size:
+    SyntheticShapesDataset (28 classes) through the PairLoader's host
+    augments and homographies, the pair built on the CPU."""
+    from nanovs_slam_torch.data.datasets import SyntheticShapesDataset
+    from nanovs_slam_torch.data.pipeline import PairLoader
+
+    h, w = TRAIN_HW
+    loader = PairLoader(SyntheticShapesDataset((h, w), 64, 28, seed=0),
+                        TRAIN_B, h, w, seed=seed, device="cpu")
+    return next(iter(loader))
+
+
+def train_state(device):
+    """Config S V2 (28 classes) with init_model's seeded weights and a
+    seeded inlier net, Adam at 5e-4 on the cosine warm-restart schedule,
+    as the CLI builds them."""
+    import torch
+
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.models.inlier_net import init_inlier_net
+    from nanovs_slam_torch.models.kp2dtiny import init_model
+    from nanovs_slam_torch.train.schedules import make_lr_schedule
+    from nanovs_slam_torch.train.train_step import (create_train_state,
+                                                    make_optimizer)
+
+    cfg = get_config("S", n_classes=28)
+    model = init_model(cfg, torch.Generator().manual_seed(SEED), device)
+    io = init_inlier_net(torch.Generator().manual_seed(SEED + 2),
+                         device=device)
+    spec = make_optimizer("adam", schedule=make_lr_schedule(
+        "cosine", 5e-4, 16, 20))  # 64 synthetic items at batch 4
+    return cfg, create_train_state(model, spec, io_net=io)
+
+
+def compare_train_steps(card, cpu, lr: float) -> dict:
+    """One step's results on the card against the CPU's: loss terms within
+    1e-4 of max(1, |term|), grad_norm within 1e-4 relative, BN buffers
+    within 1e-5, the raw gradients within 5e-2 in relative L2, and the
+    parameters within 1e-5 wherever both gradients are at least 1e-6 and
+    agree in sign. Elementwise the gradients are not float32-close: the
+    keypoint losses pick nearest neighbours, hardest negatives and
+    associations by argmin, and LeakyReLU kinks and max-pools select too,
+    so float32 noise flips near-tied choices (on the CPU alone, 1e-6 of
+    input noise moves the keypoint terms' gradient by 1.4% in L2, the
+    segmentation term's by 0.13%). Adam's first step, lr g / (|g| + 1e-8),
+    turns a flipped sign into up to 2 lr: those weights (counted) are held
+    to 2 lr."""
+    import torch
+
+    (c_state, c_met), (p_state, p_met) = card, cpu
+    errs = {}
+    for k, v in p_met.items():
+        err = abs(c_met[k] - v)
+        lim = 1e-4 * (abs(v) if k == "grad_norm" else max(1.0, abs(v)))
+        require(err <= lim, f"train: {k} card {c_met[k]} cpu {v}")
+        errs[k] = err
+    p_max = b_max = 0.0
+    n_flip = 0
+    g_diff = g_ref = 0.0
+    for c_net, p_net in ((c_state.model, p_state.model),
+                         (c_state.io_net, p_state.io_net)):
+        cpu_params = dict(p_net.named_parameters())
+        for k, p in c_net.named_parameters():
+            q = cpu_params[k]
+            d = (p.detach().cpu() - q.detach()).abs()
+            gc = p.grad.cpu() if p.grad is not None else torch.zeros_like(q)
+            gp = q.grad if q.grad is not None else torch.zeros_like(q)
+            g_diff += float(((gc - gp) ** 2).sum())
+            g_ref += float((gp ** 2).sum())
+            agree = ((gc.abs() >= 1e-6) & (gp.abs() >= 1e-6)
+                     & (torch.sign(gc) == torch.sign(gp)))
+            if agree.any():
+                p_max = max(p_max, d[agree].max().item())
+            require(d.max().item() <= 2 * lr, f"train: parameter {k}")
+            n_flip += int((torch.sign(gc) != torch.sign(gp)).sum())
+        cpu_bufs = dict(p_net.named_buffers())
+        for k, b in c_net.named_buffers():
+            if b.is_floating_point():
+                b_max = max(b_max, max_err(b.cpu(), cpu_bufs[k]))
+    g_rel = (g_diff / g_ref) ** 0.5
+    errs.update(params=p_max, bn_buffers=b_max, grad_rel_l2=g_rel,
+                grad_sign_flips=n_flip)
+    log(f"train: one step, card vs CPU {json.dumps(errs)}")
+    require(g_rel <= 5e-2, f"train: gradients {g_rel} apart (relative L2)")
+    require(p_max <= 1e-5, f"train: parameters {p_max} apart")
+    require(b_max <= 1e-5, f"train: BN buffers {b_max} apart")
+    return errs
+
+
+def train_phase(dev, repo: str) -> dict:
+    """The multitask training path on the card (config S V2, 28 classes,
+    120x160, batch 4, Adam 5e-4 cosine, top_k 300, all heads but depth):
+    one step against the CPU with dropout at rate 0 on both sides; 20
+    steps with dropout on through make_train_step as the CLI builds it (a
+    fixed batch: finite losses; the loss without the IO term falls, and
+    so does the IO term over the steps where its gate (more than 10
+    inliers) is open; NetVLAD's forward and backward
+    kernels twice a step, the stem and postprocess kernels never), timed
+    (host clock, synchronised); its device breakdown; then the CLI in a
+    subprocess on the card, whose .npz loads back into the port. Returns
+    the path's launch counts."""
+    import tempfile
+
+    import torch
+
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.kernels import (KERNELS, netvlad, netvlad_backward,
+                                           reset_launches)
+    from nanovs_slam_torch.models.inlier_net import InlierNet
+    from nanovs_slam_torch.models.kp2dtiny import build_model
+    from nanovs_slam_torch.modules.blocks import set_dropout
+    from nanovs_slam_torch.train.schedules import DEFAULT_LOSS_WEIGHTS
+    from nanovs_slam_torch.train.train_step import make_train_step
+    from nanovs_slam_torch.utils.checkpoint import load_npz_checkpoint
+    from nanovs_slam_torch.utils.convert import (load_jax_inlier_net,
+                                                 load_jax_variables)
+
+    h, w = TRAIN_HW
+    batch = train_batch(SEED)
+    weights = DEFAULT_LOSS_WEIGHTS
+    results = []  # the card's step, then the CPU's
+    for device in (dev, torch.device("cpu")):
+        cfg, state = train_state(device)
+        set_dropout(state.model, rate=0.0)
+        step = make_train_step(cfg, h, w, io_top_k=300)
+        state, met = step(state, {k: v.to(device) for k, v in batch.items()},
+                          weights)
+        results.append((state, {k: float(v) for k, v in met.items()}))
+    log(f"train: one step's terms on the card {json.dumps(results[0][1])}")
+    compare_train_steps(*results, 5e-4)
+
+    cfg, state = train_state(dev)
+    set_dropout(state.model, generator=torch.Generator(dev).manual_seed(
+        SEED + 1))
+    step = make_train_step(cfg, h, w, io_top_k=300)
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, io_terms, step_ms = [], [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        state, met = step(state, dbatch, weights)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["total_loss"]))
+        io_terms.append(float(met["io_loss"]))
+    launches = {k.__name__: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"train: launches during 20 steps {launches}")
+    require(launches["netvlad"] == 40 and launches["netvlad_backward"] == 40,
+            "train: NetVLAD forward and backward should launch twice a step")
+    require(all(n == 0 for k, n in launches.items()
+                if k not in ("netvlad", "netvlad_backward")),
+            "train: a serving kernel launched on the train path")
+    require(all(math.isfinite(v) for v in losses), f"train: losses {losses}")
+    # the IO term is gated by its inlier count (> 10), which opens and
+    # shuts from step to step: the loss without it, and the IO term over
+    # the steps where it is open, must fall
+    rest = [t - weights.keypoint_loss * io for t, io in zip(losses, io_terms)]
+    opened = [io for io in io_terms if io > 0]
+    log(f"train: 20 steps on a fixed batch (dropout on): total loss "
+        + ", ".join(f"{v:.3f}" for v in losses) + "; without the IO term "
+        + ", ".join(f"{v:.3f}" for v in rest) + f"; the IO term open in "
+        f"{len(opened)} steps: " + ", ".join(f"{v:.3f}" for v in opened))
+    require(rest[-1] < rest[0], "train: the loss without the IO term did "
+            "not fall")
+    require(len(opened) < 2 or opened[-1] < opened[0],
+            "train: the IO term did not fall")
+    ms = steady(step_ms)
+    log(f"train: ms a step {ms:.3f} (steady median of the 20, host clock, "
+        f"synchronised), {1e3 / ms:.2f} steps a second; first step "
+        f"{step_ms[0]:.1f} ms; peak memory {peak:.1f} MiB")
+    log_breakdown("train: a step", lambda: step(state, dbatch, weights), ms)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=repo)
+        out = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "nanovs_slam_torch.train_multitask",
+             "--no_eval", "--n_epochs", "1", "--max_steps_per_epoch", "5",
+             "--log_every", "1", "--out_model_path", out], cwd=tmp, env=env,
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        log("train: CLI " + " | ".join(r.stdout.strip().splitlines()[-3:]))
+        require(r.returncode == 0, f"train: the CLI failed\n{r.stdout}\n"
+                f"{r.stderr}")
+        tree, meta = load_npz_checkpoint(out + ".npz")
+    cfg = get_config("S", n_classes=28)
+    model = load_jax_variables(build_model(cfg), tree["params"],
+                               tree["batch_stats"]).to(dev).eval()
+    load_jax_inlier_net(InlierNet(), tree["io_params"],  # strict: raises
+                        tree["io_batch_stats"])           # on any mismatch
+    with torch.no_grad():
+        out = model(batch["image"][:1].permute(0, 3, 1, 2).to(dev))
+    require(all(torch.isfinite(v).all() for v in out.values()),
+            "train: the CLI's checkpoint gives a non-finite forward")
+    log(f"train: CLI 5 steps in {cli_s:.1f} s (process start and data "
+        f"included); its .npz loads back (step {meta['step']}, epoch "
+        f"{meta['epoch']}) and serves a finite forward")
+    require(meta["step"] == 5, f"train: the CLI saved step {meta['step']}")
+    return {"train": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2117,6 +2395,7 @@ def main() -> int:
     paths.update(vo_dense_phase(dev, cor))
     paths.update(vo_offline_phase(dev, repo, cor))
     paths.update(lightglue_depth_width_phase(dev, repo))
+    paths.update(train_phase(dev, repo))
 
     lines = []
     for key, entry in kernels.items():

@@ -28,7 +28,10 @@
 // exchange of the eight ranks' sums of squares, the whole vector. Every sum
 // runs in a fixed order, so the result is the same from run to run. The
 // last cluster sets the counter back to 0, so the scratch is reused by the
-// next launch on the stream without a reset.
+// next launch on the stream without a reset. When the wrapper asks for
+// them (a gradient will be needed), the last cluster also writes each
+// image's u = a^T x - (sum a) * centroids (K, C) before normalisation and
+// the masses sum a (K): the backward below starts from them.
 //
 // Bound on an H100: operations, barely. At 240x320 (S = 4800, C = 48,
 // K = 32) an image is 2 * 2*S*C*K = 29.5 MFLOP against 0.9 MB read, about
@@ -67,6 +70,8 @@ struct Args {
   float* partial;          // (B, n_clusters, K*C + K)
   unsigned int* counter;   // (B), 0 between launches
   float* out;              // (B, K*C)
+  float* residual;         // (B, K*C) u before normalisation, or null
+  float* mass;             // (B, K) sum_s a, or null
   int S, C, K;
 };
 
@@ -257,6 +262,7 @@ netvlad_kernel(Args a) {
     float m = 0.f;
     for (int q = 0; q < ncl; ++q)
       m += __ldcg(pb + (long long)q * nv + K * C + k);
+    if (a.mass != nullptr && lane == 0) a.mass[(long long)b * K + k] = m;
     float v[kPerLane];
     float ss = 0.f;
 #pragma unroll
@@ -268,6 +274,8 @@ netvlad_kernel(Args a) {
         for (int q = 0; q < ncl; ++q)
           acc_v += __ldcg(pb + (long long)q * nv + k * C + c);
         v[i] = acc_v - m * a.centroids[k * C + c];
+        if (a.residual != nullptr)
+          a.residual[((long long)b * K + k) * C + c] = v[i];
       }
       ss += v[i] * v[i];
     }
@@ -341,18 +349,301 @@ int blocks_per_image(int S) {
 
 int launch(const void* x, bool bf16, const long long* sx,
            const float* assign_w, const float* centroids, float* partial,
-           unsigned int* counter, float* out, int B, int S, int C, int K,
-           cudaStream_t stream) {
+           unsigned int* counter, float* out, float* residual, float* mass,
+           int B, int S, int C, int K, cudaStream_t stream) {
   if (K < 1 || K > kMaxK || C < 1 || C > kMaxC || S < 1 || B < 1 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = set_smem_limits();
   if (err != cudaSuccess) return (int)err;
-  const Args args{x, sx[0], sx[1], sx[2], assign_w, centroids, partial,
-                  counter, out, S, C, K};
+  const Args args{x,       sx[0],   sx[1], sx[2],    assign_w, centroids,
+                  partial, counter, out,   residual, mass,     S, C, K};
   kKernels[bf16][K > 32][C > 64]<<<dim3(blocks_per_image(S), B), kThreads,
                                    smem_bytes(C, K), stream>>>(args);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ backward
+//
+// The gradient of the function above with respect to x, W and the
+// centroids, float32 only. It starts from the forward's u (K, C) and
+// masses m (K) of each image (written by the forward when a gradient will
+// be needed) and follows the chain with l2_normalize's
+// x / max(sqrt(|x|^2 + eps^2), eps) at each of its three places:
+//   global L2:     dv = (gy - (gy . y) y) / Q,        y = v / Q
+//   cluster norm:  du_k = (dv_k - (dv_k . v_k) v_k) / q_k,  v_k = u_k / q_k
+//   centroids:     dcen += -m (.) du,   dm_k = -du_k . cen_k
+//   per pixel:     da = x^ du^T + dm;  dl = a (.) (da - (a . da));
+//                  dx^ = a du + dl W^T;  dW += x^T dl;
+//                  dx = (dx^ - (dx^ . x^) x^) / den.
+// Design. netvlad_bwd_kernel: a block takes kBwdTile = 32 pixels of one
+// image (38 blocks an image at 30x40, 150 at 60x80). Each block first
+// recomputes its image's du and dm from u, m and gy (K*C values, a warp a
+// cluster row: a few thousand operations against the tile's ~1 MFLOP),
+// then stages the tile's x^ and W in shared memory and runs the three
+// S x K x C products of the tile as loops over shared memory (thread e owns
+// output e, neighbouring threads neighbouring outputs; rows padded by one
+// so that the strided operand is free of bank conflicts). It writes dx,
+// its tile's dW (C, K) as a partial and, in the image's first block, the
+// image's -m (.) du. netvlad_bwd_reduce adds the partials in a fixed order
+// (tiles, then images). No atomics: two runs give equal gradients.
+//
+// Bound on an H100: operations, far below both. At config S's train shape
+// (B = 4, S = 1200, C = K = 64) the chain is about 6 S K C = 29.5 MFLOP an
+// image (118 MFLOP a call) against ~2.5 MB moved: 1.8 us at 67 TFLOP/s.
+// The kernel is bound by the latency of its chain of barriers and by the
+// partials' round trip, which a simple first design accepts.
+
+constexpr int kBwdTile = 32;  // pixels a block of the backward
+
+struct BwdArgs {
+  const float* gy;         // (B, K*C)
+  const float* x;          // (B, S, C), element strides sx_b, sx_s, sx_c
+  long long sx_b, sx_s, sx_c;
+  const float* assign_w;   // (C, K)
+  const float* centroids;  // (K, C)
+  const float* residual;   // (B, K*C) the forward's u
+  const float* mass;       // (B, K) the forward's m
+  float* dx;               // (B, S, C), element strides sd_b, sd_s, sd_c
+  long long sd_b, sd_s, sd_c;
+  float* dw_part;          // (B * tiles, C*K) a block's x^T dl
+  float* dcen_part;        // (B, K*C) an image's -m (.) du
+  int S, C, K;
+};
+
+size_t bwd_smem_bytes(int C, int K) {
+  const int ldc = C + 1, ldk = K + 1;
+  return sizeof(float) * (C * ldk + K * ldc + 2 * kBwdTile * ldc +
+                          2 * kBwdTile * ldk + 2 * K + kBwdTile + kWarps);
+}
+
+// The block's sum of each thread's v, in a fixed order (every thread gets
+// it); s_red holds kWarps floats and is free again on return.
+__device__ float block_sum(float v, float* s_red) {
+  v = nvs::warp_sum(v);
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += s_red[w];
+  __syncthreads();
+  return t;
+}
+
+__global__ void __launch_bounds__(kThreads) netvlad_bwd_kernel(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  constexpr int P = kBwdTile;
+  const int C = a.C, K = a.K, ldc = C + 1, ldk = K + 1;
+  float* s_w = reinterpret_cast<float*>(smem4);  // W[c][k], C x ldk
+  float* s_du = s_w + C * ldk;   // v, then du: K x ldc
+  float* s_x = s_du + K * ldc;   // x, then x^: P x ldc
+  float* s_dx = s_x + P * ldc;   // dx^, then dx: P x ldc
+  float* s_a = s_dx + P * ldc;   // logits, then a: P x ldk
+  float* s_dl = s_a + P * ldk;   // da, then dl: P x ldk
+  float* s_dm = s_dl + P * ldk;  // K
+  float* s_q = s_dm + K;         // K: the clusters' denominators
+  float* s_den = s_q + K;        // P: the pixels' denominators
+  float* s_red = s_den + P;      // kWarps
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, tile = blockIdx.x;
+  const int s0 = tile * P;
+  const int n = min(P, a.S - s0);
+  const long long KC = (long long)K * C;
+  const float* gyb = a.gy + b * KC;
+  const float* xb = a.x + b * a.sx_b;
+
+  for (int e = tid; e < C * K; e += kThreads)
+    s_w[(e / K) * ldk + e % K] = a.assign_w[e];
+  for (int e = tid; e < K * C; e += kThreads)
+    s_du[(e / C) * ldc + e % C] = a.residual[b * KC + e];
+  if (a.sx_c == 1) {  // NHWC memory: neighbouring threads, channels
+    for (int e = tid; e < P * C; e += kThreads) {
+      const int s = e / C, c = e % C;
+      s_x[s * ldc + c] = s < n ? xb[(long long)(s0 + s) * a.sx_s + c] : 0.f;
+    }
+  } else {  // NCHW memory: neighbouring threads, pixels
+    for (int e = tid; e < P * C; e += kThreads) {
+      const int s = e % P, c = e / P;
+      s_x[s * ldc + c] =
+          s < n ? xb[(long long)(s0 + s) * a.sx_s + (long long)c * a.sx_c]
+                : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // the clusters' norms: v_k = u_k / q_k in place, Q from sum |v_k|^2
+  float ss_v = 0.f;
+  for (int k = warp; k < K; k += kWarps) {
+    float* row = s_du + k * ldc;
+    float ss = 0.f;
+    for (int c = lane; c < C; c += 32) ss = fmaf(row[c], row[c], ss);
+    const float q = l2_denominator(nvs::warp_sum(ss));
+    float ssk = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      row[c] /= q;
+      ssk = fmaf(row[c], row[c], ssk);
+    }
+    ss_v += nvs::warp_sum(ssk);
+    if (lane == 0) s_q[k] = q;
+  }
+  const float Q = l2_denominator(block_sum(lane == 0 ? ss_v : 0.f, s_red));
+  float g = 0.f;  // gy . y
+  for (int e = tid; e < K * C; e += kThreads)
+    g = fmaf(gyb[e], s_du[(e / C) * ldc + e % C] / Q, g);
+  const float G = block_sum(g, s_red);
+
+  // du and dm a cluster row (one warp a row); the image's first block
+  // writes -m (.) du
+  for (int k = warp; k < K; k += kWarps) {
+    float* row = s_du + k * ldc;
+    const float* gk = gyb + (long long)k * C;
+    float dot = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float dv = (gk[c] - G * (row[c] / Q)) / Q;
+      dot = fmaf(dv, row[c], dot);
+    }
+    dot = nvs::warp_sum(dot);
+    const float q = s_q[k], m = a.mass[(long long)b * K + k];
+    float dm = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float dv = (gk[c] - G * (row[c] / Q)) / Q;
+      const float du = (dv - dot * row[c]) / q;
+      row[c] = du;
+      dm = fmaf(du, a.centroids[k * C + c], dm);
+      if (tile == 0) a.dcen_part[b * KC + (long long)k * C + c] = -m * du;
+    }
+    dm = nvs::warp_sum(dm);
+    if (lane == 0) s_dm[k] = -dm;
+  }
+
+  // the pixels' norms: x^ = x / den in place (one warp a pixel)
+  for (int p = warp; p < P; p += kWarps) {
+    float* xs = s_x + p * ldc;
+    float ss = 0.f;
+    for (int c = lane; c < C; c += 32) ss = fmaf(xs[c], xs[c], ss);
+    const float den = l2_denominator(nvs::warp_sum(ss));
+    for (int c = lane; c < C; c += 32) xs[c] /= den;
+    if (lane == 0) s_den[p] = den;
+  }
+  __syncthreads();
+
+  // logits x^ W and da = x^ du^T + dm (P x K, depth C)
+  for (int e = tid; e < P * K; e += kThreads) {
+    const int p = e / K, k = e % K;
+    const float* xs = s_x + p * ldc;
+    const float* dk = s_du + k * ldc;
+    float l = 0.f, da = 0.f;
+    for (int c = 0; c < C; ++c) {
+      l = fmaf(xs[c], s_w[c * ldk + k], l);
+      da = fmaf(xs[c], dk[c], da);
+    }
+    s_a[p * ldk + k] = l;
+    s_dl[p * ldk + k] = da + s_dm[k];
+  }
+  __syncthreads();
+
+  // softmax and its backward (one warp a pixel; K <= 64: two lanes' worth)
+  for (int p = warp; p < P; p += kWarps) {
+    float* ar = s_a + p * ldk;
+    float* dr = s_dl + p * ldk;
+    const float neg_inf = -__int_as_float(0x7f800000);
+    float mx = neg_inf;
+    for (int k = lane; k < K; k += 32) mx = fmaxf(mx, ar[k]);
+    mx = nvs::warp_max(mx);
+    float sum = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      ar[k] = expf(ar[k] - mx);
+      sum += ar[k];
+    }
+    sum = nvs::warp_sum(sum);
+    float dot = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      ar[k] /= sum;
+      dot = fmaf(ar[k], dr[k], dot);
+    }
+    dot = nvs::warp_sum(dot);
+    for (int k = lane; k < K; k += 32)
+      dr[k] = p < n ? ar[k] * (dr[k] - dot) : 0.f;
+  }
+  __syncthreads();
+
+  // dx^ = a du + dl W^T (P x C, depth 2K) and the tile's dW = x^T dl
+  // (C x K, depth P)
+  for (int e = tid; e < P * C; e += kThreads) {
+    const int p = e / C, c = e % C;
+    const float* ar = s_a + p * ldk;
+    const float* dr = s_dl + p * ldk;
+    const float* wr = s_w + c * ldk;
+    float acc = 0.f;
+    for (int k = 0; k < K; ++k) {
+      acc = fmaf(ar[k], s_du[k * ldc + c], acc);
+      acc = fmaf(dr[k], wr[k], acc);
+    }
+    s_dx[p * ldc + c] = acc;
+  }
+  float* part = a.dw_part + ((long long)b * gridDim.x + tile) * KC;
+  for (int e = tid; e < C * K; e += kThreads) {
+    const int c = e / K, k = e % K;
+    float acc = 0.f;
+    for (int p = 0; p < P; ++p)
+      acc = fmaf(s_x[p * ldc + c], s_dl[p * ldk + k], acc);
+    part[e] = acc;
+  }
+  __syncthreads();
+
+  // the pixels' norm backward, in place (one warp a pixel)
+  for (int p = warp; p < n; p += kWarps) {
+    float* dr = s_dx + p * ldc;
+    const float* xs = s_x + p * ldc;
+    float dot = 0.f;
+    for (int c = lane; c < C; c += 32) dot = fmaf(dr[c], xs[c], dot);
+    dot = nvs::warp_sum(dot);
+    const float den = s_den[p];
+    for (int c = lane; c < C; c += 32) dr[c] = (dr[c] - dot * xs[c]) / den;
+  }
+  __syncthreads();
+  float* db = a.dx + b * a.sd_b;
+  if (a.sd_c == 1) {
+    for (int e = tid; e < n * C; e += kThreads) {
+      const int s = e / C, c = e % C;
+      db[(long long)(s0 + s) * a.sd_s + c] = s_dx[s * ldc + c];
+    }
+  } else {
+    for (int e = tid; e < P * C; e += kThreads) {
+      const int s = e % P, c = e / P;
+      if (s < n)
+        db[(long long)(s0 + s) * a.sd_s + (long long)c * a.sd_c] =
+            s_dx[s * ldc + c];
+    }
+  }
+}
+
+// dW = the tiles' partials added in order, dcen = the images' in order.
+__global__ void netvlad_bwd_reduce(const float* dw_part,
+                                   const float* dcen_part, float* dw,
+                                   float* dcen, int n_parts, int B, int KC) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < KC) {
+    float s = 0.f;
+    for (int q = 0; q < n_parts; ++q) s += dw_part[(long long)q * KC + e];
+    dw[e] = s;
+  } else if (e < 2 * KC) {
+    const int i = e - KC;
+    float s = 0.f;
+    for (int q = 0; q < B; ++q) s += dcen_part[(long long)q * KC + i];
+    dcen[i] = s;
+  }
+}
+
+int bwd_tiles(int S) { return (S + kBwdTile - 1) / kBwdTile; }
+
+cudaError_t set_bwd_smem_limit() {
+  return nvs::once_per_device([] {
+    return cudaFuncSetAttribute(netvlad_bwd_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bwd_smem_bytes(kMaxC, kMaxK));
+  });
 }
 
 }  // namespace
@@ -366,21 +657,61 @@ extern "C" int nvs_netvlad_partial_size(int S, int C, int K) {
 // x (B,S,C) float32 with element strides [b, s, c]; assign_w (C,K),
 // centroids (K,C) contiguous; partial (B, nvs_netvlad_partial_size) float
 // scratch; counter (B) unsigned ints, zero before the first launch (each
-// launch leaves them zero); out contiguous (B, K*C). One launch.
+// launch leaves them zero); out contiguous (B, K*C); residual (B, K*C) and
+// mass (B, K) contiguous, or both null (not written). One launch.
 extern "C" int nvs_netvlad(const float* x, const long long* sx,
                            const float* assign_w, const float* centroids,
                            float* partial, unsigned int* counter, float* out,
-                           int B, int S, int C, int K, cudaStream_t stream) {
-  return launch(x, false, sx, assign_w, centroids, partial, counter, out, B,
-                S, C, K, stream);
+                           float* residual, float* mass, int B, int S, int C,
+                           int K, cudaStream_t stream) {
+  return launch(x, false, sx, assign_w, centroids, partial, counter, out,
+                residual, mass, B, S, C, K, stream);
 }
 
 // The same with a bfloat16 x; everything else float32.
 extern "C" int nvs_netvlad_bf16(const __nv_bfloat16* x, const long long* sx,
                                 const float* assign_w, const float* centroids,
                                 float* partial, unsigned int* counter,
-                                float* out, int B, int S, int C, int K,
+                                float* out, float* residual, float* mass,
+                                int B, int S, int C, int K,
                                 cudaStream_t stream) {
-  return launch(x, true, sx, assign_w, centroids, partial, counter, out, B,
-                S, C, K, stream);
+  return launch(x, true, sx, assign_w, centroids, partial, counter, out,
+                residual, mass, B, S, C, K, stream);
+}
+
+// Floats of the backward's scratch at batch B: the tiles' dW partials
+// (B * tiles, C*K) and the images' dcen partials (B, K*C).
+extern "C" int nvs_netvlad_backward_scratch_size(int B, int S, int C, int K) {
+  return (B * bwd_tiles(S) + B) * K * C;
+}
+
+// gy (B, K*C), residual (B, K*C) and mass (B, K) from nvs_netvlad,
+// assign_w (C, K) and centroids (K, C) contiguous, float32; x and dx
+// (B, S, C) with element strides sx, sdx [b, s, c]; scratch of
+// nvs_netvlad_backward_scratch_size floats; dw (C, K), dcen (K, C)
+// contiguous. Two launches (the blocks, the fixed-order reduction).
+extern "C" int nvs_netvlad_backward(
+    const float* gy, const float* x, const long long* sx,
+    const float* assign_w, const float* centroids, const float* residual,
+    const float* mass, float* dx, const long long* sdx, float* scratch,
+    float* dw, float* dcen, int B, int S, int C, int K,
+    cudaStream_t stream) {
+  if (K < 1 || K > kMaxK || C < 1 || C > kMaxC || S < 1 || B < 1 ||
+      B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_bwd_smem_limit();
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = bwd_tiles(S), KC = K * C;
+  float* dcen_part = scratch + (long long)B * tiles * KC;
+  const BwdArgs args{gy,     x,      sx[0],    sx[1],     sx[2],  assign_w,
+                     centroids, residual, mass, dx,   sdx[0], sdx[1],
+                     sdx[2], scratch, dcen_part, S, C, K};
+  netvlad_bwd_kernel<<<dim3(tiles, B), kThreads, bwd_smem_bytes(C, K),
+                       stream>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  netvlad_bwd_reduce<<<(2 * KC + kThreads - 1) / kThreads, kThreads, 0,
+                       stream>>>(scratch, dcen_part, dw, dcen, B * tiles, B,
+                                 KC);
+  return (int)cudaGetLastError();
 }

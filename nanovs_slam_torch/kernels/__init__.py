@@ -3,17 +3,21 @@
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute (a bfloat16 instance's in ``launches_bf16``);
 for CPU tensors it runs the plain PyTorch twin of the same module. The
-library is built from ``csrc/`` at first launch.
+library is built from ``csrc/`` at first launch. ``netvlad`` is
+differentiable: its backward is the ``netvlad_backward`` kernel; the other
+wrappers refuse autograd.
 """
 
 from .lightglue import (lightglue_transformer,  # noqa: F401
                         lightglue_transformer_plain)
-from .netvlad import netvlad, netvlad_plain  # noqa: F401
+from .netvlad import (netvlad, netvlad_backward,  # noqa: F401
+                      netvlad_backward_plain, netvlad_plain,
+                      netvlad_residuals)
 from .postprocess import fused_postprocess, postprocess_plain  # noqa: F401
 from .stem import fused_stem_pair_pool, stem_plain  # noqa: F401
 
 KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad,
-           lightglue_transformer)
+           netvlad_backward, lightglue_transformer)
 # the wrappers that have bfloat16 instances too
 BF16_KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad)
 

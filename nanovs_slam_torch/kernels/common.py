@@ -25,7 +25,8 @@ def check_kernel_inputs(name: str, dtypes=None, **tensors: torch.Tensor
                         ) -> None:
     """What every kernel takes: each argument in its allowed dtypes
     (``dtypes`` maps an argument's name to them; float32 where it is not
-    named), no autograd (the kernels have no backward)."""
+    named), no autograd (only NetVLAD has a backward kernel, and its
+    wrapper launches the forward inside its ``autograd.Function``)."""
     for arg, t in tensors.items():
         allowed = (dtypes or {}).get(arg, FLOAT32)
         if t.dtype not in allowed:

@@ -6,7 +6,8 @@ conv and a softmax over K clusters, sum the assignment-weighted residuals
 to the centroids over space as ``a^T x - (sum a) * centroids``,
 intra-normalise per cluster, flatten, L2. The forward is the NetVLAD
 kernel's wrapper: the CUDA kernel for CUDA tensors, its plain twin for CPU
-tensors.
+tensors; in training its gradient is the ``netvlad_backward`` kernel on
+CUDA, autograd through the twin on the CPU.
 
 GeM: pixel-unshuffle by 4, ``clamp(min=eps) ** p``, mean over space,
 ``** (1/p)``, with ``p`` a learned (1,) parameter (3 at init); the channel

@@ -7,7 +7,11 @@ Counterparts of ``nanovs_slam_tpu/modules/blocks.py``:
 - ``Upsampler``: 2x upsample, ``pixelshuffle`` (``nn.PixelShuffle`` in NCHW
   has the channel ordering the JAX ``pixel_shuffle`` mirrors) or
   ``convtranspose`` (ConvTranspose k3 s2 p1 op1, c -> c//4, + BN + act);
-- ``Dropout2d``: channel dropout, a no-op in eval mode;
+- ``BatchNorm2d`` / ``BatchNorm1d``: ``nn.BatchNorm2d`` / ``1d`` whose train
+  mode keeps flax's running statistics (see ``batch_norm_train``);
+- ``Dropout2d``: channel dropout (whole channels, kept ones scaled by
+  1/(1 - rate)) drawn from the ``generator`` that ``set_dropout`` gives it,
+  a no-op in eval mode;
 - ``l2_normalize``: ``x / max(sqrt(sum(x^2) + eps^2), eps)``;
 - ``pixel_unshuffle``: NHWC, the ordering of ``nn.PixelUnshuffle``;
 - ``Conv2d`` / ``ConvTranspose2d``: the layers with a compute dtype.
@@ -23,11 +27,83 @@ bfloat16 (``nn.BatchNorm2d`` computes so on a bfloat16 input), as flax's
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-Dropout2d = nn.Dropout2d
+
+def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                     dims) -> torch.Tensor:
+    """BatchNorm in train mode with flax's running statistics: the output
+    is normalised with the batch's mean and biased variance (as both
+    frameworks do), and the running variance averages the *biased* batch
+    variance (flax), not the unbiased one (``nn.BatchNorm``). ``momentum``
+    is torch's: new = (1 - m) old + m batch. ``dims`` are the reduced
+    dims of ``x``."""
+    y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+    with torch.no_grad():
+        var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
+        bn.num_batches_tracked += 1
+    return y
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (NCHW) with flax's running statistics in train
+    mode (``batch_norm_train``); eval mode is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        return batch_norm_train(self, x, (0, 2, 3))
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` over the last dim of a (..., C) tensor, with
+    flax's running statistics in train mode (``batch_norm_train``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = x.shape
+        x = x.reshape(-1, shape[-1])
+        y = super().forward(x) if not self.training \
+            else batch_norm_train(self, x, (0,))
+        return y.reshape(shape)
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout of NCHW maps: in train mode each (image, channel)
+    is kept with probability 1 - rate and scaled by 1 / (1 - rate), else
+    zeroed, as flax's ``Dropout(broadcast_dims=(1, 2))`` does in NHWC.
+    The keep mask is drawn from ``generator`` (on the input's device; the
+    device's default generator where it is None)."""
+
+    def __init__(self, rate: float = 0.2):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.empty(x.shape[:2] + (1,) * (x.dim() - 2),
+                           device=x.device, dtype=x.dtype)
+        mask.bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
+
+
+def set_dropout(module: nn.Module, rate: Optional[float] = None,
+                generator: Optional[torch.Generator] = None) -> None:
+    """Every ``Dropout2d`` of ``module`` draws from ``generator`` from now
+    on and, where ``rate`` is given, drops at that rate."""
+    for m in module.modules():
+        if isinstance(m, Dropout2d):
+            m.generator = generator
+            if rate is not None:
+                m.rate = rate
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -89,7 +165,7 @@ class ConvBNAct(nn.Module):
                  leaky_relu: bool = True):
         super().__init__()
         self.conv = Conv2d(c_in, c_out, 3, padding=1, bias=False)
-        self.bn = nn.BatchNorm2d(c_out, eps=1e-5, momentum=bn_momentum)
+        self.bn = BatchNorm2d(c_out, eps=1e-5, momentum=bn_momentum)
         self.act = act(leaky_relu)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -109,8 +185,8 @@ class Upsampler(nn.Module):
             self.transposed_conv = ConvTranspose2d(
                 in_features, in_features // 4, 3, stride=2, padding=1,
                 output_padding=1, bias=False)
-            self.bn = nn.BatchNorm2d(in_features // 4, eps=1e-5,
-                                     momentum=bn_momentum)
+            self.bn = BatchNorm2d(in_features // 4, eps=1e-5,
+                                  momentum=bn_momentum)
             self.act = act(leaky_relu)
         else:
             raise NotImplementedError(f"upscale method {method}")

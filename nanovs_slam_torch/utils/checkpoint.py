@@ -1,17 +1,30 @@
-"""Reading pinned ``.npz`` checkpoints with numpy alone.
+"""Checkpoints as ``.npz`` files, read and written with numpy alone.
 
-A pinned checkpoint (``pinned/extractor_S8.npz``) stores a flax pytree with
-``/``-joined keys plus a ``__meta__`` JSON blob. This is a copy of the
-JAX package's ``load_npz_checkpoint`` and ``_unflatten``, so that the port
-reads the same files without importing JAX.
+A checkpoint stores a flax pytree with ``/``-joined keys plus a
+``__meta__`` JSON blob: the format of the JAX package's
+``save_npz_checkpoint`` / ``load_npz_checkpoint``, which its
+``load_checkpoint`` reads for any regular file. ``load_npz_checkpoint``
+and ``_unflatten`` are copies of the JAX package's, so that the port reads
+the pinned files without importing JAX.
+
+``save_checkpoint`` writes a train state: ``params``, ``batch_stats``,
+``io_params`` and ``io_batch_stats`` in flax layout
+(``utils/convert.to_jax_variables``), and the port's optimizer state under
+keys of its own (``torch_optimizer/<parameter>/<slot>``, its param groups
+and step count in the meta), so that ``--model_path`` resumes.
+``filter_params`` is the JAX package's partial-restore filter (its
+``seg_last`` mode, which ``--ignore_seg_head`` uses).
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+
+OPT_KEY = "torch_optimizer"
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
@@ -34,3 +47,94 @@ def load_npz_checkpoint(path: str) -> Tuple[Dict, Dict]:
     if raw is not None:
         meta = json.loads(raw.tobytes().decode())
     return _unflatten(flat), meta
+
+
+def save_checkpoint(path: str, state, config: Optional[Dict] = None,
+                    epoch: int = 0, results: Optional[Dict] = None,
+                    start_results: Optional[Dict] = None) -> str:
+    """A ``train.train_step.TrainState`` -> ``path`` (``.npz``); returns
+    the path written."""
+    from .convert import _flatten, to_jax_variables
+
+    params, batch_stats = to_jax_variables(state.model)
+    tree = {"params": params, "batch_stats": batch_stats}
+    if state.io_net is not None:
+        tree["io_params"], tree["io_batch_stats"] = to_jax_variables(
+            state.io_net)
+    opt = state.optimizer.state_dict()
+    names = state.param_names
+    tree[OPT_KEY] = {
+        names[i]: {slot: v.detach().cpu().numpy()
+                   for slot, v in slots.items()}
+        for i, slots in opt["state"].items()}
+    groups = [{k: v for k, v in g.items() if k != "params"}
+              for g in opt["param_groups"]]
+    meta = {"epoch": epoch, "config": config or {},
+            "results": results or {}, "start_results": start_results or {},
+            "step": state.step,
+            "optimizer": {"param_groups": groups,
+                          "group_params": [[names[i] for i in g["params"]]
+                                           for g in opt["param_groups"]]}}
+    flat = _flatten(tree)
+    flat["__meta__"] = np.frombuffer(json.dumps(meta, default=str).encode(),
+                                     np.uint8)
+    if not path.endswith(".npz"):
+        path += ".npz"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)  # uncompressed: float weights barely compress
+    return path
+
+
+def filter_params(params: Dict, mode: Optional[str] = None) -> Dict:
+    """Partial-restore filtering: mode 'seg_last' drops the seg head's
+    final class conv (for class-count changes), as the JAX package's
+    ``filter_params``."""
+    if mode is None:
+        return params
+    if mode != "seg_last":
+        raise NotImplementedError(mode)
+    params = dict(params)
+    if "seg_head" in params:
+        seg = dict(params["seg_head"])
+        for k in ("convs_8", "convs_7"):
+            if k in seg and "kernel" in seg[k]:
+                seg.pop(k)
+                break
+        params["seg_head"] = seg
+    return params
+
+
+def restore_train_state(path: str, state, mode: Optional[str] = None
+                        ) -> Dict:
+    """Load a checkpoint (``save_checkpoint``'s, or any ``.npz`` with
+    flax ``params``) into a ``TrainState`` in place: the params filtered
+    by ``mode`` (``filter_params``) and the BN statistics overlaid on the
+    model, the inlier net's where both have one, and the optimizer state
+    and step count where the file has them for the same parameters and
+    ``mode`` is None. Returns the meta."""
+    import torch
+
+    from .convert import merge_jax_variables
+
+    tree, meta = load_npz_checkpoint(path)
+    merge_jax_variables(state.model, filter_params(tree["params"], mode),
+                        tree.get("batch_stats", {}))
+    if state.io_net is not None and "io_params" in tree:
+        merge_jax_variables(state.io_net, tree["io_params"],
+                            tree.get("io_batch_stats", {}), dense=True)
+    opt_meta = meta.get("optimizer")
+    if mode is None and OPT_KEY in tree and opt_meta is not None:
+        index = {n: i for i, n in enumerate(state.param_names)}
+        groups = opt_meta["group_params"]
+        if sorted(n for g in groups for n in g) == sorted(index):
+            dev = next(state.model.parameters()).device
+            slots = tree[OPT_KEY]
+            sd = {"state": {index[n]: {k: torch.from_numpy(v).to(dev)
+                                       for k, v in slots[n].items()}
+                            for n in slots},
+                  "param_groups": [dict(g, params=[index[n] for n in names])
+                                   for g, names in
+                                   zip(opt_meta["param_groups"], groups)]}
+            state.optimizer.load_state_dict(sd)
+            state.step = int(meta.get("step", 0))
+    return meta

@@ -18,13 +18,17 @@ LightGlue (``load_jax_lightglue``) has Dense layers instead of convs:
 - ``posenc/Wr`` (2, head_dim/2) carries over as it is: the port's module
   keeps the flax layout.
 
+The inlier net (``load_jax_inlier_net``) has Dense layers too, and BNs.
+``to_jax_variables`` is the way back (port -> flax-layout numpy trees),
+which ``utils/checkpoint.save_checkpoint`` writes.
+
 Inputs are nested dicts of numpy arrays (flax ``params``/``batch_stats``) or
 flat dicts with ``/``-joined keys as stored in a pinned ``.npz``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping
+from typing import Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -66,13 +70,14 @@ def _torch_entry(path: str, value: np.ndarray, dense: bool = False):
     return ".".join(parts), t
 
 
-def convert_variables(params: Mapping, batch_stats: Mapping
-                      ) -> Dict[str, torch.Tensor]:
-    """flax ``params`` and ``batch_stats`` -> torch state_dict entries."""
+def convert_variables(params: Mapping, batch_stats: Mapping,
+                      dense: bool = False) -> Dict[str, torch.Tensor]:
+    """flax ``params`` and ``batch_stats`` -> torch state_dict entries
+    (``kernel`` leaves of Dense layers where ``dense``)."""
     out: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats):
         for path, value in _flatten(tree).items():
-            key, t = _torch_entry(path, value)
+            key, t = _torch_entry(path, value, dense)
             if key in out:
                 raise ValueError(f"duplicate key {key} from {path}")
             out[key] = t
@@ -114,6 +119,26 @@ def load_jax_variables(model: nn.Module, params: Mapping,
                         tuple(f"{h}." for h in absent_heads))
 
 
+def merge_jax_variables(model: nn.Module, params: Mapping,
+                        batch_stats: Mapping, dense: bool = False
+                        ) -> nn.Module:
+    """Overlay flax variables on ``model`` in place (a partial restore:
+    the model's keys that the trees lack keep their values). Every
+    converted key must exist in the model with the same shape. ``dense``
+    for Dense layers (the inlier net)."""
+    sd = convert_variables(params, batch_stats, dense)
+    target = model.state_dict()
+    unexpected = sorted(sd.keys() - target.keys())
+    if unexpected:
+        raise KeyError(f"unmatched keys: unexpected {unexpected}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(target[k].shape):
+            raise ValueError(f"{k}: shape {tuple(v.shape)} does not match "
+                             f"the model's {tuple(target[k].shape)}")
+    model.load_state_dict(sd, strict=False)
+    return model
+
+
 def load_jax_lightglue(model: nn.Module, params: Mapping) -> nn.Module:
     """Load flax LightGlue ``params`` into the port's ``LightGlue`` in
     place and return it; raises on any unmatched key on either side and on
@@ -123,3 +148,49 @@ def load_jax_lightglue(model: nn.Module, params: Mapping) -> nn.Module:
         key, t = _torch_entry(path, value, dense=True)
         sd[key] = t
     return _load_strict(model, sd)
+
+
+def load_jax_inlier_net(net: nn.Module, params: Mapping,
+                        batch_stats: Mapping) -> nn.Module:
+    """Load flax InlierNet ``io_params`` / ``io_batch_stats`` (Dense
+    layers) into the port's ``InlierNet`` in place and return it; strict
+    as ``load_jax_variables``."""
+    return _load_strict(net, convert_variables(params, batch_stats, True))
+
+
+def to_jax_variables(model: nn.Module) -> Tuple[Dict, Dict]:
+    """The reverse of ``convert_variables`` / ``load_jax_inlier_net``:
+    ``model``'s parameters and BN statistics as flax-layout nested dicts
+    of numpy arrays (params, batch_stats). Conv weights OIHW -> HWIO and
+    ConvTranspose2d (I, O, kH, kW) -> (kH, kW, O, I) (both
+    ``permute(2, 3, 1, 0)``), Linear (out, in) -> Dense kernel (in, out),
+    BN and LayerNorm ``weight`` -> ``scale``, running stats -> ``mean`` /
+    ``var``; other leaves keep their names."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put(tree, key, value):
+        *path, leaf = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value.detach().cpu().numpy()
+
+    modules = dict(model.named_modules())
+    for key, value in model.state_dict(keep_vars=True).items():
+        owner, _, leaf = key.rpartition(".")
+        mod = modules[owner]
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            put(stats, f"{owner}.{leaf[len('running_'):]}", value)
+            continue
+        if leaf == "weight":
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+                value, leaf = value.permute(2, 3, 1, 0), "kernel"
+            elif isinstance(mod, nn.Linear):
+                value, leaf = value.t(), "kernel"
+            else:  # BatchNorm, LayerNorm
+                leaf = "scale"
+        put(params, f"{owner}.{leaf}" if owner else leaf, value)
+    return params, stats

@@ -14,7 +14,9 @@ import torch.nn.functional as F
 
 from nanovs_slam_torch.kernels import (fused_postprocess,
                                        fused_stem_pair_pool, netvlad,
-                                       netvlad_plain, postprocess_plain,
+                                       netvlad_backward,
+                                       netvlad_backward_plain, netvlad_plain,
+                                       netvlad_residuals, postprocess_plain,
                                        stem_plain)
 from nanovs_slam_torch.kernels.stem import SUPPORTED
 
@@ -411,3 +413,62 @@ def test_netvlad_bf16_kernel_matches_plain(cuda, B, C, K, H, W):
         torch.cuda.synchronize()
         assert netvlad.launches_bf16 == before + 1
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------ the NetVLAD backward
+
+def test_netvlad_backward_on_cpu_is_the_twin():
+    """On CPU tensors ``netvlad_backward`` is autograd through
+    ``netvlad_plain``, and ``netvlad`` differentiates through the plain
+    function (no kernel, no launch counted)."""
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.randn(2, 5, 7, 16).astype(np.float32))
+    aw = torch.from_numpy(rs.randn(16, 8).astype(np.float32))
+    cen = torch.from_numpy(rs.rand(8, 16).astype(np.float32))
+    gy = torch.from_numpy(rs.randn(2, 128).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (x, aw, cen)]
+    before = netvlad_backward.launches
+    netvlad(*leaves).backward(gy)
+    got = netvlad_backward(gy, x, aw, cen, None, None)
+    want = netvlad_backward_plain(gy, x, aw, cen)
+    assert netvlad_backward.launches == before
+    for g, l, w in zip(got, leaves, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+        torch.testing.assert_close(l.grad, w, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("B,H,W,C,K", [
+    (4, 30, 40, 64, 64), (1, 60, 80, 48, 32), (2, 7, 9, 128, 64)])
+def test_netvlad_backward_kernel_matches_twin(cuda, B, H, W, C, K):
+    """The train shape of config S (4x30x40, C = K = 64), config N's
+    (1x60x80, 48, 32) and a ragged F-width image: dx, dW and dcen within
+    1e-5 of each gradient's largest magnitude against the twin (float32
+    sums in other orders), for the NCHW view and NHWC memory; dW and dcen
+    equal across two launches (fixed-order reductions); and the same
+    gradients through ``netvlad``'s autograd, one forward and one
+    backward launch."""
+    rs = np.random.RandomState(B + C)
+    x = torch.from_numpy(rs.randn(B, C, H, W).astype(np.float32)).to(cuda)
+    aw = torch.from_numpy(rs.randn(C, K).astype(np.float32) * 0.3).to(cuda)
+    cen = torch.from_numpy(rs.rand(K, C).astype(np.float32)).to(cuda)
+    gy = torch.from_numpy(rs.randn(B, K * C).astype(np.float32)).to(cuda)
+    x_nhwc = x.permute(0, 2, 3, 1)
+    want = netvlad_backward_plain(gy, x_nhwc, aw, cen)
+    for xv in (x_nhwc, x_nhwc.contiguous()):
+        _, u, m = netvlad_residuals(xv, aw, cen)
+        got = netvlad_backward(gy, xv, aw, cen, u, m)
+        again = netvlad_backward(gy, xv, aw, cen, u, m)
+        torch.cuda.synchronize()
+        assert got[0].stride() == xv.stride()
+        for g, w in zip(got, want):
+            err = (g - w).abs().max().item()
+            assert err <= 1e-5 * w.abs().max().item(), (err, w.abs().max())
+        assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    leaves = [t.clone().requires_grad_() for t in (x_nhwc, aw, cen)]
+    fwd, bwd = netvlad.launches, netvlad_backward.launches
+    netvlad(*leaves).backward(gy)
+    torch.cuda.synchronize()
+    assert (netvlad.launches, netvlad_backward.launches) == (fwd + 1, bwd + 1)
+    for leaf, w in zip(leaves, want):
+        err = (leaf.grad - w).abs().max().item()
+        assert err <= 1e-5 * w.abs().max().item()

@@ -65,10 +65,11 @@ def test_slice_top_k_matches_as_sets(slice_outputs):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the VO path and its CLI
-    included), and chip_smoke, leaves jax and nanovs_slam_tpu out of
-    sys.modules, and cv2 too: the card's machine has no cv2, so no module
-    imports it at the top (only the functions that need it do)."""
+    """Importing every module of the port (the VO path, the training path
+    and their CLIs included), and chip_smoke, leaves jax, flax, optax,
+    orbax and nanovs_slam_tpu out of sys.modules, and cv2 too: the card's
+    machine has no cv2, so no module imports it at the top (only the
+    functions that need it do)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nanovs_slam_torch as p\n"
@@ -76,7 +77,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'nanovs_slam_tpu', 'cv2'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nanovs_slam_tpu', "
+        "'cv2'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
