@@ -27,10 +27,21 @@ Phases, each of which raises (exit code != 0) on failure:
     M=512/N=384 with padding masks and with a fully masked image, with its
     device kernels broken down by the profiler (4 a layer and 1 a call)
     with programmatic dependent launch off, so that the per-launch times
-    do not overlap, and one scaled_dot_product_attention call as the
-    attention's yardstick (its twin, ~600 launches a call, is timed by the
-    profiler's summed device time: more launches than the device queues
-    behind a spin); and the bfloat16 instances against their bf16 twins at
+    do not overlap (the mean row-stage and attention launch logged by
+    name), and one scaled_dot_product_attention call as the attention's
+    yardstick (its twin, ~600 launches a call, is timed by the profiler's
+    summed device time: more launches than the device queues behind a
+    spin); its bound is the least of three (all in float32 on the CUDA
+    cores, the attention in 3xTF32, all in 3xTF32 on the tensor cores),
+    the last; at D = 256 also the launch plan as the card takes it (grid,
+    cluster, shared memory, occupancy; held to the design: 128 or more
+    row-stage blocks at K = 512 in clusters of 4, the tiled row stage at
+    K = 1024, two or more attention blocks an SM), the weights' TF32
+    fragments (``split_weights``, an entry of its own: bit for bit against
+    their plain layout, their one-time cost), and a float32 torch.matmul
+    of fc1's shape ((M+N, 2D) x (2D, 2D), TF32 off) as the row stage's
+    cuBLAS yardstick (``row_library_ms``); and the bfloat16
+    instances against their bf16 twins at
     the bf16 cells' shapes, batch 1 and 8: the stem at (16, 24), (16, 32)
     and (64, 128) within one bf16 ulp (library: cuDNN's bf16 chain; bound
     at bf16 bytes and 989 TFLOP/s), the postprocess at C = 32 and 128 and
@@ -61,7 +72,9 @@ Phases, each of which raises (exit code != 0) on failure:
  7. odd request: KP2DTiny-N at 241x321 (the stem pools with floor) through
     make_infer_fn, against the CPU;
  8. LightGlue default: one match of the "default" config (D = 256, 9
-    layers, seeded weights) on the card against the CPU;
+    layers, seeded weights) on the card against the CPU (the module makes
+    the weights' fragments once, at its first match), and the steady ms
+    of a default match through the module at K = 512 and 1024;
  9. vo phase: a corridor rendered on the card (KITTI's camera, 8 frames of
     forward motion with a small yaw) through the pinned S8 frontend at
     128x512 and nanovs_slam_torch.vo.visual_odometry.run_visual_odometry
@@ -741,7 +754,8 @@ def lightglue_default_phase(dev) -> dict:
     the entries."""
     import torch
 
-    from nanovs_slam_torch.kernels import lightglue_transformer, reset_launches
+    from nanovs_slam_torch.kernels import (lightglue_transformer,
+                                           reset_launches, split_weights)
 
     lg = default_lightglue()
     cpu_lg = copy.deepcopy(lg)
@@ -763,8 +777,11 @@ def lightglue_default_phase(dev) -> dict:
         reset_launches()
         out = lg({k: v.to(dev) for k, v in data.items()})
         torch.cuda.synchronize()
-    launches = {LG_D256: lightglue_transformer.launches}
-    require(launches[LG_D256] == 1, f"lightglue default: {launches}")
+    # the weights' fragments are made once, at the first match on the card
+    launches = {LG_D256: lightglue_transformer.launches,
+                "split_weights": split_weights.launches}
+    require(launches == {LG_D256: 1, "split_weights": 1},
+            f"lightglue default: {launches}")
     m0 = out["matches0"].cpu()
     agree = float((m0 == ref["matches0"]).float().mean())
     n = int((m0 >= 0).sum())
@@ -774,6 +791,23 @@ def lightglue_default_phase(dev) -> dict:
         f"keypoint), matches0 agree with the CPU on {agree:.4f} of the "
         f"entries, launches {launches}")
     require(agree >= 0.999, f"lightglue default: matches0 agree {agree}")
+    # the steady ms of a default match through the module, K = 512, 1024
+    timed = {}
+    for k in (512, 1024):
+        cdata = {"keypoints0": torch.from_numpy(
+                     rs.uniform(-1, 1, (1, k, 2)).astype(np.float32)),
+                 "keypoints1": torch.from_numpy(
+                     rs.uniform(-1, 1, (1, k, 2)).astype(np.float32))}
+        for i in (0, 1):
+            d = rs.randn(1, k, D).astype(np.float32)
+            cdata[f"descriptors{i}"] = torch.from_numpy(
+                d / np.linalg.norm(d, axis=-1, keepdims=True))
+        cdata = {key: v.to(dev) for key, v in cdata.items()}
+        with torch.inference_mode():
+            times = host_ms(lambda i: lg(cdata), 30)
+        timed[k] = steady(times)
+    log("lightglue default: steady ms a match "
+        + ", ".join(f"K={k} {v:.4f}" for k, v in timed.items()))
     return launches
 
 
@@ -1854,6 +1888,17 @@ def bound_3xtf32(nbytes: float, flops: float, attn_flops: float) -> float:
     return max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
 
 
+def lightglue_bounds(B, M, N, D, L, P) -> dict:
+    """The stack's three bounds, ms: float32 on the CUDA cores
+    (``float32``), its attention in 3xTF32 on the tensor cores
+    (``attn_3xtf32``), and all of it in 3xTF32 (``all_3xtf32``); the
+    least, the kernels line's ``bound_ms``, is the last (operations)."""
+    work = lightglue_work(B, M, N, D, L, P)
+    return {"float32": bound(*work[:2])[0],
+            "attn_3xtf32": bound_3xtf32(*work),
+            "all_3xtf32": bound(*work[:2], TF32_3X_FLOP_PER_S)[0]}
+
+
 def device_breakdown(run, iters: int = 20) -> dict:
     """torch.profiler over ``iters`` calls: {device kernel: (launches per
     call, ms per launch)}."""
@@ -1913,6 +1958,7 @@ def lightglue_kernel_phase(dev, lg, key: str, name: str) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from nanovs_slam_torch.kernels import lightglue as lg_kernel
     from nanovs_slam_torch.kernels.lightglue import (
         HEADS, KERNELS_PER_LAYER, device_kernels, lightglue_transformer,
         lightglue_transformer_plain)
@@ -1922,6 +1968,19 @@ def lightglue_kernel_phase(dev, lg, key: str, name: str) -> dict:
     log(f"kernel {name}: one call enqueues "
         f"{device_kernels(L)} device kernels ({KERNELS_PER_LAYER} a "
         f"layer, {L} layers, and the first layer's self projection)")
+    if D == 256:  # the plan as the card takes it, once, against the design
+        for K in (512, 1024):
+            plan = lg_kernel.device_plan(1, K, K)
+            log(f"kernel {name} plan at K={K}: {json.dumps(plan)}")
+            attn_blocks = plan["attn_grid_x"] * plan["attn_grid_y"] \
+                * plan["attn_grid_z"]
+            require(plan["attn_blocks_per_sm"] >= 2
+                    and (K != 512 or attn_blocks >= 128),
+                    f"{name}: attention plan at K={K}: {plan}")
+            require(bool(plan["row_tiled"]) == (K == 1024)
+                    and (K != 512 or (plan["row_grid"] >= 128
+                                      and plan["row_cluster"] == 4)),
+                    f"{name}: row-stage plan at K={K}: {plan}")
     entry = {"name": name, "route": "cuda",
              "source": "nanovs_slam_torch/csrc/lightglue.cu",
              "replaces": "nanovs_slam_tpu/ops/pallas/lightglue_kernel.py:265"}
@@ -1935,7 +1994,9 @@ def lightglue_kernel_phase(dev, lg, key: str, name: str) -> dict:
     for seed, (tag, M, N, pad0, pad1, empty1, layers) in enumerate(cases):
         args = lightglue_args(lg, dev, 1, M, N, pad0, pad1, empty1,
                               SEED + 400 + seed)
-        got = lightglue_transformer(*args, layers)
+        # D = 256: the weights' TF32 fragments, which the row stage reads
+        split = lg_kernel.split_weights(args[8]) if D == 256 else None
+        got = lightglue_transformer(*args, layers, split)
         want = lightglue_transformer_plain(*args, layers)
         torch.cuda.synchronize()
         err = max_err(got, want)
@@ -1943,10 +2004,13 @@ def lightglue_kernel_phase(dev, lg, key: str, name: str) -> dict:
         require(all(bool(torch.isfinite(g).all()) for g in got),
                 f"{name} {tag}: not finite")
         if layers != every:  # one layer a call: checked and timed
-            ms = cuda_ms(lambda: lightglue_transformer(*args, layers))
-            b_ms, b_by = bound(*lightglue_work(1, M, N, D, 1, P)[:2])
+            ms = cuda_ms(lambda: lightglue_transformer(*args, layers, split))
+            bounds = lightglue_bounds(1, M, N, D, 1, P)
+            b_ms, b_by = bounds["all_3xtf32"], "operations"
             log(f"kernel {name} {tag}: max_abs_err {err:.3g}, kernel "
-                f"{ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+                f"{ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; float32 "
+                f"{bounds['float32']:.5f}, attention in 3xTF32 "
+                f"{bounds['attn_3xtf32']:.5f})")
             entry.update({f"max_abs_err_{tag}": err, f"ms_{tag}": ms,
                           f"bound_ms_{tag}": b_ms})
             continue
@@ -1954,9 +2018,19 @@ def lightglue_kernel_phase(dev, lg, key: str, name: str) -> dict:
             log(f"kernel {name} {tag}: max_abs_err {err:.3g}")
             entry[f"max_abs_err_{tag}"] = err
             continue
-        ms = cuda_ms(lambda: lightglue_transformer(*args), inner=10)
+        ms = cuda_ms(lambda: lightglue_transformer(*args, split=split),
+                     inner=10)
         plain_ms = device_sum_ms(lambda: lightglue_transformer_plain(
             *args, range(L)))
+        keys = {}
+        if D == 256:
+            if tag == "K512":
+                split_entry = split_weights_entry(dev, args[8])
+            # the row stage's cuBLAS yardstick: fc1's product in float32
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            xa = torch.randn(M + N, 2 * D, device=dev, generator=g)
+            wa = torch.randn(2 * D, 2 * D, device=dev, generator=g)
+            keys["row_library_ms"] = cuda_ms(lambda: torch.matmul(xa, wa))
         # yardstick: one SDPA call doing the work of one self-attention
         # launch (both images stacked as a batch)
         g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1969,35 +2043,80 @@ def lightglue_kernel_phase(dev, lg, key: str, name: str) -> dict:
         lightglue_transformer.pdl = False
         try:
             per_call, parts = kernels_a_call(
-                lambda: lightglue_transformer(*args), device_kernels(L))
+                lambda: lightglue_transformer(*args, split=split),
+                device_kernels(L))
         finally:
             lightglue_transformer.pdl = True
         require(round(per_call) == device_kernels(L),
                 f"{name} {tag}: {per_call} device kernels a "
                 f"call, expected {device_kernels(L)}")
-        attn = [t for k, (_, t) in parts.items() if "attn_kernel" in k]
-        attn_ms = statistics.mean(attn) if attn else None
-        work = lightglue_work(1, M, N, D, L, P)
-        b_ms, b_by = bound(*work[:2])
+        def launch_ms(part):  # PDL off: one launch's own time, mean
+            t = [t for k, (_, t) in parts.items() if part in k]
+            return statistics.mean(t) if t else None
+        attn_ms, row_ms = launch_ms("attn_kernel"), launch_ms("row_")
+        bounds = lightglue_bounds(1, M, N, D, L, P)
+        b_ms, b_by = bounds["all_3xtf32"], "operations"
         log(f"kernel {name} {tag}: max_abs_err {err:.3g}, "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by}; with the attention in 3xTF32 on the "
-            f"tensor cores {bound_3xtf32(*work):.5f} ms); attention launch "
-            f"(PDL off) "
-            f"{'n/a' if attn_ms is None else f'{attn_ms:.4f} ms'}, sdpa "
-            f"{library_ms:.4f} ms")
-        log("  per launch, PDL off:")
+            f"{b_ms:.5f} ms ({b_by}, all in 3xTF32 on the tensor cores; "
+            f"with the attention in 3xTF32 and the rest in float32 "
+            f"{bounds['attn_3xtf32']:.5f} ms, all in float32 "
+            f"{bounds['float32']:.5f} ms); per launch (PDL off): attention "
+            f"{'n/a' if attn_ms is None else f'{attn_ms:.4f} ms'}, row "
+            f"stage {'n/a' if row_ms is None else f'{row_ms:.4f} ms'}; sdpa "
+            f"{library_ms:.4f} ms"
+            + (f"; fc1 in cuBLAS (float32) {keys['row_library_ms']:.4f} ms"
+               if "row_library_ms" in keys else ""))
+        log("  per launch, PDL off, by kernel:")
         for kname, (n, t) in sorted(parts.items(), key=lambda kv: -kv[1][1]):
             log(f"  {t:.4f} ms x{n:g} a call  {kname[:80]}")
-        keys = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-                "attn_launch_ms": attn_ms}  # PDL off: one launch's own time
+        keys.update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_ms_attn_3xtf32": bounds["attn_3xtf32"],
+                     "bound_ms_float32": bounds["float32"],
+                     "library_ms": library_ms, "attn_launch_ms": attn_ms,
+                     "row_launch_ms": row_ms})
         suffix = "" if tag == "K512" else "_k1024"
         entry.update({k + suffix: v for k, v in keys.items()})
     entry["library"] = ("torch.nn.functional.scaled_dot_product_attention, "
                         "one call over the two images of one self-attention "
                         "launch; the stack has no single library call")
+    if D == 256:
+        entry["row_library"] = ("torch.matmul, float32 (TF32 off): fc1's "
+                                "product (M+N, 2D) x (2D, 2D), the row "
+                                "stage's cuBLAS yardstick")
+        return {key: entry, "split_weights": split_entry}
     return {key: entry}
+
+
+def split_weights_entry(dev, packed) -> dict:
+    """The D = 256 weights' TF32 fragments (made once with the packed
+    weights, on the default match's path) against their plain version,
+    bit for bit, timed; their bound is the bytes (packed read, fragments
+    written)."""
+    import torch
+
+    from nanovs_slam_torch.kernels.lightglue import (split_weights,
+                                                     split_weights_plain)
+
+    got = split_weights(packed)
+    want = split_weights_plain(packed, 256)
+    torch.cuda.synchronize()
+    require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+            "split_weights: not the plain layout bit for bit")
+    ms = cuda_ms(lambda: split_weights(packed))
+    plain_ms = device_sum_ms(lambda: split_weights_plain(packed, 256))
+    b_ms, b_by = bound(4 * (packed.numel() + got.numel()), 0)
+    log(f"kernel split_weights: (L, P) {tuple(packed.shape)} -> "
+        f"{tuple(got.shape)}, equal to the plain bit for bit, kernel "
+        f"{ms:.4f} ms (once a weight load), plain {plain_ms:.4f} ms summed "
+        f"device time, bound {b_ms:.5f} ms ({b_by})")
+    return {"name": "split_weights", "route": "cuda",
+            "source": "nanovs_slam_torch/csrc/lightglue.cu",
+            "replaces": "nanovs_slam_tpu/ops/pallas/lightglue_kernel.py:265",
+            "max_abs_err": max_err(got, want), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------- match phase

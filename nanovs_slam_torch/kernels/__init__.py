@@ -9,7 +9,8 @@ wrappers refuse autograd.
 """
 
 from .lightglue import (lightglue_transformer,  # noqa: F401
-                        lightglue_transformer_plain)
+                        lightglue_transformer_plain, split_weights,
+                        split_weights_plain)
 from .netvlad import (netvlad, netvlad_backward,  # noqa: F401
                       netvlad_backward_plain, netvlad_plain,
                       netvlad_residuals)
@@ -17,7 +18,7 @@ from .postprocess import fused_postprocess, postprocess_plain  # noqa: F401
 from .stem import fused_stem_pair_pool, stem_plain  # noqa: F401
 
 KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad,
-           netvlad_backward, lightglue_transformer)
+           netvlad_backward, lightglue_transformer, split_weights)
 # the wrappers that have bfloat16 instances too
 BF16_KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad)
 

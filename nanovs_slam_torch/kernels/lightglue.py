@@ -15,6 +15,12 @@ fc1 (2D, 2D), fc1 bias, LN weight, LN bias (2D each), fc2 (2D, D),
 fc2 bias (D)]`` with every matrix stored (in, out). The projection's
 outputs are ordered (type, head, channel): q, k, v for self-attention
 (T = 3), to_qk, to_v for cross-attention (T = 2).
+
+At D = 256 the row stage reads its matrices as TF32 hi / lo fragments
+(``split_weights``, one kernel that derives them on the card from the
+packed tensor; ``split_weights_plain`` is the same layout in plain
+PyTorch), passed as ``split``. ``LightGlue.packed_weights`` makes them
+once with the packed tensor and keeps them while the parameters stay.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ DIMS = (32, 64, 256)  # descriptor widths: kp2dtiny S/A, F and "default"
 # the first layer's self projection
 KERNELS_PER_LAYER = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I, _I] + [_P] * 12 + [ctypes.c_longlong] + [_I] * 5 + [_P]
+_ARGTYPES = [_I, _I] + [_P] * 13 + [ctypes.c_longlong] + [_I] * 5 + [_P]
+_SPLIT_ARGTYPES = [_P, _P, ctypes.c_longlong, _I, _I, _P]
 
 Tensor = torch.Tensor
 
@@ -105,6 +112,83 @@ def pack_weights(sd: Mapping[str, Tensor], L: int, D: int) -> Tensor:
         raise ValueError(f"packed layer size {packed.shape[1]} != "
                          f"{packed_size(D)} for D={D}")
     return packed
+
+
+# ------------------------------------------------ D = 256 weight layout
+
+# the matrices a layer's fragments hold, in order
+_SPLIT_FIELDS = [(blk, f) for blk in ("self", "cross")
+                 for f in ("proj", "wo", "fc1", "fc2")]
+
+
+def _tf32(x: Tensor) -> Tensor:
+    """x rounded to TF32 (nearest, ties away from zero: cvt.rna)."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0x1000) & 0xFFFFE000
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(
+        torch.float32)
+
+
+def split_weights_plain(packed: Tensor, D: int) -> Tensor:
+    """The row stage's weights at D = 256 as the card's kernel lays them
+    out: per layer the self block's proj, wo, fc1, fc2, then the cross
+    block's; each (K, N) matrix W as [K/8][N/8][32 lanes][4] floats
+    {hi W[8ks+t][8nt+g], hi W[8ks+t+4][8nt+g], lo, lo} (g = lane // 4,
+    t = lane % 4; hi = tf32(w), lo = tf32(w - hi)): the B fragments of
+    m16n8k8. (L, P) -> (L, 38 D^2) float32."""
+    layers = []
+    for l in range(packed.shape[0]):
+        w = _unpack(packed[l], D)
+        parts = []
+        for blk, f in _SPLIT_FIELDS:
+            W = w[blk][f]
+            K, N = W.shape
+            # [ks, s, t, nt, g] -> [ks, nt, g, t, s]: lane = 4 g + t
+            F = W.reshape(K // 8, 2, 4, N // 8, 8).permute(0, 3, 4, 2, 1)
+            hi = _tf32(F.contiguous())
+            lo = _tf32(F - hi)
+            parts.append(torch.cat([hi, lo], -1).reshape(-1))
+        layers.append(torch.cat(parts))
+    return torch.stack(layers)
+
+
+def split_weights(packed: Tensor) -> Tensor:
+    """``split_weights_plain(packed, 256)``: on the card one kernel, a
+    launch each call (callers keep the result while ``packed`` stays, as
+    ``LightGlue.packed_weights`` does); on the CPU the plain version."""
+    name, D = "split_weights", 256
+    if packed.dim() != 2 or packed.shape[1] != packed_size(D):
+        raise ValueError(f"{name}: packed shape {tuple(packed.shape)}, "
+                         f"expected (L, {packed_size(D)})")
+    if device_of(name, packed).type == "cpu":
+        return split_weights_plain(packed, D)
+    check_kernel_inputs(name, packed=packed)
+    check_contiguous(name, packed=packed)
+    L = packed.shape[0]
+    out = torch.empty(L, 38 * D * D, device=packed.device,
+                      dtype=torch.float32)
+    fn = _build.bind("nvs_lightglue_split", _SPLIT_ARGTYPES)
+    _build.check(fn(packed.data_ptr(), out.data_ptr(), packed.shape[1], L, D,
+                    _build.stream_ptr(packed.device)), name)
+    split_weights.launches += 1
+    return out
+
+
+split_weights.launches = 0
+
+
+def device_plan(B: int, M: int, N: int) -> Dict[str, int]:
+    """The D = 256 launch plan at (B, M, N) as the card's library takes it
+    (the one source of the plan), with the occupancy the card reports
+    (clusters at once, attention blocks an SM)."""
+    fn = _build.bind("nvs_lightglue_plan",
+                     [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)])
+    out = (ctypes.c_longlong * 12)()
+    _build.check(fn(B, M, N, out), "device_plan")
+    keys = ("row_grid", "row_cluster", "row_threads", "row_smem",
+            "row_max_clusters", "attn_grid_x", "attn_grid_y", "attn_grid_z",
+            "attn_threads", "attn_smem", "attn_blocks_per_sm", "row_tiled")
+    return dict(zip(keys, list(out)))
 
 
 # ------------------------------------------------------------- plain twin
@@ -179,13 +263,17 @@ def lightglue_transformer_plain(x0: Tensor, x1: Tensor, cs0: Tensor,
 def lightglue_transformer(x0: Tensor, x1: Tensor, cs0: Tensor, sn0: Tensor,
                           cs1: Tensor, sn1: Tensor, mask0: Optional[Tensor],
                           mask1: Optional[Tensor], packed: Tensor,
-                          layers: Optional[range] = None
+                          layers: Optional[range] = None,
+                          split: Optional[Tensor] = None
                           ) -> Tuple[Tensor, Tensor]:
     """x0 (B,M,D), x1 (B,N,D) descriptors after the input projection;
     cs/sn (B,M,DH/2) and (B,N,DH/2) the rotary cos/sin (not repeated);
     mask0 (B,M), mask1 (B,N) bool validity or None; packed (L, P) from
     ``pack_weights``; ``layers`` a step-1 range of layer indices (default
-    all L) -> the descriptors (B,M,D), (B,N,D) after those layers.
+    all L); ``split`` (D = 256 only) ``split_weights(packed)``, which the
+    card's row stage needs below the row count where the library takes
+    the tiled kernel (``device_plan``) -> the descriptors (B,M,D), (B,N,D)
+    after those layers.
 
     H = 4 heads, D in {32, 64, 256}, float32."""
     name = "lightglue_transformer"
@@ -216,8 +304,15 @@ def lightglue_transformer(x0: Tensor, x1: Tensor, cs0: Tensor, sn0: Tensor,
     if packed.dim() != 2 or packed.shape[1] != packed_size(D):
         raise ValueError(f"{name}: packed shape {tuple(packed.shape)}, "
                          f"expected (L, {packed_size(D)})")
+    if split is not None and (D != 256 or tuple(split.shape) !=
+                              (packed.shape[0], 38 * D * D)):
+        raise ValueError(f"{name}: split (D = 256 only) must be "
+                         f"split_weights(packed), (L, 38 D^2), got "
+                         f"{tuple(split.shape)} at D={D}")
     floats = dict(x0=x0, x1=x1, cs0=cs0, sn0=sn0, cs1=cs1, sn1=sn1,
                   packed=packed)
+    if split is not None:
+        floats["split"] = split
     masks = {k: m for k, m in (("mask0", mask0), ("mask1", mask1))
              if m is not None}
     dev = device_of(name, *floats.values(), *masks.values())
@@ -228,8 +323,10 @@ def lightglue_transformer(x0: Tensor, x1: Tensor, cs0: Tensor, sn0: Tensor,
     check_contiguous(name, **floats, **masks)
     if D not in DIMS:
         raise ValueError(f"{name}: the kernel takes D in {DIMS}, got {D}")
-    if packed.data_ptr() % 16:
-        raise ValueError(f"{name}: packed must be 16-byte aligned")
+    if packed.data_ptr() % 16 or (split is not None
+                                  and split.data_ptr() % 16):
+        raise ValueError(f"{name}: packed and split must be 16-byte "
+                         f"aligned")
     if B > 65535 // 2:
         raise ValueError(f"{name}: batch {B} > {65535 // 2}")
     o0 = torch.empty_like(x0)
@@ -244,8 +341,13 @@ def lightglue_transformer(x0: Tensor, x1: Tensor, cs0: Tensor, sn0: Tensor,
     err = fn(layers.start, layers.stop, x0.data_ptr(), x1.data_ptr(),
              o0.data_ptr(), o1.data_ptr(), cs0.data_ptr(), sn0.data_ptr(),
              cs1.data_ptr(), sn1.data_ptr(), ptr(mask0), ptr(mask1),
-             packed.data_ptr(), scratch.data_ptr(), packed.shape[1], B, M, N,
-             D, int(lightglue_transformer.pdl), _build.stream_ptr(dev))
+             packed.data_ptr(), ptr(split), scratch.data_ptr(),
+             packed.shape[1], B, M, N, D, int(lightglue_transformer.pdl),
+             _build.stream_ptr(dev))
+    if err and D == 256 and split is None:
+        raise ValueError(f"{name}: at {B * (M + N)} rows the D = 256 row "
+                         f"stage reads split=split_weights(packed) (CUDA "
+                         f"error {err})")
     _build.check(err, name)
     lightglue_transformer.launches += 1
     return o0, o1

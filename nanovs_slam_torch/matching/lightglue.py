@@ -34,7 +34,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels.lightglue import lightglue_transformer, pack_weights
+from ..kernels.lightglue import (lightglue_transformer, pack_weights,
+                                 split_weights)
 from .configs import LightGlueConfig
 
 Tensor = torch.Tensor
@@ -274,7 +275,7 @@ class LightGlue(nn.Module):
             self.add_module(f"log_assignment_{i}", MatchAssignment(d))
         for i in range(cfg.n_layers - 1):
             self.add_module(f"token_confidence_{i}", TokenConfidence(d))
-        self._packed: Optional[Tuple[tuple, Tensor]] = None
+        self._packed: Optional[Tuple[tuple, Tensor, Optional[Tensor]]] = None
 
     # --- staged methods (as in the flax module) ---
 
@@ -330,15 +331,26 @@ class LightGlue(nn.Module):
     def packed_weights(self) -> Tensor:
         """The stack's weights in the kernel's layout, rebuilt when a
         parameter was replaced or changed in place."""
+        return self._kernel_weights()[1]
+
+    def split_weights(self) -> Optional[Tensor]:
+        """At D = 256 on the card, the packed weights' TF32 fragments
+        (``kernels.lightglue.split_weights``), made once with them; else
+        None."""
+        return self._kernel_weights()[2]
+
+    def _kernel_weights(self) -> Tuple[tuple, Tensor, Optional[Tensor]]:
         params = [p for n, p in self.named_parameters()
                   if n.startswith("transformers_")]
         key = tuple((p.data_ptr(), p._version) for p in params)
         if self._packed is None or self._packed[0] != key:
+            D = self.cfg.descriptor_dim
             with torch.no_grad():
-                packed = pack_weights(self.state_dict(), self.cfg.n_layers,
-                                      self.cfg.descriptor_dim)
-            self._packed = (key, packed)
-        return self._packed[1]
+                packed = pack_weights(self.state_dict(), self.cfg.n_layers, D)
+                split = split_weights(packed) \
+                    if D == 256 and packed.is_cuda else None
+            self._packed = (key, packed, split)
+        return self._packed
 
     def run_layers(self, layers: range, desc0, desc1, enc0, enc1,
                    mask0=None, mask1=None):
@@ -351,9 +363,10 @@ class LightGlue(nn.Module):
             return desc0, desc1
         # the kernel takes the cos/sin tables before the repeat
         tables = [t[:, 0, :, 0::2].contiguous() for t in (*enc0, *enc1)]
+        _, packed, split = self._kernel_weights()
         return lightglue_transformer(desc0.contiguous(), desc1.contiguous(),
-                                     *tables, mask0, mask1,
-                                     self.packed_weights(), layers)
+                                     *tables, mask0, mask1, packed, layers,
+                                     split)
 
     def forward(self, data: Dict[str, Tensor], train: bool = False
                 ) -> Dict[str, Tensor]:

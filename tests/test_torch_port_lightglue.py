@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from nanovs_slam_torch.kernels import lightglue as lg_kernel
 from nanovs_slam_torch.kernels.lightglue import (lightglue_transformer,
                                                  lightglue_transformer_plain)
 from nanovs_slam_torch.matching.configs import (LIGHTGLUE_CONFIGS,
@@ -512,7 +513,10 @@ def _kernel_inputs(B, M, N, D, dev, seed=0, pad0=0, pad1=0, empty1=False,
     tab = [t[:, 0, :, 0::2].contiguous() for t in (*e0, *e1)]
     args = [d0, d1, *tab, data.get("mask0"), data.get("mask1"),
             port.packed_weights()]
-    return [None if a is None else a.to(dev) for a in args]
+    args = [None if a is None else a.to(dev) for a in args]
+    # D = 256: the weights' TF32 fragments, which the row stage reads
+    split = lg_kernel.split_weights(args[8]) if D == 256 else None
+    return args, split
 
 
 @pytest.mark.parametrize("B,M,N,D,pad0,pad1,empty1", [
@@ -525,34 +529,188 @@ def _kernel_inputs(B, M, N, D, dev, seed=0, pad0=0, pad1=0, empty1=False,
     (1, 1024, 1024, 256, 0, 0, False),
     (1, 512, 384, 256, 51, 154, False),
     (2, 256, 192, 256, 30, 0, True),
+    # D = 256 at the kernels' edges: rows not a multiple of the row tile
+    # or of the cluster's split, a one-row image, B = 2 with padding, and
+    # key counts below one key tile of the old plan (40) and of the new
+    # one (20, 24)
+    (1, 333, 77, 256, 0, 0, False),
+    (1, 512, 1, 256, 0, 0, False),
+    (2, 300, 200, 256, 40, 13, False),
+    (1, 40, 40, 256, 0, 0, False),
+    (1, 20, 24, 256, 3, 0, False),
 ])
 def test_lightglue_kernel_matches_plain(cuda, B, M, N, D, pad0, pad1,
                                         empty1):
     """D = 32 and 64 over 4 layers; D = 256 (the "default" config) over
-    its 9, at K = 512 and 1024, padded, and with image 1 fully masked."""
+    its 9, at K = 512 and 1024, padded, with image 1 fully masked, and at
+    the D = 256 kernels' edges."""
     L = 9 if D == 256 else 4
-    args = _kernel_inputs(B, M, N, D, cuda, 1, pad0, pad1, empty1, L)
+    args, split = _kernel_inputs(B, M, N, D, cuda, 1, pad0, pad1, empty1, L)
     if not (pad0 or pad1 or empty1):
         args[6] = args[7] = None
     want = lightglue_transformer_plain(*args, range(L))
     before = lightglue_transformer.launches
-    got = lightglue_transformer(*args)
+    got = lightglue_transformer(*args, split=split)
     torch.cuda.synchronize()
     assert lightglue_transformer.launches == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
     lightglue_transformer.pdl = False  # launches in plain stream order
     try:
-        serial = lightglue_transformer(*args)
+        serial = lightglue_transformer(*args, split=split)
     finally:
         lightglue_transformer.pdl = True
     for g, s in zip(got, serial):
         assert torch.equal(g, s)
     for layers in (range(1, 3), *(range(l, l + 1) for l in range(4))):
-        part = lightglue_transformer(*args, layers=layers)
+        part = lightglue_transformer(*args, layers=layers, split=split)
         want = lightglue_transformer_plain(*args, layers)
         for g, w in zip(part, want):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("D", [32, 256])
+def test_lightglue_kernel_repeats_bitwise(cuda, D):
+    """Two launches on the same inputs give the same bits (no atomics, every
+    sum in a fixed order)."""
+    L = 9 if D == 256 else 4
+    args, split = _kernel_inputs(2, 300, 200, D, cuda, 4, 17, 9, False, L)
+    first = lightglue_transformer(*args, split=split)
+    second = lightglue_transformer(*args, split=split)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_lightglue_d256_plan_on_card(cuda):
+    """The D = 256 plan as the card takes it (device_plan, the library's
+    own): at K = 512 and B = 1 the row stage is 128 or more blocks in
+    clusters of 4 and the attention 128 or more blocks, two or more an SM;
+    from K = 1024 on the row stage is the tiled kernel, which takes no
+    fragments. Both sides of the cut are held against the twin by
+    test_lightglue_kernel_matches_plain (K = 512, 1024)."""
+    plan = lg_kernel.device_plan(1, 512, 512)
+    assert not plan["row_tiled"]
+    assert plan["row_grid"] >= 128 and plan["row_cluster"] == 4
+    assert plan["row_grid"] % plan["row_cluster"] == 0
+    assert plan["row_max_clusters"] >= 1
+    assert plan["attn_grid_x"] * plan["attn_grid_y"] * \
+        plan["attn_grid_z"] >= 128
+    assert plan["attn_blocks_per_sm"] >= 2
+    plan = lg_kernel.device_plan(1, 1024, 1024)
+    assert plan["row_tiled"] and plan["row_cluster"] == 1
+    args, split = _kernel_inputs(1, 1024, 1024, 256, cuda, 5, L=1)
+    with_split = lightglue_transformer(*args, split=split)
+    without = lightglue_transformer(*args)
+    for a, b in zip(with_split, without):
+        assert torch.equal(a, b)
+    args, _ = _kernel_inputs(1, 333, 77, 256, cuda, 5, L=1)
+    with pytest.raises(ValueError, match="split_weights"):
+        lightglue_transformer(*args)
+
+
+def test_split_weights_on_card_equals_plain(cuda):
+    """The D = 256 weights' fragments from the card's kernel are the plain
+    layout, bit for bit; the module makes them once with its packed
+    weights and anew when a parameter changes."""
+    torch.manual_seed(6)
+    port = LightGlue(LightGlueConfig(input_dim=256, descriptor_dim=256,
+                                     n_layers=2, num_heads=4)).eval()
+    port.to(cuda)
+    before = lg_kernel.split_weights.launches
+    got = port.split_weights()
+    assert port.split_weights() is got
+    assert lg_kernel.split_weights.launches == before + 1
+    want = lg_kernel.split_weights_plain(port.packed_weights().cpu(), 256)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    with torch.no_grad():
+        next(p for n, p in port.named_parameters()
+             if n.startswith("transformers_")).add_(1.0)
+    assert port.split_weights() is not got
+    assert lg_kernel.split_weights.launches == before + 2
+
+
+def test_split_weights_plain_layout():
+    """The fragment layout on the CPU: each entry is the TF32 hi / lo of
+    the weight the m16n8k8 B fragment wants at its lane, and a 3xTF32
+    product on the fragments keeps float32 accuracy."""
+    D = 256
+    rs = np.random.RandomState(7)
+    packed = torch.from_numpy(
+        rs.randn(2, lg_kernel.packed_size(D)).astype(np.float32) * 0.05)
+    split = lg_kernel.split_weights_plain(packed, D)
+    assert split.shape == (2, 38 * D * D)
+    bits = split.view(torch.int32)
+    assert bool(((bits & 0x1FFF) == 0).all())  # TF32: 10 mantissa bits
+    off = 0
+    w = lg_kernel._unpack(packed[1], D)
+    for blk, field in lg_kernel._SPLIT_FIELDS:
+        W = w[blk][field]
+        K, N = W.shape
+        F = split[1, off:off + 2 * K * N].view(K // 8, N // 8, 32, 4)
+        off += 2 * K * N
+        for ks, nt, lane in ((0, 0, 0), (K // 8 - 1, N // 8 - 1, 31),
+                             (3, 5, 13)):
+            g, t = lane // 4, lane % 4
+            for s in (0, 1):
+                x = W[8 * ks + t + 4 * s, 8 * nt + g]
+                hi, lo = F[ks, nt, lane, s], F[ks, nt, lane, 2 + s]
+                assert hi == lg_kernel._tf32(x.reshape(1))[0]
+                assert lo == lg_kernel._tf32((x - hi).reshape(1))[0]
+        # every weight once: hi + lo back in (K, N) order is W to 2^-21
+        Wb = (F[..., :2] + F[..., 2:]).view(K // 8, N // 8, 8, 4, 2)
+        Wb = Wb.permute(0, 4, 3, 1, 2).reshape(K, N)
+        torch.testing.assert_close(Wb, W, atol=0, rtol=2 ** -20)
+        x = torch.from_numpy(rs.randn(16, K).astype(np.float32))
+        xh = lg_kernel._tf32(x)
+        xl = lg_kernel._tf32(x - xh)
+        wh = F[..., :2].reshape(K // 8, N // 8, 8, 4, 2).permute(
+            0, 4, 3, 1, 2).reshape(K, N)
+        wl = F[..., 2:].reshape(K // 8, N // 8, 8, 4, 2).permute(
+            0, 4, 3, 1, 2).reshape(K, N)
+        three = (xh.double() @ wh.double() + xh.double() @ wl.double()
+                 + xl.double() @ wh.double())
+        torch.testing.assert_close(three.float(), x @ W, atol=2e-5, rtol=0)
+    assert off == 38 * D * D
+
+
+def test_kernel_weights_follow_the_parameters():
+    """LightGlue keeps its packed weights while the parameters stay, also
+    when first packed under torch.inference_mode (as the pair matcher
+    runs), and packs anew after an in-place change; on the CPU it keeps no
+    fragments, which only the card's row stage reads."""
+    torch.manual_seed(8)
+    port = LightGlue(LightGlueConfig(input_dim=256, descriptor_dim=256,
+                                     n_layers=1, num_heads=4)).eval()
+    with torch.inference_mode():
+        packed = port.packed_weights()
+    assert port.packed_weights() is packed
+    assert port.split_weights() is None
+    with torch.no_grad():
+        next(p for n, p in port.named_parameters()
+             if n.startswith("transformers_")).mul_(0.5)
+    again = port.packed_weights()
+    assert again is not packed
+    torch.testing.assert_close(
+        again, lg_kernel.pack_weights(port.state_dict(), 1, 256),
+        atol=0, rtol=0)
+
+
+def test_split_argument_is_checked():
+    """``split`` is D = 256's and (L, 38 D^2); on the CPU it is the plain
+    layout (``split_weights`` runs ``split_weights_plain``) and the twin,
+    which reads the packed weights, gives the same with or without it."""
+    args, _ = _kernel_inputs(1, 24, 16, 256, "cpu", 9, L=2)
+    split = lg_kernel.split_weights(args[8])
+    assert torch.equal(split, lg_kernel.split_weights_plain(args[8], 256))
+    with_split = lightglue_transformer(*args, split=split)
+    for a, b in zip(with_split, lightglue_transformer(*args)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="split"):
+        lightglue_transformer(*args, split=split[:, 1:])
+    small, _ = _kernel_inputs(1, 24, 16, 32, "cpu", 9, L=2)
+    with pytest.raises(ValueError, match="split"):
+        lightglue_transformer(*small, split=split)
 
 
 def test_lightglue_module_on_card_matches_cpu(cuda):
