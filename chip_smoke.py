@@ -19,7 +19,8 @@ Phases, each of which raises (exit code != 0) on failure:
     the kernels line) and the postprocess at config D's C=128, both for
     batch 1 and 8, each case's device kernels a call counted by the
     profiler (one; two for the stem at (64, 128), whose weights a kernel
-    of their own splits and packs first), and the stem at an odd frame
+    of their own splits and packs first), every stem case also bit for
+    bit across two launches, and the stem at an odd frame
     size (241x321, floor pooling) at all three widths (an entry of its
     own); the LightGlue transformer kernel (pinned kp2dtiny_S weights, and
     config "default": D = 256, 9 layers, seeded weights, an entry of its
@@ -379,6 +380,9 @@ def kernel_cases(B: int, dev) -> list[Case]:
                 require(ulps <= 1.0, f"stem[bf16] {C1}, {C2}: {ulps} ulps")
             else:  # 3xTF32 keeps float32 accuracy
                 require(max_err(got, want) <= 1e-5, f"stem {C1}, {C2}")
+            # no atomics, fixed sum orders: a second launch gives the bits
+            require(torch.equal(got, fused_stem_pair_pool(*st)),
+                    f"stem {C1}, {C2}: two launches differ")
 
         lib_w = [a.to(x.dtype) for a in (w1, b1, w2, b2)]
 
@@ -541,7 +545,8 @@ def kernel_phase(dev):
             log(f"kernel {tag}: max_abs_err {err:.3g}, "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                 f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}"
-                f", bound {b_ms:.5f} ms ({b_by}{note})")
+                f", bound {b_ms:.5f} ms ({b_by}{note}), "
+                f"{b_ms / ms:.1%} of it")
             entry = results.setdefault(c.entry, {
                 "name": c.name, "route": "cuda", "source": c.source,
                 "replaces": c.replaces})

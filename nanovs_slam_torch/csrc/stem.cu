@@ -36,25 +36,37 @@
 //
 // The wide instance, config D's (64, 128), cannot hold that tile: conv2's
 // split weights alone take 576 KB. stem_wide_kernel keeps the tile's
-// geometry and its 3xTF32 products but
-//   - streams conv2's weights through shared memory a tap at a time (64 KB,
+// geometry (8 conv2 rows by 16 columns) and its 3xTF32 sums, and is built
+// from Hopper's parts:
+//   - conv2 runs on wgmma (m64n128k8, TF32): each of two consumer
+//     warpgroups takes 64 pixels (two conv2 rows by 8 columns a warp, so
+//     that the vertical pool stays in-thread) by all 128 channels; A comes
+//     from registers, raw from conv1's tile and split where it is loaded,
+//     three products a k-step (a_lo b_hi, a_hi b_lo, a_hi b_hi); B is the
+//     tap's weights in shared memory, K-major without swizzle;
+//   - conv2's weights stream through shared memory a tap at a time (64 KB,
 //     hi and lo), double-buffered with cp.async from a copy that
-//     stem_pack_kernel writes at each call, already split and in fragment
-//     order, so that a tap's copy is coalesced 16-byte loads;
-//   - keeps conv1's tile raw, which leaves room for the two tap buffers, and
-//     splits a lane's A values where they are loaded, once for the warp's 8
-//     n-tiles;
-//   - runs 8 warps: a warp takes a conv2 row pair and half of C2 (2 m-tiles
-//     x 8 n-tiles);
-//   - lays conv1's tile out per pixel in chunks of 16 channels, a lane's
-//     four channels t + 4q of a chunk side by side, so that one 16-byte
-//     load gives a lane its A values of two k-steps; the pixel stride
-//     C1 + 16 keeps a quarter warp's loads on distinct banks;
-//   - sums a tap's products apart and adds the sum in float32: K = 576 in
-//     one chain of tensor-core sums lost up to 2.3e-05 against the twin.
-// Its shared memory (218 KB) allows one block an SM. Splitting C2 over the
-// grid instead (two blocks of 64 channels a tile, conv1's tile split once
-// when stored) took 1.45x as long on the card.
+//     stem_pack_kernel writes at each call, split and in the wgmma layout;
+//     measured, the loads hide behind the products (a block's nine taps
+//     waited 0.15 us of its 27 us);
+//   - a tap's products go into a sum of their own, added to the total in
+//     float32: K = 576 in one chain of tensor-core sums lost up to 2.3e-05
+//     against the twin;
+//   - the blocks are persistent, one an SM, and their warps specialise: a
+//     producer warpgroup stages the next tile's input and runs its conv1
+//     (mma.sync, 3xTF32) into the second of two conv1 buffers while the
+//     consumers run conv2 on the first; the two meet at named barriers.
+//     conv1's tile is raw float32, a pixel's channels in chunks of 16 with
+//     the chunk index XOR-ed with the pixel's parity (y1_at), so that a
+//     quarter warp's 16-byte A loads fall on distinct banks; a producer
+//     warp keeps its conv1 fragments and biases in registers, since
+//     re-reading them every tile slowed the consumers;
+//   - the consumers pool in registers and send a channel's pooled row out
+//     as 16-byte stores through the buffer they have just read.
+// Shared memory 229 KB: the two tap buffers, the two conv1 buffers, the
+// input tile. Phase timers on the card: with conv1 serialised (the first
+// design) the products ran at ~77% of the published TF32 rate; beside the
+// producer they take about a quarter longer, which the overlap repays.
 //
 // Bound on an H100: operations. At 240x320, C1 = 16, C2 = 24 a frame is
 // 0.60 GFLOP (conv2 0.53) against 4.6 MB of input and output: 3.6 us at the
@@ -62,20 +74,27 @@
 // 67 TFLOP/s float32 rate of the CUDA cores. At C1 = 64, C2 = 128 a frame
 // is 11.59 GFLOP against 10.8 MB: 70.2 us at the 3xTF32 rate.
 //
-// The bfloat16 instances (stem_bf16_kernel, all three widths) compute what
-// the model computes at bf16: x and the folded weights rounded to bf16,
-// both convolutions one pass of mma.sync m16n8k16 bf16 with float32
-// accumulation (no split: the operands are exact in bf16), bias and
-// activation in float32, conv1's activation rounded to bf16 before conv2
-// reads it, and the pooled output rounded to bf16. The tile's geometry is
-// the float32 kernel's; conv1's tile is bf16 channel-last with a pixel
-// stride of C1 + 8 (a quarter warp's 32-bit A loads on distinct banks), and
-// a k-step of conv2 is 16 channels of one tap. The weights sit in shared
-// memory as B fragments for the whole block: gathered and rounded by each
-// block at (16, 24) and (16, 32) (9 KB); at (64, 128) (147 KB)
-// stem_pack_bf16_kernel writes them once a call and one block an SM copies
-// them with cp.async, then walks over tiles. At 240x320 and (64, 128) a
-// frame is 11.59 GFLOP against 5.4 MB: 11.7 us at 989 TFLOP/s.
+// The bfloat16 instances compute what the model computes at bf16: x and
+// the folded weights rounded to bf16, both convolutions one pass of bf16
+// products with float32 accumulation (no split: the operands are exact in
+// bf16), bias and activation in float32, conv1's activation rounded to
+// bf16 before conv2 reads it, and the pooled output rounded to bf16. At
+// (16, 24) and (16, 32) stem_bf16_kernel has the float32 kernel's geometry
+// on mma.sync m16n8k16; conv1's tile is bf16 channel-last with a pixel
+// stride of C1 + 8 (a quarter warp's 32-bit A loads on distinct banks),
+// and the weights sit in shared memory as B fragments, gathered and
+// rounded by each block (9 KB). At (64, 128) stem_bf16_wide_kernel has
+// stem_wide_kernel's roles: conv2 on wgmma (m64n128k16, bf16, A from
+// registers) over weights resident in shared memory (147 KB, written in
+// the wgmma layout by stem_pack_bf16_kernel at each call and copied once a
+// block by the consumers while the producers start), one chain of float32
+// sums; two producer warpgroups, one for each conv1 buffer, stage the
+// input and run conv1 on mma.sync. A producer warp keeps its conv1
+// fragments and biases in registers: in the first design they were
+// re-read every tile, and that traffic slowed the consumers. At 240x320
+// and (64, 128) a frame is 11.59 GFLOP against 5.4 MB: 11.7 us at 989
+// TFLOP/s. Phase timers put the consumers' conv2 at about two thirds of
+// the bf16 rate, and their pool and store at a third of a tile's time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -317,8 +336,124 @@ cudaError_t launch(const float* x, const long long* sx, const float* w1,
 
 // ------------------------------------------------ the wide instance (64, 128)
 
-constexpr int kWideWarps = 8;
-constexpr int kWideThreads = 32 * kWideWarps;
+// Hopper's warpgroup products (wgmma.mma_async): a warpgroup of 4 warps
+// multiplies a 64-row A held in registers (each warp 16 rows, the fragment
+// of an mma.sync m16n8k8 / m16n8k16) by a B in shared memory that a matrix
+// descriptor describes. B is K-major without swizzle: core matrices of 8
+// rows (output channels) by 16 bytes, kSbo bytes apart along N and `lbo`
+// bytes apart along K. The sums stay in registers; with g = lane / 4 and
+// t = lane % 4, d[4j + i] of warp w is row 16 w + g + 8 (i >> 1), column
+// 8 j + 2 t + (i & 1).
+constexpr int kSbo = 128;
+
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int lbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(kSbo >> 4) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// until at most N committed groups of the warpgroup are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// makes this thread's shared-memory writes (cp.async included) visible to
+// later wgmma reads (the async proxy); a barrier then hands them on
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of the sums across a wait
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a b: m64n128k8, TF32 operands (A in registers), float32 sums;
+// scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// ... m64n128k16, bfloat16 operands
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// stem_wide_kernel's roles: two consumer warpgroups (conv2, pool, store)
+// and a producer warpgroup (the next tile's input and conv1), which meet at
+// named barriers (0 is __syncthreads'): a conv1 buffer is full (1, 2) or
+// empty (3, 4), all consumers (5), all producers (6)
+constexpr int kWideConsumers = 256;
+constexpr int kWideThreads = kWideConsumers + 128;
+enum : int { kBarFull = 1, kBarEmpty = 3, kBarConsumers = 5, kBarProducer = 6 };
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
 
 // floats at c, c + 4 of a k-step's fragment, split: (hi c, hi c+4, lo c,
 // lo c+4), the order mma_3xtf32's (bh, bl) take
@@ -330,48 +465,60 @@ __device__ __forceinline__ float4 split_pair(float v0, float v1) {
                      __uint_as_float(l0), __uint_as_float(l1));
 }
 
-// The weights as B fragments, split, with g = lane / 4 and t = lane % 4:
-// p1[(ks * C1/8 + nt) * 32 + lane]: conv1's k = 8 ks + t (and + 4; zero
-//   from 27, k = ci*9 + ky*3 + kx) of output channel 8 nt + g;
-// p2[((tap * C1/8 + ks) * C2/8 + nt) * 32 + lane]: conv2's input channel
-//   8 ks + t (and + 4) of output channel 8 nt + g at tap, so that a tap is
-//   one contiguous run.
+// The weights, split into TF32 hi and lo, with g = lane / 4, t = lane % 4:
+// p1[(ks * C1/8 + nt) * 32 + lane]: conv1's B fragments for mma.sync, k =
+//   8 ks + t (and + 4; zero from 27, k = ci*9 + ky*3 + kx) of output
+//   channel 8 nt + g;
+// p2: a tap after another, each its hi part, then its lo part (2 C1 C2
+//   floats a tap), each part a wgmma B operand over C1 / 8 k-steps: input
+//   channel 8 s + k of output channel n at float s*8*C2 + (k/4)*4*C2 + n*4
+//   + k%4 (K-major core matrices, 16 * C2 bytes apart along K).
 template <int C1, int C2>
 __global__ void stem_pack_kernel(const float* __restrict__ w1,
                                  const float* __restrict__ w2,
                                  float4* __restrict__ p1,
-                                 float4* __restrict__ p2) {
-  constexpr int N1 = 4 * (C1 / 8) * 32, N2 = 9 * (C1 / 8) * (C2 / 8) * 32;
+                                 float* __restrict__ p2) {
+  constexpr int N1 = 4 * (C1 / 8) * 32, N2 = 9 * 2 * C1 * C2;
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < N1 + N2;
        e += gridDim.x * blockDim.x) {
-    const int l = e & 31, g = l >> 2, t = l & 3;
     if (e < N1) {
+      const int l = e & 31, g = l >> 2, t = l & 3;
       const int nt = (e >> 5) % (C1 / 8), k = (e >> 5) / (C1 / 8) * 8 + t;
       const float* wp = w1 + (nt * 8 + g) * kK1;
       p1[e] = split_pair(k < kK1 ? wp[k] : 0.f,
                          k + 4 < kK1 ? wp[k + 4] : 0.f);
     } else {
-      const int f = e - N1, r = f >> 5;
-      const int nt = r % (C2 / 8), ks = r / (C2 / 8) % (C1 / 8);
-      const int tap = r / (C2 / 8 * (C1 / 8));
-      const float* wp = w2 + ((nt * 8 + g) * C1 + ks * 8 + t) * 9 + tap;
-      p2[f] = split_pair(wp[0], wp[4 * 9]);
+      const int f = e - N1, r = f % (C1 * C2);
+      const int tap = f / (2 * C1 * C2), lo = f / (C1 * C2) % 2;
+      const int ci = r / (8 * C2) * 8 + r / (4 * C2) % 2 * 4 + r % 4;
+      const int n = r / 4 % C2;
+      uint32_t hi, rest;
+      nvs::split_tf32(w2[(n * C1 + ci) * 9 + tap], hi, rest);
+      p2[f] = __uint_as_float(lo ? rest : hi);
     }
   }
 }
 
 template <int C1, int C2>
 struct WideSmem {
-  static constexpr int kPix = C1 + 16;                   // floats a pixel
-  static constexpr int kTap = (C1 / 8) * (C2 / 8) * 32;  // float4 a tap
-  float4 w2[2][kTap];            // conv2's fragments of two taps
-  float4 w1[4 * (C1 / 8) * 32];  // conv1's fragments
-  float y1[kY1Pix * kPix];       // conv1 tile, raw
+  static constexpr int kTap = 2 * C1 * C2;  // floats a tap: hi, then lo
+  static constexpr int kOut = 12;          // floats a pooled channel row
+  float w2[2][kTap];  // conv2's weights of two taps
   union {
-    float x[2][kIn];                               // input tile, hi and lo
-    float out[kWideWarps][C2 / 2][kPoolW + 1];  // pooled, a warp's own
-  } u;
+    float y1[kY1Pix * C1];          // conv1 tile, raw (y1_at)
+    float out[kPoolH * C2 * kOut];  // then the pooled tile
+  } u[2];
+  float x[2][kIn];  // input tile, hi and lo
 };
+
+// Channel ch of conv1 pixel p in a WideSmem tile (C1 = 64): chunks of 16
+// channels, the four of lane t (t, t + 4, t + 8, t + 12) side by side, so
+// that one 16-byte load gives a lane its A values of two k-steps; the
+// chunk index XOR-ed with the pixel's parity, so that the loads of 8
+// consecutive pixels' lanes fall on distinct banks
+__device__ __forceinline__ int y1_at(int p, int ch) {
+  return p * 64 + ((ch >> 4) ^ (p & 1)) * 16 + (ch & 3) * 4 + (ch >> 2 & 3);
+}
 
 __device__ __forceinline__ float part(const float4& f, int i) {
   return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
@@ -381,200 +528,265 @@ template <int C1, int C2>
 __global__ void __launch_bounds__(kWideThreads, 1)
 stem_wide_kernel(const float* __restrict__ x, long long sx_b, long long sx_h,
                  long long sx_w, long long sx_c,
-                 const float4* __restrict__ p1, const float4* __restrict__ p2,
+                 const float4* __restrict__ p1, const float* __restrict__ p2,
                  const float* __restrict__ b1, const float* __restrict__ b2,
-                 float* __restrict__ out, int H, int W, float slope) {
-  static_assert(C1 % 16 == 0 && C2 % 16 == 0, "widths");
-  constexpr int NT1 = C1 / 8;    // conv1 n-tiles
-  constexpr int NT = C2 / 8;     // conv2 n-tiles
-  constexpr int NTW = NT / 2;    // ... of a warp
-  constexpr int PIX = WideSmem<C1, C2>::kPix;
-  constexpr int TAP = WideSmem<C1, C2>::kTap;
+                 float* __restrict__ out, int B, int H, int W, float slope) {
+  static_assert(C1 == 64 && C2 == 128, "the wgmma shapes are (64, 128)'s");
+  constexpr int NT1 = C1 / 8;  // conv1 n-tiles
+  using Smem = WideSmem<C1, C2>;
+  constexpr int TAP = Smem::kTap, OUT = Smem::kOut;
+  constexpr int KSTEP = 8 * C2;  // floats a k-step of a part
+  constexpr int LBO = 4 * C2 * 4;
   extern __shared__ float4 smem_raw[];
-  auto& s = *reinterpret_cast<WideSmem<C1, C2>*>(smem_raw);
+  auto& s = *reinterpret_cast<Smem*>(smem_raw);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z;
-  const int oy0 = blockIdx.y * kTileH, ox0 = blockIdx.x * kTileW;
+  const int H2 = H / 2, W2 = W / 2;
+  const int nx = (W2 + kPoolW - 1) / kPoolW, ny = (H2 + kPoolH - 1) / kPoolH;
+  const int ntiles = nx * ny * B;
+  // block b's tiles are b, b + grid, b + 2 grid, ...: its i-th in conv1
+  // buffer s.u[i & 1]
 
-  // conv1's fragments and conv2's first tap fly while the input is staged
-  for (int e = tid; e < 4 * NT1 * 32; e += kWideThreads)
-    nvs::cp_async16(&s.w1[e], p1 + e);
-  for (int e = tid; e < TAP; e += kWideThreads)
-    nvs::cp_async16(&s.w2[0][e], p2 + e);
-  nvs::cp_async_commit();
-
-  // 1. the input tile, zero outside the image, split
-  const float* xb = x + (long long)b * sx_b;
-  for (int e = tid; e < kIn; e += kWideThreads) {
-    const int ci = e / (kInH * kInW), r = e / kInW % kInH, c = e % kInW;
-    const int gy = oy0 - 2 + r, gx = ox0 - 2 + c;
-    const float v = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                        ? xb[gy * sx_h + gx * sx_w + ci * sx_c]
-                        : 0.f;
-    uint32_t hi, lo;
-    nvs::split_tf32(v, hi, lo);
-    s.u.x[0][e] = __uint_as_float(hi);
-    s.u.x[1][e] = __uint_as_float(lo);
-  }
-  int koff[4][2];  // the lane's k of each conv1 k-step, into the input tile
+  if (tid >= kWideConsumers) {
+    // the producer: a tile's input, zero outside the image, split; then
+    // conv1 on mma.sync in 3xTF32 (a warp's unit: an m-tile of 16
+    // ring-tile pixels and half the n-tiles), bias, activation, zero
+    // outside the image, raw into the buffer the consumers have released
+    const int pw = warp - kWideConsumers / 32, ptid = tid - kWideConsumers;
+    // the warp's units are m-tiles pw / 2, pw / 2 + 2, ... of n-tiles
+    // n0 .. n0 + NH1 - 1: their B fragments and biases stay in registers
+    constexpr int M1 = (kY1Pix + 15) / 16, NH1 = NT1 / 2;
+    const int n0 = (pw & 1) * NH1;
+    float4 w1f[4][NH1];
+    float b1r[NH1][2];
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+    for (int nt = 0; nt < NH1; ++nt) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = ks * 8 + t + 4 * j;
-      koff[ks][j] = k < kK1 ? k / 9 * kInH * kInW + k % 9 / 3 * kInW + k % 3
-                            : 0;
-    }
-  nvs::cp_async_wait<0>();
-  __syncthreads();
-
-  // 2. conv1: units of an m-tile of 16 ring-tile pixels and half the
-  // n-tiles, three a warp
-  constexpr int M1 = (kY1Pix + 15) / 16, NH1 = NT1 / 2;
-  for (int u = warp; u < 2 * M1; u += kWideWarps) {
-    const int m = u >> 1, n0 = (u & 1) * NH1;
-    int poff[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int p = min(m * 16 + g + 8 * r, kY1Pix - 1);
-      poff[r] = p / kY1W * kInW + p % kY1W;
-    }
-    float acc[NH1][4] = {};
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const bool valid = ks * 8 + t + 4 * (q >> 1) < kK1;
-        const int idx = koff[ks][q >> 1] + poff[q & 1];
-        ah[q] = valid ? bits(s.u.x[0][idx]) : 0u;
-        al[q] = valid ? bits(s.u.x[1][idx]) : 0u;
-      }
-#pragma unroll
-      for (int nt = 0; nt < NH1; ++nt) {
-        const float4 f = s.w1[(ks * NT1 + n0 + nt) * 32 + lane];
-        const uint32_t bh[2] = {bits(f.x), bits(f.y)};
-        const uint32_t bl[2] = {bits(f.z), bits(f.w)};
-        nvs::mma_3xtf32(acc[nt], ah, al, bh, bl);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = m * 16 + g + (i >> 1) * 8;
-      if (p >= kY1Pix) continue;
-      const int gy = oy0 - 1 + p / kY1W, gx = ox0 - 1 + p % kY1W;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-      for (int nt = 0; nt < NH1; ++nt) {
-        const int ch = (n0 + nt) * 8 + 2 * t + (i & 1), q = ch >> 2;
-        s.y1[p * PIX + (q >> 2) * 16 + (ch & 3) * 4 + (q & 3)] =
-            in ? nvs::leaky(acc[nt][i] + __ldg(b1 + ch), slope) : 0.f;
-      }
-    }
-  }
-  for (int e = tid; e < TAP; e += kWideThreads)
-    nvs::cp_async16(&s.w2[1][e], p2 + TAP + e);
-  nvs::cp_async_commit();
-  __syncthreads();
-
-  // 3. conv2: rows 2 rp (j = 0) and 2 rp + 1 of the tile, n-tiles nh*NTW..;
-  // a tap's weights in s.w2[tap & 1], the next tap's in flight
-  const int rp = warp & 3, nh = warp >> 2;
-  float acc[2][NTW][4] = {};
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int ky = tap / 3, kx = tap % 3;
-    const float4* wb = s.w2[tap & 1];
-    // the tensor cores truncate as they accumulate, so the error grows with
-    // the products a sum takes in: a tap's 24 go into a sum of their own,
-    // which joins acc by a rounded float32 add
-    float psum[2][NTW][4] = {};
-#pragma unroll
-    for (int kp = 0; kp < C1 / 16; ++kp) {
-      float4 a4[2][2];  // [m-tile j][row g | g + 8], raw
+      for (int ks = 0; ks < 4; ++ks)
+        w1f[ks][nt] = __ldg(p1 + (ks * NT1 + n0 + nt) * 32 + lane);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
+        b1r[nt][j] = __ldg(b1 + (n0 + nt) * 8 + 2 * t + j);
+    }
+    int koff[4][2];  // the lane's k of each k-step, into the input tile
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          a4[j][r] = *reinterpret_cast<const float4*>(
-              s.y1 + ((2 * rp + j + ky) * kY1W + g + 8 * r + kx) * PIX
-              + kp * 16 + t * 4);
+    for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        // k-step 2 kp + kk: column t is channel 16 kp + 8 kk + t, part 2 kk
-        // of the lane's float4; column t + 4 is part 2 kk + 1
-        const int ks = 2 * kp + kk;
-        uint32_t ah[2][4], al[2][4];
+      for (int j = 0; j < 2; ++j) {
+        const int k = ks * 8 + t + 4 * j;
+        koff[ks][j] =
+            k < kK1 ? k / 9 * kInH * kInW + k % 9 / 3 * kInW + k % 3 : 0;
+      }
+    for (int tile = blockIdx.x, i = 0; tile < ntiles;
+         tile += gridDim.x, ++i) {
+      const int b = tile / (nx * ny), ty = tile / nx % ny, tx = tile % nx;
+      const int oy0 = ty * kTileH, ox0 = tx * kTileW;
+      const float* xb = x + (long long)b * sx_b;
+      bar_sync(kBarProducer, 128);  // every producer warp is done with s.x
+      for (int e = ptid; e < kIn; e += 128) {
+        const int ci = e / (kInH * kInW), r = e / kInW % kInH, c = e % kInW;
+        const int gy = oy0 - 2 + r, gx = ox0 - 2 + c;
+        const float v = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                            ? xb[gy * sx_h + gx * sx_w + ci * sx_c]
+                            : 0.f;
+        uint32_t hi, lo;
+        nvs::split_tf32(v, hi, lo);
+        s.x[0][e] = __uint_as_float(hi);
+        s.x[1][e] = __uint_as_float(lo);
+      }
+      bar_sync(kBarProducer, 128);
+      if (i >= 2) bar_sync(kBarEmpty + (i & 1), kWideThreads);
+      float* y1 = s.u[i & 1].y1;
+      for (int m = pw >> 1; m < M1; m += 2) {
+        int poff[2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int r = 0; r < 2; ++r) {
+          const int p = min(m * 16 + g + 8 * r, kY1Pix - 1);
+          poff[r] = p / kY1W * kInW + p % kY1W;
+        }
+        float acc[NH1][4] = {};
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            nvs::split_tf32(part(a4[j][q & 1], 2 * kk + (q >> 1)), ah[j][q],
-                            al[j][q]);
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t ah[4], al[4];
 #pragma unroll
-        for (int nt = 0; nt < NTW; ++nt) {
-          const float4 f = wb[(ks * NT + nh * NTW + nt) * 32 + lane];
-          const uint32_t bh[2] = {bits(f.x), bits(f.y)};
-          const uint32_t bl[2] = {bits(f.z), bits(f.w)};
+          for (int q = 0; q < 4; ++q) {
+            const bool valid = ks * 8 + t + 4 * (q >> 1) < kK1;
+            const int idx = koff[ks][q >> 1] + poff[q & 1];
+            ah[q] = valid ? bits(s.x[0][idx]) : 0u;
+            al[q] = valid ? bits(s.x[1][idx]) : 0u;
+          }
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
-            nvs::mma_3xtf32(psum[j][nt], ah[j], al[j], bh, bl);
+          for (int nt = 0; nt < NH1; ++nt) {
+            const float4 f = w1f[ks][nt];
+            const uint32_t bh[2] = {bits(f.x), bits(f.y)};
+            const uint32_t bl[2] = {bits(f.z), bits(f.w)};
+            nvs::mma_3xtf32(acc[nt], ah, al, bh, bl);
+          }
+        }
+#pragma unroll
+        for (int i4 = 0; i4 < 4; ++i4) {
+          const int p = m * 16 + g + (i4 >> 1) * 8;
+          if (p >= kY1Pix) continue;
+          const int gy = oy0 - 1 + p / kY1W, gx = ox0 - 1 + p % kY1W;
+          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+          for (int nt = 0; nt < NH1; ++nt) {
+            const int ch = (n0 + nt) * 8 + 2 * t + (i4 & 1);
+            y1[y1_at(p, ch)] =
+                in ? nvs::leaky(acc[nt][i4] + b1r[nt][i4 & 1], slope) : 0.f;
+          }
         }
       }
+      bar_arrive(kBarFull + (i & 1), kWideThreads);
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][nt][i] += psum[j][nt][i];
-    nvs::cp_async_wait<0>();
-    __syncthreads();  // every warp is done with s.w2[tap & 1]
-    if (tap + 2 < 9) {
-      for (int e = tid; e < TAP; e += kWideThreads)
-        nvs::cp_async16(&s.w2[tap & 1][e], p2 + (tap + 2) * TAP + e);
-      nvs::cp_async_commit();
-    }
+    return;
   }
 
-  // 4. pool as in stem_kernel, the warp's channels through its own
-  // shared-memory transpose
-  float(*so)[kPoolW + 1] = s.u.out[warp];
-  const int c0 = nh * (C2 / 2);
+  // The consumers. conv2's weights stream through s.w2 a tap at a time,
+  // from tile to tile: the block's running tap count gt holds its weights
+  // in s.w2[gt & 1] and the tap after next in flight.
+  for (int e = tid; e < TAP / 4; e += kWideConsumers)
+    nvs::cp_async16(reinterpret_cast<float4*>(s.w2[0]) + e,
+                    reinterpret_cast<const float4*>(p2) + e);
+  nvs::cp_async_commit();
+  for (int e = tid; e < TAP / 4; e += kWideConsumers)
+    nvs::cp_async16(reinterpret_cast<float4*>(s.w2[1]) + e,
+                    reinterpret_cast<const float4*>(p2 + TAP) + e);
+  nvs::cp_async_commit();
+  nvs::cp_async_wait<1>();
+  fence_async_shared();
+  bar_sync(kBarConsumers, kWideConsumers);
+
+  // conv2 on the two warpgroups, 64 pixels by C2 channels each: warp w4 of
+  // warpgroup wg takes conv2 row pair rp, columns c8 .. c8 + 7; its row g
+  // is pixel (2 rp, c8 + g), its row g + 8 pixel (2 rp + 1, c8 + g), so
+  // that the vertical pool is in-thread. A k-step is 8 channels of one
+  // tap, A raw from conv1's tile and split where it is loaded.
+  const int wg = warp >> 2, w4 = warp & 3;
+  const int rp = 2 * wg + (w4 >> 1), c8 = 8 * (w4 & 1);
+  float acc[64], psum[64];
 #pragma unroll
-  for (int nt = 0; nt < NTW; ++nt)
+  for (int i = 0; i < 64; ++i) psum[i] = 0.f;
+  int gt = 0;
+  for (int tile = blockIdx.x, i = 0; tile < ntiles; tile += gridDim.x, ++i) {
+    const int b = tile / (nx * ny), ty = tile / nx % ny, tx = tile % nx;
+    const bool more = tile + gridDim.x < ntiles;
+    bar_sync(kBarFull + (i & 1), kWideThreads);
+    const float* y1 = s.u[i & 1].y1;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v = fmaxf(acc[0][nt][i], acc[1][nt][i]);
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-      if (!(g & 1)) {
-        const int cl = nt * 8 + 2 * t + (i & 1);
-        so[cl][(i >> 1) * 4 + g / 2] =
-            nvs::leaky(v + __ldg(b2 + c0 + cl), slope);
+    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap, ++gt) {
+      // the lane's row g at this tap: conv1 pixel pg; its row g + 8 is
+      // pg + kY1W, of the same parity
+      const int pg = (2 * rp + tap / 3) * kY1W + c8 + g + tap % 3;
+      const float* pa = y1 + pg * C1 + 4 * t;
+      const int par = pg & 1;
+      const float* wb = s.w2[gt & 1];
+      // the tensor cores truncate as they accumulate, so the error grows
+      // with the products a sum takes in: a tap's go into a sum of their
+      // own (scale_d 0 at its first product), which joins acc by a rounded
+      // add
+      fence_regs(psum);
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int kp = 0; kp < C1 / 16; ++kp) {
+        const float4 fa =
+            *reinterpret_cast<const float4*>(pa + (kp ^ par) * 16);
+        const float4 fb = *reinterpret_cast<const float4*>(
+            pa + kY1W * C1 + (kp ^ par) * 16);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          // k-step 2 kp + kk: column t is channel 16 kp + 8 kk + t, part
+          // 2 kk of the lane's float4; column t + 4 is part 2 kk + 1. Its A
+          // registers are those of the k-step before last, so that
+          // k-step's products must be done.
+          const int ks = 2 * kp + kk;
+          wgmma_wait<1>();
+          nvs::split_tf32(part(fa, 2 * kk), ah[kk][0], al[kk][0]);
+          nvs::split_tf32(part(fb, 2 * kk), ah[kk][1], al[kk][1]);
+          nvs::split_tf32(part(fa, 2 * kk + 1), ah[kk][2], al[kk][2]);
+          nvs::split_tf32(part(fb, 2 * kk + 1), ah[kk][3], al[kk][3]);
+          const uint64_t dh = wgmma_desc(wb + ks * KSTEP, LBO);
+          const uint64_t dl = wgmma_desc(wb + C1 * C2 + ks * KSTEP, LBO);
+          wgmma_fence();
+          wgmma_tf32_n128(psum, al[kk], dh, ks > 0);
+          wgmma_tf32_n128(psum, ah[kk], dl, 1);
+          wgmma_tf32_n128(psum, ah[kk], dh, 1);
+          wgmma_commit();
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(psum);
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[j] += psum[j];
+      nvs::cp_async_wait<0>();
+      fence_async_shared();
+      // every consumer is done with s.w2[gt & 1] (and, after the last
+      // tap, with the conv1 tile)
+      bar_sync(kBarConsumers, kWideConsumers);
+      if (tap + 2 < 9 || more) {  // the block's tap after next
+        const float4* src =
+            reinterpret_cast<const float4*>(p2 + (tap + 2) % 9 * TAP);
+        for (int e = tid; e < TAP / 4; e += kWideConsumers)
+          nvs::cp_async16(reinterpret_cast<float4*>(s.w2[gt & 1]) + e,
+                          src + e);
+        nvs::cp_async_commit();
       }
     }
-  __syncwarp();
-  const int H2 = H / 2, W2 = W / 2;
-  const int py = blockIdx.y * kPoolH + rp, px0 = blockIdx.x * kPoolW;
-  if (py < H2) {
-    for (int e = lane; e < C2 / 2 * kPoolW; e += 32) {
-      const int cl = e / kPoolW, c = e % kPoolW;
-      if (px0 + c < W2)
-        out[(((long long)b * C2 + c0 + cl) * H2 + py) * W2 + px0 + c] =
-            so[cl][c];
+
+    // pool: rows 2 rp, 2 rp + 1 in-thread, columns g, g + 1 from lane + 4;
+    // lanes of even g hold pooled column c8 / 2 + g / 2. Bias and
+    // activation after the max (both monotonic); the pooled tile through
+    // the conv1 buffer, so that a channel's row goes out as two 16-byte
+    // stores.
+    float* so = s.u[i & 1].out;
+#pragma unroll
+    for (int j = 0; j < C2 / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = fmaxf(acc[4 * j + h], acc[4 * j + 2 + h]);
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        if (!(g & 1)) {
+          const int ch = 8 * j + 2 * t + h;
+          so[(rp * C2 + ch) * OUT + c8 / 2 + g / 2] =
+              nvs::leaky(v + __ldg(b2 + ch), slope);
+        }
+      }
+    bar_sync(kBarConsumers, kWideConsumers);
+    const int py0 = ty * kPoolH, px0 = tx * kPoolW;
+    float* ob = out + (long long)b * C2 * H2 * W2;
+    if (W2 % 4 == 0) {  // px0 % 8 == 0: a float4 is wholly in or out
+      for (int e = tid; e < kPoolH * C2 * 2; e += kWideConsumers) {
+        const int q = e & 1, ch = (e >> 1) % C2, r = e / (2 * C2);
+        if (py0 + r < H2 && px0 + 4 * q < W2)
+          *reinterpret_cast<float4*>(ob + ((long long)ch * H2 + py0 + r) * W2
+                                     + px0 + 4 * q) =
+              *reinterpret_cast<const float4*>(so + (r * C2 + ch) * OUT
+                                               + 4 * q);
+      }
+    } else {
+      for (int e = tid; e < kPoolH * C2 * kPoolW; e += kWideConsumers) {
+        const int c = e % kPoolW, ch = e / kPoolW % C2, r = e / (kPoolW * C2);
+        if (py0 + r < H2 && px0 + c < W2)
+          ob[((long long)ch * H2 + py0 + r) * W2 + px0 + c] =
+              so[(r * C2 + ch) * OUT + c];
+      }
     }
+    // the producer waits for this buffer only if it has a tile for it
+    if (tile + 2 * gridDim.x < ntiles)
+      bar_arrive(kBarEmpty + (i & 1), kWideThreads);
   }
 }
 
-// scratch: at least (4*C1/8*32 + 9*C1/8*C2/8*32) float4, 16-byte aligned
+// scratch: at least (4*C1/8*32*4 + 2*9*C1*C2) floats, 16-byte aligned
 template <int C1, int C2>
 cudaError_t launch_wide(const float* x, const long long* sx, const float* w1,
                         const float* b1, const float* w2, const float* b2,
                         float* out, float* scratch, int B, int H, int W,
                         float slope, cudaStream_t stream) {
-  constexpr int N1 = 4 * (C1 / 8) * 32, N2 = 9 * (C1 / 8) * (C2 / 8) * 32;
+  constexpr int N1 = 4 * (C1 / 8) * 32, N2 = 9 * 2 * C1 * C2;
   constexpr int kSmem = sizeof(WideSmem<C1, C2>);
   if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16)
     return cudaErrorInvalidValue;
@@ -585,49 +797,49 @@ cudaError_t launch_wide(const float* x, const long long* sx, const float* w1,
   });
   if (err != cudaSuccess) return err;
   float4* p1 = reinterpret_cast<float4*>(scratch);
-  float4* p2 = p1 + N1;
+  float* p2 = scratch + 4 * N1;
   stem_pack_kernel<C1, C2><<<(N1 + N2 + 255) / 256, 256, 0, stream>>>(
       w1, w2, p1, p2);
   const cudaError_t perr = cudaGetLastError();
   if (perr != cudaSuccess) return perr;
-  const dim3 grid((W / 2 + kPoolW - 1) / kPoolW, (H / 2 + kPoolH - 1) / kPoolH,
-                  B);
-  stem_wide_kernel<C1, C2><<<grid, kWideThreads, kSmem, stream>>>(
-      x, sx[0], sx[1], sx[2], sx[3], p1, p2, b1, b2, out, H, W, slope);
+  // one block an SM (its shared memory), each walking over tiles
+  int dev = 0, sms = 0;
+  cudaError_t aerr = cudaGetDevice(&dev);
+  if (aerr == cudaSuccess)
+    aerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (aerr != cudaSuccess) return aerr;
+  const int tiles = (W / 2 + kPoolW - 1) / kPoolW *
+                    ((H / 2 + kPoolH - 1) / kPoolH) * B;
+  stem_wide_kernel<C1, C2><<<tiles < sms ? tiles : sms, kWideThreads, kSmem,
+                             stream>>>(x, sx[0], sx[1], sx[2], sx[3], p1, p2,
+                                       b1, b2, out, B, H, W, slope);
   return cudaGetLastError();
 }
 
 // ------------------------------------------- the bfloat16 instances
 
-// Tile geometry as above; the warps of a row pair share its C2 channels
-// kSplit ways (two at C2 = 128).
+// Tile geometry as above, a warp a conv2 row pair
 template <int C1, int C2>
 struct Bf16Cfg {
-  static constexpr int kSplit = C2 >= 64 ? 2 : 1;
-  static constexpr int kWarps = 4 * kSplit;
+  static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int KS = C1 / 16;  // conv2 k-steps a tap
   static constexpr int NT = C2 / 8;   // conv2 n-tiles
-  static constexpr int NTW = NT / kSplit;
   static constexpr int NT1 = C1 / 8;  // conv1 n-tiles
-  static constexpr int NT1W = NT1 / kSplit;
   static constexpr int kPix = C1 + 8;  // bf16 a conv1 pixel
   static constexpr int kW1 = 2 * NT1 * 32;       // conv1's B fragments
   static constexpr int kW2 = 9 * KS * NT * 32;   // conv2's
-  // the weights come from stem_pack_bf16_kernel's copy, and a block walks
-  // over several tiles
-  static constexpr bool kPacked = C1 >= 64;
 };
 
 template <int C1, int C2>
 struct Bf16Smem {
   using Cfg = Bf16Cfg<C1, C2>;
-  uint2 w2[Cfg::kW2];  // then w1: one run, as stem_pack_bf16_kernel packs
+  uint2 w2[Cfg::kW2];
   uint2 w1[Cfg::kW1];
   __nv_bfloat16 y1[kY1Pix * Cfg::kPix];  // conv1 tile, channel-last
   union {
     unsigned short x[kIn];  // input tile [ci][r][c], bf16 bits
-    float out[Cfg::kWarps][C2 / Cfg::kSplit][kPoolW + 1];
+    float out[Cfg::kWarps][C2][kPoolW + 1];
   } u;
 };
 
@@ -657,31 +869,17 @@ __device__ __forceinline__ uint2 w2_fragment(const float* w2, int e) {
                     nvs::pack_bf16(__ldg(wp + 8 * 9), __ldg(wp + 9 * 9)));
 }
 
-// conv2's fragments, then conv1's, in the order of Bf16Smem
-template <int C1, int C2>
-__global__ void stem_pack_bf16_kernel(const float* __restrict__ w1,
-                                      const float* __restrict__ w2,
-                                      uint2* __restrict__ p) {
-  using Cfg = Bf16Cfg<C1, C2>;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x;
-       e < Cfg::kW2 + Cfg::kW1; e += gridDim.x * blockDim.x)
-    p[e] = e < Cfg::kW2 ? w2_fragment<C1, C2>(w2, e)
-                        : w1_fragment<C1>(w1, e - Cfg::kW2);
-}
-
 template <int C1, int C2>
 __global__ void __launch_bounds__(Bf16Cfg<C1, C2>::kThreads)
 stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
                  long long sx_h, long long sx_w, long long sx_c,
                  const float* __restrict__ w1, const float* __restrict__ w2,
-                 const uint2* __restrict__ packed,
                  const float* __restrict__ b1, const float* __restrict__ b2,
                  __nv_bfloat16* __restrict__ out, int B, int H, int W,
                  float slope) {
   using Cfg = Bf16Cfg<C1, C2>;
-  static_assert(C1 % 16 == 0 && C2 % (8 * Cfg::kSplit) == 0, "widths");
-  constexpr int PIX = Cfg::kPix, KS = Cfg::KS, NT = Cfg::NT;
-  constexpr int NTW = Cfg::NTW, NT1 = Cfg::NT1, NT1W = Cfg::NT1W;
+  static_assert(C1 % 16 == 0 && C2 % 8 == 0, "widths");
+  constexpr int PIX = Cfg::kPix, KS = Cfg::KS, NT = Cfg::NT, NT1 = Cfg::NT1;
   constexpr int kT = Cfg::kThreads;
   extern __shared__ float4 smem_raw[];
   auto& s = *reinterpret_cast<Bf16Smem<C1, C2>*>(smem_raw);
@@ -689,17 +887,9 @@ stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
   const int g = lane >> 2, t = lane & 3;
 
   // the weights, once a block
-  if constexpr (Cfg::kPacked) {
-    constexpr int n16 = (Cfg::kW2 + Cfg::kW1) / 2;
-    const float4* src = reinterpret_cast<const float4*>(packed);
-    float4* dst = reinterpret_cast<float4*>(s.w2);
-    for (int e = tid; e < n16; e += kT) nvs::cp_async16(dst + e, src + e);
-    nvs::cp_async_commit();
-  } else {
-    for (int e = tid; e < Cfg::kW2; e += kT)
-      s.w2[e] = w2_fragment<C1, C2>(w2, e);
-    for (int e = tid; e < Cfg::kW1; e += kT) s.w1[e] = w1_fragment<C1>(w1, e);
-  }
+  for (int e = tid; e < Cfg::kW2; e += kT)
+    s.w2[e] = w2_fragment<C1, C2>(w2, e);
+  for (int e = tid; e < Cfg::kW1; e += kT) s.w1[e] = w1_fragment<C1>(w1, e);
   // the lane's conv1 k = 16 ks + 2t + (j & 1) + 8 (j >> 1) as offsets into
   // the input tile, -1 from 27
   int koff[2][4];
@@ -729,20 +919,18 @@ stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
                                                ci * sx_c])
                      : (unsigned short)0;
     }
-    if constexpr (Cfg::kPacked) nvs::cp_async_wait<0>();
     __syncthreads();
 
-    // 2. conv1: units of an m-tile of 16 ring-tile pixels and NT1W n-tiles
+    // 2. conv1: m-tiles of 16 ring-tile pixels
     constexpr int M1 = (kY1Pix + 15) / 16;
-    for (int u = warp; u < M1 * Cfg::kSplit; u += Cfg::kWarps) {
-      const int m = u / Cfg::kSplit, n0 = u % Cfg::kSplit * NT1W;
+    for (int m = warp; m < M1; m += Cfg::kWarps) {
       int poff[2];  // rows g and g + 8: their pixel's input offset
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int p = min(m * 16 + g + 8 * r, kY1Pix - 1);
         poff[r] = p / kY1W * kInW + p % kY1W;
       }
-      float acc[NT1W][4] = {};
+      float acc[NT1][4] = {};
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
         uint32_t a[4];  // row g + 8 (q & 1), k pair 2t + 8 (q >> 1)
@@ -754,8 +942,8 @@ stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
           a[q] = lo | hi << 16;
         }
 #pragma unroll
-        for (int nt = 0; nt < NT1W; ++nt) {
-          const uint2 f = s.w1[(ks * NT1 + n0 + nt) * 32 + lane];
+        for (int nt = 0; nt < NT1; ++nt) {
+          const uint2 f = s.w1[(ks * NT1 + nt) * 32 + lane];
           const uint32_t bw[2] = {f.x, f.y};
           nvs::mma_bf16(acc[nt], a, bw);
         }
@@ -769,8 +957,8 @@ stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
         const int gy = oy0 - 1 + p / kY1W, gx = ox0 - 1 + p % kY1W;
         const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
 #pragma unroll
-        for (int nt = 0; nt < NT1W; ++nt) {
-          const int ch = (n0 + nt) * 8 + 2 * t;
+        for (int nt = 0; nt < NT1; ++nt) {
+          const int ch = nt * 8 + 2 * t;
           const float v0 =
               in ? nvs::leaky(acc[nt][2 * h] + __ldg(b1 + ch), slope) : 0.f;
           const float v1 =
@@ -783,10 +971,10 @@ stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
     }
     __syncthreads();
 
-    // 3. conv2: rows 2 rp (j = 0) and 2 rp + 1 of the tile, n-tiles
-    // nh * NTW ..; a k-step is 16 channels of one tap
-    const int rp = warp & 3, nh = warp >> 2;
-    float acc[2][NTW][4] = {};
+    // 3. conv2: rows 2 rp (j = 0) and 2 rp + 1 of the tile; a k-step is 16
+    // channels of one tap
+    const int rp = warp;
+    float acc[2][NT][4] = {};
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3, kx = tap % 3;
 #pragma unroll
@@ -800,9 +988,8 @@ stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
                 s.y1 + ((2 * rp + j + ky) * kY1W + g + 8 * (q & 1) + kx) * PIX
                 + ks * 16 + 2 * t + 8 * (q >> 1));
 #pragma unroll
-        for (int nt = 0; nt < NTW; ++nt) {
-          const uint2 f = s.w2[((tap * KS + ks) * NT + nh * NTW + nt) * 32
-                               + lane];
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint2 f = s.w2[((tap * KS + ks) * NT + nt) * 32 + lane];
           const uint32_t bw[2] = {f.x, f.y};
 #pragma unroll
           for (int j = 0; j < 2; ++j) nvs::mma_bf16(acc[j][nt], a[j], bw);
@@ -813,70 +1000,352 @@ stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
     // 4. pool as in stem_kernel, then bias and activation in float32, one
     // rounding to bf16 as the pooled values go out
     float(*so)[kPoolW + 1] = s.u.out[warp];
-    const int c0 = nh * (C2 / Cfg::kSplit);
 #pragma unroll
-    for (int nt = 0; nt < NTW; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float v = fmaxf(acc[0][nt][i], acc[1][nt][i]);
         v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
         if (!(g & 1)) {
           const int cl = nt * 8 + 2 * t + (i & 1);
-          so[cl][(i >> 1) * 4 + g / 2] =
-              nvs::leaky(v + __ldg(b2 + c0 + cl), slope);
+          so[cl][(i >> 1) * 4 + g / 2] = nvs::leaky(v + __ldg(b2 + cl), slope);
         }
       }
     __syncwarp();
     const int py = ty * kPoolH + rp, px0 = tx * kPoolW;
     if (py < H2) {
-      for (int e = lane; e < C2 / Cfg::kSplit * kPoolW; e += 32) {
+      for (int e = lane; e < C2 * kPoolW; e += 32) {
         const int cl = e / kPoolW, c = e % kPoolW;
         if (px0 + c < W2)
-          out[(((long long)b * C2 + c0 + cl) * H2 + py) * W2 + px0 + c] =
+          out[(((long long)b * C2 + cl) * H2 + py) * W2 + px0 + c] =
               __float2bfloat16_rn(so[cl][c]);
       }
     }
   }
 }
 
-// scratch: the packed instances' fragments, (kW2 + kW1) uint2, 16-byte
-// aligned (unused, and may be null, for the others)
 template <int C1, int C2>
 cudaError_t launch_bf16(const __nv_bfloat16* x, const long long* sx,
                         const float* w1, const float* b1, const float* w2,
-                        const float* b2, __nv_bfloat16* out, void* scratch,
-                        int B, int H, int W, float slope,
-                        cudaStream_t stream) {
+                        const float* b2, __nv_bfloat16* out, int B, int H,
+                        int W, float slope, cudaStream_t stream) {
   using Cfg = Bf16Cfg<C1, C2>;
   constexpr int kSmem = sizeof(Bf16Smem<C1, C2>);
-  cudaError_t err = nvs::once_per_device([] {
+  const cudaError_t err = nvs::once_per_device([] {
     return cudaFuncSetAttribute(stem_bf16_kernel<C1, C2>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kSmem);
   });
   if (err != cudaSuccess) return err;
-  int grid = (W / 2 + kPoolW - 1) / kPoolW * ((H / 2 + kPoolH - 1) / kPoolH)
-             * B;
-  uint2* packed = nullptr;
-  if constexpr (Cfg::kPacked) {
-    if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16)
-      return cudaErrorInvalidValue;
-    packed = static_cast<uint2*>(scratch);
-    stem_pack_bf16_kernel<C1, C2>
-        <<<(Cfg::kW2 + Cfg::kW1 + 255) / 256, 256, 0, stream>>>(w1, w2,
-                                                                 packed);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    // one block an SM (its shared memory), each walking over tiles
-    int dev = 0, sms = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return err;
-    grid = grid < sms ? grid : sms;
-  }
+  const int grid = (W / 2 + kPoolW - 1) / kPoolW *
+                   ((H / 2 + kPoolH - 1) / kPoolH) * B;
   stem_bf16_kernel<C1, C2><<<grid, Cfg::kThreads, kSmem, stream>>>(
-      x, sx[0], sx[1], sx[2], sx[3], w1, w2, packed, b1, b2, out, B, H, W,
-      slope);
+      x, sx[0], sx[1], sx[2], sx[3], w1, w2, b1, b2, out, B, H, W, slope);
+  return cudaGetLastError();
+}
+
+// ----------------------------------- the bfloat16 wide instance (64, 128)
+
+// The roles of stem_bf16_wide_kernel: two consumer warpgroups (conv2,
+// pool, store) and two producer warpgroups, one for each conv1 buffer
+// (its tiles' input and conv1), at stem_wide_kernel's named barriers (the
+// producer of buffer p at kBarProducer + p).
+constexpr int kBwThreads = kWideConsumers + 2 * 128;
+
+template <int C1, int C2>
+struct Bf16WideSmem {
+  static constexpr int kW2 = 9 * C1 * C2;        // bf16, wgmma B operands
+  static constexpr int kW1 = 2 * (C1 / 8) * 32;  // uint2, conv1 fragments
+  static constexpr int kPix = C1 + 8;            // bf16 a conv1 pixel
+  __nv_bfloat16 w2[kW2];
+  uint2 w1[2][kW1];  // a copy for each producer
+  union alignas(16) Tile {
+    __nv_bfloat16 y1[kY1Pix * kPix];            // conv1 tile
+    __nv_bfloat16 out[kPoolH * C2 * kPoolW];  // then the pooled tile
+  } u[2];
+  unsigned short x[2][kIn];  // input tiles [ci][r][c], bf16 bits
+};
+
+// conv2's weights as wgmma B operands, a tap after another, then conv1's
+// fragments (w1_fragment): input channel 16 s + k of output channel n at
+// tap at bf16 (tap * C1/16 + s) * 16 * C2 + (k/8) * 8 * C2 + n*8 + k%8
+// (K-major core matrices, 16 * C2 bytes apart along K); rounded to bf16
+template <int C1, int C2>
+__global__ void stem_pack_bf16_kernel(const float* __restrict__ w1,
+                                      const float* __restrict__ w2,
+                                      uint32_t* __restrict__ p) {
+  constexpr int N2 = 9 * C1 * C2 / 2;  // bf16 pairs
+  constexpr int N1 = Bf16WideSmem<C1, C2>::kW1;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < N2 + N1;
+       e += gridDim.x * blockDim.x) {
+    if (e < N2) {
+      const int r = 2 * e % (C1 * C2), tap = 2 * e / (C1 * C2);
+      const int ci = r / (16 * C2) * 16 + r / (8 * C2) % 2 * 8 + r % 8;
+      const int n = r / 8 % C2;
+      const float* wp = w2 + (n * C1 + ci) * 9 + tap;
+      p[e] = nvs::pack_bf16(wp[0], wp[9]);
+    } else {
+      reinterpret_cast<uint2*>(p + N2)[e - N2] = w1_fragment<C1>(w1, e - N2);
+    }
+  }
+}
+
+template <int C1, int C2>
+__global__ void __launch_bounds__(kBwThreads, 1)
+stem_bf16_wide_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
+                      long long sx_h, long long sx_w, long long sx_c,
+                      const uint4* __restrict__ packed,
+                      const float* __restrict__ b1,
+                      const float* __restrict__ b2,
+                      __nv_bfloat16* __restrict__ out, int B, int H, int W,
+                      float slope) {
+  static_assert(C1 == 64 && C2 == 128, "the wgmma shapes are (64, 128)'s");
+  using Smem = Bf16WideSmem<C1, C2>;
+  constexpr int PIX = Smem::kPix, NT1 = C1 / 8, NT1W = NT1 / 2;
+  constexpr int KS = C1 / 16;  // conv2 k-steps a tap
+  constexpr int kFull = kWideConsumers + 128;  // threads at a buffer's barrier
+  extern __shared__ float4 smem_raw[];
+  auto& s = *reinterpret_cast<Smem*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  const int H2 = H / 2, W2 = W / 2;
+  const int nx = (W2 + kPoolW - 1) / kPoolW, ny = (H2 + kPoolH - 1) / kPoolH;
+  const int ntiles = nx * ny * B;
+  // block b's tiles are b, b + grid, b + 2 grid, ...: its i-th in buffer
+  // s.u[i & 1], from producer i & 1
+
+  if (tid >= kWideConsumers) {
+    // a producer: its tiles' input, zero outside the image; conv1 on
+    // mma.sync (a warp's unit: an m-tile of 16 ring-tile pixels and half
+    // the n-tiles), bias and activation in float32, zero outside the
+    // image, rounded to bf16 as conv2 reads it
+    const int pr = (tid - kWideConsumers) >> 7, pw = warp & 3;
+    const int ptid = tid & 127;
+    // conv1's fragments, once a block (each producer its own copy's
+    // share of them, behind its own barrier)
+    {
+      constexpr int n16 = Smem::kW1 * 8 / 16;
+      const uint4* src = packed + Smem::kW2 * 2 / 16;
+      for (int e = ptid; e < n16; e += 128)
+        nvs::cp_async16(reinterpret_cast<uint4*>(s.w1[pr]) + e, src + e);
+      nvs::cp_async_commit();
+      nvs::cp_async_wait<0>();
+    }
+    unsigned short* xs = s.x[pr];
+    __nv_bfloat16* y1 = s.u[pr].y1;
+    // the warp's units are m-tiles pw / 2, pw / 2 + 2, ... of n-tiles
+    // n0 .. n0 + NT1W - 1: their B fragments and biases stay in registers
+    constexpr int M1 = (kY1Pix + 15) / 16;
+    const int n0 = (pw & 1) * NT1W;
+    uint2 w1f[2][NT1W];
+    float b1r[NT1W][2];
+    bar_sync(kBarProducer + pr, 128);  // every share of s.w1[pr] is in
+#pragma unroll
+    for (int nt = 0; nt < NT1W; ++nt) {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        w1f[ks][nt] = s.w1[pr][(ks * NT1 + n0 + nt) * 32 + lane];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        b1r[nt][j] = __ldg(b1 + (n0 + nt) * 8 + 2 * t + j);
+    }
+    // the lane's conv1 k = 16 ks + 2t + (j & 1) + 8 (j >> 1) as offsets
+    // into the input tile, -1 from 27
+    int koff[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = ks * 16 + 2 * t + (j & 1) + 8 * (j >> 1);
+        koff[ks][j] =
+            k < kK1 ? k / 9 * kInH * kInW + k % 9 / 3 * kInW + k % 3 : -1;
+      }
+    for (int tile = blockIdx.x + pr * gridDim.x, i = pr; tile < ntiles;
+         tile += 2 * gridDim.x, i += 2) {
+      const int b = tile / (nx * ny), ty = tile / nx % ny, tx = tile % nx;
+      const int oy0 = ty * kTileH, ox0 = tx * kTileW;
+      const __nv_bfloat16* xb = x + (long long)b * sx_b;
+      bar_sync(kBarProducer + pr, 128);  // its warps are done with xs
+      for (int e = ptid; e < kIn; e += 128) {
+        const int ci = e / (kInH * kInW), r = e / kInW % kInH, c = e % kInW;
+        const int gy = oy0 - 2 + r, gx = ox0 - 2 + c;
+        xs[e] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                    ? __bfloat16_as_ushort(xb[gy * sx_h + gx * sx_w +
+                                              ci * sx_c])
+                    : (unsigned short)0;
+      }
+      bar_sync(kBarProducer + pr, 128);
+      if (i >= 2) bar_sync(kBarEmpty + pr, kFull);
+      for (int m = pw >> 1; m < M1; m += 2) {
+        int poff[2];  // rows g and g + 8: their pixel's input offset
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int p = min(m * 16 + g + 8 * r, kY1Pix - 1);
+          poff[r] = p / kY1W * kInW + p % kY1W;
+        }
+        float acc[NT1W][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t a[4];  // row g + 8 (q & 1), k pair 2t + 8 (q >> 1)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int k0 = koff[ks][2 * (q >> 1)];
+            const int k1 = koff[ks][2 * (q >> 1) + 1];
+            const uint32_t lo = k0 >= 0 ? xs[k0 + poff[q & 1]] : 0u;
+            const uint32_t hi = k1 >= 0 ? xs[k1 + poff[q & 1]] : 0u;
+            a[q] = lo | hi << 16;
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT1W; ++nt) {
+            const uint32_t bw[2] = {w1f[ks][nt].x, w1f[ks][nt].y};
+            nvs::mma_bf16(acc[nt], a, bw);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = m * 16 + g + 8 * h;
+          if (p >= kY1Pix) continue;
+          const int gy = oy0 - 1 + p / kY1W, gx = ox0 - 1 + p % kY1W;
+          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+          for (int nt = 0; nt < NT1W; ++nt) {
+            const int ch = (n0 + nt) * 8 + 2 * t;
+            const float v0 =
+                in ? nvs::leaky(acc[nt][2 * h] + b1r[nt][0], slope) : 0.f;
+            const float v1 =
+                in ? nvs::leaky(acc[nt][2 * h + 1] + b1r[nt][1], slope) : 0.f;
+            *reinterpret_cast<uint32_t*>(y1 + p * PIX + ch) =
+                nvs::pack_bf16(v0, v1);
+          }
+        }
+      }
+      bar_arrive(kBarFull + pr, kFull);
+    }
+    return;
+  }
+
+  // The consumers: conv2 on wgmma, one chain of float32 sums over the 9
+  // taps x C1 channels. Warp w4 of warpgroup wg takes row pair rp, columns
+  // c8 .. c8 + 7 (rows g and g + 8 of its 16: conv2 rows 2 rp, 2 rp + 1);
+  // a k-step is 16 channels of one tap, its A registers those of the
+  // k-step before last.
+  const int rp = 2 * (warp >> 2) + ((warp & 3) >> 1), c8 = 8 * (warp & 1);
+  const uint64_t desc0 = wgmma_desc(s.w2, 8 * C2 * 2);
+  // conv2's weights, once a block, while the producers start
+  for (int e = tid; e < Smem::kW2 * 2 / 16; e += kWideConsumers)
+    nvs::cp_async16(reinterpret_cast<uint4*>(s.w2) + e, packed + e);
+  nvs::cp_async_commit();
+  nvs::cp_async_wait<0>();
+  fence_async_shared();
+  bar_sync(kBarConsumers, kWideConsumers);
+  for (int tile = blockIdx.x, i = 0; tile < ntiles; tile += gridDim.x, ++i) {
+    const int b = tile / (nx * ny), ty = tile / nx % ny, tx = tile % nx;
+    auto& u = s.u[i & 1];
+    bar_sync(kBarFull + (i & 1), kFull);
+    float acc[64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+    fence_regs(acc);
+    const __nv_bfloat16* pa0 = u.y1 + (2 * rp * kY1W + c8 + g) * PIX + 2 * t;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const __nv_bfloat16* pa = pa0 + (tap / 3 * kY1W + tap % 3) * PIX;
+      uint32_t a[2][4];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int buf = ks & 1;
+        wgmma_wait<1>();
+        a[buf][0] = *reinterpret_cast<const uint32_t*>(pa + 16 * ks);
+        a[buf][1] =
+            *reinterpret_cast<const uint32_t*>(pa + kY1W * PIX + 16 * ks);
+        a[buf][2] = *reinterpret_cast<const uint32_t*>(pa + 16 * ks + 8);
+        a[buf][3] =
+            *reinterpret_cast<const uint32_t*>(pa + kY1W * PIX + 16 * ks + 8);
+        wgmma_fence();
+        // a k-step's B is 16 * C2 * 2 bytes (>> 4 in the descriptor)
+        wgmma_bf16_n128(acc, a[buf], desc0 + (tap * KS + ks) * 2 * C2, 1);
+        wgmma_commit();
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    bar_sync(kBarConsumers, kWideConsumers);  // every consumer is done with
+                                              // u.y1
+
+    // pool as in stem_wide_kernel, then bias and activation in float32,
+    // one rounding to bf16; a channel's row of 8 pooled columns goes out
+    // as one 16-byte store
+#pragma unroll
+    for (int j = 0; j < C2 / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = fmaxf(acc[4 * j + h], acc[4 * j + 2 + h]);
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        if (!(g & 1)) {
+          const int ch = 8 * j + 2 * t + h;
+          u.out[(rp * C2 + ch) * kPoolW + c8 / 2 + g / 2] =
+              __float2bfloat16_rn(nvs::leaky(v + __ldg(b2 + ch), slope));
+        }
+      }
+    bar_sync(kBarConsumers, kWideConsumers);
+    const int py0 = ty * kPoolH, px0 = tx * kPoolW;
+    __nv_bfloat16* ob = out + (long long)b * C2 * H2 * W2;
+    if (W2 % 8 == 0) {  // px0 % 8 == 0: a row is wholly in or out
+      for (int e = tid; e < kPoolH * C2; e += kWideConsumers) {
+        const int ch = e % C2, r = e / C2;
+        if (py0 + r < H2 && px0 < W2)
+          *reinterpret_cast<uint4*>(ob + ((long long)ch * H2 + py0 + r) * W2
+                                    + px0) =
+              *reinterpret_cast<const uint4*>(u.out + e * kPoolW);
+      }
+    } else {
+      for (int e = tid; e < kPoolH * C2 * kPoolW; e += kWideConsumers) {
+        const int c = e % kPoolW, ch = e / kPoolW % C2, r = e / (kPoolW * C2);
+        if (py0 + r < H2 && px0 + c < W2)
+          ob[((long long)ch * H2 + py0 + r) * W2 + px0 + c] = u.out[e];
+      }
+    }
+    // the producer waits for this buffer only if it has a tile for it
+    if (tile + 2 * gridDim.x < ntiles)
+      bar_arrive(kBarEmpty + (i & 1), kFull);
+  }
+}
+
+// scratch: (9*C1*C2/2 + 2*kW1) 32-bit words, 16-byte aligned
+template <int C1, int C2>
+cudaError_t launch_bf16_wide(const __nv_bfloat16* x, const long long* sx,
+                             const float* w1, const float* b1,
+                             const float* w2, const float* b2,
+                             __nv_bfloat16* out, void* scratch, int B, int H,
+                             int W, float slope, cudaStream_t stream) {
+  using Smem = Bf16WideSmem<C1, C2>;
+  constexpr int kSmem = sizeof(Smem);
+  constexpr int N = 9 * C1 * C2 / 2 + Smem::kW1;
+  if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16)
+    return cudaErrorInvalidValue;
+  cudaError_t err = nvs::once_per_device([] {
+    return cudaFuncSetAttribute(stem_bf16_wide_kernel<C1, C2>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmem);
+  });
+  if (err != cudaSuccess) return err;
+  uint32_t* packed = static_cast<uint32_t*>(scratch);
+  stem_pack_bf16_kernel<C1, C2><<<(N + 255) / 256, 256, 0, stream>>>(
+      w1, w2, packed);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // one block an SM (its shared memory), each walking over tiles
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int tiles = (W / 2 + kPoolW - 1) / kPoolW *
+                    ((H / 2 + kPoolH - 1) / kPoolH) * B;
+  stem_bf16_wide_kernel<C1, C2><<<tiles < sms ? tiles : sms, kBwThreads,
+                                  kSmem, stream>>>(
+      x, sx[0], sx[1], sx[2], sx[3], reinterpret_cast<const uint4*>(packed),
+      b1, b2, out, B, H, W, slope);
   return cudaGetLastError();
 }
 
@@ -887,8 +1356,9 @@ cudaError_t launch_bf16(const __nv_bfloat16* x, const long long* sx,
 // floor for an odd H or W (the pool's last row and column pair are conv2's
 // rows H-3, H-2 and columns W-3, W-2; conv2's SAME padding reads conv1 up
 // to row H-1, which the tile bounds-checks against the full H, W);
-// scratch: the wide instance's split weights, 2*9*C1*C2 + 64*C1 floats,
-// 16-byte aligned (unused, and may be null, for the narrow ones).
+// scratch: the wide instance's weights as stem_pack_kernel writes them,
+// 2*9*C1*C2 + 64*C1 floats, 16-byte aligned (unused, and may be null, for
+// the narrow ones).
 extern "C" int nvs_stem_pair_pool(const float* x, const long long* sx,
                                   const float* w1, const float* b1,
                                   const float* w2, const float* b2,
@@ -896,7 +1366,10 @@ extern "C" int nvs_stem_pair_pool(const float* x, const long long* sx,
                                   int W, int C1, int C2, float slope,
                                   cudaStream_t stream) {
   if (H < 2 || W < 2 || B < 1 || B > 65535 ||
-      (H / 2 + kPoolH - 1) / kPoolH > 65535)
+      (H / 2 + kPoolH - 1) / kPoolH > 65535 ||
+      (long long)((W / 2 + kPoolW - 1) / kPoolW) *
+              ((H / 2 + kPoolH - 1) / kPoolH) * B >
+          0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (C1 == 16 && C2 == 24)
     return (int)launch<16, 24>(x, sx, w1, b1, w2, b2, out, B, H, W, slope,
@@ -913,7 +1386,8 @@ extern "C" int nvs_stem_pair_pool(const float* x, const long long* sx,
 // The bfloat16 instances: x (B,H,W,3) bf16 with element strides [b, h, w,
 // c]; the weights and biases float32 as above (the weights rounded to bf16
 // in the kernel); out contiguous NCHW (B,C2,H/2,W/2) bf16; scratch: for
-// (64, 128), 9*C1*C2/2 + 16*C1 floats, 16-byte aligned.
+// (64, 128), the weights as stem_pack_bf16_kernel writes them, 9*C1*C2/2
+// + 16*C1 floats, 16-byte aligned.
 extern "C" int nvs_stem_pair_pool_bf16(const __nv_bfloat16* x,
                                        const long long* sx, const float* w1,
                                        const float* b1, const float* w2,
@@ -927,13 +1401,13 @@ extern "C" int nvs_stem_pair_pool_bf16(const __nv_bfloat16* x,
           0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (C1 == 16 && C2 == 24)
-    return (int)launch_bf16<16, 24>(x, sx, w1, b1, w2, b2, out, scratch, B,
-                                    H, W, slope, stream);
+    return (int)launch_bf16<16, 24>(x, sx, w1, b1, w2, b2, out, B, H, W,
+                                    slope, stream);
   if (C1 == 16 && C2 == 32)
-    return (int)launch_bf16<16, 32>(x, sx, w1, b1, w2, b2, out, scratch, B,
-                                    H, W, slope, stream);
+    return (int)launch_bf16<16, 32>(x, sx, w1, b1, w2, b2, out, B, H, W,
+                                    slope, stream);
   if (C1 == 64 && C2 == 128)
-    return (int)launch_bf16<64, 128>(x, sx, w1, b1, w2, b2, out, scratch, B,
-                                     H, W, slope, stream);
+    return (int)launch_bf16_wide<64, 128>(x, sx, w1, b1, w2, b2, out,
+                                          scratch, B, H, W, slope, stream);
   return (int)cudaErrorInvalidValue;
 }

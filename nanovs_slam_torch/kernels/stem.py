@@ -25,7 +25,9 @@ _ARGTYPES = [_P, _S] + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]
 # (C1, C2) pairs the kernel is instantiated for: configs N (16, 24), S/F
 # (16, 32) and D (64, 128)
 SUPPORTED = ((16, 24), (16, 32), (64, 128))
-# the instances that read the weights from a packed copy in scratch
+# the instances that read conv2's weights from a copy that a kernel of
+# their own packs into scratch at each call, in the layout of Hopper's
+# warpgroup products (wgmma)
 _WIDE = ((64, 128),)
 
 
@@ -84,8 +86,8 @@ def fused_stem_pair_pool(x: torch.Tensor, w1: torch.Tensor,
     bf16 = x.dtype == torch.bfloat16
     out = torch.empty((B, C2, H // 2, W // 2), device=dev, dtype=x.dtype)
     scratch = None
-    if (C1, C2) in _WIDE:  # the weights packed as fragments: bf16, or
-        # float32 split into TF32 hi and lo
+    if (C1, C2) in _WIDE:  # conv2's weights in bf16, or float32 split into
+        # TF32 hi and lo; conv1's as mma.sync fragments
         n = 9 * C1 * C2 // 2 + 16 * C1 if bf16 else 2 * 9 * C1 * C2 + 64 * C1
         scratch = torch.empty(n, device=dev, dtype=torch.float32)
     fn = _build.bind("nvs_stem_pair_pool_bf16" if bf16

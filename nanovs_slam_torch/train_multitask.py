@@ -261,7 +261,7 @@ def main(argv=None):
             args.model_path, state,
             "seg_last" if args.ignore_seg_head else None)
         print(f"Restored model from {args.model_path} "
-              f"(epoch {meta.get('epoch')}, step {state.step})")
+              f"(epoch {meta.get('epoch')})")
 
     step_fn = make_train_step(cfg, H, W, train_flags=train_flags,
                               io_top_k=args.top_k,

@@ -11,9 +11,9 @@ the pinned files without importing JAX.
 ``io_params`` and ``io_batch_stats`` in flax layout
 (``utils/convert.to_jax_variables``), and the port's optimizer state under
 keys of its own (``torch_optimizer/<parameter>/<slot>``, its param groups
-and step count in the meta), so that ``--model_path`` resumes.
-``filter_params`` is the JAX package's partial-restore filter (its
-``seg_last`` mode, which ``--ignore_seg_head`` uses).
+and step count in the meta); the JAX trainer ignores them on read, and so
+does ``restore_train_state``. ``filter_params`` is the JAX package's
+partial-restore filter.
 """
 
 from __future__ import annotations
@@ -86,14 +86,17 @@ def save_checkpoint(path: str, state, config: Optional[Dict] = None,
 
 
 def filter_params(params: Dict, mode: Optional[str] = None) -> Dict:
-    """Partial-restore filtering: mode 'seg_last' drops the seg head's
-    final class conv (for class-count changes), as the JAX package's
-    ``filter_params``."""
+    """Partial-restore filtering, as the JAX package's ``filter_params``:
+    mode 'seg' drops the whole seg head, 'vlad' the vlad head, 'seg_last'
+    only the seg head's final class conv (for class-count changes)."""
     if mode is None:
+        return params
+    params = dict(params)
+    if mode in ("seg", "vlad"):
+        params.pop(f"{mode}_head", None)
         return params
     if mode != "seg_last":
         raise NotImplementedError(mode)
-    params = dict(params)
     if "seg_head" in params:
         seg = dict(params["seg_head"])
         for k in ("convs_8", "convs_7"):
@@ -107,34 +110,15 @@ def filter_params(params: Dict, mode: Optional[str] = None) -> Dict:
 def restore_train_state(path: str, state, mode: Optional[str] = None
                         ) -> Dict:
     """Load a checkpoint (``save_checkpoint``'s, or any ``.npz`` with
-    flax ``params``) into a ``TrainState`` in place: the params filtered
-    by ``mode`` (``filter_params``) and the BN statistics overlaid on the
-    model, the inlier net's where both have one, and the optimizer state
-    and step count where the file has them for the same parameters and
-    ``mode`` is None. Returns the meta."""
-    import torch
-
+    flax ``params``) into a fresh ``TrainState`` in place, as the JAX
+    trainer does (``train_multitask.py``): the params filtered by ``mode``
+    (``filter_params``) and the BN statistics overlaid on the model, whose
+    keys absent from the file keep their init. The inlier net, the
+    optimizer and the step count stay as the fresh state has them, so the
+    learning-rate schedule starts again from step 0. Returns the meta."""
     from .convert import merge_jax_variables
 
     tree, meta = load_npz_checkpoint(path)
     merge_jax_variables(state.model, filter_params(tree["params"], mode),
                         tree.get("batch_stats", {}))
-    if state.io_net is not None and "io_params" in tree:
-        merge_jax_variables(state.io_net, tree["io_params"],
-                            tree.get("io_batch_stats", {}), dense=True)
-    opt_meta = meta.get("optimizer")
-    if mode is None and OPT_KEY in tree and opt_meta is not None:
-        index = {n: i for i, n in enumerate(state.param_names)}
-        groups = opt_meta["group_params"]
-        if sorted(n for g in groups for n in g) == sorted(index):
-            dev = next(state.model.parameters()).device
-            slots = tree[OPT_KEY]
-            sd = {"state": {index[n]: {k: torch.from_numpy(v).to(dev)
-                                       for k, v in slots[n].items()}
-                            for n in slots},
-                  "param_groups": [dict(g, params=[index[n] for n in names])
-                                   for g, names in
-                                   zip(opt_meta["param_groups"], groups)]}
-            state.optimizer.load_state_dict(sd)
-            state.step = int(meta.get("step", 0))
     return meta

@@ -283,14 +283,16 @@ def test_postprocess_kernel_matches_plain(cuda, B, H, W, C):
     (2, 250, 334, 24, 0.01), (2, 250, 334, 32, 0.0), (1, 96, 128, 32, 0.01),
     (1, 240, 320, 24, 0.0), (2, 48, 64, 128, 0.01), (1, 250, 334, 128, 0.0),
     (2, 241, 321, 24, 0.01), (1, 241, 321, 32, 0.01), (1, 241, 321, 128, 0.01),
-    (1, 49, 64, 24, 0.01), (1, 48, 65, 128, 0.0)])
+    (1, 49, 64, 24, 0.01), (1, 48, 65, 128, 0.0), (1, 240, 320, 128, 0.01),
+    (8, 240, 320, 128, 0.01), (3, 240, 320, 128, 0.0)])
 def test_stem_kernel_matches_plain(cuda, B, H, W, c2, slope):
     """The N slice at B 1 and 8, the S widths, a ragged size whose pooled
     grid (125x167) fills no tile, the weights phase's 96x128, the ReLU
-    (slope 0) of the MCU configs, config D's (64, 128) at a small size
-    and a ragged one, and odd frame sizes (floor pooling) at all three
-    widths, for NHWC memory and the NHWC view of NCHW memory that the
-    model passes."""
+    (slope 0) of the MCU configs, config D's (64, 128) at a small size, a
+    ragged one, the D cell's 240x320 at B 1 and 8 and at B 3 (1,800 tiles:
+    the persistent blocks' last round part full), and odd frame sizes
+    (floor pooling) at all three widths, for NHWC memory and the NHWC view
+    of NCHW memory that the model passes."""
     c1 = 64 if c2 == 128 else 16
     x, w1, b1, w2, b2 = _stem_inputs(B, H, W, c1, c2)
     args = [_oihw(w1), torch.from_numpy(b1), _oihw(w2), torch.from_numpy(b2)]
@@ -341,13 +343,16 @@ def _bf16_ulps(got, want):
 @pytest.mark.parametrize("B,H,W,c2,slope", [
     (1, 240, 320, 24, 0.01), (8, 240, 320, 24, 0.01), (2, 240, 320, 32, 0.01),
     (1, 240, 320, 128, 0.01), (2, 250, 334, 128, 0.0), (2, 241, 321, 24, 0.01),
-    (1, 49, 65, 32, 0.0), (1, 128, 512, 32, 0.01)])
+    (1, 49, 65, 32, 0.0), (1, 128, 512, 32, 0.01), (8, 240, 320, 128, 0.01),
+    (3, 240, 320, 128, 0.01), (1, 33, 47, 128, 0.01)])
 def test_stem_bf16_kernel_matches_plain(cuda, B, H, W, c2, slope):
-    """The bfloat16 instances at the N slice's B 1 and 8, S and D widths,
-    ragged and odd sizes, the ReLU and the VO frames' 128x512, for NHWC
-    memory and the NHWC view of NCHW memory: within one bfloat16 ulp of
-    the output of the twin (the sums' order can move a rounding of conv1's
-    activation or of the output by one)."""
+    """The bfloat16 instances at the N slice's B 1 and 8, S and D widths
+    (D at B 1, 8 and 3: the persistent blocks' last round part full),
+    ragged and odd sizes (33x47: fewer tiles than the card has SMs), the
+    ReLU and the VO frames' 128x512, for NHWC memory and the NHWC view of
+    NCHW memory: within one bfloat16 ulp of the output of the twin (the
+    sums' order can move a rounding of conv1's activation or of the output
+    by one)."""
     c1 = 64 if c2 == 128 else 16
     x, w1, b1, w2, b2 = _stem_inputs(B, H, W, c1, c2)
     args = [_oihw(w1), torch.from_numpy(b1), _oihw(w2), torch.from_numpy(b2)]
@@ -365,6 +370,21 @@ def test_stem_bf16_kernel_matches_plain(cuda, B, H, W, c2, slope):
                                                          before[1] + 1)
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         assert _bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_wide_kernel_is_deterministic(cuda, dtype):
+    """Config D's (64, 128) instances at the D cell's 240x320, B 8: two
+    launches on the same inputs give the same bits (no atomics, fixed sum
+    orders, whichever block takes a tile)."""
+    x, w1, b1, w2, b2 = _stem_inputs(8, 240, 320, 64, 128, seed=5)
+    args = [a.to(cuda) for a in (_oihw(w1), torch.from_numpy(b1),
+                                 _oihw(w2), torch.from_numpy(b2))]
+    x = torch.from_numpy(x).to(cuda).to(dtype)
+    first = fused_stem_pair_pool(x, *args)
+    second = fused_stem_pair_pool(x, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("B,H,W,C", [

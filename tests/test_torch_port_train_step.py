@@ -4,8 +4,10 @@ NetVLAD centroids, its inlier net), 48x64, batch 2, Adam at 5e-4, the
 same batch, with channel dropout patched to the identity on both sides
 (their random streams differ; the port's dropout is held by
 ``test_torch_port_train_losses.py``). Plus a
-checkpoint round trip through the JAX ``load_checkpoint``, the CLI's
-refusal of the flags whose modules wait in ROADMAP.md, and
+checkpoint round trip through the JAX ``load_checkpoint``, a resumed
+run's first step against the JAX trainer's (``restore_train_state``
+against ``filter_params`` + ``merge_params`` into a fresh state), the
+CLI's refusal of the flags whose modules wait in ROADMAP.md, and
 freeze_backbone."""
 
 import os
@@ -32,23 +34,30 @@ from nanovs_slam_tpu.train.train_step import \
 from nanovs_slam_tpu.train.train_step import \
     make_train_step as jax_make_train_step
 from nanovs_slam_tpu.utils.checkpoint import \
+    filter_params as jax_filter_params
+from nanovs_slam_tpu.utils.checkpoint import \
     load_checkpoint as jax_load_checkpoint
+from nanovs_slam_tpu.utils.checkpoint import merge_params as jax_merge_params
 from nanovs_slam_torch.configs import get_config
 from nanovs_slam_torch.data.datasets import SyntheticShapesDataset
-from nanovs_slam_torch.models.inlier_net import InlierNet
-from nanovs_slam_torch.models.kp2dtiny import build_model
+from nanovs_slam_torch.models.inlier_net import InlierNet, init_inlier_net
+from nanovs_slam_torch.models.kp2dtiny import build_model, init_model
 from nanovs_slam_torch.train.schedules import DEFAULT_LOSS_WEIGHTS
 from nanovs_slam_torch.train.train_step import (create_train_state,
                                                 make_optimizer,
                                                 make_train_step)
-from nanovs_slam_torch.utils.checkpoint import (load_npz_checkpoint,
+from nanovs_slam_torch.utils.checkpoint import (filter_params,
+                                                load_npz_checkpoint,
+                                                restore_train_state,
                                                 save_checkpoint)
-from nanovs_slam_torch.utils.convert import (convert_variables,
+from nanovs_slam_torch.utils.convert import (_flatten, convert_variables,
                                              load_jax_inlier_net,
                                              load_jax_variables,
+                                             merge_jax_variables,
                                              to_jax_variables)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PINNED = os.path.join(REPO, "pinned", "extractor_S8.npz")
 H, W, B, LR = 48, 64, 2, 5e-4
 
 
@@ -83,10 +92,71 @@ def _max_diff(a, b):
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
 
 
+@pytest.fixture
+def no_dropout():
+    """Channel dropout as the identity on both sides: their random streams
+    differ."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax_blocks.Dropout2d, "__call__",
+               lambda self, x, train=False: x)
+    mp.setattr(port_blocks.Dropout2d, "forward", lambda self, x: x)
+    yield
+    mp.undo()
+
+
 @pytest.fixture(scope="module")
-def one_step():
-    tree, _ = load_npz_checkpoint(os.path.join(REPO, "pinned",
-                                               "extractor_S8.npz"))
+def jax_step():
+    """The JAX ``make_train_step`` of config S at 48x64 (one jit for the
+    file's steps) and its Adam."""
+    jcfg = jax_get_config("S", n_classes=8)
+    step = jax_make_train_step(jax_build_model(jcfg), jcfg, H, W,
+                               io_net=JaxInlierNet(blocks=4), donate=False)
+    return step, jax_make_optimizer("adam", LR)
+
+
+def _jax_step(jax_step, params, batch_stats, io_params, io_batch_stats,
+              batch):
+    """One JAX step from step 0 and a fresh Adam over the given variables
+    -> (metrics, the updated variables as numpy trees)."""
+    step, tx = jax_step
+    state = JaxTrainState(
+        step=jnp.int32(0), params=params, batch_stats=batch_stats,
+        io_params=io_params, io_batch_stats=io_batch_stats,
+        opt_state=tx.init({"model": params, "io": io_params}), tx=tx)
+    jstate, jmet = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
+                        JAX_WEIGHTS, jax.random.PRNGKey(0))
+    return ({k: float(v) for k, v in jmet.items()},
+            {k: jax.tree_util.tree_map(np.asarray, getattr(jstate, k))
+             for k in ("params", "batch_stats", "io_params",
+                       "io_batch_stats")})
+
+
+def _port_step(pstate, batch):
+    tbatch = {k: torch.tensor(v) for k, v in batch.items()}
+    for k in ("seg", "seg_aug"):
+        tbatch[k] = tbatch[k].long()
+    return make_train_step(get_config("S", n_classes=8), H, W)(
+        pstate, tbatch, DEFAULT_LOSS_WEIGHTS)
+
+
+def _assert_params_match(pstate, want):
+    """The model's and the inlier net's parameters after the Adam step
+    against the JAX step's: 1e-5 where the raw gradient is at least 1e-6,
+    2 lr everywhere (see test_train_step_updated_params_match_jax)."""
+    for net, tree, dense in ((pstate.model, want["params"], False),
+                             (pstate.io_net, want["io_params"], True)):
+        ref = convert_variables(tree, {}, dense)
+        for k, p in net.named_parameters():
+            d = (p.detach() - ref[k]).abs()
+            live = p.grad.abs() >= 1e-6
+            if live.any():
+                assert d[live].max().item() <= 1e-5, k
+            assert d.max().item() <= 2 * LR, k
+
+
+@pytest.fixture(scope="module")
+def one_step(jax_step):
+    tree, _ = load_npz_checkpoint(PINNED)
     # the pinned centroids separate two images by far more than the VPR
     # loss's 0.1 margin (a zero loss, no gradient); seeded uniform [0, 1)
     # centroids (the initialiser's) put the NetVLAD backward on the step
@@ -99,25 +169,10 @@ def one_step():
                lambda self, x, train=False: x)
     mp.setattr(port_blocks.Dropout2d, "forward", lambda self, x: x)
     try:
-        jcfg = jax_get_config("S", n_classes=8)
-        tx = jax_make_optimizer("adam", LR)
-        trainable = {"model": tree["params"], "io": tree["io_params"]}
-        state = JaxTrainState(
-            step=jnp.int32(0), params=tree["params"],
-            batch_stats=tree["batch_stats"], io_params=tree["io_params"],
-            io_batch_stats=tree["io_batch_stats"],
-            opt_state=tx.init(trainable), tx=tx)
-        jstep = jax_make_train_step(jax_build_model(jcfg), jcfg, H, W,
-                                    io_net=JaxInlierNet(blocks=4),
-                                    donate=False)
-        jstate, jmet = jstep(state, {k: jnp.asarray(v)
-                                     for k, v in batch.items()},
-                             JAX_WEIGHTS, jax.random.PRNGKey(0))
-        want = {"metrics": {k: float(v) for k, v in jmet.items()},
-                **{k: jax.tree_util.tree_map(np.asarray, getattr(jstate, k))
-                   for k in ("params", "batch_stats", "io_params",
-                             "io_batch_stats")}}
-
+        jmet, want = _jax_step(jax_step, tree["params"], tree["batch_stats"],
+                               tree["io_params"], tree["io_batch_stats"],
+                               batch)
+        want["metrics"] = jmet
         cfg = get_config("S", n_classes=8)
         model = load_jax_variables(build_model(cfg), tree["params"],
                                    tree["batch_stats"])
@@ -125,11 +180,7 @@ def one_step():
                                  tree["io_batch_stats"])
         pstate = create_train_state(model, make_optimizer("adam", LR),
                                     io_net=io)
-        tbatch = {k: torch.tensor(v) for k, v in batch.items()}
-        for k in ("seg", "seg_aug"):
-            tbatch[k] = tbatch[k].long()
-        pstate, pmet = make_train_step(cfg, H, W)(pstate, tbatch,
-                                                  DEFAULT_LOSS_WEIGHTS)
+        pstate, pmet = _port_step(pstate, batch)
     finally:
         mp.undo()
     got = {"metrics": {k: float(v) for k, v in pmet.items()}}
@@ -170,16 +221,8 @@ def test_train_step_updated_params_match_jax(one_step):
     6.2e-4) and 710 of the inlier net's block biases, whose true gradient
     is 0 (an instance norm follows them) and whose computed one is ~1e-9
     noise."""
-    want, _, pstate = one_step
-    for net, tree, dense in ((pstate.model, want["params"], False),
-                             (pstate.io_net, want["io_params"], True)):
-        ref = convert_variables(tree, {}, dense)
-        for k, p in net.named_parameters():
-            d = (p.detach() - ref[k]).abs()
-            live = p.grad.abs() >= 1e-6
-            if live.any():
-                assert d[live].max().item() <= 1e-5, k
-            assert d.max().item() <= 2 * LR, k
+    _, _, pstate = one_step
+    _assert_params_match(pstate, one_step[0])
 
 
 def test_train_step_bn_statistics_match_jax(one_step):
@@ -188,6 +231,67 @@ def test_train_step_bn_statistics_match_jax(one_step):
     want, got, _ = one_step
     assert _max_diff(got["batch_stats"], want["batch_stats"]) <= 1e-5
     assert _max_diff(got["io_batch_stats"], want["io_batch_stats"]) <= 1e-5
+
+
+def test_resume_takes_the_jax_trainers_first_step(jax_step, no_dropout):
+    """``--model_path pinned/extractor_S8.npz``: the port's fresh train
+    state (weights from seed 0, the inlier net from seed + 2) restored by
+    ``restore_train_state`` against the JAX trainer's restore of the same
+    file (``filter_params`` + ``merge_params`` into the same fresh
+    variables). The restore leaves the step at 0, Adam empty and the
+    inlier net as seeded, although the file holds ``io_params``; one step
+    on both then gives the same parameters (as
+    test_train_step_updated_params_match_jax)."""
+    seed = 0
+    cfg = get_config("S", n_classes=8)
+    model = init_model(cfg, torch.Generator().manual_seed(seed), "cpu")
+    io = init_inlier_net(torch.Generator().manual_seed(seed + 2),
+                         device="cpu")
+    init_params, init_stats = to_jax_variables(model)
+    io_params, io_stats = to_jax_variables(io)
+    pstate = create_train_state(model, make_optimizer("adam", LR),
+                                io_net=io)
+    tree, _ = load_npz_checkpoint(PINNED)
+    assert "io_params" in tree
+    restore_train_state(PINNED, pstate)
+    assert pstate.step == 0 and not pstate.optimizer.state_dict()["state"]
+    for k, v in convert_variables(io_params, io_stats, True).items():
+        assert torch.equal(pstate.io_net.state_dict()[k], v), k
+
+    params = jax_merge_params(init_params, jax_filter_params(tree["params"]))
+    stats = jax_merge_params(init_stats, tree["batch_stats"])
+    batch = _batch()
+    _, want = _jax_step(jax_step, params, stats, io_params, io_stats, batch)
+    pstate, _ = _port_step(pstate, batch)
+    assert pstate.step == 1
+    _assert_params_match(pstate, want)
+
+
+@pytest.mark.parametrize("mode", ["seg_last", "seg", "vlad"])
+def test_filter_params_is_the_jax_packages(mode):
+    """Each partial-restore mode drops what the JAX ``filter_params``
+    drops from the pinned S8 params, and a restore of the filtered file
+    keeps the fresh init of what was dropped (``merge_params``'s
+    strict=False)."""
+    tree, _ = load_npz_checkpoint(PINNED)
+    got = _flatten(filter_params(tree["params"], mode))
+    want = _flatten(jax_filter_params(tree["params"], mode))
+    assert sorted(got) == sorted(want)
+    cfg = get_config("S", n_classes=8)
+    model = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    merge_jax_variables(model, filter_params(tree["params"], mode),
+                        tree["batch_stats"])
+    head = {"seg_last": "seg_head.convs_8.", "seg": "seg_head.",
+            "vlad": "vlad_head."}[mode]
+    kept = [k for k in fresh if k.startswith(head)
+            and not k.endswith(("running_mean", "running_var",
+                                "num_batches_tracked"))]
+    assert kept
+    for k in kept:
+        assert torch.equal(model.state_dict()[k], fresh[k]), k
+    assert not torch.equal(model.state_dict()["backbone.conv1a.conv.weight"],
+                           fresh["backbone.conv1a.conv.weight"])
 
 
 def test_checkpoint_loads_in_jax_and_gives_the_same_forward(one_step,
