@@ -134,7 +134,8 @@ Phases, each of which raises (exit code != 0) on failure:
     ``python -m nanovs_slam_torch.train_multitask --no_eval --n_epochs 1
     --max_steps_per_epoch 5`` in a subprocess on the card, whose .npz
     loads back into the port. The kernel phase holds ``netvlad_backward``
-    (two device kernels a call) against its twin, autograd through
+    (three device kernels a call: the images' prologue, the tiles, the
+    reduction) against its twin, autograd through
     netvlad_plain, at the train shape (unsuffixed) and config N's
     (``_n``), its dW and dcen equal across two launches;
  14. one JSON line describing each kernel, the card's line before it, and
@@ -474,7 +475,7 @@ def kernel_cases(B: int, dev) -> list[Case]:
                     lambda: netvlad_backward_plain(*args), None,
                     4 * (2 * Bb * S_b * Cv + 2 * Bb * K * Cv + Bb * K
                          + 4 * Cv * K),
-                    10 * Bb * S_b * K * Cv, FP32_FLOP_PER_S, check, 2, 4)
+                    10 * Bb * S_b * K * Cv, FP32_FLOP_PER_S, check, 3, 4)
 
     if B == OFFLINE_BATCH:  # the offline VO's batch of padded frames
         return [stem_case("_vo" + b8, 16, 32, h=VO_SIZE[0], w=VO_SIZE[1]),

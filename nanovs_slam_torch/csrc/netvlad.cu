@@ -373,28 +373,51 @@ int launch(const void* x, bool bf16, const long long* sx,
 //   global L2:     dv = (gy - (gy . y) y) / Q,        y = v / Q
 //   cluster norm:  du_k = (dv_k - (dv_k . v_k) v_k) / q_k,  v_k = u_k / q_k
 //   centroids:     dcen += -m (.) du,   dm_k = -du_k . cen_k
-//   per pixel:     da = x^ du^T + dm;  dl = a (.) (da - (a . da));
-//                  dx^ = a du + dl W^T;  dW += x^T dl;
+//   per pixel:     l = x^ W;  a = softmax(l);  da = x^ du^T + dm;
+//                  dl = a (.) (da - (a . da));
+//                  dx^ = [a | dl] [du ; W^T];  dW += x^T dl;
 //                  dx = (dx^ - (dx^ . x^) x^) / den.
-// Design. netvlad_bwd_kernel: a block takes kBwdTile = 32 pixels of one
-// image (38 blocks an image at 30x40, 150 at 60x80). Each block first
-// recomputes its image's du and dm from u, m and gy (K*C values, a warp a
-// cluster row: a few thousand operations against the tile's ~1 MFLOP),
-// then stages the tile's x^ and W in shared memory and runs the three
-// S x K x C products of the tile as loops over shared memory (thread e owns
-// output e, neighbouring threads neighbouring outputs; rows padded by one
-// so that the strided operand is free of bank conflicts). It writes dx,
-// its tile's dW (C, K) as a partial and, in the image's first block, the
-// image's -m (.) du. netvlad_bwd_reduce adds the partials in a fixed order
-// (tiles, then images). No atomics: two runs give equal gradients.
+// Design: three launches, chained by programmatic dependent launch.
+//   1. netvlad_bwd_prologue, 8 cluster rows of an image a block: du, dm
+//      and -m (.) du from u, m and gy; du written twice (K x C and C x K)
+//      and W^T once, zero-padded to the instance's widths, so that the
+//      tiles copy them with 16-byte cp.async.
+//   2. netvlad_bwd_tile, a block of 10 warps a tile of kBwdTile = 40
+//      pixels (30 tiles an image at the train shape's 30x40: 120 blocks on
+//      132 SMs; 120 at config N's 60x80). It stages its x and W, normalises
+//      x and takes the logits and the softmax before it waits for the
+//      prologue, whose launch it overlaps. The products are register tiles
+//      over shared memory at compile-time widths (CP, KP): a thread takes
+//      1-4 pixels by 4 clusters or channels, float4 loads, a fixed order of
+//      sums; the softmax and dl run in the registers of the logits' tile
+//      (a pixel's clusters are neighbouring lanes of one warp), the
+//      pixels' norms a group of 8 lanes a pixel. Instances: (48, 32) V2 N,
+//      (48, 64) V3 N, (64, 64) the S family, (128, 64) F; any other
+//      C <= 128, K <= 64 runs in the smallest that holds it, zero-padded
+//      (padded clusters take no part in the softmax). Blocks form clusters
+//      of 8 that add their tiles' dW through distributed shared memory: one
+//      partial a cluster.
+//   3. netvlad_bwd_reduce: dW from the clusters' partials and dcen from the
+//      images', each in a fixed order. No atomics: two runs give the same
+//      bits.
+// Phase timers on the card: a design with a block a 32-pixel tile, the
+// image's prologue in every block and scalar products over shared memory
+// spent 38% of a block on the repeated prologue and 44% on the products.
+// A 3xTF32 tensor-core version of the products (mma.sync m16n8k8, x^ and
+// [a | dl] split once into hi and lo) was slower than these register
+// tiles: each fragment is 8 scalar loads from shared memory, which then
+// bound it.
 //
-// Bound on an H100: operations, far below both. At config S's train shape
-// (B = 4, S = 1200, C = K = 64) the chain is about 6 S K C = 29.5 MFLOP an
-// image (118 MFLOP a call) against ~2.5 MB moved: 1.8 us at 67 TFLOP/s.
-// The kernel is bound by the latency of its chain of barriers and by the
-// partials' round trip, which a simple first design accepts.
+// Bound on an H100: operations. At config S's train shape (B = 4, S =
+// 1200, C = K = 64) the five S x K x C products are 197 MFLOP against ~2.6
+// MB moved: 2.9 us at 67 TFLOP/s.
 
-constexpr int kBwdTile = 32;  // pixels a block of the backward
+constexpr int kBwdTile = 40;      // pixels a tile block
+constexpr int kBwdThreads = 320;  // 10 warps
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kPrologueThreads = 256;  // 8 warps, a cluster row each
+// more than half of an SM's 228 KB of shared memory: one tile block an SM
+constexpr size_t kOneBlockSmem = 116 * 1024;
 
 struct BwdArgs {
   const float* gy;         // (B, K*C)
@@ -406,244 +429,561 @@ struct BwdArgs {
   const float* mass;       // (B, K) the forward's m
   float* dx;               // (B, S, C), element strides sd_b, sd_s, sd_c
   long long sd_b, sd_s, sd_c;
-  float* dw_part;          // (B * tiles, C*K) a block's x^T dl
-  float* dcen_part;        // (B, K*C) an image's -m (.) du
-  int S, C, K;
+  float* du;         // (B, KP, CP) zero-padded
+  float* du_t;       // (B, CP, KP) zero-padded
+  float* w_t;        // (KP, CP) zero-padded
+  float* dm;         // (B, KP) zero-padded
+  float* dw_part;    // (clusters, CP*KP) a cluster's x^T dl
+  float* dcen_part;  // (B, K*C) an image's -m (.) du
+  float* dw;         // (C, K)
+  float* dcen;       // (K, C)
+  int B, S, C, K;
+  int tiles;  // tiles an image
 };
 
-size_t bwd_smem_bytes(int C, int K) {
-  const int ldc = C + 1, ldk = K + 1;
-  return sizeof(float) * (C * ldk + K * ldc + 2 * kBwdTile * ldc +
-                          2 * kBwdTile * ldk + 2 * K + kBwdTile + kWarps);
-}
+// The tile kernel's shapes at padded widths (CP, KP).
+template <int CP, int KP>
+struct BwdCfg {
+  static_assert(KP == 32 || KP == 64, "KP");
+  static_assert(CP % 16 == 0 && CP <= kMaxC, "CP");
+  static constexpr int LDX = CP + 4;      // x^, dx^: a pixel's row
+  static constexpr int LDA = 2 * KP + 4;  // [a | dl]: a pixel's row
+  static constexpr int KG = KP / 4;       // cluster groups of 4
+  static constexpr int TP1 = KP / 32;     // pixels a thread of [l | da]
+  static constexpr int CG = CP / 4;       // channel groups of 4
+  static constexpr int TP2 = CP <= 64 ? 2 : 4;  // pixels a thread of dx^
+  static constexpr int NT2 = kBwdTile / TP2 * CG;
+  static constexpr int DWC = CP <= 64 ? 4 : 8;  // channels a thread of dW
+  static constexpr int NTW = CP / DWC * KG;
+  static constexpr int kB1 = CP * 2 * KP;  // [W | du^T], later dx^
+  static constexpr int kB2 = 2 * KP * CP;  // [du ; W^T], later dW
+  static constexpr int kFloats = kB1 + kB2 + kBwdTile * (LDX + LDA) + KP +
+                                 2 * kBwdTile;
+  static_assert(kBwdTile / TP1 * KG == kBwdThreads, "[l | da]: a task each");
+  static_assert(NT2 <= kBwdThreads && NTW <= kBwdThreads, "a task each");
+  static_assert(kBwdTile * LDX <= kB1 && CP * KP <= kB2, "aliases");
+  static_assert(CP * KP % (4 * kCluster) == 0, "the cluster's dW slices");
+};
 
-// The block's sum of each thread's v, in a fixed order (every thread gets
-// it); s_red holds kWarps floats and is free again on return.
-__device__ float block_sum(float v, float* s_red) {
-  v = nvs::warp_sum(v);
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
+// acc[i][j] += sum_d A[i lda + d] B[d ldb + j] for i < R, j < 4, d < D, d
+// ascending; A's rows and B 16-byte aligned, D % 4 == 0.
+template <int R, int D>
+__device__ __forceinline__ void mac_rows(const float* A, int lda,
+                                         const float* B, int ldb,
+                                         float (&acc)[R][4]) {
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 av[R], bv[4];
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) t += s_red[w];
-  __syncthreads();
-  return t;
+    for (int i = 0; i < R; ++i)
+      av[i] = *reinterpret_cast<const float4*>(A + i * lda + d);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      bv[u] = *reinterpret_cast<const float4*>(B + (d + u) * ldb);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float a4[4] = {av[i].x, av[i].y, av[i].z, av[i].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc[i][0] = fmaf(a4[u], bv[u].x, acc[i][0]);
+        acc[i][1] = fmaf(a4[u], bv[u].y, acc[i][1]);
+        acc[i][2] = fmaf(a4[u], bv[u].z, acc[i][2]);
+        acc[i][3] = fmaf(a4[u], bv[u].w, acc[i][3]);
+      }
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) netvlad_bwd_kernel(BwdArgs a) {
-  extern __shared__ float4 smem4[];
-  constexpr int P = kBwdTile;
-  const int C = a.C, K = a.K, ldc = C + 1, ldk = K + 1;
-  float* s_w = reinterpret_cast<float*>(smem4);  // W[c][k], C x ldk
-  float* s_du = s_w + C * ldk;   // v, then du: K x ldc
-  float* s_x = s_du + K * ldc;   // x, then x^: P x ldc
-  float* s_dx = s_x + P * ldc;   // dx^, then dx: P x ldc
-  float* s_a = s_dx + P * ldc;   // logits, then a: P x ldk
-  float* s_dl = s_a + P * ldk;   // da, then dl: P x ldk
-  float* s_dm = s_dl + P * ldk;  // K
-  float* s_q = s_dm + K;         // K: the clusters' denominators
-  float* s_den = s_q + K;        // P: the pixels' denominators
-  float* s_red = s_den + P;      // kWarps
+// acc[i][j] += sum_d A[d lda + i] B[d ldb + j] for i < R, j < 4, d < D, d
+// ascending; A's and B's rows 16-byte aligned, R % 4 == 0.
+template <int R, int D>
+__device__ __forceinline__ void mac_cols(const float* A, int lda,
+                                         const float* B, int ldb,
+                                         float (&acc)[R][4]) {
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[R];
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(A + d * lda + 4 * q);
+      a[4 * q] = v.x;
+      a[4 * q + 1] = v.y;
+      a[4 * q + 2] = v.z;
+      a[4 * q + 3] = v.w;
+    }
+    const float4 b = *reinterpret_cast<const float4*>(B + d * ldb);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      acc[i][0] = fmaf(a[i], b.x, acc[i][0]);
+      acc[i][1] = fmaf(a[i], b.y, acc[i][1]);
+      acc[i][2] = fmaf(a[i], b.z, acc[i][2]);
+      acc[i][3] = fmaf(a[i], b.w, acc[i][3]);
+    }
+  }
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.y, tile = blockIdx.x;
-  const int s0 = tile * P;
-  const int n = min(P, a.S - s0);
+// Reduces v over the G neighbouring lanes of a group (G a power of two):
+// every lane of the group gets the same bits.
+template <int G, bool kMax>
+__device__ __forceinline__ float group_reduce(float v) {
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = kMax ? fmaxf(v, w) : v + w;
+  }
+  return v;
+}
+
+// Programmatic dependent launch (as in lightglue.cu): the next kernel may
+// start; this one waits for the previous one's writes.
+__device__ __forceinline__ void allow_next_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_previous_launch() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// An image's du, dm and -m (.) du, 8 cluster rows a block (a warp a
+// row): every block takes the image's q_k, |v_k|^2 and gy_k . v_k of all
+// rows (the same sums in the same order in each), Q and G from them, then
+// its own rows; the blocks of image 0 also write their rows of W^T. Every
+// load is issued before the first is used.
+template <int CP, int KP>
+__global__ void __launch_bounds__(kPrologueThreads)
+netvlad_bwd_prologue(BwdArgs a) {
+  allow_next_launch();  // the tiles stage x and take the softmax meanwhile
+  constexpr int kW = kPrologueThreads / 32;
+  constexpr int NCL = (CP + 31) / 32;  // a lane's channels
+  constexpr int RPW = KP / kW;         // rows a warp takes for the norms
+  __shared__ float s_q[KP], s_ss[KP], s_gv[KP];
+  const int C = a.C, K = a.K, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * kW + warp;  // the warp's own row
   const long long KC = (long long)K * C;
-  const float* gyb = a.gy + b * KC;
-  const float* xb = a.x + b * a.sx_b;
+  const float* ub = a.residual + b * KC;
+  const float* gb = a.gy + b * KC;
 
-  for (int e = tid; e < C * K; e += kThreads)
-    s_w[(e / K) * ldk + e % K] = a.assign_w[e];
-  for (int e = tid; e < K * C; e += kThreads)
-    s_du[(e / C) * ldc + e % C] = a.residual[b * KC + e];
-  if (a.sx_c == 1) {  // NHWC memory: neighbouring threads, channels
-    for (int e = tid; e < P * C; e += kThreads) {
-      const int s = e / C, c = e % C;
-      s_x[s * ldc + c] = s < n ? xb[(long long)(s0 + s) * a.sx_s + c] : 0.f;
+  float u[RPW][NCL], g[RPW][NCL], ur[NCL], gr[NCL], cen[NCL], wt[NCL];
+#pragma unroll
+  for (int i = 0; i < NCL; ++i) {
+    const int c = lane + 32 * i;
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+      const int kj = warp + kW * j;
+      const bool in = kj < K && c < C;
+      u[j][i] = in ? ub[kj * C + c] : 0.f;
+      g[j][i] = in ? gb[kj * C + c] : 0.f;
     }
-  } else {  // NCHW memory: neighbouring threads, pixels
-    for (int e = tid; e < P * C; e += kThreads) {
-      const int s = e % P, c = e / P;
-      s_x[s * ldc + c] =
-          s < n ? xb[(long long)(s0 + s) * a.sx_s + (long long)c * a.sx_c]
-                : 0.f;
-    }
+    const bool in = k < K && c < C;
+    ur[i] = in ? ub[k * C + c] : 0.f;
+    gr[i] = in ? gb[k * C + c] : 0.f;
+    cen[i] = in ? a.centroids[k * C + c] : 0.f;
+    wt[i] = in && b == 0 ? a.assign_w[c * K + k] : 0.f;
   }
-  __syncthreads();
+  const float m = k < K ? a.mass[(long long)b * K + k] : 0.f;
 
-  // the clusters' norms: v_k = u_k / q_k in place, Q from sum |v_k|^2
-  float ss_v = 0.f;
-  for (int k = warp; k < K; k += kWarps) {
-    float* row = s_du + k * ldc;
+  // every row's norm q_k, |v_k|^2 and gy_k . v_k, v_k = u_k / q_k
+#pragma unroll
+  for (int j = 0; j < RPW; ++j) {
     float ss = 0.f;
-    for (int c = lane; c < C; c += 32) ss = fmaf(row[c], row[c], ss);
+#pragma unroll
+    for (int i = 0; i < NCL; ++i) ss = fmaf(u[j][i], u[j][i], ss);
     const float q = l2_denominator(nvs::warp_sum(ss));
-    float ssk = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      row[c] /= q;
-      ssk = fmaf(row[c], row[c], ssk);
+    float ssv = 0.f, gv = 0.f;
+#pragma unroll
+    for (int i = 0; i < NCL; ++i) {
+      const float v = u[j][i] / q;
+      ssv = fmaf(v, v, ssv);
+      gv = fmaf(g[j][i], v, gv);
     }
-    ss_v += nvs::warp_sum(ssk);
-    if (lane == 0) s_q[k] = q;
+    ssv = nvs::warp_sum(ssv);
+    gv = nvs::warp_sum(gv);
+    if (lane == 0 && warp + kW * j < K) {
+      s_q[warp + kW * j] = q;
+      s_ss[warp + kW * j] = ssv;
+      s_gv[warp + kW * j] = gv;
+    }
   }
-  const float Q = l2_denominator(block_sum(lane == 0 ? ss_v : 0.f, s_red));
-  float g = 0.f;  // gy . y
-  for (int e = tid; e < K * C; e += kThreads)
-    g = fmaf(gyb[e], s_du[(e / C) * ldc + e % C] / Q, g);
-  const float G = block_sum(g, s_red);
+  __syncthreads();
+  float ss_all = 0.f, gv_all = 0.f;  // every warp the same sums
+  for (int kk = lane; kk < K; kk += 32) {
+    ss_all += s_ss[kk];
+    gv_all += s_gv[kk];
+  }
+  const float Q = l2_denominator(nvs::warp_sum(ss_all));
+  const float G = nvs::warp_sum(gv_all) / Q;  // gy . y
 
-  // du and dm a cluster row (one warp a row); the image's first block
-  // writes -m (.) du
-  for (int k = warp; k < K; k += kWarps) {
-    float* row = s_du + k * ldc;
-    const float* gk = gyb + (long long)k * C;
-    float dot = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float dv = (gk[c] - G * (row[c] / Q)) / Q;
-      dot = fmaf(dv, row[c], dot);
+  // the warp's row: du, dm and -m (.) du, zeros past K and C
+  float du[NCL], dmk = 0.f;
+  if (k < K) {
+    const float q = s_q[k];
+    float v[NCL], dv[NCL], dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < NCL; ++i) {
+      const bool in = lane + 32 * i < C;
+      v[i] = in ? ur[i] / q : 0.f;
+      dv[i] = in ? (gr[i] - G * (v[i] / Q)) / Q : 0.f;
+      dot = fmaf(dv[i], v[i], dot);
     }
     dot = nvs::warp_sum(dot);
-    const float q = s_q[k], m = a.mass[(long long)b * K + k];
-    float dm = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float dv = (gk[c] - G * (row[c] / Q)) / Q;
-      const float du = (dv - dot * row[c]) / q;
-      row[c] = du;
-      dm = fmaf(du, a.centroids[k * C + c], dm);
-      if (tile == 0) a.dcen_part[b * KC + (long long)k * C + c] = -m * du;
+#pragma unroll
+    for (int i = 0; i < NCL; ++i) {
+      const int c = lane + 32 * i;
+      du[i] = c < C ? (dv[i] - dot * v[i]) / q : 0.f;
+      dmk = fmaf(du[i], cen[i], dmk);
+      if (c < C) a.dcen_part[b * KC + (long long)k * C + c] = -m * du[i];
     }
-    dm = nvs::warp_sum(dm);
-    if (lane == 0) s_dm[k] = -dm;
+    dmk = -nvs::warp_sum(dmk);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NCL; ++i) du[i] = 0.f;
   }
+  float* dub = a.du + ((long long)b * KP + k) * CP;
+  float* dutb = a.du_t + (long long)b * CP * KP + k;
+#pragma unroll
+  for (int i = 0; i < NCL; ++i) {
+    const int c = lane + 32 * i;
+    if (c < CP) {
+      dub[c] = du[i];
+      dutb[(long long)c * KP] = du[i];
+      if (b == 0) a.w_t[k * CP + c] = wt[i];
+    }
+  }
+  if (lane == 0) a.dm[(long long)b * KP + k] = dmk;
+}
 
-  // the pixels' norms: x^ = x / den in place (one warp a pixel)
-  for (int p = warp; p < P; p += kWarps) {
-    float* xs = s_x + p * ldc;
+// A tile of kBwdTile pixels: dx, and the cluster's share of dW.
+template <int CP, int KP>
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kBwdThreads, 1) netvlad_bwd_tile(BwdArgs a) {
+  using G = BwdCfg<CP, KP>;
+  constexpr int P = kBwdTile, LDX = G::LDX, LDA = G::LDA, KG = G::KG;
+  constexpr int TP1 = G::TP1, TP2 = G::TP2, CG = G::CG, DWC = G::DWC;
+  extern __shared__ float4 smem4[];
+  float* s_b1 = reinterpret_cast<float*>(smem4);  // CP x 2KP, then dx^
+  float* s_b2 = s_b1 + G::kB1;   // 2KP x CP, then the tile's dW (CP x KP)
+  float* s_x = s_b2 + G::kB2;    // P x LDX: x, then x^
+  float* s_a = s_x + P * LDX;    // P x LDA: [a | dl]
+  float* s_dm = s_a + P * LDA;   // KP
+  float* s_den = s_dm + KP;      // P: the pixels' denominators
+  float* s_dot = s_den + P;      // P: dx^ . x^
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = a.C, K = a.K;
+  const int t = blockIdx.x;  // blocks past the last tile pad the clusters
+  const int b = min(t / a.tiles, a.B - 1);
+  const int s0 = (t % a.tiles) * P;
+  const int n = t < a.B * a.tiles ? min(P, a.S - s0) : 0;
+
+  // 1. W and the tile's x, zeros past the widths and the image's last
+  // pixel (every load in flight before the first store)
+  {
+    constexpr int kT = kBwdThreads;
+    constexpr int RW = (CP * KP + kT - 1) / kT, RX = (P * CP + kT - 1) / kT;
+    float w[RW], v[RX];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int e = tid + kT * i, c = e / KP, k = e % KP;
+      w[i] = e < CP * KP && c < C && k < K ? __ldg(a.assign_w + c * K + k)
+                                           : 0.f;
+    }
+    const float* xb = a.x + b * a.sx_b;
+    const bool nhwc = a.sx_c == 1;
+#pragma unroll
+    for (int i = 0; i < RX; ++i) {
+      // NHWC memory: neighbouring threads, channels; NCHW: pixels
+      const int e = tid + kT * i;
+      const int p = nhwc ? e / CP : e % P, c = nhwc ? e % CP : e / P;
+      v[i] = e < P * CP && p < n && c < C
+                 ? __ldg(xb + (long long)(s0 + p) * a.sx_s +
+                         (long long)c * a.sx_c)
+                 : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int e = tid + kT * i;
+      if (e < CP * KP) s_b1[e / KP * 2 * KP + e % KP] = w[i];
+    }
+#pragma unroll
+    for (int i = 0; i < RX; ++i) {
+      const int e = tid + kT * i;
+      const int p = nhwc ? e / CP : e % P, c = nhwc ? e % CP : e / P;
+      if (e < P * CP) s_x[p * LDX + c] = v[i];
+    }
+  }
+  __syncthreads();
+
+  // 2. the pixels' norms: x^ = x / den in place (a group of 8 lanes a
+  // pixel, 4 pixels a warp)
+  const int q8 = lane & 7;
+  static_assert(P == 4 * kBwdWarps, "a pixel a group");
+  {
+    const int p = warp * 4 + (lane >> 3);
+    float* xs = s_x + p * LDX;
     float ss = 0.f;
-    for (int c = lane; c < C; c += 32) ss = fmaf(xs[c], xs[c], ss);
-    const float den = l2_denominator(nvs::warp_sum(ss));
-    for (int c = lane; c < C; c += 32) xs[c] /= den;
-    if (lane == 0) s_den[p] = den;
+#pragma unroll
+    for (int c = q8; c < CP; c += 8) ss = fmaf(xs[c], xs[c], ss);
+    const float den = l2_denominator(group_reduce<8, false>(ss));
+#pragma unroll
+    for (int c = q8; c < CP; c += 8) xs[c] /= den;
+    if (q8 == 0) s_den[p] = den;
   }
   __syncthreads();
 
-  // logits x^ W and da = x^ du^T + dm (P x K, depth C)
-  for (int e = tid; e < P * K; e += kThreads) {
-    const int p = e / K, k = e % K;
-    const float* xs = s_x + p * ldc;
-    const float* dk = s_du + k * ldc;
-    float l = 0.f, da = 0.f;
-    for (int c = 0; c < C; ++c) {
-      l = fmaf(xs[c], s_w[c * ldk + k], l);
-      da = fmaf(xs[c], dk[c], da);
-    }
-    s_a[p * ldk + k] = l;
-    s_dl[p * ldk + k] = da + s_dm[k];
-  }
-  __syncthreads();
-
-  // softmax and its backward (one warp a pixel; K <= 64: two lanes' worth)
-  for (int p = warp; p < P; p += kWarps) {
-    float* ar = s_a + p * ldk;
-    float* dr = s_dl + p * ldk;
-    const float neg_inf = -__int_as_float(0x7f800000);
+  // 3. logits and softmax: thread (pg, kg) takes pixels TP1 pg .. and
+  // clusters 4 kg .. 4 kg + 3; a pixel group's KG threads are neighbouring
+  // lanes of one warp
+  const int kg = tid % KG, pg = tid / KG;
+  const float* xrows = s_x + pg * TP1 * LDX;
+  float av[TP1][4] = {};
+  mac_rows<TP1, CP>(xrows, LDX, s_b1 + 4 * kg, 2 * KP, av);
+  const float neg_inf = -__int_as_float(0x7f800000);
+#pragma unroll
+  for (int i = 0; i < TP1; ++i) {
     float mx = neg_inf;
-    for (int k = lane; k < K; k += 32) mx = fmaxf(mx, ar[k]);
-    mx = nvs::warp_max(mx);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * kg + j >= K) av[i][j] = neg_inf;  // a padded cluster
+      mx = fmaxf(mx, av[i][j]);
+    }
+    mx = group_reduce<KG, true>(mx);
     float sum = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      ar[k] = expf(ar[k] - mx);
-      sum += ar[k];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      av[i][j] = expf(av[i][j] - mx);
+      sum += av[i][j];
     }
-    sum = nvs::warp_sum(sum);
-    float dot = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      ar[k] /= sum;
-      dot = fmaf(ar[k], dr[k], dot);
+    sum = group_reduce<KG, false>(sum);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) av[i][j] /= sum;
+  }
+
+  // 4. the prologue's du, du^T, W^T and dm
+  wait_previous_launch();
+  allow_next_launch();  // the reduction's blocks wait for this grid
+  {
+    const float* dutb = a.du_t + (long long)b * CP * KP;
+    for (int e = tid; e < CP * KP / 4; e += kBwdThreads) {
+      const int c = e / (KP / 4), j = e % (KP / 4);
+      nvs::cp_async16(s_b1 + c * 2 * KP + KP + 4 * j, dutb + c * KP + 4 * j);
     }
-    dot = nvs::warp_sum(dot);
-    for (int k = lane; k < K; k += 32)
-      dr[k] = p < n ? ar[k] * (dr[k] - dot) : 0.f;
+    const float* dub = a.du + (long long)b * KP * CP;
+    for (int e = tid; e < KP * CP / 4; e += kBwdThreads) {
+      nvs::cp_async16(s_b2 + 4 * e, dub + 4 * e);
+      nvs::cp_async16(s_b2 + KP * CP + 4 * e, a.w_t + 4 * e);
+    }
+    for (int e = tid; e < KP / 4; e += kBwdThreads)
+      nvs::cp_async16(s_dm + 4 * e, a.dm + (long long)b * KP + 4 * e);
+    nvs::cp_async_commit();
+    nvs::cp_async_wait<0>();
   }
   __syncthreads();
 
-  // dx^ = a du + dl W^T (P x C, depth 2K) and the tile's dW = x^T dl
-  // (C x K, depth P)
-  for (int e = tid; e < P * C; e += kThreads) {
-    const int p = e / C, c = e % C;
-    const float* ar = s_a + p * ldk;
-    const float* dr = s_dl + p * ldk;
-    const float* wr = s_w + c * ldk;
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) {
-      acc = fmaf(ar[k], s_du[k * ldc + c], acc);
-      acc = fmaf(dr[k], wr[k], acc);
+  // 5. da = x^ du^T + dm and dl = a (.) (da - a . da); [a | dl] out
+  {
+    float da[TP1][4] = {};
+    mac_rows<TP1, CP>(xrows, LDX, s_b1 + KP + 4 * kg, 2 * KP, da);
+#pragma unroll
+    for (int i = 0; i < TP1; ++i) {
+      const int p = pg * TP1 + i;
+      float dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        da[i][j] += s_dm[4 * kg + j];
+        dot = fmaf(av[i][j], da[i][j], dot);
+      }
+      dot = group_reduce<KG, false>(dot);
+      float dl[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dl[j] = p < n ? av[i][j] * (da[i][j] - dot) : 0.f;
+      *reinterpret_cast<float4*>(s_a + p * LDA + 4 * kg) =
+          make_float4(av[i][0], av[i][1], av[i][2], av[i][3]);
+      *reinterpret_cast<float4*>(s_a + p * LDA + KP + 4 * kg) =
+          make_float4(dl[0], dl[1], dl[2], dl[3]);
     }
-    s_dx[p * ldc + c] = acc;
-  }
-  float* part = a.dw_part + ((long long)b * gridDim.x + tile) * KC;
-  for (int e = tid; e < C * K; e += kThreads) {
-    const int c = e / K, k = e % K;
-    float acc = 0.f;
-    for (int p = 0; p < P; ++p)
-      acc = fmaf(s_x[p * ldc + c], s_dl[p * ldk + k], acc);
-    part[e] = acc;
   }
   __syncthreads();
 
-  // the pixels' norm backward, in place (one warp a pixel)
-  for (int p = warp; p < n; p += kWarps) {
-    float* dr = s_dx + p * ldc;
-    const float* xs = s_x + p * ldc;
+  // 6. dx^ = [a | dl] [du ; W^T] (into the space of [W | du^T]) and the
+  // tile's dW = x^T dl (kept in registers until [du ; W^T] is read)
+  if (tid < G::NT2) {
+    const int c4 = tid % CG, p0 = tid / CG * TP2;
+    float acc[TP2][4] = {};
+    mac_rows<TP2, 2 * KP>(s_a + p0 * LDA, LDA, s_b2 + 4 * c4, CP, acc);
+#pragma unroll
+    for (int i = 0; i < TP2; ++i)
+      *reinterpret_cast<float4*>(s_b1 + (p0 + i) * LDX + 4 * c4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  const bool dw_thread = tid < G::NTW;
+  const int k4 = tid % KG, c0 = tid / KG * DWC;
+  float w[DWC][4] = {};
+  if (dw_thread) mac_cols<DWC, P>(s_x + c0, LDX, s_a + KP + 4 * k4, LDA, w);
+  __syncthreads();
+  if (dw_thread)
+#pragma unroll
+    for (int i = 0; i < DWC; ++i)
+      *reinterpret_cast<float4*>(s_b2 + (c0 + i) * KP + 4 * k4) =
+          make_float4(w[i][0], w[i][1], w[i][2], w[i][3]);
+
+  // 7. the pixels' norm backward: dx = (dx^ - (dx^ . x^) x^) / den
+  {
+    const int p = warp * 4 + (lane >> 3);
+    const float* dr = s_b1 + p * LDX;
+    const float* xs = s_x + p * LDX;
     float dot = 0.f;
-    for (int c = lane; c < C; c += 32) dot = fmaf(dr[c], xs[c], dot);
-    dot = nvs::warp_sum(dot);
-    const float den = s_den[p];
-    for (int c = lane; c < C; c += 32) dr[c] = (dr[c] - dot * xs[c]) / den;
+#pragma unroll
+    for (int c = q8; c < CP; c += 8) dot = fmaf(dr[c], xs[c], dot);
+    dot = group_reduce<8, false>(dot);
+    if (q8 == 0) s_dot[p] = dot;
   }
   __syncthreads();
   float* db = a.dx + b * a.sd_b;
   if (a.sd_c == 1) {
-    for (int e = tid; e < n * C; e += kThreads) {
-      const int s = e / C, c = e % C;
-      db[(long long)(s0 + s) * a.sd_s + c] = s_dx[s * ldc + c];
+    for (int e = tid; e < n * C; e += kBwdThreads) {
+      const int p = e / C, c = e % C;
+      db[(long long)(s0 + p) * a.sd_s + c] =
+          (s_b1[p * LDX + c] - s_dot[p] * s_x[p * LDX + c]) / s_den[p];
     }
   } else {
-    for (int e = tid; e < P * C; e += kThreads) {
-      const int s = e % P, c = e / P;
-      if (s < n)
-        db[(long long)(s0 + s) * a.sd_s + (long long)c * a.sd_c] =
-            s_dx[s * ldc + c];
+    for (int e = tid; e < P * C; e += kBwdThreads) {
+      const int p = e % P, c = e / P;
+      if (p < n)
+        db[(long long)(s0 + p) * a.sd_s + (long long)c * a.sd_c] =
+            (s_b1[p * LDX + c] - s_dot[p] * s_x[p * LDX + c]) / s_den[p];
     }
   }
+
+  // 8. the cluster's dW: rank r adds slice r of the eight tiles' dW, in
+  // rank order, and writes it as the cluster's partial
+  cluster.sync();
+  constexpr int kSlice = CP * KP / kCluster;
+  const int rank = (int)cluster.block_rank();
+  float* part = a.dw_part + (long long)(blockIdx.x / kCluster) * CP * KP;
+  for (int e = rank * kSlice + 4 * tid; e < (rank + 1) * kSlice;
+       e += 4 * kBwdThreads) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) {
+      const float4 r = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(s_b2, q) + e);
+      v.x += r.x;
+      v.y += r.y;
+      v.z += r.z;
+      v.w += r.w;
+    }
+    *reinterpret_cast<float4*>(part + e) = v;
+  }
+  cluster.sync();  // keep every rank's dW alive until it has been read
 }
 
-// dW = the tiles' partials added in order, dcen = the images' in order.
-__global__ void netvlad_bwd_reduce(const float* dw_part,
-                                   const float* dcen_part, float* dw,
-                                   float* dcen, int n_parts, int B, int KC) {
+// dW from the clusters' partials and dcen from the images', in order.
+template <int CP, int KP>
+__global__ void __launch_bounds__(256)
+netvlad_bwd_reduce(BwdArgs a, int n_parts) {
+  wait_previous_launch();
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int KC = a.K * a.C;
   if (e < KC) {
+    const float* p = a.dw_part + (e / a.K) * KP + e % a.K;
     float s = 0.f;
-    for (int q = 0; q < n_parts; ++q) s += dw_part[(long long)q * KC + e];
-    dw[e] = s;
+#pragma unroll 8
+    for (int q = 0; q < n_parts; ++q) s += p[(long long)q * CP * KP];
+    a.dw[e] = s;
   } else if (e < 2 * KC) {
     const int i = e - KC;
     float s = 0.f;
-    for (int q = 0; q < B; ++q) s += dcen_part[(long long)q * KC + i];
-    dcen[i] = s;
+    for (int q = 0; q < a.B; ++q) s += a.dcen_part[(long long)q * KC + i];
+    a.dcen[i] = s;
   }
+}
+
+// kernel<<<grid, threads, smem, stream>>>(args...), allowed to start while
+// the previous kernel on the stream runs (it waits for it inside)
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), int grid, int threads,
+                       size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The instance for widths C, K: (48, 32), (48, 64), (64, 64) or
+// (128, 64), the first that holds them
+struct BwdWidths {
+  int cp, kp;
+};
+
+BwdWidths bwd_widths(int C, int K) {
+  if (C <= 48) return {48, K <= 32 ? 32 : 64};
+  return {C <= 64 ? 64 : 128, 64};
 }
 
 int bwd_tiles(int S) { return (S + kBwdTile - 1) / kBwdTile; }
 
-cudaError_t set_bwd_smem_limit() {
-  return nvs::once_per_device([] {
-    return cudaFuncSetAttribute(netvlad_bwd_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)bwd_smem_bytes(kMaxC, kMaxK));
+int bwd_blocks(int B, int S) {
+  return (B * bwd_tiles(S) + kCluster - 1) / kCluster * kCluster;
+}
+
+// The scratch's parts, in floats from its start (16-byte aligned each but
+// the last)
+struct BwdScratch {
+  long long du, du_t, w_t, dm, dw_part, dcen_part, total;
+};
+
+BwdScratch bwd_scratch(int B, int S, int C, int K) {
+  const BwdWidths w = bwd_widths(C, K);
+  const long long pc = (long long)w.cp * w.kp;
+  BwdScratch s;
+  s.du = 0;
+  s.du_t = s.du + B * pc;
+  s.w_t = s.du_t + B * pc;
+  s.dm = s.w_t + pc;
+  s.dw_part = s.dm + (long long)B * w.kp;
+  s.dcen_part = s.dw_part + bwd_blocks(B, S) / kCluster * pc;
+  s.total = s.dcen_part + (long long)B * K * C;
+  return s;
+}
+
+template <int CP, int KP>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t kSmem = sizeof(float) * BwdCfg<CP, KP>::kFloats;
+  cudaError_t err = nvs::once_per_device([] {
+    return cudaFuncSetAttribute(
+        netvlad_bwd_tile<CP, KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(kSmem > kOneBlockSmem ? kSmem : kOneBlockSmem));
   });
+  if (err != cudaSuccess) return err;
+  netvlad_bwd_prologue<CP, KP>
+      <<<dim3(KP / 8, a.B), kPrologueThreads, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // when the tiles fit the card at once, dynamic shared memory above half
+  // an SM's keeps the cluster scheduler from placing two on one SM
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int blocks = bwd_blocks(a.B, a.S);
+  const size_t smem = blocks <= sms && kSmem < kOneBlockSmem ? kOneBlockSmem
+                                                             : kSmem;
+  if ((err = launch_pdl(netvlad_bwd_tile<CP, KP>, blocks, kBwdThreads, smem,
+                        stream, a)) != cudaSuccess)
+    return err;
+  return launch_pdl(netvlad_bwd_reduce<CP, KP>,
+                    (2 * a.K * a.C + 255) / 256, 256, 0, stream, a,
+                    blocks / kCluster);
 }
 
 }  // namespace
@@ -679,17 +1019,19 @@ extern "C" int nvs_netvlad_bf16(const __nv_bfloat16* x, const long long* sx,
                 residual, mass, B, S, C, K, stream);
 }
 
-// Floats of the backward's scratch at batch B: the tiles' dW partials
-// (B * tiles, C*K) and the images' dcen partials (B, K*C).
+// Floats of the backward's scratch at batch B: du, du^T, W^T and dm at the
+// instance's widths, the clusters' dW partials and the images' dcen
+// partials.
 extern "C" int nvs_netvlad_backward_scratch_size(int B, int S, int C, int K) {
-  return (B * bwd_tiles(S) + B) * K * C;
+  return (int)bwd_scratch(B, S, C, K).total;
 }
 
 // gy (B, K*C), residual (B, K*C) and mass (B, K) from nvs_netvlad,
 // assign_w (C, K) and centroids (K, C) contiguous, float32; x and dx
 // (B, S, C) with element strides sx, sdx [b, s, c]; scratch of
-// nvs_netvlad_backward_scratch_size floats; dw (C, K), dcen (K, C)
-// contiguous. Two launches (the blocks, the fixed-order reduction).
+// nvs_netvlad_backward_scratch_size floats, 16-byte aligned; dw (C, K),
+// dcen (K, C) contiguous. Three launches (the images' prologue, the tiles,
+// the fixed-order reduction), the last two programmatically dependent.
 extern "C" int nvs_netvlad_backward(
     const float* gy, const float* x, const long long* sx,
     const float* assign_w, const float* centroids, const float* residual,
@@ -697,21 +1039,20 @@ extern "C" int nvs_netvlad_backward(
     float* dw, float* dcen, int B, int S, int C, int K,
     cudaStream_t stream) {
   if (K < 1 || K > kMaxK || C < 1 || C > kMaxC || S < 1 || B < 1 ||
-      B > 65535)
+      B > 65535 || reinterpret_cast<uintptr_t>(scratch) % 16)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_bwd_smem_limit();
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = bwd_tiles(S), KC = K * C;
-  float* dcen_part = scratch + (long long)B * tiles * KC;
-  const BwdArgs args{gy,     x,      sx[0],    sx[1],     sx[2],  assign_w,
-                     centroids, residual, mass, dx,   sdx[0], sdx[1],
-                     sdx[2], scratch, dcen_part, S, C, K};
-  netvlad_bwd_kernel<<<dim3(tiles, B), kThreads, bwd_smem_bytes(C, K),
-                       stream>>>(args);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  netvlad_bwd_reduce<<<(2 * KC + kThreads - 1) / kThreads, kThreads, 0,
-                       stream>>>(scratch, dcen_part, dw, dcen, B * tiles, B,
-                                 KC);
-  return (int)cudaGetLastError();
+  const BwdScratch s = bwd_scratch(B, S, C, K);
+  const BwdArgs args{gy,     x,      sx[0],     sx[1],  sx[2],
+                     assign_w, centroids, residual, mass, dx,
+                     sdx[0], sdx[1], sdx[2],    scratch + s.du,
+                     scratch + s.du_t,  scratch + s.w_t, scratch + s.dm,
+                     scratch + s.dw_part, scratch + s.dcen_part, dw, dcen,
+                     B,      S,      C,         K,
+                     bwd_tiles(S)};
+  const BwdWidths w = bwd_widths(C, K);
+  if (w.cp == 48)
+    return (int)(w.kp == 32 ? launch_bwd<48, 32>(args, stream)
+                            : launch_bwd<48, 64>(args, stream));
+  return (int)(w.cp == 64 ? launch_bwd<64, 64>(args, stream)
+                          : launch_bwd<128, 64>(args, stream));
 }

@@ -74,27 +74,35 @@
 // 67 TFLOP/s float32 rate of the CUDA cores. At C1 = 64, C2 = 128 a frame
 // is 11.59 GFLOP against 10.8 MB: 70.2 us at the 3xTF32 rate.
 //
-// The bfloat16 instances compute what the model computes at bf16: x and
-// the folded weights rounded to bf16, both convolutions one pass of bf16
-// products with float32 accumulation (no split: the operands are exact in
-// bf16), bias and activation in float32, conv1's activation rounded to
-// bf16 before conv2 reads it, and the pooled output rounded to bf16. At
-// (16, 24) and (16, 32) stem_bf16_kernel has the float32 kernel's geometry
-// on mma.sync m16n8k16; conv1's tile is bf16 channel-last with a pixel
-// stride of C1 + 8 (a quarter warp's 32-bit A loads on distinct banks),
-// and the weights sit in shared memory as B fragments, gathered and
-// rounded by each block (9 KB). At (64, 128) stem_bf16_wide_kernel has
-// stem_wide_kernel's roles: conv2 on wgmma (m64n128k16, bf16, A from
-// registers) over weights resident in shared memory (147 KB, written in
-// the wgmma layout by stem_pack_bf16_kernel at each call and copied once a
-// block by the consumers while the producers start), one chain of float32
-// sums; two producer warpgroups, one for each conv1 buffer, stage the
-// input and run conv1 on mma.sync. A producer warp keeps its conv1
-// fragments and biases in registers: in the first design they were
-// re-read every tile, and that traffic slowed the consumers. At 240x320
-// and (64, 128) a frame is 11.59 GFLOP against 5.4 MB: 11.7 us at 989
-// TFLOP/s. Phase timers put the consumers' conv2 at about two thirds of
-// the bf16 rate, and their pool and store at a third of a tile's time.
+// The bfloat16 instances compute what the model computes at bf16: x and the
+// folded weights rounded to bf16, both convolutions one pass of bf16 products
+// with float32 accumulation (no split: the operands are exact in bf16), bias
+// and activation in float32, conv1's activation rounded to bf16 before conv2
+// reads it, and the pooled output rounded to bf16. At (16, 24) and (16, 32)
+// stem_bf16_kernel runs both convolutions on mma.sync m16n8k16 over a tile of 8
+// conv2 rows by 32 columns (a warp a row pair, four m-tiles; the ring and the
+// halo cost 1.33x and 1.69x the tile, against 1.41x and 1.88x at 16 columns).
+// Its blocks are persistent (as many as the card holds at once), each copying
+// the weights once in 16-byte loads and turning them into B fragments in shared
+// memory (a design that gathered them at stride 9 for every 8x16 tile spent a
+// third of a block on it, by phase timers on the card); a thread loads the next
+// tile's input into registers while conv2 runs, so that staging a tile is a
+// store to shared memory; conv1's K is ordered (tap, channel padded to 4) over
+// an input tile of 4 channels a pixel, so that an A register is one 32-bit
+// load; conv1's tile is bf16 channel-last with a pixel stride of C1 + 8 (a
+// quarter warp's 32-bit A loads on distinct banks); the pooled rows go out as
+// 16-byte runs. Eight warps a tile (half the chain a block) measured slower at
+// every shape. At (64, 128) stem_bf16_wide_kernel has stem_wide_kernel's roles:
+// conv2 on wgmma (m64n128k16, bf16, A from registers) over weights resident in
+// shared memory (147 KB, written in the wgmma layout by stem_pack_bf16_kernel
+// at each call and copied once a block by the consumers while the producers
+// start), one chain of float32 sums; two producer warpgroups, one for each
+// conv1 buffer, stage the input and run conv1 on mma.sync. A producer warp
+// keeps its conv1 fragments and biases in registers: in the first design they
+// were re-read every tile, and that traffic slowed the consumers. At 240x320
+// and (64, 128) a frame is 11.59 GFLOP against 5.4 MB: 11.7 us at 989 TFLOP/s.
+// Phase timers put the consumers' conv2 at about two thirds of the bf16 rate,
+// and their pool and store at a third of a tile's time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -818,17 +826,28 @@ cudaError_t launch_wide(const float* x, const long long* sx, const float* w1,
 
 // ------------------------------------------- the bfloat16 instances
 
-// Tile geometry as above, a warp a conv2 row pair
+// The narrow instances' tile: kTileH conv2 rows (a warp a row pair) by
+// kBfTileW columns (kBfMT m-tiles of 16 a row)
+constexpr int kBfTileW = 32;
+constexpr int kBfMT = kBfTileW / 16;
+constexpr int kBfPoolW = kBfTileW / 2;
+constexpr int kBfY1W = kBfTileW + 2, kBfY1Pix = kY1H * kBfY1W;  // ring tile
+constexpr int kBfInW = kBfTileW + 4, kBfInPix = kInH * kBfInW;  // input
+constexpr int kBfIn = 3 * kBfInPix;
+constexpr int kBfThreads = 128;
+constexpr int kBfWarps = kBfThreads / 32;
+// input values a thread loads ahead, for the tile after the current one
+constexpr int kBfHeld = (kBfIn + kBfThreads - 1) / kBfThreads;
+
 template <int C1, int C2>
 struct Bf16Cfg {
-  static constexpr int kWarps = 4;
-  static constexpr int kThreads = 32 * kWarps;
   static constexpr int KS = C1 / 16;  // conv2 k-steps a tap
   static constexpr int NT = C2 / 8;   // conv2 n-tiles
   static constexpr int NT1 = C1 / 8;  // conv1 n-tiles
   static constexpr int kPix = C1 + 8;  // bf16 a conv1 pixel
-  static constexpr int kW1 = 2 * NT1 * 32;       // conv1's B fragments
+  static constexpr int kW1 = 3 * NT1 * 32;       // conv1's B fragments
   static constexpr int kW2 = 9 * KS * NT * 32;   // conv2's
+  static constexpr int kRaw = C2 * C1 * 9 + C1 * kK1;  // the weights as given
 };
 
 template <int C1, int C2>
@@ -836,11 +855,12 @@ struct Bf16Smem {
   using Cfg = Bf16Cfg<C1, C2>;
   uint2 w2[Cfg::kW2];
   uint2 w1[Cfg::kW1];
-  __nv_bfloat16 y1[kY1Pix * Cfg::kPix];  // conv1 tile, channel-last
   union {
-    unsigned short x[kIn];  // input tile [ci][r][c], bf16 bits
-    float out[Cfg::kWarps][C2][kPoolW + 1];
+    float raw[Cfg::kRaw];                    // the weights, once a block
+    __nv_bfloat16 y1[kBfY1Pix * Cfg::kPix];  // conv1 tile, channel-last
   } u;
+  alignas(16) __nv_bfloat16 out[kBfWarps][C2][kBfPoolW];  // a warp's own
+  unsigned short x[kBfInPix * 4];  // input tile [r][c][ci], ci 3 zero
 };
 
 // conv1's B fragment e = (ks * C1/8 + nt) * 32 + lane, with g = lane / 4
@@ -851,7 +871,7 @@ __device__ __forceinline__ uint2 w1_fragment(const float* w1, int e) {
   const int l = e & 31, g = l >> 2, t = l & 3;
   const int nt = (e >> 5) % (C1 / 8), k = (e >> 5) / (C1 / 8) * 16 + 2 * t;
   const float* wp = w1 + (nt * 8 + g) * kK1;
-  auto w = [&](int kk) { return kk < kK1 ? __ldg(wp + kk) : 0.f; };
+  auto w = [&](int kk) { return kk < kK1 ? wp[kk] : 0.f; };
   return make_uint2(nvs::pack_bf16(w(k), w(k + 1)),
                     nvs::pack_bf16(w(k + 8), w(k + 9)));
 }
@@ -865,12 +885,27 @@ __device__ __forceinline__ uint2 w2_fragment(const float* w2, int e) {
   const int nt = r % (C2 / 8), ks = r / (C2 / 8) % (C1 / 16);
   const int tap = r / (C2 / 8 * (C1 / 16));
   const float* wp = w2 + ((nt * 8 + g) * C1 + ks * 16 + 2 * t) * 9 + tap;
-  return make_uint2(nvs::pack_bf16(__ldg(wp), __ldg(wp + 9)),
-                    nvs::pack_bf16(__ldg(wp + 8 * 9), __ldg(wp + 9 * 9)));
+  return make_uint2(nvs::pack_bf16(wp[0], wp[9]),
+                    nvs::pack_bf16(wp[8 * 9], wp[9 * 9]));
+}
+
+// The narrow instances' conv1 B fragment e = (ks * C1/8 + nt) * 32 + lane:
+// k = 16 ks + 2t (+1) and 16 ks + 2t + 8 (+9) of output channel 8 nt + g,
+// with k = tap * 4 + ci (channel 3 and taps from 9 zero), rounded to bf16
+template <int C1>
+__device__ __forceinline__ uint2 w1_tap_fragment(const float* w1, int e) {
+  const int l = e & 31, g = l >> 2, t = l & 3;
+  const int nt = (e >> 5) % (C1 / 8), k = (e >> 5) / (C1 / 8) * 16 + 2 * t;
+  const float* wp = w1 + (nt * 8 + g) * kK1;
+  auto w = [&](int kk) {
+    return kk < 36 && kk % 4 < 3 ? wp[kk % 4 * 9 + kk / 4] : 0.f;
+  };
+  return make_uint2(nvs::pack_bf16(w(k), w(k + 1)),
+                    nvs::pack_bf16(w(k + 8), w(k + 9)));
 }
 
 template <int C1, int C2>
-__global__ void __launch_bounds__(Bf16Cfg<C1, C2>::kThreads)
+__global__ void __launch_bounds__(kBfThreads)
 stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
                  long long sx_h, long long sx_w, long long sx_c,
                  const float* __restrict__ w1, const float* __restrict__ w2,
@@ -880,145 +915,237 @@ stem_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sx_b,
   using Cfg = Bf16Cfg<C1, C2>;
   static_assert(C1 % 16 == 0 && C2 % 8 == 0, "widths");
   constexpr int PIX = Cfg::kPix, KS = Cfg::KS, NT = Cfg::NT, NT1 = Cfg::NT1;
-  constexpr int kT = Cfg::kThreads;
+  constexpr int kT = kBfThreads, kW2Raw = C2 * C1 * 9;
   extern __shared__ float4 smem_raw[];
   auto& s = *reinterpret_cast<Bf16Smem<C1, C2>*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int H2 = H / 2, W2 = W / 2;
+  const int nx = (W2 + kBfPoolW - 1) / kBfPoolW;
+  const int ny = (H2 + kPoolH - 1) / kPoolH;
+  const int ntiles = nx * ny * B;
 
-  // the weights, once a block
+  // the input values of a tile that this thread stages, zero outside the
+  // image, loaded into registers a tile ahead
+  unsigned short held[kBfHeld];
+  auto load_input = [&](int tile) {
+    const int b = tile / (nx * ny), ty = tile / nx % ny, tx = tile % nx;
+    const int gy0 = ty * kTileH - 2, gx0 = tx * kBfTileW - 2;
+    const __nv_bfloat16* xb = x + (long long)b * sx_b;
+#pragma unroll
+    for (int i = 0; i < kBfHeld; ++i) {
+      const int e = tid + kT * i;
+      const int ci = e / (kInH * kBfInW), r = e / kBfInW % kInH;
+      const int gy = gy0 + r, gx = gx0 + e % kBfInW;
+      held[i] = e < kBfIn && gy >= 0 && gy < H && gx >= 0 && gx < W
+                    ? __bfloat16_as_ushort(
+                          xb[gy * sx_h + gx * sx_w + ci * sx_c])
+                    : (unsigned short)0;
+    }
+  };
+
+  // 1. the weights, once a block: as given into shared memory (16-byte
+  // loads, all in flight at once), then as B fragments rounded to bf16,
+  // while the first tile's input loads; the lane's biases in registers
+  // (channels 8 nt + 2t, + 1)
+  if ((int)blockIdx.x < ntiles) load_input(blockIdx.x);
+  if (((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) &
+       15) == 0) {
+    constexpr int N2 = kW2Raw / 4, N1 = C1 * kK1 / 4;
+    constexpr int R2 = (N2 + kT - 1) / kT, R1 = (N1 + kT - 1) / kT;
+    float4 v2[R2], v1[R1];
+#pragma unroll
+    for (int i = 0; i < R2; ++i)
+      if (tid + kT * i < N2)
+        v2[i] = __ldg(reinterpret_cast<const float4*>(w2) + tid + kT * i);
+#pragma unroll
+    for (int i = 0; i < R1; ++i)
+      if (tid + kT * i < N1)
+        v1[i] = __ldg(reinterpret_cast<const float4*>(w1) + tid + kT * i);
+#pragma unroll
+    for (int i = 0; i < R2; ++i)
+      if (tid + kT * i < N2)
+        reinterpret_cast<float4*>(s.u.raw)[tid + kT * i] = v2[i];
+#pragma unroll
+    for (int i = 0; i < R1; ++i)
+      if (tid + kT * i < N1)
+        reinterpret_cast<float4*>(s.u.raw + kW2Raw)[tid + kT * i] = v1[i];
+  } else {
+    for (int e = tid; e < kW2Raw; e += kT) s.u.raw[e] = __ldg(w2 + e);
+    for (int e = tid; e < C1 * kK1; e += kT)
+      s.u.raw[kW2Raw + e] = __ldg(w1 + e);
+  }
+  for (int e = tid; e < kBfInPix; e += kT) s.x[4 * e + 3] = 0;
+  float b1r[NT1][2], b2r[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT1; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) b1r[nt][j] = __ldg(b1 + nt * 8 + 2 * t + j);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) b2r[nt][j] = __ldg(b2 + nt * 8 + 2 * t + j);
+  __syncthreads();
   for (int e = tid; e < Cfg::kW2; e += kT)
-    s.w2[e] = w2_fragment<C1, C2>(w2, e);
-  for (int e = tid; e < Cfg::kW1; e += kT) s.w1[e] = w1_fragment<C1>(w1, e);
-  // the lane's conv1 k = 16 ks + 2t + (j & 1) + 8 (j >> 1) as offsets into
-  // the input tile, -1 from 27
-  int koff[2][4];
+    s.w2[e] = w2_fragment<C1, C2>(s.u.raw, e);
+  for (int e = tid; e < Cfg::kW1; e += kT)
+    s.w1[e] = w1_tap_fragment<C1>(s.u.raw + kW2Raw, e);
+  // conv1's k = tap * 4 + ci: the lane's pairs k = 16 ks + 2t + 8 h (+1)
+  // are channels (ci, ci + 1) of one input pixel, one 32-bit load, at
+  // these offsets from the output pixel's (-1 past the nine taps)
+  int koff[3][2];
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
+  for (int ks = 0; ks < 3; ++ks)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = ks * 16 + 2 * t + (j & 1) + 8 * (j >> 1);
-      koff[ks][j] =
-          k < kK1 ? k / 9 * kInH * kInW + k % 9 / 3 * kInW + k % 3 : -1;
+    for (int h = 0; h < 2; ++h) {
+      const int k = ks * 16 + 2 * t + 8 * h, tap = k / 4;
+      koff[ks][h] = tap < 9 ? (tap / 3 * kBfInW + tap % 3) * 4 + k % 4 : -1;
     }
 
-  const int H2 = H / 2, W2 = W / 2;
-  const int nx = (W2 + kPoolW - 1) / kPoolW, ny = (H2 + kPoolH - 1) / kPoolH;
-  for (int tile = blockIdx.x; tile < nx * ny * B; tile += gridDim.x) {
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int b = tile / (nx * ny), ty = tile / nx % ny, tx = tile % nx;
-    const int oy0 = ty * kTileH, ox0 = tx * kTileW;
-    __syncthreads();  // the last tile's reads of s.y1 and s.u are done
-
-    // 1. the input tile, zero outside the image
-    const __nv_bfloat16* xb = x + (long long)b * sx_b;
-    for (int e = tid; e < kIn; e += kT) {
-      const int ci = e / (kInH * kInW), r = e / kInW % kInH, c = e % kInW;
-      const int gy = oy0 - 2 + r, gx = ox0 - 2 + c;
-      s.u.x[e] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                     ? __bfloat16_as_ushort(xb[gy * sx_h + gx * sx_w +
-                                               ci * sx_c])
-                     : (unsigned short)0;
+    const int oy0 = ty * kTileH, ox0 = tx * kBfTileW;
+    __syncthreads();  // the fragments are built; the last tile's reads of
+                      // s.u and s.x are done
+#pragma unroll
+    for (int i = 0; i < kBfHeld; ++i) {
+      const int e = tid + kT * i;  // channel e / kBfInPix, pixel e % kBfInPix
+      if (e < kBfIn) s.x[e % kBfInPix * 4 + e / kBfInPix] = held[i];
     }
     __syncthreads();
 
-    // 2. conv1: m-tiles of 16 ring-tile pixels
-    constexpr int M1 = (kY1Pix + 15) / 16;
-    for (int m = warp; m < M1; m += Cfg::kWarps) {
-      int poff[2];  // rows g and g + 8: their pixel's input offset
+    // 2. conv1: m-tiles of 16 ring-tile pixels, warp, warp + 4, ..., two
+    // at a time (independent sums)
+    constexpr int M1 = (kBfY1Pix + 15) / 16;
+    constexpr int M1W = (M1 + kBfWarps - 1) / kBfWarps;  // a warp's m-tiles
+    for (int m2 = 0; m2 < M1W; m2 += 2) {
+      int poff[2][2];  // m-tile j, rows g and g + 8: their pixel's offset
+      bool live[2];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int p = min(m * 16 + g + 8 * r, kY1Pix - 1);
-        poff[r] = p / kY1W * kInW + p % kY1W;
-      }
-      float acc[NT1][4] = {};
+      for (int j = 0; j < 2; ++j) {
+        const int m = warp + kBfWarps * (m2 + j);
+        live[j] = m < M1;
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        uint32_t a[4];  // row g + 8 (q & 1), k pair 2t + 8 (q >> 1)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int k0 = koff[ks][2 * (q >> 1)], k1 = koff[ks][2 * (q >> 1) + 1];
-          const uint32_t lo = k0 >= 0 ? s.u.x[k0 + poff[q & 1]] : 0u;
-          const uint32_t hi = k1 >= 0 ? s.u.x[k1 + poff[q & 1]] : 0u;
-          a[q] = lo | hi << 16;
+        for (int r = 0; r < 2; ++r) {
+          const int p = min(m * 16 + g + 8 * r, kBfY1Pix - 1);
+          poff[j][r] = (p / kBfY1W * kBfInW + p % kBfY1W) * 4;
         }
+      }
+      float acc[2][NT1][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < 3; ++ks) {
+        uint32_t a[2][4];  // row g + 8 (q & 1), k pair 2t + 8 (q >> 1)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int k = koff[ks][q >> 1];
+            a[j][q] = k >= 0 ? *reinterpret_cast<const uint32_t*>(
+                                   s.x + poff[j][q & 1] + k)
+                             : 0u;
+          }
 #pragma unroll
         for (int nt = 0; nt < NT1; ++nt) {
           const uint2 f = s.w1[(ks * NT1 + nt) * 32 + lane];
           const uint32_t bw[2] = {f.x, f.y};
-          nvs::mma_bf16(acc[nt], a, bw);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (live[j]) nvs::mma_bf16(acc[j][nt], a[j], bw);
         }
       }
       // bias and activation in float32, zero outside the image, rounded
       // to bf16 as conv2 reads it
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = m * 16 + g + 8 * h;
-        if (p >= kY1Pix) continue;
-        const int gy = oy0 - 1 + p / kY1W, gx = ox0 - 1 + p % kY1W;
-        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int nt = 0; nt < NT1; ++nt) {
-          const int ch = nt * 8 + 2 * t;
-          const float v0 =
-              in ? nvs::leaky(acc[nt][2 * h] + __ldg(b1 + ch), slope) : 0.f;
-          const float v1 =
-              in ? nvs::leaky(acc[nt][2 * h + 1] + __ldg(b1 + ch + 1), slope)
-                 : 0.f;
-          *reinterpret_cast<uint32_t*>(s.y1 + p * PIX + ch) =
-              nvs::pack_bf16(v0, v1);
+        for (int h = 0; h < 2; ++h) {
+          const int p = (warp + kBfWarps * (m2 + j)) * 16 + g + 8 * h;
+          if (!live[j] || p >= kBfY1Pix) continue;
+          const int gy = oy0 - 1 + p / kBfY1W, gx = ox0 - 1 + p % kBfY1W;
+          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+          for (int nt = 0; nt < NT1; ++nt) {
+            const float v0 =
+                in ? nvs::leaky(acc[j][nt][2 * h] + b1r[nt][0], slope) : 0.f;
+            const float v1 =
+                in ? nvs::leaky(acc[j][nt][2 * h + 1] + b1r[nt][1], slope)
+                   : 0.f;
+            *reinterpret_cast<uint32_t*>(s.u.y1 + p * PIX + nt * 8 + 2 * t) =
+                nvs::pack_bf16(v0, v1);
+          }
         }
-      }
     }
     __syncthreads();
 
-    // 3. conv2: rows 2 rp (j = 0) and 2 rp + 1 of the tile; a k-step is 16
+    // 3. the next tile's input, in flight while conv2 runs: rows 2 rp + r
+    // of the tile, m-tiles of columns 16 mb .. 16 mb + 15; a k-step is 16
     // channels of one tap
+    if (tile + (int)gridDim.x < ntiles) load_input(tile + gridDim.x);
     const int rp = warp;
-    float acc[2][NT][4] = {};
+    float acc[2][kBfMT][NT][4] = {};
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3, kx = tap % 3;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a[2][4];  // [m-tile j][row g + 8 (q & 1), k + 8 (q >> 1)]
+        // [row][m-tile][row g + 8 (q & 1), k + 8 (q >> 1)]
+        uint32_t a[2][kBfMT][4];
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            a[j][q] = *reinterpret_cast<const uint32_t*>(
-                s.y1 + ((2 * rp + j + ky) * kY1W + g + 8 * (q & 1) + kx) * PIX
-                + ks * 16 + 2 * t + 8 * (q >> 1));
+          for (int mb = 0; mb < kBfMT; ++mb)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              a[r][mb][q] = *reinterpret_cast<const uint32_t*>(
+                  s.u.y1 +
+                  ((2 * rp + r + ky) * kBfY1W + 16 * mb + g + 8 * (q & 1) +
+                   kx) * PIX +
+                  ks * 16 + 2 * t + 8 * (q >> 1));
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const uint2 f = s.w2[((tap * KS + ks) * NT + nt) * 32 + lane];
           const uint32_t bw[2] = {f.x, f.y};
 #pragma unroll
-          for (int j = 0; j < 2; ++j) nvs::mma_bf16(acc[j][nt], a[j], bw);
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int mb = 0; mb < kBfMT; ++mb)
+              nvs::mma_bf16(acc[r][mb][nt], a[r][mb], bw);
         }
       }
     }
 
     // 4. pool as in stem_kernel, then bias and activation in float32, one
-    // rounding to bf16 as the pooled values go out
-    float(*so)[kPoolW + 1] = s.u.out[warp];
+    // rounding to bf16; a channel's pooled row goes out as 16-byte runs
+    __nv_bfloat16(*so)[kBfPoolW] = s.out[warp];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int mb = 0; mb < kBfMT; ++mb)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float v = fmaxf(acc[0][nt][i], acc[1][nt][i]);
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-        if (!(g & 1)) {
-          const int cl = nt * 8 + 2 * t + (i & 1);
-          so[cl][(i >> 1) * 4 + g / 2] = nvs::leaky(v + __ldg(b2 + cl), slope);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float v = fmaxf(acc[0][mb][nt][i], acc[1][mb][nt][i]);
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+          if (!(g & 1))
+            so[nt * 8 + 2 * t + (i & 1)][8 * mb + (i >> 1) * 4 + g / 2] =
+                __float2bfloat16_rn(
+                    nvs::leaky(v + b2r[nt][i & 1], slope));
         }
-      }
     __syncwarp();
-    const int py = ty * kPoolH + rp, px0 = tx * kPoolW;
+    const int py = ty * kPoolH + rp, px0 = tx * kBfPoolW;
     if (py < H2) {
-      for (int e = lane; e < C2 * kPoolW; e += 32) {
-        const int cl = e / kPoolW, c = e % kPoolW;
-        if (px0 + c < W2)
-          out[(((long long)b * C2 + cl) * H2 + py) * W2 + px0 + c] =
-              __float2bfloat16_rn(so[cl][c]);
+      __nv_bfloat16* orow = out + ((long long)b * C2 * H2 + py) * W2 + px0;
+      if (W2 % 8 == 0) {  // px0 % 8 == 0: a run is wholly in or out
+        constexpr int kRuns = kBfPoolW / 8;
+        for (int e = lane; e < C2 * kRuns; e += 32) {
+          const int cl = e / kRuns, h = e % kRuns;
+          if (px0 + 8 * h < W2)
+            *reinterpret_cast<uint4*>(orow + (long long)cl * H2 * W2 + 8 * h) =
+                *reinterpret_cast<const uint4*>(&so[cl][8 * h]);
+        }
+      } else {
+        for (int e = lane; e < C2 * kBfPoolW; e += 32) {
+          const int cl = e / kBfPoolW, c = e % kBfPoolW;
+          if (px0 + c < W2) orow[(long long)cl * H2 * W2 + c] = so[cl][c];
+        }
       }
     }
   }
@@ -1029,18 +1156,29 @@ cudaError_t launch_bf16(const __nv_bfloat16* x, const long long* sx,
                         const float* w1, const float* b1, const float* w2,
                         const float* b2, __nv_bfloat16* out, int B, int H,
                         int W, float slope, cudaStream_t stream) {
-  using Cfg = Bf16Cfg<C1, C2>;
   constexpr int kSmem = sizeof(Bf16Smem<C1, C2>);
-  const cudaError_t err = nvs::once_per_device([] {
+  cudaError_t err = nvs::once_per_device([] {
     return cudaFuncSetAttribute(stem_bf16_kernel<C1, C2>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kSmem);
   });
   if (err != cudaSuccess) return err;
-  const int grid = (W / 2 + kPoolW - 1) / kPoolW *
-                   ((H / 2 + kPoolH - 1) / kPoolH) * B;
-  stem_bf16_kernel<C1, C2><<<grid, Cfg::kThreads, kSmem, stream>>>(
-      x, sx[0], sx[1], sx[2], sx[3], w1, w2, b1, b2, out, B, H, W, slope);
+  // persistent: as many blocks as the card holds at once, each walking
+  // over tiles
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, stem_bf16_kernel<C1, C2>, kBfThreads, kSmem)) !=
+          cudaSuccess)
+    return err;
+  const long long tiles = (long long)((W / 2 + kBfPoolW - 1) / kBfPoolW) *
+                          ((H / 2 + kPoolH - 1) / kPoolH) * B;
+  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  stem_bf16_kernel<C1, C2>
+      <<<(int)(tiles < slots ? tiles : slots), kBfThreads, kSmem, stream>>>(
+          x, sx[0], sx[1], sx[2], sx[3], w1, w2, b1, b2, out, B, H, W, slope);
   return cudaGetLastError();
 }
 

@@ -344,10 +344,11 @@ def _bf16_ulps(got, want):
     (1, 240, 320, 24, 0.01), (8, 240, 320, 24, 0.01), (2, 240, 320, 32, 0.01),
     (1, 240, 320, 128, 0.01), (2, 250, 334, 128, 0.0), (2, 241, 321, 24, 0.01),
     (1, 49, 65, 32, 0.0), (1, 128, 512, 32, 0.01), (8, 240, 320, 128, 0.01),
-    (3, 240, 320, 128, 0.01), (1, 33, 47, 128, 0.01)])
+    (3, 240, 320, 128, 0.01), (1, 33, 47, 128, 0.01),
+    (3, 240, 320, 24, 0.01)])
 def test_stem_bf16_kernel_matches_plain(cuda, B, H, W, c2, slope):
     """The bfloat16 instances at the N slice's B 1 and 8, S and D widths
-    (D at B 1, 8 and 3: the persistent blocks' last round part full),
+    (D and N at B 3: the persistent blocks' last round part full),
     ragged and odd sizes (33x47: fewer tiles than the card has SMs), the
     ReLU and the VO frames' 128x512, for NHWC memory and the NHWC view of
     NCHW memory: within one bfloat16 ulp of the output of the twin (the
@@ -372,12 +373,15 @@ def test_stem_bf16_kernel_matches_plain(cuda, B, H, W, c2, slope):
         assert _bf16_ulps(got, want) <= 1.0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_stem_wide_kernel_is_deterministic(cuda, dtype):
-    """Config D's (64, 128) instances at the D cell's 240x320, B 8: two
-    launches on the same inputs give the same bits (no atomics, fixed sum
-    orders, whichever block takes a tile)."""
-    x, w1, b1, w2, b2 = _stem_inputs(8, 240, 320, 64, 128, seed=5)
+@pytest.mark.parametrize("c1,c2,dtype", [
+    (64, 128, torch.float32), (64, 128, torch.bfloat16),
+    (16, 24, torch.bfloat16), (16, 32, torch.bfloat16)])
+def test_stem_wide_kernel_is_deterministic(cuda, c1, c2, dtype):
+    """The persistent instances at 240x320, B 8: config D's (64, 128) at
+    float32 and bf16 and the narrow bf16 ones, N's (16, 24) and S's
+    (16, 32): two launches on the same inputs give the same bits (no
+    atomics, fixed sum orders, whichever block takes a tile)."""
+    x, w1, b1, w2, b2 = _stem_inputs(8, 240, 320, c1, c2, seed=5)
     args = [a.to(cuda) for a in (_oihw(w1), torch.from_numpy(b1),
                                  _oihw(w2), torch.from_numpy(b2))]
     x = torch.from_numpy(x).to(cuda).to(dtype)
@@ -458,10 +462,15 @@ def test_netvlad_backward_on_cpu_is_the_twin():
 
 
 @pytest.mark.parametrize("B,H,W,C,K", [
-    (4, 30, 40, 64, 64), (1, 60, 80, 48, 32), (2, 7, 9, 128, 64)])
+    (4, 30, 40, 64, 64), (1, 60, 80, 48, 32), (2, 7, 9, 128, 64),
+    (1, 60, 80, 48, 64), (3, 13, 17, 48, 64), (2, 9, 11, 30, 20),
+    (1, 6, 7, 100, 50)])
 def test_netvlad_backward_kernel_matches_twin(cuda, B, H, W, C, K):
     """The train shape of config S (4x30x40, C = K = 64), config N's
-    (1x60x80, 48, 32) and a ragged F-width image: dx, dW and dcen within
+    (1x60x80, 48, 32), V3 N's (48, 64), a ragged F-width image, 3 images of
+    221 pixels (a multiple of neither the 40-pixel tile nor the cluster of
+    8 tiles) and widths that no instance has (run zero-padded in the
+    (48, 32) and (128, 64) ones): dx, dW and dcen within
     1e-5 of each gradient's largest magnitude against the twin (float32
     sums in other orders), for the NCHW view and NHWC memory; dW and dcen
     equal across two launches (fixed-order reductions); and the same

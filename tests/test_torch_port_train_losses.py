@@ -65,13 +65,16 @@ def _leaves(*arrays):
 
 # ------------------------------------------------------ NetVLAD gradients
 
-@pytest.mark.parametrize("B,H,W,C,K", [(2, 6, 8, 64, 64), (1, 15, 20, 48, 32)])
+@pytest.mark.parametrize("B,H,W,C,K", [
+    (2, 6, 8, 64, 64), (1, 15, 20, 48, 32), (1, 7, 9, 48, 64),
+    (2, 5, 6, 128, 64)])
 def test_netvlad_gradients_match_jax_grad(B, H, W, C, K):
     """dx, dW and dcen of the port's NetVLAD (autograd through the plain
     function on CPU tensors, and ``netvlad_backward``'s CPU twin) against
     ``jax.grad`` of the flax NetVLAD, for the upstream gradient gy: 1e-5
-    relative to each gradient's largest magnitude. Config S's widths
-    (C = K = 64) and config N's (48, 32)."""
+    relative to each gradient's largest magnitude. Every width the backward
+    kernel has an instance for: config S's (C = K = 64), V2 N's (48, 32),
+    V3 N's (48, 64) and F's (128, 64)."""
     rs = np.random.RandomState(C + K)
     x = rs.randn(B, H, W, C).astype(np.float32)
     aw = (rs.randn(C, K) * 0.3).astype(np.float32)

@@ -1,4 +1,4 @@
-"""Config D's stem, (C1, C2) = (64, 128), of two source trees in turns on one
+"""The stem and the NetVLAD backward of two source trees in turns on one
 NVIDIA card.
 
     python3 tools/stem_turns.py PARENT_DIR CHANGE_DIR
@@ -7,16 +7,23 @@ Each directory is a checkout of this repository (for example a commit's
 ``git archive`` unpacked into a directory that ``.gitignore`` lists). In
 the order parent, change, change, parent, a subprocess imports that tree's
 ``nanovs_slam_torch`` (whose kernels build from its own ``csrc/``) and
-``chip_smoke.py`` and measures, on 240x320 frames:
+``chip_smoke.py`` and measures:
 
-- the stem kernel at float32 and bf16, batch 1 and 8: ``chip_smoke``'s
-  D cases (``kernel_cases``: the same seeded inputs and checks against
-  ``stem_plain``), timed by ``chip_smoke.cuda_ms`` (CUDA events behind a
-  spin kernel, median of 15);
-- one request of config D (V2, 28 classes, seeded weights and BN
-  statistics) through ``make_infer_fn`` at float32 and bf16, batch 1 and
-  8: the host-clock median ms of 20 steady requests and the device ms of
-  a request (``chip_smoke.busy_share``, torch.profiler).
+- the stem kernel on 240x320 frames at batch 1 and 8: config D's
+  (64, 128) at float32 and bf16 and the narrow bf16 instances, N's
+  (16, 24) and S's (16, 32); and the NetVLAD backward at the train shape
+  (config S, 4x30x40, C = K = 64) and config N's (1x60x80, 48, 32):
+  ``chip_smoke``'s cases (``kernel_cases``: the same seeded inputs and
+  checks against the twins), timed by ``chip_smoke.cuda_ms`` (CUDA events
+  behind a spin kernel, median of 15);
+- one request of config D at float32 and bf16 and one of config N at
+  bf16 (V2, 28 classes, seeded weights and BN statistics) through
+  ``make_infer_fn``, batch 1 and 8: the host-clock median ms of 20 steady
+  requests and the device ms of a request (``chip_smoke.busy_share``,
+  torch.profiler);
+- one train step of config S (``chip_smoke.train_state``, its fixed
+  batch, dropout off): the host-clock median ms of 10 steps and the
+  device ms of a step and of its NetVLAD backward kernels (torch.profiler).
 
 Prints the card's name and power limit, one JSON line a turn, and the
 medians of each tree's two turns. It imports neither jax nor
@@ -40,45 +47,72 @@ import chip_smoke as cs
 from nanovs_slam_torch.configs import get_config
 from nanovs_slam_torch.inference import make_infer_fn
 from nanovs_slam_torch.models.kp2dtiny import build_model, init_model
+from nanovs_slam_torch.modules.blocks import set_dropout
+from nanovs_slam_torch.train.schedules import DEFAULT_LOSS_WEIGHTS
+from nanovs_slam_torch.train.train_step import make_train_step
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 out = {}
+KEYS = {(cs.STEM_D, ""): "stem_d_float32", (cs.STEM_BF16, "_d"): "stem_d_bf16",
+        (cs.STEM_BF16, ""): "stem_n_bf16", (cs.STEM_BF16, "_s"): "stem_s_bf16",
+        ("netvlad_backward", ""): "netvlad_bwd_train",
+        ("netvlad_backward", "_n"): "netvlad_bwd_n"}
 for B in (1, 8):
+    b8 = "" if B == 1 else f"_b{B}"
     for c in cs.kernel_cases(B, dev):
-        if (c.entry, c.suffix) not in ((cs.STEM_D, ""), (cs.STEM_D, "_b8"),
-                                       (cs.STEM_BF16, "_d"),
-                                       (cs.STEM_BF16, "_d_b8")):
+        suffix = c.suffix[:-len(b8)] if b8 and c.suffix.endswith(b8) \
+            else c.suffix
+        key = KEYS.get((c.entry, suffix))
+        if key is None or (B != 1 and c.entry == "netvlad_backward"):
             continue
         got, want = c.run(), c.plain()
         torch.cuda.synchronize()
         c.check(got, want)
-        dt = "bf16" if c.entry == cs.STEM_BF16 else "float32"
-        out[f"kernel_{dt}_B{B}"] = cs.cuda_ms(c.run)
-gen = torch.Generator().manual_seed(cs.SEED + 1300)
-cfg32 = get_config("D", n_classes=28)
-cfg16 = get_config("D", n_classes=28, dtype="bfloat16")
-model32 = init_model(cfg32, gen, "cpu")
-cs.randomize_bn(model32, gen)
-model16 = build_model(cfg16).eval()
-model16.load_state_dict(model32.state_dict())
+        out[f"kernel_{key}" + ("" if c.entry == "netvlad_backward"
+                               else f"_B{B}")] = cs.cuda_ms(c.run)
 rs = np.random.RandomState(cs.SEED + 1300)
-for B in (1, 8):
-    frames = rs.randint(0, 256, (B, cs.H, cs.W, 3)).astype(np.uint8)
-    for dt, model, cfg in (("float32", model32, cfg32),
-                           ("bf16", model16, cfg16)):
-        infer = make_infer_fn(model, cfg, cs.H, cs.W, device=dev,
-                              top_k=1000, conf_threshold=0.7)
-        times = []
-        for _ in range(25):
-            t0 = time.perf_counter()
-            infer(frames)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        dev_ms, busy = cs.busy_share(lambda: infer(frames))
-        out[f"request_{dt}_B{B}"] = statistics.median(times[5:])
-        out[f"request_device_{dt}_B{B}"] = dev_ms
+for name in ("D", "N"):
+    gen = torch.Generator().manual_seed(cs.SEED + 1300)
+    cfg32 = get_config(name, n_classes=28)
+    cfg16 = get_config(name, n_classes=28, dtype="bfloat16")
+    model32 = init_model(cfg32, gen, "cpu")
+    cs.randomize_bn(model32, gen)
+    model16 = build_model(cfg16).eval()
+    model16.load_state_dict(model32.state_dict())
+    dtypes = (("float32", model32, cfg32), ("bf16", model16, cfg16))
+    for B in (1, 8):
+        frames = rs.randint(0, 256, (B, cs.H, cs.W, 3)).astype(np.uint8)
+        for dt, model, cfg in dtypes[name == "N":]:
+            infer = make_infer_fn(model, cfg, cs.H, cs.W, device=dev,
+                                  top_k=1000, conf_threshold=0.7)
+            times = []
+            for _ in range(25):
+                t0 = time.perf_counter()
+                infer(frames)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            dev_ms, busy = cs.busy_share(lambda: infer(frames))
+            tag = f"{name}_{dt}_B{B}"
+            out[f"request_{tag}"] = statistics.median(times[5:])
+            out[f"request_device_{tag}"] = dev_ms
+cfg, state = cs.train_state(dev)
+set_dropout(state.model, rate=0.0)
+step = make_train_step(cfg, *cs.TRAIN_HW, io_top_k=300)
+batch = {k: v.to(dev) for k, v in cs.train_batch(cs.SEED).items()}
+times = []
+for _ in range(15):
+    t0 = time.perf_counter()
+    step(state, batch, DEFAULT_LOSS_WEIGHTS)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+parts = cs.device_breakdown(lambda: step(state, batch, DEFAULT_LOSS_WEIGHTS),
+                            10)
+out["train_step"] = statistics.median(times[5:])
+out["train_step_device"] = sum(n * t for n, t in parts.values())
+out["train_step_device_netvlad_bwd"] = sum(
+    n * t for k, (n, t) in parts.items() if "netvlad_bwd" in k)
 print(json.dumps(out))
 """
 
