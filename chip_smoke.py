@@ -138,7 +138,26 @@ Phases, each of which raises (exit code != 0) on failure:
     reduction) against its twin, autograd through
     netvlad_plain, at the train shape (unsuffixed) and config N's
     (``_n``), its dW and dcen equal across two launches;
- 14. one JSON line describing each kernel, the card's line before it, and
+ 14. eval phase: the evaluation path (``evaluation/*`` through
+    ``inference.make_eval_fn``, the stem, postprocess and NetVLAD kernels
+    once a request, the metric tail in numpy on the host) with pinned S8
+    at 240x320 on 8 synthetic homography pairs made on the card by the
+    trainer's ``synthetic_homography_pairs``: ``evaluate_keypoint_net``
+    at top_k 300 and 1000, ``evaluate_segmentation`` over the 8 images,
+    ``evaluate_global_descriptor`` (the originals the database, the warps
+    the queries, ``knn_l2`` on the card), held against the same functions
+    on the CPU (segmentation, repeatability, localisation error and
+    matching score within 1e-3, each correctness threshold equal on 7 or
+    more of the 8 pairs, retrieval equal; the largest gaps printed); the
+    kernels' launch counts (one of each a request); ms a pair (requests,
+    device, the host's tail and its homography estimator), a segmentation
+    item and a ``knn_l2``; a seeded config S with depth through
+    ``evaluate_depth`` against the CPU (1e-4 relative); then the trainer's
+    ``main()`` with its evaluation on (1 epoch of 3 steps, ``--full_eval
+    1 --max_eval_items 8``), timed, whose checkpoint must hold
+    segmentation, keypoint and retrieval numbers and no error (VO may only
+    be skipped for want of cv2);
+ 15. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
     the match path, K=512; the stem at (64, 128): the D cell; the odd
@@ -151,8 +170,8 @@ Phases, each of which raises (exit code != 0) on failure:
     too (the match path's postprocess shapes are the N slice's B=1 ones;
     the paths of phases 11 and 12: ``vo_dense``, ``vo_offline_dense``,
     ``vo_offline_bf``, ``vo_offline_lg``, ``lg_adaptive``,
-    ``lg_width`` and ``train``; ``netvlad_backward``'s first path is
-    ``train``).
+    ``lg_width``, ``train`` and ``eval``; ``netvlad_backward``'s first
+    path is ``train``).
     The bfloat16 instances have entries of their own (``*_bf16``, named
     ``...[bf16]``): unsuffixed the N cell's shapes, ``_s`` S_A's, ``_d``
     D's, and ``launches`` the bf16 N cell's.
@@ -202,6 +221,14 @@ NV_BF16 = "netvlad_bf16"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, inner: int = 20, trials: int = 15) -> float:
@@ -2465,6 +2492,277 @@ def train_phase(dev, repo: str) -> dict:
     return {"train": launches}
 
 
+# ---------------------------------------------------------------- eval phase
+
+EVAL_PAIRS = 8
+
+
+class _Recorder:
+    """Replaces ``module.name`` by a wrapper that records each call's
+    host-clock ms (synchronised) and result, until ``restore``."""
+
+    def __init__(self, module, name: str):
+        import torch
+
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.ms, self.results = [], []
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kwargs)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.results.append(out)
+            return out
+
+        setattr(module, name, wrapper)
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.fn)
+
+
+def eval_tasks(model, cfg, device, pairs, seg_items) -> tuple:
+    """The evaluation tasks of the CLI's keypoint, segmentation and visloc
+    branches on ``pairs`` and ``seg_items`` with ``model`` on ``device``:
+    (results, per-pair compute_homography answers, host ms of the
+    keypoint evaluation, of its requests and of its homography estimates,
+    of the segmentation, and the retrieval's database and queries)."""
+    import torch
+
+    from nanovs_slam_torch.evaluation import descriptor, keypoints
+    from nanovs_slam_torch.evaluation.global_descriptor import \
+        evaluate_global_descriptor
+    from nanovs_slam_torch.evaluation.segmentation import \
+        evaluate_segmentation
+    from nanovs_slam_torch.inference import make_eval_fn
+
+    infer = make_eval_fn(model, cfg, H, W)
+    request_ms = []
+
+    def timed_infer(images):  # numpy out: the copy back synchronises
+        t0 = time.perf_counter()
+        out = infer(images)
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    homs = _Recorder(keypoints, "compute_homography")
+    ransac = _Recorder(descriptor, "find_homography_ransac")
+    res, times = {}, {}
+    try:
+        for k in (300, 1000):
+            t0 = time.perf_counter()
+            res[f"keypoints_top{k}"] = keypoints.evaluate_keypoint_net(
+                pairs, timed_infer, (W, H), k)
+            times[f"kp{k}"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        homs.restore()
+        ransac.restore()
+    t0 = time.perf_counter()
+    res["segmentation"] = evaluate_segmentation(iter(seg_items), infer,
+                                                cfg.n_classes)
+    times["seg"] = (time.perf_counter() - t0) * 1e3
+    db = torch.from_numpy(np.stack([infer(p["image"])["vlad"][0]
+                                    for p in pairs])).to(device)
+    q = torch.from_numpy(np.stack([infer(p["image_aug"])["vlad"][0]
+                                   for p in pairs])).to(device)
+    positives = [np.array([i]) for i in range(len(pairs))]
+    res["visloc"] = evaluate_global_descriptor(db, q, positives, (1, 5))
+    times.update(requests=sum(request_ms), ransac=sum(ransac.ms))
+    return res, homs.results, times, (db, q)
+
+
+def eval_phase(dev, repo: str) -> dict:
+    """The evaluation path (``evaluation/*`` through ``inference.make_
+    eval_fn``) on the card against the CPU: pinned S8 at 240x320 on 8
+    synthetic homography pairs made on the card by the trainer's
+    ``synthetic_homography_pairs`` (``SyntheticShapesDataset`` images),
+    ``evaluate_keypoint_net`` at top_k 300 and 1000, ``evaluate_
+    segmentation`` over the 8 images, ``evaluate_global_descriptor`` (the
+    originals the database, the warps the queries; the search on the
+    card): segmentation, repeatability, localisation error and matching
+    score within 1e-3, each threshold's correctness equal on at least 7
+    of the 8 pairs, retrieval equal; the kernels' launches (one of each a
+    request); ms a pair (requests, and the host's metric tail with its
+    homography estimator), a segmentation item, a ``knn_l2``. Then a
+    seeded config S with depth through ``evaluate_depth``, card against
+    CPU within 1e-4 relative, and the trainer's CLI (``main()`` in
+    process, 1 epoch of 3 steps, ``--full_eval 1 --max_eval_items 8``),
+    whose checkpoint must hold numbers for segmentation, keypoints and
+    visloc (VO is skipped without cv2, and only so). Returns the eval
+    path's launch counts."""
+    import tempfile
+
+    import torch
+
+    from nanovs_slam_torch import train_multitask
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.data.datasets import SyntheticShapesDataset
+    from nanovs_slam_torch.evaluation.depth import evaluate_depth
+    from nanovs_slam_torch.evaluation.global_descriptor import knn_l2
+    from nanovs_slam_torch.inference import make_eval_fn
+    from nanovs_slam_torch.kernels import KERNELS, reset_launches
+    from nanovs_slam_torch.models.kp2dtiny import build_model, init_model
+    from nanovs_slam_torch.ops.image import resize_nearest
+    from nanovs_slam_torch.utils.checkpoint import load_npz_checkpoint
+    from nanovs_slam_torch.utils.convert import load_jax_variables
+
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    log(f"eval: numpy {np.__version__}; cv2 "
+        + ("installed" if importlib.util.find_spec("cv2") else "absent")
+        + " (the metric tail does not use it)")
+    tree, _ = load_npz_checkpoint(os.path.join(repo, "pinned",
+                                               "extractor_S8.npz"))
+    cfg = get_config("S", n_classes=8)
+    models = {d: load_jax_variables(build_model(cfg), tree["params"],
+                                    tree["batch_stats"]).to(d).eval()
+              for d in (dev, cpu)}
+    ds = SyntheticShapesDataset((H, W), EVAL_PAIRS, 8, seed=SEED + 13)
+    pairs = train_multitask.synthetic_homography_pairs(ds, (H, W),
+                                                       EVAL_PAIRS, dev)
+    hs, ws = 2 * (H // cfg.cell), 2 * (W // cfg.cell)
+    seg_items = [{"image": ds[i]["image"][None] * 2 - 1,
+                  "seg": resize_nearest(ds[i]["seg"], hs, ws)[None]}
+                 for i in range(EVAL_PAIRS)]
+
+    make_eval_fn(models[dev], cfg, H, W)(pairs[0]["image"])  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    card, card_homs, t, (db, q) = eval_tasks(models[dev], cfg, dev, pairs,
+                                             seg_items)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    requests = EVAL_PAIRS * 2 * 2 + EVAL_PAIRS + 2 * EVAL_PAIRS
+    log(f"eval: launches {launches} over {requests} requests (8 pairs x 2 "
+        f"x 2 top_k, 8 segmentation items, 16 retrieval images)")
+    for k in ("fused_stem_pair_pool", "fused_postprocess", "netvlad"):
+        require(launches[k] == requests,
+                f"eval: {k} launched {launches[k]} times, not one a request")
+    require(all(launches[k] == 0 for k in launches if k not in (
+        "fused_stem_pair_pool", "fused_postprocess", "netvlad")),
+        "eval: a kernel off the eval path launched")
+    cpu_res, cpu_homs, _, _ = eval_tasks(models[cpu], cfg, cpu, pairs,
+                                         seg_items)
+    log("eval: card " + json.dumps(card, default=str))
+    log("eval: cpu  " + json.dumps(cpu_res, default=str))
+
+    gaps = {}
+    for task, keys in (("segmentation", ("IoU", "IoU_macro", "accuracy",
+                                         "f1")),
+                       ("keypoints_top300", ("repeatability",
+                                             "localization_error", "mscore")),
+                       ("keypoints_top1000", ("repeatability",
+                                              "localization_error",
+                                              "mscore"))):
+        for k in keys:
+            gap = abs(card[task][k] - cpu_res[task][k])
+            gaps[f"{task}/{k}"] = gap
+            require(gap <= 1e-3, f"eval: {task} {k} card {card[task][k]} "
+                    f"cpu {cpu_res[task][k]}")
+    require(card["visloc"] == cpu_res["visloc"],
+            f"eval: retrieval {card['visloc']} against {cpu_res['visloc']}")
+    n = len(card_homs) // 2
+    for i, top_k in enumerate((300, 1000)):
+        a, b = card_homs[i * n:(i + 1) * n], cpu_homs[i * n:(i + 1) * n]
+        for j, thr in enumerate((1, 3, 5)):
+            same = sum(x[j] == y[j] for x, y in zip(a, b))
+            require(same >= EVAL_PAIRS - 1, f"eval: correctness{thr} at "
+                    f"top_k {top_k} equal on {same} of {EVAL_PAIRS} pairs")
+        dists = [abs(x[3] - y[3]) for x, y in zip(a, b)]
+        gaps[f"keypoints_top{top_k}/mean_dist (largest)"] = max(dists)
+        log(f"eval: top_k {top_k} mean corner distance a pair, card "
+            + ", ".join(f"{x[3]:.4f}" for x in a) + "; cpu "
+            + ", ".join(f"{y[3]:.4f}" for y in b))
+    log("eval: card against CPU, largest gaps " + json.dumps(gaps))
+    repeat = card["keypoints_top300"]["repeatability"]
+    require(repeat > 0, f"eval: repeatability {repeat}: no keypoint above "
+            "the 0.7 threshold")
+
+    card_name = card_line()
+    n_req = EVAL_PAIRS * 4
+    kp_ms = (t["kp300"] + t["kp1000"]) / (2 * EVAL_PAIRS)
+    req_ms = t["requests"] / (2 * EVAL_PAIRS)
+    infer = make_eval_fn(models[dev], cfg, H, W)
+    dev_ms, share = busy_share(lambda: infer(pairs[0]["image"]))
+    log(f"eval ({card_name}): ms a keypoint pair {kp_ms:.3f} (host clock, "
+        f"mean of {n_req // 2} pair evaluations): its two requests "
+        f"{req_ms:.3f} (upload, forward, download; device {2 * dev_ms:.3f} "
+        f"ms by the profiler, {100 * share:.1f}% busy), the host's metric "
+        f"tail {kp_ms - req_ms:.3f}, of it the homography estimator "
+        f"{t['ransac'] / (2 * EVAL_PAIRS):.3f}")
+    log(f"eval ({card_name}): ms a segmentation item "
+        f"{t['seg'] / EVAL_PAIRS:.3f} (host clock)")
+    knn = host_ms(lambda i: knn_l2(q, db, 5), 20)
+    knn_dev = device_sum_ms(lambda: knn_l2(q, db, 5))
+    log(f"eval ({card_name}): ms a knn_l2 (8 queries, 8 entries, D "
+        f"{db.shape[1]}) {steady(knn):.3f} (host clock, with the indices' "
+        f"copy back; steady median of 20), device {knn_dev:.4f} (the "
+        f"profiler's summed kernel time)")
+
+    # depth: a seeded config S with the depth head
+    dcfg = get_config("S", n_classes=8, depth=True)
+    dmodel = init_model(dcfg, torch.Generator().manual_seed(SEED), "cpu")
+    randomize_bn(dmodel, torch.Generator().manual_seed(SEED + 1))
+    dds = SyntheticShapesDataset((H, W), 4, 8, seed=SEED + 14,
+                                 with_depth=True)
+    ditems = [{"image": dds[i]["image"][None] * 2 - 1,
+               "depth": resize_nearest(dds[i]["depth"], hs, ws)[None]}
+              for i in range(len(dds))]
+    depth = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        m = copy.deepcopy(dmodel).to(d).eval()
+        depth[name] = evaluate_depth(iter(ditems),
+                                     make_eval_fn(m, dcfg, H, W))
+    rel = {k: abs(depth["card"][k] - v) / max(abs(v), 1e-12)
+           for k, v in depth["cpu"].items()}
+    log(f"eval: depth card {json.dumps(depth['card'])}; largest relative "
+        f"gap to the CPU {max(rel.values()):.2e} ({max(rel, key=rel.get)})")
+    require(all(math.isfinite(v) for v in depth["card"].values()),
+            "eval: depth metrics not finite")
+    require(max(rel.values()) <= 1e-4, f"eval: depth against the CPU {rel}")
+
+    # the trainer with its evaluation on
+    timed = _Recorder(train_multitask, "evaluate_model")
+    reset_launches()
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            out = os.path.join(tmp, "ck")
+            train_multitask.main(
+                ["--n_epochs", "1", "--max_steps_per_epoch", "3",
+                 "--log_every", "1", "--full_eval", "1",
+                 "--max_eval_items", "8", "--out_model_path", out])
+            _, meta = load_npz_checkpoint(out + ".npz")
+    finally:
+        os.chdir(cwd)
+        timed.restore()
+    results = meta["results"]
+    trained = {k.__name__: k.launches for k in KERNELS}
+    log(f"eval: the trainer's evaluation ({card_name}) "
+        f"{timed.ms[0]:.1f} ms (host clock, synchronised; 120x160, 8 items)"
+        f"; launches in the run (3 steps and the evaluation) {trained}")
+    for task in ("segmentation", "keypoints", "visloc"):
+        r = results.get(task)
+        require(isinstance(r, dict) and "error" not in r and r,
+                f"eval: the trainer's {task} result {r}")
+    require(isinstance(results["keypoints"]["repeatability"], (int, float)),
+            f"eval: keypoints {results['keypoints']}")
+    vo = results.get("vo", {})
+    if "skipped" in vo:
+        require("cv2" in vo["skipped"], f"eval: VO skipped: {vo}")
+        log(f"eval: the trainer's VO skipped: {vo['skipped']}")
+    else:
+        require("error" not in vo and math.isfinite(vo.get("mean", math.nan)),
+                f"eval: the trainer's VO {vo}")
+    log("eval: the trainer's results " + json.dumps(results, default=str))
+    log(f"eval: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"eval": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2478,10 +2776,7 @@ def main() -> int:
                                            fused_stem_pair_pool,
                                            lightglue_transformer, netvlad)
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     log(card)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2521,6 +2816,7 @@ def main() -> int:
     paths.update(vo_offline_phase(dev, repo, cor))
     paths.update(lightglue_depth_width_phase(dev, repo))
     paths.update(train_phase(dev, repo))
+    paths.update(eval_phase(dev, repo))
 
     lines = []
     for key, entry in kernels.items():

@@ -80,3 +80,30 @@ def make_infer_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int,
         return result
 
     return infer
+
+
+def make_eval_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int
+                 ) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
+    """The evaluators' ``infer_np`` on the model's device: model input
+    (B, H, W, 3) already in [-1, 1] (numpy; taken as it is, as the JAX
+    ``infer`` takes it, not normalised again) -> numpy score, coord, feat,
+    seg, vlad (and depth where the config has it), as ``make_infer_fn``
+    with its defaults computes them. The model is put in eval mode at
+    each call; the caller restores training mode."""
+    dev = next(model.parameters()).device
+    heads = ("score", "loc", "desc", "seg", "vlad") + (
+        ("depth",) if cfg.depth else ())
+
+    @torch.inference_mode()
+    def infer_np(images: np.ndarray) -> Dict[str, np.ndarray]:
+        x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
+        if tuple(x.shape[1:]) != (H, W, 3):
+            raise ValueError(f"images must be (B, {H}, {W}, 3), got "
+                             f"{tuple(x.shape)}")
+        model.eval()
+        post = forward_post_process(model, cfg, x.to(dev), H, W, heads)
+        return {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+                for k, v in post.items()
+                if k in ("score", "coord", "feat", "seg", "vlad", "depth")}
+
+    return infer_np

@@ -23,3 +23,19 @@ def quantize_u8(frames01: torch.Tensor) -> torch.Tensor:
     in float first; only the transfer quantizes."""
     x = torch.as_tensor(frames01)
     return torch.clamp(torch.round(x * 255.0), 0, 255).to(torch.uint8)
+
+
+def resize_nearest(img, H: int, W: int):
+    """numpy (h, w, ...) -> (H, W, ...): cv2.resize's INTER_NEAREST (the
+    JAX package resizes ground truth with it). Source row of row y:
+    min(floor(y * ify), h - 1) with ify = 1 / (H / h) in float64, cv2's
+    arithmetic (h / H itself differs from it by an ulp at some ratios and
+    moves whole rows); columns alike. A trailing channel axis of size 1
+    is kept (cv2 drops it)."""
+    import numpy as np
+
+    h, w = img.shape[:2]
+    ify, ifx = 1.0 / (H / h), 1.0 / (W / w)
+    ys = np.minimum(np.floor(np.arange(H) * ify).astype(np.int64), h - 1)
+    xs = np.minimum(np.floor(np.arange(W) * ifx).astype(np.int64), w - 1)
+    return img[ys[:, None], xs[None, :]]

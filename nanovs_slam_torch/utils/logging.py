@@ -1,6 +1,6 @@
 """Metric logging to ``metrics.jsonl``, the counterpart of
-``nanovs_slam_tpu/utils/logging.py`` without its wandb sink (the trainer
-refuses ``--wandb``)."""
+``nanovs_slam_tpu/utils/logging.py`` without its wandb sink (the CLIs
+refuse ``--wandb``), and its ``print_table`` (a copy)."""
 
 from __future__ import annotations
 
@@ -24,3 +24,16 @@ class MetricLogger:
         flat = {f"{prefix}{k}": (float(v) if hasattr(v, "__float__") else v)
                 for k, v in metrics.items()}
         self._append({"step": step, **flat, "_t": time.time()})
+
+
+def print_table(results: Dict, title: str = "results"):
+    """Markdown-style results table (utils/utils.py:68-83 analog)."""
+    keys = list(results)
+    print(f"\n### {title}")
+    print("| " + " | ".join(keys) + " |")
+    print("|" + "---|" * len(keys))
+    vals = []
+    for k in keys:
+        v = results[k]
+        vals.append(f"{v:.4f}" if isinstance(v, float) else str(v))
+    print("| " + " | ".join(vals) + " |\n")

@@ -67,9 +67,9 @@ def test_slice_top_k_matches_as_sets(slice_outputs):
 def test_port_imports_no_jax():
     """Importing every module of the port (the VO path, the training path
     and their CLIs included), and chip_smoke, leaves jax, flax, optax,
-    orbax and nanovs_slam_tpu out of sys.modules, and cv2 too: the card's
-    machine has no cv2, so no module imports it at the top (only the
-    functions that need it do)."""
+    orbax and nanovs_slam_tpu out of sys.modules, and cv2 and sklearn
+    too: the card's machine has neither, so no module imports them at the
+    top (only the functions that need cv2 do)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nanovs_slam_torch as p\n"
@@ -78,7 +78,7 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nanovs_slam_tpu', "
-        "'cv2'))\n"
+        "'cv2', 'sklearn'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

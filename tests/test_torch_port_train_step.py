@@ -325,16 +325,23 @@ def test_checkpoint_loads_in_jax_and_gives_the_same_forward(one_step,
     (["--num_devices", "2"], "item 7"), (["--num_processes", "2"], "item 7"),
     (["--coordinator_address", "localhost:1"], "item 7"),
     (["--process_id", "1"], "item 7"), (["--wandb"], "item 7"),
-    (["--debug"], "item 5"), (["--model_type", "KeypointFormer"], "item 7"),
-    ([], "item 5")])
+    (["--model_type", "KeypointFormer"], "item 7")])
 def test_cli_rejects_deferred_flags(flags, item):
     """Each flag whose module the port lacks raises, naming its ROADMAP
-    item; without --no_eval the trainer's evaluation (item 5) raises."""
+    item."""
     from nanovs_slam_torch.train_multitask import check_supported, parse_args
 
-    base = [] if flags == [] else ["--no_eval"]
     with pytest.raises(SystemExit, match=item):
-        check_supported(parse_args(base + flags + ["--device", "cpu"]))
+        check_supported(parse_args(flags + ["--device", "cpu"]))
+
+
+@pytest.mark.parametrize("flags", [[], ["--debug"], ["--no_eval"]])
+def test_cli_accepts_its_evaluation_flags(flags):
+    """The trainer's evaluation is ported: it runs without --no_eval, and
+    --debug is accepted."""
+    from nanovs_slam_torch.train_multitask import check_supported, parse_args
+
+    check_supported(parse_args(flags + ["--device", "cpu"]))
 
 
 def test_freeze_backbone_keeps_the_backbone_out_of_adamw(one_step):
