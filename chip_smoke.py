@@ -136,8 +136,33 @@ Phases, each of which raises (exit code != 0) on failure:
     loads back into the port. The kernel phase holds ``netvlad_backward``
     (three device kernels a call: the images' prologue, the tiles, the
     reduction) against its twin, autograd through
-    netvlad_plain, at the train shape (unsuffixed) and config N's
-    (``_n``), its dW and dcen equal across two launches;
+    netvlad_plain, at the train shape (unsuffixed), config N's
+    (``_n``) and the VPR step's (``_visloc``: 12 images at 240x320), its
+    dW and dcen equal across two launches, and its bf16 instance at the
+    train shape (an entry of its own, ``netvlad_backward_bf16``: dx within
+    two bf16 ulps). bf16 training (``--bf16``) in the same phase: one bf16
+    step on the card against the CPU's, both relative to the CPU's
+    float32 step (compare_bf16_steps says how); 20 bf16 steps with
+    dropout on (finite, the loss without the IO term falling, NetVLAD's
+    bf16 forward and backward kernels twice a step, nothing else), timed
+    with the device breakdown, and the two dtypes' steps in turns; the CLI
+    again with ``--bf16 --device_cache --scan_epoch`` for 5 steps;
+ 13b. train cache phase: ``DeviceCachedPairLoader`` (the trainer's 64
+    synthetic items on the card) driving 16 steps through its ``epoch``
+    (twice) and through ``train/scan_epoch.make_epoch_fn`` from the same
+    state and inputs: the first step's terms bit for bit, the first 4
+    steps and the epoch within ``CACHE_GAP`` (the step loop run again
+    drifts alike: the card's backward is not bit-reproducible), a control
+    on other inputs failing both, the same launches, ms a step of each
+    over its whole epoch;
+ 13c. visloc phase: VPR finetuning (config S, 240x320, the seeded
+    synthetic Pittsburgh fixture, which needs cv2): the stem kernel
+    refusing a gradient, the cluster init, the descriptor cache (the stem
+    and NetVLAD once a forward of 16 images), one VPR step (12 images) on
+    the card against the CPU, conv1a / conv1b's gradients included, 12
+    mined steps (the stem never, NetVLAD's forward and backward once a
+    step), ms a step and a cached image, then ``python -m
+    nanovs_slam_torch.train_visloc --synthetic`` for 4 queries;
  14. eval phase: the evaluation path (``evaluation/*`` through
     ``inference.make_eval_fn``, the stem, postprocess and NetVLAD kernels
     once a request, the metric tail in numpy on the host) with pinned S8
@@ -170,8 +195,9 @@ Phases, each of which raises (exit code != 0) on failure:
     too (the match path's postprocess shapes are the N slice's B=1 ones;
     the paths of phases 11 and 12: ``vo_dense``, ``vo_offline_dense``,
     ``vo_offline_bf``, ``vo_offline_lg``, ``lg_adaptive``,
-    ``lg_width``, ``train`` and ``eval``; ``netvlad_backward``'s first
-    path is ``train``).
+    ``lg_width``, ``train``, ``train_bf16``, ``scan_epoch``, ``visloc``
+    and ``eval``; ``netvlad_backward``'s first path is ``train``, its bf16
+    entry's ``train_bf16``; ``_visloc`` the VPR step's shape).
     The bfloat16 instances have entries of their own (``*_bf16``, named
     ``...[bf16]``): unsuffixed the N cell's shapes, ``_s`` S_A's, ``_d``
     D's, and ``launches`` the bf16 N cell's.
@@ -217,6 +243,7 @@ STEM_BF16 = "fused_stem_pair_pool_bf16"
 OFFLINE_BATCH = 16
 PP_BF16 = "fused_postprocess_bf16"
 NV_BF16 = "netvlad_bf16"
+NVB_BF16 = "netvlad_backward_bf16"
 
 
 def log(msg: str) -> None:
@@ -466,42 +493,59 @@ def kernel_cases(B: int, dev) -> list[Case]:
                     B * S * (4 * Cv * K + 3 * Cv + 3 * K), FP32_FLOP_PER_S,
                     check)
 
-    def netvlad_backward_case(suffix, Bb, h, w, Cv, K):
+    def netvlad_backward_case(suffix, Bb, h, w, Cv, K, bf16=False):
         """The NetVLAD backward at x (Bb, h, w, Cv) as NCHW memory (the
         VPR head's), K clusters: the train path's (4, 30, 40, 64) at
-        K = 64 (config S, 120x160, batch 4) and config N's (1, 60, 80, 48)
-        at K = 32, with inputs of their own draw. The forward's residuals
-        come from its kernel (netvlad_residuals), as the train path's
-        backward gets them. Each gradient within 1e-5 of its largest
-        magnitude against the twin (autograd through netvlad_plain); dW and
-        dcen equal across two launches (fixed-order reductions). Bound: five
-        S x K x C products an image (logits, da, a du, dl W^T, x^T dl) and
-        x, gy, u, m, W, cen read once, dx, dW, dcen written once."""
-        rb = np.random.RandomState(SEED + 500 + Bb)
+        K = 64 (config S, 120x160, batch 4), config N's (1, 60, 80, 48)
+        at K = 32 and the VPR step's (12, 60, 80, 64) (config S at
+        240x320, a query, a positive and 10 negatives; ``_visloc``), with
+        inputs of their own draw; with ``bf16`` a bfloat16 x (the bf16
+        train path's, an entry of its own). The forward's residuals come
+        from its kernel (netvlad_residuals), as the train path's backward
+        gets them. Each gradient within 1e-5 of its largest magnitude
+        against the twin (autograd through netvlad_plain); at bf16 dx
+        within two bf16 ulps of its largest (dx^ and dx are each rounded
+        to bf16 on both sides: a rounding on the other side of a midpoint
+        moves an element by one ulp) and dW, dcen within 1e-4 (|x|^2 sums
+        in other orders can round x^ one bf16 ulp apart); dW and dcen
+        equal across two launches (fixed-order reductions). Bound: five
+        S x K x C products an image (logits, da, a du, dl W^T, x^T dl)
+        and x, gy, u, m, W, cen read once, dx, dW, dcen written once (x
+        and dx at 2 bytes for bf16)."""
+        rb = np.random.RandomState(SEED + 500 + Bb + bf16)
         xb = t(rb.randn(Bb, Cv, h, w)).permute(0, 2, 3, 1)
+        if bf16:
+            xb = xb.to(torch.bfloat16)
         aw, cen = t(rb.randn(Cv, K) * 0.3), t(rb.rand(K, Cv))
         gy = t(rb.randn(Bb, K * Cv))
         _, u, m = netvlad_residuals(xb, aw, cen)
         args = (gy, xb, aw, cen)
+        name = "netvlad_backward[bf16]" if bf16 else "netvlad_backward"
 
         def check(got, want):
-            for g, w_, name in zip(got, want, ("dx", "dW", "dcen")):
+            for g, w_, part in zip(got, want, ("dx", "dW", "dcen")):
+                require(g.dtype == w_.dtype, f"{name} {part}: {g.dtype}")
+                if bf16 and part == "dx":
+                    ulps = bf16_ulps(g, w_)
+                    require(ulps <= 2.0, f"{name} dx: {ulps} bf16 ulps")
+                    continue
                 err = max_err(g, w_)
-                lim = 1e-5 * float(w_.abs().max())
-                require(err <= lim, f"netvlad_backward {name}: {err} > {lim}")
+                lim = (1e-4 if bf16 else 1e-5) * float(w_.abs().max())
+                require(err <= lim, f"{name} {part}: {err} > {lim}")
             again = netvlad_backward(*args, u, m)
             require(torch.equal(got[1], again[1])
                     and torch.equal(got[2], again[2]),
-                    "netvlad_backward: dW or dcen differ across launches")
+                    f"{name}: dW or dcen differ across launches")
 
         S_b = h * w
-        return Case("netvlad_backward", "netvlad_backward", suffix,
+        xbytes = 2 if bf16 else 4
+        return Case(NVB_BF16 if bf16 else "netvlad_backward", name, suffix,
                     "nanovs_slam_torch/csrc/netvlad.cu",
                     "nanovs_slam_tpu/modules/aggregators.py:40",
                     lambda: netvlad_backward(*args, u, m),
                     lambda: netvlad_backward_plain(*args), None,
-                    4 * (2 * Bb * S_b * Cv + 2 * Bb * K * Cv + Bb * K
-                         + 4 * Cv * K),
+                    2 * xbytes * Bb * S_b * Cv
+                    + 4 * (2 * Bb * K * Cv + Bb * K + 4 * Cv * K),
                     10 * Bb * S_b * K * Cv, FP32_FLOP_PER_S, check, 3, 4)
 
     if B == OFFLINE_BATCH:  # the offline VO's batch of padded frames
@@ -535,9 +579,12 @@ def kernel_cases(B: int, dev) -> list[Case]:
               postprocess_case("_d" + b8, 128, bf16=True),
               netvlad_case(b8, 48, 32, bf16=True),
               netvlad_case("_s" + b8, 64, 64, bf16=True)]
-    if B == 1:  # the train path's backward (unsuffixed) and config N's
+    if B == 1:  # the train path's backward (unsuffixed), config N's, the
+        # VPR step's and the bf16 train path's
         cases += [netvlad_backward_case("", 4, 30, 40, 64, 64),
-                  netvlad_backward_case("_n", 1, 60, 80, 48, 32)]
+                  netvlad_backward_case("_n", 1, 60, 80, 48, 32),
+                  netvlad_backward_case("_visloc", 12, 60, 80, 64, 64),
+                  netvlad_backward_case("", 4, 30, 40, 64, 64, bf16=True)]
     return cases
 
 
@@ -583,6 +630,8 @@ def kernel_phase(dev):
                     "library_ms": library_ms}
             if c.entry == STEM_BF16:
                 keys["max_bf16_ulps"] = bf16_ulps(got, want)
+            if c.entry == NVB_BF16:
+                keys["dx_bf16_ulps"] = bf16_ulps(got[0], want[0])
             entry.update({k + c.suffix: v for k, v in keys.items()})
     return results
 
@@ -2299,10 +2348,10 @@ def train_batch(seed: int) -> dict:
     return next(iter(loader))
 
 
-def train_state(device):
-    """Config S V2 (28 classes) with init_model's seeded weights and a
-    seeded inlier net, Adam at 5e-4 on the cosine warm-restart schedule,
-    as the CLI builds them."""
+def train_state(device, dtype: str = "float32"):
+    """Config S V2 (28 classes, compute ``dtype``) with init_model's
+    seeded weights and a seeded inlier net, Adam at 5e-4 on the cosine
+    warm-restart schedule, as the CLI builds them."""
     import torch
 
     from nanovs_slam_torch.configs import get_config
@@ -2312,7 +2361,7 @@ def train_state(device):
     from nanovs_slam_torch.train.train_step import (create_train_state,
                                                     make_optimizer)
 
-    cfg = get_config("S", n_classes=28)
+    cfg = get_config("S", n_classes=28, dtype=dtype)
     model = init_model(cfg, torch.Generator().manual_seed(SEED), device)
     io = init_inlier_net(torch.Generator().manual_seed(SEED + 2),
                          device=device)
@@ -2376,6 +2425,91 @@ def compare_train_steps(card, cpu, lr: float) -> dict:
     return errs
 
 
+def _head_grads(state, head: str) -> dict:
+    """{parameter: raw gradient as float64 on the CPU} of the model's
+    parameters under ``head`` (zeros where one has none)."""
+    import torch
+
+    return {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().double().cpu()
+            for k, p in state.model.named_parameters()
+            if k.startswith(head + ".")}
+
+
+def leaf_distances(grads: dict, ref: dict) -> tuple:
+    """(median, worst) over the leaves of each leaf's relative L2 distance
+    ||g - r|| / ||r|| to ``ref``."""
+    d = [float((grads[k] - r).norm() / r.norm()) for k, r in ref.items()]
+    return statistics.median(d), max(d)
+
+
+def compare_bf16_steps(card, cpu, ref, card_f32) -> dict:
+    """One bf16 step on the card against the CPU's bf16 step, relative to
+    the CPU's float32 step (``ref``), as tests/test_torch_port_train_bf16.py
+    holds the port against the JAX package: the bf16 roundings of cuDNN
+    and of PyTorch's CPU kernels differ, so the two bf16 answers are held
+    to the float32 one instead of to each other.
+
+    Loss terms: each one's distance to the float32 term at most twice the
+    larger of the CPU bf16 one's and 2^-8 of the term, plus 1e-3 relative
+    (``recall`` two of its 936 interior cells more: an argmin flipped by
+    bf16 noise).
+
+    Gradients, leaf by leaf over the VPR head (``vlad_head``: 11 leaves
+    whose gradient is the VPR loss's alone, through the bf16 NetVLAD
+    backward kernel; nothing in it picks by argmin): each leaf's relative
+    L2 distance to its float32 gradient. The card's median leaf at most
+    twice the CPU bf16 step's and at least a quarter of it (the bf16
+    roundings are there), its worst leaf at most three times the CPU's.
+    The whole gradient is not held: the keypoint losses pick by argmin,
+    and on the CPU alone the backbone's leaves are 0.54-1.32 from float32
+    at bf16 (a zeroed gradient reads 1.0). Measured on the CPU at this
+    step: median 0.0398, worst 0.0720. Two controls are read in the same
+    run and must fail: a zeroed gradient (every leaf 1.0: above the
+    limits) and the card's float32 step (the roundings left out: below
+    the lower limit). Parameters, BN statistics and Adam's state
+    float32."""
+    import torch
+
+    (c_state, c_met), (p_state, p_met), (r_state, r_met) = card, cpu, ref
+    errs = {}
+    for k, r in r_met.items():
+        tol = (2 * max(abs(p_met[k] - r), 2 ** -8 * abs(r))
+               + 1e-3 * max(1.0, abs(r)) + (2 / 936 if k == "recall" else 0))
+        err = abs(c_met[k] - r)
+        require(err <= tol, f"train bf16: {k} card {c_met[k]} cpu "
+                f"{p_met[k]} float32 {r}")
+        errs[k] = [err, abs(p_met[k] - r)]
+    g_ref = _head_grads(r_state, "vlad_head")
+    g_cpu = leaf_distances(_head_grads(p_state, "vlad_head"), g_ref)
+
+    def holds(med_worst):
+        med, worst = med_worst
+        return g_cpu[0] / 4 <= med <= 2 * g_cpu[0] and worst <= 3 * g_cpu[1]
+
+    g_card = leaf_distances(_head_grads(c_state, "vlad_head"), g_ref)
+    zeroed = leaf_distances({k: torch.zeros_like(v)
+                             for k, v in g_ref.items()}, g_ref)
+    as_f32 = leaf_distances(_head_grads(card_f32, "vlad_head"), g_ref)
+    errs["vlad_head_leaves_median_worst"] = [g_card, g_cpu]
+    errs["controls_zeroed_card_f32"] = [zeroed, as_f32]
+    log(f"train bf16: one step, [card, cpu] bf16 against the cpu's float32 "
+        f"step {json.dumps(errs)}")
+    require(holds(g_card), f"train bf16: the VPR head's gradients "
+            f"{g_card} (median, worst leaf) from float32, the CPU's bf16 "
+            f"step {g_cpu}")
+    require(not holds(zeroed) and not holds(as_f32),
+            f"train bf16: a control passed the gradient check: zeroed "
+            f"{zeroed}, the card's float32 step {as_f32}")
+    f32 = [t.dtype == torch.float32 for p in c_state.model.parameters()
+           for t in (p, p.grad) if t is not None]
+    f32 += [v.dtype == torch.float32 for st in c_state.optimizer.state.values()
+            for v in st.values() if v.dim() > 0]
+    require(all(f32), "train bf16: a parameter, gradient or Adam moment is "
+            "not float32")
+    return errs
+
+
 def train_phase(dev, repo: str) -> dict:
     """The multitask training path on the card (config S V2, 28 classes,
     120x160, batch 4, Adam 5e-4 cosine, top_k 300, all heads but depth):
@@ -2417,6 +2551,15 @@ def train_phase(dev, repo: str) -> dict:
         results.append((state, {k: float(v) for k, v in met.items()}))
     log(f"train: one step's terms on the card {json.dumps(results[0][1])}")
     compare_train_steps(*results, 5e-4)
+    bf16_steps = []  # the card's bf16 step, then the CPU's
+    for device in (dev, torch.device("cpu")):
+        cfg16, state16 = train_state(device, "bfloat16")
+        set_dropout(state16.model, rate=0.0)
+        step16 = make_train_step(cfg16, h, w, io_top_k=300)
+        state16, met = step16(
+            state16, {k: v.to(device) for k, v in batch.items()}, weights)
+        bf16_steps.append((state16, {k: float(v) for k, v in met.items()}))
+    compare_bf16_steps(*bf16_steps, results[1], results[0][0])
 
     cfg, state = train_state(dev)
     set_dropout(state.model, generator=torch.Generator(dev).manual_seed(
@@ -2461,6 +2604,21 @@ def train_phase(dev, repo: str) -> dict:
         f"synchronised), {1e3 / ms:.2f} steps a second; first step "
         f"{step_ms[0]:.1f} ms; peak memory {peak:.1f} MiB")
     log_breakdown("train: a step", lambda: step(state, dbatch, weights), ms)
+    launches16, step16 = train_bf16_run(dev, dbatch, weights)
+    # the two dtypes in turns (float32, bf16, bf16, float32; 10 steps each)
+    turns = {"float32": [], "bfloat16": []}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        for _ in range(10):
+            t0 = time.perf_counter()
+            if dtype == "float32":
+                state, _ = step(state, dbatch, weights)
+            else:
+                step16()
+            torch.cuda.synchronize()
+            turns[dtype].append((time.perf_counter() - t0) * 1e3)
+    log("train: ms a step in turns (medians of 20, host clock), float32 "
+        f"{statistics.median(turns['float32']):.3f}, bf16 "
+        f"{statistics.median(turns['bfloat16']):.3f}")
 
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, PYTHONPATH=repo)
@@ -2489,7 +2647,444 @@ def train_phase(dev, repo: str) -> dict:
         f"included); its .npz loads back (step {meta['step']}, epoch "
         f"{meta['epoch']}) and serves a finite forward")
     require(meta["step"] == 5, f"train: the CLI saved step {meta['step']}")
-    return {"train": launches}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ck16")
+        flags = ["--bf16", "--device_cache", "--scan_epoch"]
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "nanovs_slam_torch.train_multitask",
+             "--no_eval", "--n_epochs", "1", "--max_steps_per_epoch", "5",
+             "--log_every", "1", "--out_model_path", out] + flags, cwd=tmp,
+            env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        log(f"train: CLI {' '.join(flags)} "
+            + " | ".join(r.stdout.strip().splitlines()[-4:]))
+        require(r.returncode == 0, f"train: the CLI failed with {flags}\n"
+                f"{r.stdout}\n{r.stderr}")
+        tree, meta = load_npz_checkpoint(out + ".npz")
+    require(meta["step"] == 5 and "device cache: 64 items" in r.stdout,
+            f"train: the {flags} CLI saved step {meta['step']}")
+    require(tree["params"]["backbone"]["conv1a"]["conv"]["kernel"].dtype
+            == np.float32, "train: the bf16 CLI saved bf16 parameters")
+    log(f"train: CLI {' '.join(flags)}, 5 steps in {cli_s:.1f} s")
+    return {"train": launches, "train_bf16": launches16}
+
+
+def train_bf16_run(dev, dbatch, weights):
+    """20 steps of config S at bf16 (``--bf16``: float32 parameters, bf16
+    compute) with dropout on, on the fixed batch: finite losses, the loss
+    without the IO term falling, NetVLAD's bf16 forward and backward
+    kernels twice a step and no other kernel launched; the steady ms a
+    step, peak memory and the device breakdown. Returns (the path's launch
+    counts, a function that runs one more step)."""
+    import torch
+
+    from nanovs_slam_torch.kernels import (BF16_KERNELS, KERNELS, netvlad,
+                                           netvlad_backward, reset_launches)
+    from nanovs_slam_torch.modules.blocks import set_dropout
+    from nanovs_slam_torch.train.train_step import make_train_step
+
+    h, w = TRAIN_HW
+    cfg, state = train_state(dev, "bfloat16")
+    set_dropout(state.model, generator=torch.Generator(dev).manual_seed(
+        SEED + 1))
+    step = make_train_step(cfg, h, w, io_top_k=300)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, io_terms, step_ms = [], [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        state, met = step(state, dbatch, weights)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["total_loss"]))
+        io_terms.append(float(met["io_loss"]))
+    launches = {NV_BF16: netvlad.launches_bf16,
+                NVB_BF16: netvlad_backward.launches_bf16}
+    others = {k.__name__: k.launches for k in KERNELS}
+    others.update({k.__name__ + "_bf16": k.launches_bf16
+                   for k in BF16_KERNELS
+                   if k not in (netvlad, netvlad_backward)})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"train bf16: launches during 20 steps {launches}, others {others}")
+    require(launches[NV_BF16] == 40 and launches[NVB_BF16] == 40,
+            "train bf16: NetVLAD's bf16 forward and backward should launch "
+            "twice a step")
+    require(not any(others.values()), "train bf16: another kernel launched")
+    require(all(math.isfinite(v) for v in losses),
+            f"train bf16: losses {losses}")
+    rest = [t - weights.keypoint_loss * io for t, io in zip(losses, io_terms)]
+    log("train bf16: 20 steps on a fixed batch (dropout on): total loss "
+        + ", ".join(f"{v:.3f}" for v in losses) + "; without the IO term "
+        + ", ".join(f"{v:.3f}" for v in rest))
+    require(rest[-1] < rest[0], "train bf16: the loss without the IO term "
+            "did not fall")
+    ms = steady(step_ms)
+    log(f"train bf16: ms a step {ms:.3f} (steady median of the 20, host "
+        f"clock, synchronised), {1e3 / ms:.2f} steps a second; first step "
+        f"{step_ms[0]:.1f} ms; peak memory {peak:.1f} MiB")
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], dbatch, weights)
+
+    log_breakdown("train bf16: a step", one, ms)
+    return launches, one
+
+
+CACHE_GAP = (1e-3, 5e-2)  # train cache: the loops' largest gap over the
+#                            first 4 steps and over the epoch
+
+
+def train_cache_phase(dev) -> dict:
+    """The card-resident loader and the epoch loop (``--device_cache``,
+    ``--scan_epoch``) at the train cell (config S, 28 classes, 120x160,
+    batch 4, the trainer's 64 synthetic items): one epoch of 16 steps
+    through ``DeviceCachedPairLoader.epoch`` twice (the step loop and its
+    witness) and one through ``make_epoch_fn``, each from the same fresh
+    state, seeds and inputs and timed alike (host clock: the whole epoch,
+    metrics left on the card, one synchronisation at its end). The epoch
+    loop against the step loop: the first step's loss terms equal bit for
+    bit (the same forward on the same batch), its grad_norm within 1e-4
+    relative, every loss finite, the same launches, and the largest
+    relative gap a step of the segmentation, VPR, location and descriptor
+    terms within ``CACHE_GAP``: 1e-3 over the first 4 steps, 5e-2 over
+    all 16. The steps drift apart because the card's backward is not
+    bit-reproducible (atomic sums, in grid_sample's backward among
+    others, add in no fixed order, and Adam turns that noise into updates
+    of up to lr): the witness, the step loop run again, drifts from the
+    step loop as far. Measured on the card: the epoch loop up to 1.0e-4
+    over the first 4 steps and 1.2e-2 over 16, the witness 5.4e-5 and
+    1.3e-2. A control must fail both limits: the epoch loop on the next
+    epoch's indices and homographies (measured 2.3e-2 at its first step,
+    8.8e-2 over 16). Returns the epoch loop's launch counts."""
+    import torch
+
+    from nanovs_slam_torch.data.datasets import SyntheticShapesDataset
+    from nanovs_slam_torch.data.device_cache import DeviceCachedPairLoader
+    from nanovs_slam_torch.kernels import KERNELS, reset_launches
+    from nanovs_slam_torch.modules.blocks import set_dropout
+    from nanovs_slam_torch.train.schedules import DEFAULT_LOSS_WEIGHTS
+    from nanovs_slam_torch.train.scan_epoch import (make_epoch_fn,
+                                                    weights_as_arrays)
+    from nanovs_slam_torch.train.train_step import make_train_step
+
+    h, w = TRAIN_HW
+    weights = DEFAULT_LOSS_WEIGHTS
+    t0 = time.perf_counter()
+    loader = DeviceCachedPairLoader(
+        SyntheticShapesDataset((h, w), 64, 28, seed=0), TRAIN_B, h, w,
+        seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"train cache: {loader.n} items, {loader.nbytes() / 2 ** 20:.2f} "
+        f"MiB on the card (uint8: {loader.store_u8}), built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    S = len(loader)
+
+    def fresh():
+        cfg, state = train_state(dev)
+        set_dropout(state.model, generator=torch.Generator(dev).manual_seed(
+            SEED + 1))
+        return cfg, state, make_train_step(cfg, h, w, io_top_k=300)
+
+    def step_loop():
+        cfg, state, step = fresh()
+        reset_launches()
+        mets = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in loader.epoch(0):
+            state, met = step(state, batch, weights)
+            mets.append(met)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / S
+        return ([{k: float(v) for k, v in m.items()} for m in mets], ms,
+                {k.__name__: k.launches for k in KERNELS})
+
+    def epoch_loop(epoch: int):
+        cfg, state, step = fresh()
+        epoch_fn = make_epoch_fn(step, cfg.cell // 2, False, True)
+        idx_all, homos_all, gen = loader.epoch_arrays(epoch)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stack = epoch_fn(state, loader.cache_arrays(), idx_all,
+                                homos_all, weights_as_arrays(weights, dev),
+                                gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / S
+        stack = {k: v.cpu().tolist() for k, v in stack.items()}
+        return ([{k: v[i] for k, v in stack.items()} for i in range(S)], ms,
+                {k.__name__: k.launches for k in KERNELS})
+
+    terms = ("seg_loss", "vlad_loss", "loc_loss", "metric_loss")
+
+    def gaps(a, b):
+        return [max(abs(x[k] - y[k]) / max(1.0, abs(y[k])) for k in terms)
+                for x, y in zip(a, b)]
+
+    loop, loop_ms, loop_launches = step_loop()
+    scan, scan_ms, launches = epoch_loop(0)
+    again, again_ms, _ = step_loop()
+    other, _, _ = epoch_loop(1)
+    log(f"train cache: ms a step over the epoch of {S} (the first "
+        f"included, one synchronisation at its end), the step loop "
+        f"{loop_ms:.3f} and {again_ms:.3f}, the epoch loop {scan_ms:.3f}")
+    log(f"train cache: launches, step loop {loop_launches}, epoch loop "
+        f"{launches}")
+    require(launches == loop_launches and launches["netvlad"] == 2 * S
+            and launches["netvlad_backward"] == 2 * S,
+            "train cache: NetVLAD should launch twice a step in both loops")
+    first = {k: abs(scan[0][k] - loop[0][k]) for k in loop[0]}
+    log(f"train cache: the first step, epoch loop against step loop "
+        f"{json.dumps(first)}")
+    require(all(v == 0 for k, v in first.items() if k != "grad_norm"),
+            "train cache: the first step's terms differ between the loops")
+    require(first["grad_norm"] <= 1e-4 * loop[0]["grad_norm"],
+            "train cache: the first step's grad_norm differs")
+    g_scan, g_again, g_other = gaps(scan, loop), gaps(again, loop), \
+        gaps(other, loop)
+    for name, g in (("the epoch loop", g_scan), ("the step loop again",
+                                                 g_again),
+                    ("control: the epoch loop on epoch 1", g_other)):
+        log(f"train cache: {name} against the step loop, largest relative "
+            f"gap a step of {terms} " + ", ".join(f"{v:.2g}" for v in g))
+    require(all(math.isfinite(m["total_loss"]) for m in scan),
+            "train cache: a non-finite loss")
+    def holds(g):
+        return max(g[:4]) <= CACHE_GAP[0] and max(g) <= CACHE_GAP[1]
+
+    require(holds(g_scan), f"train cache: the loops {max(g_scan[:4])} apart "
+            f"over the first 4 steps, {max(g_scan)} over the epoch (the "
+            f"step loop again: {max(g_again[:4])}, {max(g_again)})")
+    require(max(g_other[:4]) > CACHE_GAP[0] and max(g_other) > CACHE_GAP[1],
+            f"train cache: the control (epoch 1's inputs) passed a limit, "
+            f"{max(g_other[:4])} and {max(g_other)} apart")
+    return {"scan_epoch": launches}
+
+
+# -------------------------------------------------------------- visloc phase
+
+VPR_NEG = 10  # train_visloc's default --n_neg: 12 images a step
+VPR_GAP = 5e-3  # visloc: the step's gradients, card against CPU
+
+
+def vpr_grad_gaps(card, cpu) -> tuple:
+    """({parameter: (relative L2 gap, max gap over its largest magnitude)}
+    of the card's gradients against the CPU's, the relative L2 gap of all
+    of them)."""
+    cpu_params = dict(cpu.named_parameters())
+    gaps, num, den = {}, 0.0, 0.0
+    for k, p in card.named_parameters():
+        q = cpu_params[k]
+        if q.grad is None:
+            require(p.grad is None, f"visloc: {k} has a gradient on the "
+                    "card only")
+            continue
+        d = p.grad.cpu().double() - q.grad.double()
+        ref = q.grad.double()
+        num += float((d * d).sum())
+        den += float((ref * ref).sum())
+        gaps[k] = (float(d.norm() / max(float(ref.norm()), 1e-30)),
+                   float(d.abs().max() / max(float(ref.abs().max()),
+                                             1e-30)))
+    return gaps, (num / den) ** 0.5
+
+
+def visloc_phase(dev, repo: str) -> dict:
+    """VPR finetuning (``train_visloc``) on the card, config S V2 (28
+    classes, seeded init_model weights) at 240x320 on the seeded synthetic
+    Pittsburgh fixture (written with cv2, which this phase needs): the
+    stem kernel refusing an input that needs a gradient; NetVLAD's
+    cluster init (k-means on the card); the descriptor cache of the whole
+    set (16 images a forward: the stem and NetVLAD kernels once a
+    forward), timed an image; one VPR step (a mined query, its positive
+    and 10 negatives: 12 images) on the card against the CPU's from the
+    same weights (the loss within 1e-4 relative; the gradients within
+    ``VPR_GAP`` in relative L2, all of them and each of conv1a's and
+    conv1b's: the eval-mode forward differentiated keeps the stem
+    unfused). Not 1e-5: the card sums in float32 in other orders than
+    the CPU, and near-ties at the max-pools and LeakyReLU kinks move a
+    gradient's element whole. cuDNN's FFT convolutions are not the cause:
+    the witness, the same step on the card without cuDNN (no FFT
+    convolution), is as far. Measured on two mined triplets: 2.3e-4 and
+    4.2e-4 in all, a stem leaf up to 1.0e-3; the witness 2.3e-4 and
+    1.5e-4, a stem leaf up to 5.2e-4; the control, which must fail the
+    limit, the step with BN in train mode, 1.44-1.47 in all and 5.3-6.0
+    at a stem leaf. Then steps on mined queries,
+    timed: the stem launched 0 times a step, NetVLAD's forward and
+    backward once; then ``python -m
+    nanovs_slam_torch.train_visloc --synthetic`` for one epoch of 4
+    queries in a subprocess, whose checkpoint loads back. Returns the
+    path's launch counts (the cache and the steps)."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from nanovs_slam_torch import train_visloc
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.data.pittsburgh import (TripletMiningDataset,
+                                                   WholeDataset)
+    from nanovs_slam_torch.kernels import (fused_stem_pair_pool, netvlad,
+                                           netvlad_backward, reset_launches)
+    from nanovs_slam_torch.models.kp2dtiny import build_model, init_model
+    from nanovs_slam_torch.utils.checkpoint import load_npz_checkpoint
+    from nanovs_slam_torch.utils.convert import load_jax_variables
+
+    t_phase = time.perf_counter()
+    require(importlib.util.find_spec("cv2") is not None,
+            "visloc: cv2 is missing; the synthetic Pittsburgh fixture's "
+            "JPEGs are written and read with it")
+    w1 = torch.randn(16, 3, 3, 3, device=dev, requires_grad=True)
+    try:
+        fused_stem_pair_pool(torch.randn(1, 8, 8, 3, device=dev), w1,
+                             torch.zeros(16, device=dev),
+                             torch.randn(24, 16, 3, 3, device=dev),
+                             torch.zeros(24, device=dev))
+        raise AssertionError("visloc: the stem kernel took an input that "
+                             "needs a gradient")
+    except RuntimeError as e:
+        log(f"visloc: the stem kernel refuses a gradient: {e}")
+
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_pittsburgh",
+        os.path.join(repo, "scripts", "make_synthetic_pittsburgh.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    root = script.ensure_synthetic_pittsburgh()
+    struct = os.path.join(root, "datasets", "pitts30k_train.mat")
+    whole = WholeDataset(struct, root, (H, W))
+    miner = TripletMiningDataset(struct, root, (H, W), n_neg=VPR_NEG,
+                                 seed=SEED)
+
+    cfg = get_config("S", n_classes=28)
+    model = init_model(cfg, torch.Generator().manual_seed(SEED), dev)
+    t0 = time.perf_counter()
+    clsts, descs = train_visloc.get_clusters(model, whole, cfg, 20, 5000,
+                                             SEED)
+    train_visloc.init_netvlad(model, clsts, descs)
+    torch.cuda.synchronize()
+    log(f"visloc: cluster init (20 images, {len(descs)} descriptors, "
+        f"k-means of {cfg.num_clusters} on the card) "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    miner.cache = train_visloc.build_cache(model, whole)
+    cache_ms = (time.perf_counter() - t0) * 1e3 / len(whole)
+    cache_launches = (fused_stem_pair_pool.launches, netvlad.launches)
+    forwards = -(-len(whole) // train_visloc.CACHE_BATCH)
+    log(f"visloc: cache of {len(whole)} images, {cache_ms:.3f} ms an image "
+        f"(host clock, image reads included); stem / NetVLAD launches "
+        f"{cache_launches} for {forwards} forwards")
+    require(cache_launches == (forwards, forwards),
+            "visloc: the cache should launch the stem and NetVLAD once a "
+            "forward")
+
+    mined = [m for m in (miner.mine(i) for i in range(len(miner)))
+             if m is not None]
+    require(len(mined) >= 4, f"visloc: {len(mined)} queries mined")
+    require(all(len(m[2]) == VPR_NEG for m in mined[:4]),
+            "visloc: fewer than 10 negatives")
+    ref = {k: v.detach().cpu().clone() for k, v in
+           model.state_dict().items()}
+
+    def one_step(device, train_mode=False):
+        m = build_model(cfg)
+        m.load_state_dict(ref)
+        m = m.to(device).eval()
+        if train_mode:  # the control: the step's eval() made a no-op
+            m.train()
+            m.eval = lambda: m
+        opt = torch.optim.Adam(m.parameters(), lr=1e-5)
+        loss = train_visloc.make_vpr_step(m, opt, 0.1)(*mined[0])
+        return m, float(loss)
+
+    (c_model, c_loss), (p_model, p_loss) = one_step(dev), one_step("cpu")
+    gaps, rel = vpr_grad_gaps(c_model, p_model)
+    stem = {k: gaps[k] for k in gaps if k.startswith(("backbone.conv1a",
+                                                      "backbone.conv1b"))}
+    worst = max(gaps, key=lambda k: gaps[k][0])
+    log(f"visloc: one step, card against CPU: loss {c_loss:.6f} / "
+        f"{p_loss:.6f}; gradients {rel:.3g} apart in relative L2, the "
+        f"largest a parameter's {gaps[worst][0]:.3g} ({worst}); the "
+        f"stem's [relative L2, max over the largest] "
+        + json.dumps({k: [float(f"{v:.3g}") for v in g]
+                      for k, g in stem.items()}))
+    with torch.backends.cudnn.flags(enabled=False):
+        w_model, _ = one_step(dev)
+    w_gaps, w_rel = vpr_grad_gaps(w_model, p_model)
+    w_worst = max(w_gaps.values(), key=lambda g: g[0])[0]
+    x_model, _ = one_step(dev, train_mode=True)
+    x_gaps, x_rel = vpr_grad_gaps(x_model, p_model)
+    x_stem = max(x_gaps[k][0] for k in stem)
+    log(f"visloc: witness, the card's step without cuDNN (no FFT "
+        f"convolutions): gradients {w_rel:.3g} from the CPU's, the largest "
+        f"a parameter's {w_worst:.3g}, the stem's largest "
+        f"{max(w_gaps[k][0] for k in stem):.3g}; control, BN in train "
+        f"mode: {x_rel:.3g}, the stem's largest {x_stem:.3g}")
+    require(p_loss > 0, "visloc: the mined triplet's loss is 0")
+    require(abs(c_loss - p_loss) <= 1e-4 * max(1.0, p_loss),
+            "visloc: the loss differs from the CPU's")
+    require(len(stem) == 6 and rel <= VPR_GAP
+            and all(g[0] <= VPR_GAP for g in stem.values()),
+            "visloc: the gradients differ from the CPU's")
+    require(x_rel > VPR_GAP and x_stem > VPR_GAP,
+            "visloc: the control (BN in train mode) passed")
+
+    opt = torch.optim.Adam(model.parameters(), lr=1e-5)
+    step = train_visloc.make_vpr_step(model, opt, 0.1)
+    reset_launches()
+    step_ms = []
+    for q, pos, negs in mined[:12]:
+        t0 = time.perf_counter()
+        step(q, pos, negs)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    n = len(step_ms)
+    step_launches = {"fused_stem_pair_pool": fused_stem_pair_pool.launches,
+                     "netvlad": netvlad.launches,
+                     "netvlad_backward": netvlad_backward.launches}
+    log(f"visloc: {n} steps of 12 images, ms a step {steady(step_ms):.3f} "
+        f"(steady median, host clock, the images' transfer included; "
+        f"first {step_ms[0]:.1f}); launches {step_launches}")
+    require(step_launches == {"fused_stem_pair_pool": 0, "netvlad": n,
+                              "netvlad_backward": n},
+            "visloc: a step should launch NetVLAD's forward and backward "
+            "once and the stem never")
+    q, pos, negs = mined[0]
+    log_breakdown("visloc: a step", lambda: step(q, pos, negs),
+                  steady(step_ms))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=repo)
+        out = os.path.join(tmp, "vl")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "nanovs_slam_torch.train_visloc",
+             "--synthetic", "--n_epochs", "1", "--max_queries", "4",
+             "--cluster_images", "20", "--cluster_samples", "5000",
+             "--eval_recall", "--out_model_path", out], cwd=tmp, env=env,
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        log("visloc: CLI " + " | ".join(r.stdout.strip().splitlines()[-4:]))
+        require(r.returncode == 0, f"visloc: the CLI failed\n{r.stdout}\n"
+                f"{r.stderr}")
+        line = [v for v in r.stdout.splitlines() if v.startswith("epoch 0")]
+        require(bool(line) and int(line[0].split()[2].split("/")[0]) > 0,
+                "visloc: the CLI trained on no query")
+        tree, meta = load_npz_checkpoint(out + ".npz")
+    load_jax_variables(build_model(cfg), tree["params"], tree["batch_stats"])
+    log(f"visloc: CLI one epoch of 4 queries in {cli_s:.1f} s (process "
+        f"start, cluster init, two caches included); its .npz loads back "
+        f"(epoch {meta['epoch']}); phase {time.perf_counter() - t_phase:.1f}"
+        " s")
+    return {"visloc": {"fused_stem_pair_pool": cache_launches[0],
+                       "netvlad": cache_launches[1] + n,
+                       "netvlad_backward": n}}
 
 
 # ---------------------------------------------------------------- eval phase
@@ -2816,6 +3411,8 @@ def main() -> int:
     paths.update(vo_offline_phase(dev, repo, cor))
     paths.update(lightglue_depth_width_phase(dev, repo))
     paths.update(train_phase(dev, repo))
+    paths.update(train_cache_phase(dev))
+    paths.update(visloc_phase(dev, repo))
     paths.update(eval_phase(dev, repo))
 
     lines = []
@@ -2829,7 +3426,8 @@ def main() -> int:
         entry.update({f"launches_{p}": paths[p][key] for p in rest})
         lines.append(entry)
     require(all(k.__name__ in kernels for k in KERNELS)
-            and all(k in kernels for k in (STEM_BF16, PP_BF16, NV_BF16)),
+            and all(k in kernels for k in (STEM_BF16, PP_BF16, NV_BF16,
+                                           NVB_BF16)),
             "a kernel of KERNELS, or a bfloat16 instance, has no line")
     print(f"{card}")
     print(json.dumps({"kernels": lines}))

@@ -366,7 +366,8 @@ int launch(const void* x, bool bf16, const long long* sx,
 // ------------------------------------------------------------------ backward
 //
 // The gradient of the function above with respect to x, W and the
-// centroids, float32 only. It starts from the forward's u (K, C) and
+// centroids, for a float32 or a bfloat16 x. It starts from the forward's
+// u (K, C) and
 // masses m (K) of each image (written by the forward when a gradient will
 // be needed) and follows the chain with l2_normalize's
 // x / max(sqrt(|x|^2 + eps^2), eps) at each of its three places:
@@ -377,6 +378,12 @@ int launch(const void* x, bool bf16, const long long* sx,
 //                  dl = a (.) (da - (a . da));
 //                  dx^ = [a | dl] [du ; W^T];  dW += x^T dl;
 //                  dx = (dx^ - (dx^ . x^) x^) / den.
+// At bfloat16 (the forward's bf16 instance, and autograd through its plain
+// twin with a bf16 x): x is read as bf16, x^ is rounded to bf16 where the
+// forward rounds it (the products use it), dx^ is rounded to bf16 (the
+// cast's gradient), the norm's backward takes the unrounded x / den, and
+// dx is written as bf16; everything between is float32. Only the tile
+// kernel's x loads and dx stores change type.
 // Design: three launches, chained by programmatic dependent launch.
 //   1. netvlad_bwd_prologue, 8 cluster rows of an image a block: du, dm
 //      and -m (.) du from u, m and gy; du written twice (K x C and C x K)
@@ -421,13 +428,13 @@ constexpr size_t kOneBlockSmem = 116 * 1024;
 
 struct BwdArgs {
   const float* gy;         // (B, K*C)
-  const float* x;          // (B, S, C), element strides sx_b, sx_s, sx_c
+  const void* x;  // (B, S, C) float or bf16, element strides sx_b, sx_s, sx_c
   long long sx_b, sx_s, sx_c;
   const float* assign_w;   // (C, K)
   const float* centroids;  // (K, C)
   const float* residual;   // (B, K*C) the forward's u
   const float* mass;       // (B, K) the forward's m
-  float* dx;               // (B, S, C), element strides sd_b, sd_s, sd_c
+  void* dx;       // (B, S, C) as x, element strides sd_b, sd_s, sd_c
   long long sd_b, sd_s, sd_c;
   float* du;         // (B, KP, CP) zero-padded
   float* du_t;       // (B, CP, KP) zero-padded
@@ -653,10 +660,24 @@ netvlad_bwd_prologue(BwdArgs a) {
   if (lane == 0) a.dm[(long long)b * KP + k] = dmk;
 }
 
-// A tile of kBwdTile pixels: dx, and the cluster's share of dW.
-template <int CP, int KP>
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A tile of kBwdTile pixels: dx, and the cluster's share of dW. T: x's
+// and dx's type.
+template <int CP, int KP, typename T>
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kBwdThreads, 1) netvlad_bwd_tile(BwdArgs a) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   using G = BwdCfg<CP, KP>;
   constexpr int P = kBwdTile, LDX = G::LDX, LDA = G::LDA, KG = G::KG;
   constexpr int TP1 = G::TP1, TP2 = G::TP2, CG = G::CG, DWC = G::DWC;
@@ -689,7 +710,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       w[i] = e < CP * KP && c < C && k < K ? __ldg(a.assign_w + c * K + k)
                                            : 0.f;
     }
-    const float* xb = a.x + b * a.sx_b;
+    const T* xb = static_cast<const T*>(a.x) + b * a.sx_b;
     const bool nhwc = a.sx_c == 1;
 #pragma unroll
     for (int i = 0; i < RX; ++i) {
@@ -697,8 +718,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       const int e = tid + kT * i;
       const int p = nhwc ? e / CP : e % P, c = nhwc ? e % CP : e / P;
       v[i] = e < P * CP && p < n && c < C
-                 ? __ldg(xb + (long long)(s0 + p) * a.sx_s +
-                         (long long)c * a.sx_c)
+                 ? load_f32(xb + (long long)(s0 + p) * a.sx_s +
+                            (long long)c * a.sx_c)
                  : 0.f;
     }
 #pragma unroll
@@ -727,7 +748,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     for (int c = q8; c < CP; c += 8) ss = fmaf(xs[c], xs[c], ss);
     const float den = l2_denominator(group_reduce<8, false>(ss));
 #pragma unroll
-    for (int c = q8; c < CP; c += 8) xs[c] /= den;
+    for (int c = q8; c < CP; c += 8)
+      xs[c] = kBf16 ? round_bf16(xs[c] / den) : xs[c] / den;
     if (q8 == 0) s_den[p] = den;
   }
   __syncthreads();
@@ -829,31 +851,41 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       *reinterpret_cast<float4*>(s_b2 + (c0 + i) * KP + 4 * k4) =
           make_float4(w[i][0], w[i][1], w[i][2], w[i][3]);
 
-  // 7. the pixels' norm backward: dx = (dx^ - (dx^ . x^) x^) / den
+  // 7. the pixels' norm backward: dx = (dx^ - (dx^ . x^) x^) / den; at
+  // bf16 with dx^ rounded to bf16 and x^ = x / den unrounded (x read again)
+  const T* xg = static_cast<const T*>(a.x) + b * a.sx_b;
+  auto x_hat = [&](int p, int c) {
+    return kBf16 ? load_f32(xg + (long long)(s0 + p) * a.sx_s +
+                            (long long)c * a.sx_c) /
+                       s_den[p]
+                 : s_x[p * LDX + c];
+  };
   {
     const int p = warp * 4 + (lane >> 3);
-    const float* dr = s_b1 + p * LDX;
-    const float* xs = s_x + p * LDX;
+    float* dr = s_b1 + p * LDX;
     float dot = 0.f;
 #pragma unroll
-    for (int c = q8; c < CP; c += 8) dot = fmaf(dr[c], xs[c], dot);
+    for (int c = q8; c < CP; c += 8) {
+      if constexpr (kBf16) dr[c] = round_bf16(dr[c]);
+      if (!kBf16 || (p < n && c < C)) dot = fmaf(dr[c], x_hat(p, c), dot);
+    }
     dot = group_reduce<8, false>(dot);
     if (q8 == 0) s_dot[p] = dot;
   }
   __syncthreads();
-  float* db = a.dx + b * a.sd_b;
+  T* db = static_cast<T*>(a.dx) + b * a.sd_b;
   if (a.sd_c == 1) {
     for (int e = tid; e < n * C; e += kBwdThreads) {
       const int p = e / C, c = e % C;
-      db[(long long)(s0 + p) * a.sd_s + c] =
-          (s_b1[p * LDX + c] - s_dot[p] * s_x[p * LDX + c]) / s_den[p];
+      store_as(db + (long long)(s0 + p) * a.sd_s + c,
+               (s_b1[p * LDX + c] - s_dot[p] * x_hat(p, c)) / s_den[p]);
     }
   } else {
     for (int e = tid; e < P * C; e += kBwdThreads) {
       const int p = e % P, c = e / P;
       if (p < n)
-        db[(long long)(s0 + p) * a.sd_s + (long long)c * a.sd_c] =
-            (s_b1[p * LDX + c] - s_dot[p] * s_x[p * LDX + c]) / s_den[p];
+        store_as(db + (long long)(s0 + p) * a.sd_s + (long long)c * a.sd_c,
+                 (s_b1[p * LDX + c] - s_dot[p] * x_hat(p, c)) / s_den[p]);
     }
   }
 
@@ -956,12 +988,13 @@ BwdScratch bwd_scratch(int B, int S, int C, int K) {
   return s;
 }
 
-template <int CP, int KP>
+template <int CP, int KP, typename T>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   constexpr size_t kSmem = sizeof(float) * BwdCfg<CP, KP>::kFloats;
   cudaError_t err = nvs::once_per_device([] {
     return cudaFuncSetAttribute(
-        netvlad_bwd_tile<CP, KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        netvlad_bwd_tile<CP, KP, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)(kSmem > kOneBlockSmem ? kSmem : kOneBlockSmem));
   });
   if (err != cudaSuccess) return err;
@@ -978,8 +1011,8 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const int blocks = bwd_blocks(a.B, a.S);
   const size_t smem = blocks <= sms && kSmem < kOneBlockSmem ? kOneBlockSmem
                                                              : kSmem;
-  if ((err = launch_pdl(netvlad_bwd_tile<CP, KP>, blocks, kBwdThreads, smem,
-                        stream, a)) != cudaSuccess)
+  if ((err = launch_pdl(netvlad_bwd_tile<CP, KP, T>, blocks, kBwdThreads,
+                        smem, stream, a)) != cudaSuccess)
     return err;
   return launch_pdl(netvlad_bwd_reduce<CP, KP>,
                     (2 * a.K * a.C + 255) / 256, 256, 0, stream, a,
@@ -1026,18 +1059,14 @@ extern "C" int nvs_netvlad_backward_scratch_size(int B, int S, int C, int K) {
   return (int)bwd_scratch(B, S, C, K).total;
 }
 
-// gy (B, K*C), residual (B, K*C) and mass (B, K) from nvs_netvlad,
-// assign_w (C, K) and centroids (K, C) contiguous, float32; x and dx
-// (B, S, C) with element strides sx, sdx [b, s, c]; scratch of
-// nvs_netvlad_backward_scratch_size floats, 16-byte aligned; dw (C, K),
-// dcen (K, C) contiguous. Three launches (the images' prologue, the tiles,
-// the fixed-order reduction), the last two programmatically dependent.
-extern "C" int nvs_netvlad_backward(
-    const float* gy, const float* x, const long long* sx,
-    const float* assign_w, const float* centroids, const float* residual,
-    const float* mass, float* dx, const long long* sdx, float* scratch,
-    float* dw, float* dcen, int B, int S, int C, int K,
-    cudaStream_t stream) {
+namespace {
+
+template <typename T>
+int backward(const float* gy, const T* x, const long long* sx,
+             const float* assign_w, const float* centroids,
+             const float* residual, const float* mass, T* dx,
+             const long long* sdx, float* scratch, float* dw, float* dcen,
+             int B, int S, int C, int K, cudaStream_t stream) {
   if (K < 1 || K > kMaxK || C < 1 || C > kMaxC || S < 1 || B < 1 ||
       B > 65535 || reinterpret_cast<uintptr_t>(scratch) % 16)
     return (int)cudaErrorInvalidValue;
@@ -1051,8 +1080,38 @@ extern "C" int nvs_netvlad_backward(
                      bwd_tiles(S)};
   const BwdWidths w = bwd_widths(C, K);
   if (w.cp == 48)
-    return (int)(w.kp == 32 ? launch_bwd<48, 32>(args, stream)
-                            : launch_bwd<48, 64>(args, stream));
-  return (int)(w.cp == 64 ? launch_bwd<64, 64>(args, stream)
-                          : launch_bwd<128, 64>(args, stream));
+    return (int)(w.kp == 32 ? launch_bwd<48, 32, T>(args, stream)
+                            : launch_bwd<48, 64, T>(args, stream));
+  return (int)(w.cp == 64 ? launch_bwd<64, 64, T>(args, stream)
+                          : launch_bwd<128, 64, T>(args, stream));
+}
+
+}  // namespace
+
+// gy (B, K*C), residual (B, K*C) and mass (B, K) from nvs_netvlad,
+// assign_w (C, K) and centroids (K, C) contiguous, float32; x and dx
+// (B, S, C) with element strides sx, sdx [b, s, c]; scratch of
+// nvs_netvlad_backward_scratch_size floats, 16-byte aligned; dw (C, K),
+// dcen (K, C) contiguous. Three launches (the images' prologue, the tiles,
+// the fixed-order reduction), the last two programmatically dependent.
+extern "C" int nvs_netvlad_backward(
+    const float* gy, const float* x, const long long* sx,
+    const float* assign_w, const float* centroids, const float* residual,
+    const float* mass, float* dx, const long long* sdx, float* scratch,
+    float* dw, float* dcen, int B, int S, int C, int K,
+    cudaStream_t stream) {
+  return backward(gy, x, sx, assign_w, centroids, residual, mass, dx, sdx,
+                  scratch, dw, dcen, B, S, C, K, stream);
+}
+
+// The same with a bfloat16 x and dx (residual and mass from
+// nvs_netvlad_bf16); everything else float32.
+extern "C" int nvs_netvlad_backward_bf16(
+    const float* gy, const __nv_bfloat16* x, const long long* sx,
+    const float* assign_w, const float* centroids, const float* residual,
+    const float* mass, __nv_bfloat16* dx, const long long* sdx,
+    float* scratch, float* dw, float* dcen, int B, int S, int C, int K,
+    cudaStream_t stream) {
+  return backward(gy, x, sx, assign_w, centroids, residual, mass, dx, sdx,
+                  scratch, dw, dcen, B, S, C, K, stream);
 }

@@ -20,7 +20,8 @@ from .stem import fused_stem_pair_pool, stem_plain  # noqa: F401
 KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad,
            netvlad_backward, lightglue_transformer, split_weights)
 # the wrappers that have bfloat16 instances too
-BF16_KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad)
+BF16_KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad,
+                netvlad_backward)
 
 
 def reset_launches() -> None:

@@ -8,8 +8,10 @@ gradient.
 gradient is needed (grad mode on and an input requiring it) the CUDA call
 goes through an ``autograd.Function``: its forward launches the same kernel,
 which then also writes each image's u = a^T x - (sum a) * centroids and
-masses, and its backward launches ``netvlad_backward`` (float32 only). The
-JAX package has no backward kernel: XLA differentiates its plain NetVLAD
+masses, and its backward launches ``netvlad_backward`` (x float32 or
+bfloat16; at bfloat16 dx is bfloat16, with the roundings of autograd
+through the twin: see ``csrc/netvlad.cu``). The JAX package has no
+backward kernel: XLA differentiates its plain NetVLAD
 (``nanovs_slam_tpu/modules/aggregators.py:40-80``). ``netvlad_backward_plain``
 (autograd through ``netvlad_plain``) is the backward's twin.
 """
@@ -110,7 +112,8 @@ def netvlad(x: torch.Tensor, assign_w: torch.Tensor,
             centroids: torch.Tensor) -> torch.Tensor:
     """x (B,H,W,C) dense features (float32 or bfloat16), assign_w (C,K),
     centroids (K,C) float32 -> (B, K*C) float32 global descriptors.
-    Differentiable: on CUDA through ``netvlad_backward`` (float32)."""
+    Differentiable: on CUDA through ``netvlad_backward``, at either x
+    dtype."""
     name = "netvlad"
     _check_shapes(name, x, assign_w, centroids)
     dev = device_of(name, x, assign_w, centroids)
@@ -118,9 +121,6 @@ def netvlad(x: torch.Tensor, assign_w: torch.Tensor,
         return netvlad_plain(x, assign_w, centroids)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, assign_w, centroids)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: the backward kernel takes float32 x, "
-                            f"got {x.dtype}")
         return _NetVLADFunction.apply(x, assign_w, centroids)
     return _launch(x, assign_w, centroids, False)
 
@@ -182,10 +182,12 @@ def netvlad_backward(gy: torch.Tensor, x: torch.Tensor,
                      assign_w: torch.Tensor, centroids: torch.Tensor,
                      residual: torch.Tensor, mass: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx, dW, dcen) of ``netvlad`` for the upstream gradient gy (B, K*C),
-    float32: the backward kernel for CUDA tensors (``residual`` and
-    ``mass`` from ``netvlad_residuals``; dx has x's strides), the twin
-    ``netvlad_backward_plain`` for CPU tensors (which ignores them)."""
+    """(dx, dW, dcen) of ``netvlad`` for the upstream gradient gy (B, K*C):
+    the backward kernel for CUDA tensors (``residual`` and ``mass`` from
+    ``netvlad_residuals``; dx has x's dtype and strides; a bfloat16 x
+    launches the bf16 instance, counted in ``launches_bf16``), the twin
+    ``netvlad_backward_plain`` for CPU tensors (which ignores them). gy,
+    W, the centroids, dW and dcen are float32."""
     name = "netvlad_backward"
     _check_shapes(name, x, assign_w, centroids)
     B, H, W, C = x.shape
@@ -199,8 +201,9 @@ def netvlad_backward(gy: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{name}: gy {tuple(gy.shape)}, residual "
                          f"{tuple(residual.shape)}, mass "
                          f"{tuple(mass.shape)} for B={B}, K={K}, C={C}")
-    check_kernel_inputs(name, gy=gy, x=x, assign_w=assign_w,
-                        centroids=centroids, residual=residual, mass=mass)
+    check_kernel_inputs(name, {"x": FLOAT32_OR_BF16}, gy=gy, x=x,
+                        assign_w=assign_w, centroids=centroids,
+                        residual=residual, mass=mass)
     check_contiguous(name, gy=gy, assign_w=assign_w, centroids=centroids,
                      residual=residual, mass=mass)
     if K > MAX_CLUSTERS or C > MAX_CHANNELS or B > 65535:
@@ -216,16 +219,22 @@ def netvlad_backward(gy: torch.Tensor, x: torch.Tensor,
     dcen = torch.empty_like(centroids)
     sx = (ctypes.c_longlong * 3)(x.stride(0), x.stride(2), x.stride(3))
     sdx = (ctypes.c_longlong * 3)(dx.stride(0), dx.stride(2), dx.stride(3))
-    fn = _build.bind("nvs_netvlad_backward", _BWD_ARGTYPES)
+    bf16 = x.dtype == torch.bfloat16
+    fn = _build.bind("nvs_netvlad_backward_bf16" if bf16
+                     else "nvs_netvlad_backward", _BWD_ARGTYPES)
     err = fn(gy.data_ptr(), x.data_ptr(), sx, assign_w.data_ptr(),
              centroids.data_ptr(), residual.data_ptr(), mass.data_ptr(),
              dx.data_ptr(), sdx, scratch.data_ptr(), dw.data_ptr(),
              dcen.data_ptr(), B, S, C, K, _build.stream_ptr(dev))
     _build.check(err, name)
-    netvlad_backward.launches += 1
+    if bf16:
+        netvlad_backward.launches_bf16 += 1
+    else:
+        netvlad_backward.launches += 1
     return dx, dw, dcen
 
 
 netvlad.launches = 0
 netvlad.launches_bf16 = 0
 netvlad_backward.launches = 0
+netvlad_backward.launches_bf16 = 0

@@ -63,7 +63,11 @@ def fused_stem_pair_pool(x: torch.Tensor, w1: torch.Tensor,
     memory).
     An odd H or W pools with floor, as ``F.max_pool2d`` and flax's VALID
     ``max_pool`` do; the convolutions' SAME padding is taken against the
-    full frame, so the last pooled row still sees input row H-1."""
+    full frame, so the last pooled row still sees input row H-1.
+    The kernel has no backward: a CUDA call in grad mode with any of x,
+    w1, b1, w2, b2 requiring grad raises (``check_kernel_inputs``), so a
+    gradient is never cut silently; ``modules/backbone.stem_kernel_allowed``
+    keeps such calls on the plain chain."""
     name = "fused_stem_pair_pool"
     check_nhwc_dense(name, x=x)
     B, H, W, c0 = x.shape

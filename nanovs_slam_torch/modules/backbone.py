@@ -5,10 +5,14 @@
 after pair 1 if downsample >= 2, after pair 2 if >= 3, after the skip tap
 if >= 1. Dropout2d(0.2) after each pair when ``with_drop``.
 
-In eval mode on CUDA with downsample >= 2, ``conv1a -> conv1b -> maxpool``
-runs as the fused stem kernel on BN-folded weights (dropout is the identity
-in eval mode), its bfloat16 instance for a bfloat16 input. In train mode,
-and on the CPU, it runs the plain chain.
+On CUDA with downsample >= 2, ``conv1a -> conv1b -> maxpool`` runs as the
+fused stem kernel on BN-folded weights, its bfloat16 instance for a
+bfloat16 input, wherever ``stem_kernel_allowed`` says so: in eval mode
+(dropout the identity, BN's running statistics) and with no gradient to
+flow through the stem, since the kernel has no backward (nor has the JAX
+one). An eval-mode forward under autograd (VPR finetuning differentiates
+the model in inference mode) and train mode run the plain chain, as the
+CPU always does.
 """
 
 from __future__ import annotations
@@ -22,6 +26,20 @@ import torch.nn.functional as F
 from ..kernels.stem import fused_stem_pair_pool
 from ..utils.fuse import fold_conv_bn
 from .blocks import ConvBNAct, Dropout2d
+
+
+def stem_kernel_allowed(backbone: "BackBone", x: torch.Tensor) -> bool:
+    """Whether the backbone's stem may run as the fused kernel for ``x``:
+    eval mode, downsample >= 2, and grad mode off or neither ``x`` nor a
+    parameter of conv1a / conv1b requiring grad. The choice is by what
+    autograd needs, not a fallback: the kernel cannot pass a gradient."""
+    if backbone.training or backbone.downsample < 2:
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    stem = (p for m in (backbone.conv1a, backbone.conv1b)
+            for p in m.parameters())
+    return not (x.requires_grad or any(p.requires_grad for p in stem))
 
 
 class BackBone(nn.Module):
@@ -46,7 +64,7 @@ class BackBone(nn.Module):
         self.drop = Dropout2d(0.2) if with_drop else nn.Identity()
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
-        if x.is_cuda and not self.training and self.downsample >= 2:
+        if x.is_cuda and stem_kernel_allowed(self, x):
             w1, b1 = fold_conv_bn(self.conv1a.conv, self.conv1a.bn)
             w2, b2 = fold_conv_bn(self.conv1b.conv, self.conv1b.bn)
             y = fused_stem_pair_pool(x.permute(0, 2, 3, 1), w1, b1, w2, b2,

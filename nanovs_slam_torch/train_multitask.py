@@ -11,7 +11,8 @@ package's ``train_multitask.py``, with its flags and defaults:
         [--max_steps_per_epoch N] [--synthetic_items 64] [--log_every N]
         [--ckpt_every N] [--lr_scheduler none|step|cosine|plateau]
         [--watch_gradients] [--no_eval] [--eval_every 1] [--full_eval 3]
-        [--max_eval_items 16] [--debug]
+        [--max_eval_items 16] [--debug] [--bf16] [--device_cache]
+        [--scan_epoch]
 
 It runs on ``--device`` (default cuda; a machine without a card needs
 ``--device cpu``). Without the dataset named in datasets.json it trains
@@ -24,10 +25,19 @@ does: segmentation (and depth) each time, keypoints, retrieval and VO
 every ``--full_eval`` epoch, on synthetic pairs where the datasets are
 absent; its results go to the log, the plateau controller and the
 checkpoint. ``--debug`` writes its pictures beside the checkpoint (cv2).
+``--bf16`` builds the model at ``dtype="bfloat16"`` as the JAX trainer
+does (flax semantics: float32 parameters, BN statistics and Adam state,
+bf16 compute, no loss scaling). ``--device_cache`` uploads the train set
+to the card once (``data/device_cache.DeviceCachedPairLoader``: no host
+equalize or blur, as in the JAX loader) and runs each epoch through
+``train/scan_epoch.make_epoch_fn``: each batch built on the card, the
+epoch's indices and homographies uploaded once, the metrics read once at
+its end and logged at the ``--log_every`` steps. ``--scan_epoch`` is
+the JAX CLI's name for that loop: it is accepted, and still requires
+``--device_cache``.
 Flags whose modules the port does not have yet raise, naming their
-ROADMAP item: ``--bf16``, ``--qat``, ``--to_mcu``, ``KeypointFormer``,
-``--device_cache``, ``--scan_epoch``, ``--wandb`` and the multi-process
-flags.
+ROADMAP item: ``--qat``, ``--to_mcu``, ``KeypointFormer``, ``--wandb``
+and the multi-process flags.
 """
 
 from __future__ import annotations
@@ -53,12 +63,9 @@ SYNTHETIC_CONFIG = dict(lr=0.0005, n_classes=8, im_h=96, im_w=128,
 
 # flag -> why it raises (the ROADMAP.md item its module waits in)
 DEFERRED = {
-    "bf16": "bfloat16 training waits in ROADMAP Queue 1 item 4",
     "qat": "QAT waits in ROADMAP Queue 1 item 6 (int8 and export)",
     "to_mcu": "the MCU export configs wait in ROADMAP Queue 1 item 6 "
               "(int8 and export)",
-    "device_cache": "data/device_cache.py waits in ROADMAP Queue 1 item 4",
-    "scan_epoch": "train/scan_epoch.py waits in ROADMAP Queue 1 item 4",
     "wandb": "the port logs to metrics.jsonl only (wandb: ROADMAP Queue 1 "
              "item 7, utils)",
     "num_devices": "data parallel training waits in ROADMAP Queue 1 item 7 "
@@ -104,7 +111,8 @@ def parse_args(argv=None):
     p.add_argument("--no_vpr", action="store_true")
     p.add_argument("--loss_schedule", default="default",
                    choices=["default", "refined", "D", "none"])
-    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute, float32 parameters")
     p.add_argument("--qat", action="store_true")
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--watch_gradients", action="store_true",
@@ -117,8 +125,12 @@ def parse_args(argv=None):
     p.add_argument("--log_every", type=int, default=None,
                    help="loss-fetch cadence in steps (default: 10x/epoch; "
                         "each fetch waits for the device)")
-    p.add_argument("--device_cache", action="store_true")
-    p.add_argument("--scan_epoch", action="store_true")
+    p.add_argument("--device_cache", action="store_true",
+                   help="upload the train set to the card once and build "
+                        "batches there (no host blur / equalize)")
+    p.add_argument("--scan_epoch", action="store_true",
+                   help="the JAX CLI's epoch loop; --device_cache already "
+                        "runs it here (requires --device_cache)")
     p.add_argument("--ckpt_every", type=int, default=None,
                    help="checkpoint cadence in epochs (default: "
                         "--eval_every, n_epochs/15 under --no_eval)")
@@ -142,6 +154,9 @@ def check_supported(args) -> None:
     for flag, why in DEFERRED.items():
         if getattr(args, flag) not in (None, False):
             raise SystemExit(f"--{flag}: not in the port yet; {why}")
+    if args.scan_epoch and not args.device_cache:
+        raise SystemExit("--scan_epoch assembles batches from the HBM "
+                         "dataset cache; it requires --device_cache")
     if args.model_type == "KeypointFormer":
         raise SystemExit("--model_type KeypointFormer: not in the port yet; "
                          "models/keypoint_former.py waits in ROADMAP Queue 1 "
@@ -496,7 +511,8 @@ def main(argv=None):
 
     v3 = args.model_type in ("KP2DtinyV3", "DF")
     cfg = get_config(args.config, v3=v3, n_classes=train_config["n_classes"],
-                     depth=args.depth)
+                     depth=args.depth,
+                     dtype="bfloat16" if args.bf16 else "float32")
     train_flags = {"keypoints": True, "segmentation": True, "visloc": True,
                    "depth": args.depth}
     if args.only_segmentation:
@@ -509,9 +525,20 @@ def main(argv=None):
         train_flags["depth"] = False
 
     dataset, dataset_val = get_dataset(args, train_config, size)
-    loader = PairLoader(dataset, args.batch_size, H, W, d_f=cfg.cell // 2,
-                        train=True, seed=args.seed, with_depth=args.depth,
-                        device=dev)
+    if args.device_cache:
+        from nanovs_slam_torch.data.device_cache import \
+            DeviceCachedPairLoader
+
+        loader = DeviceCachedPairLoader(dataset, args.batch_size, H, W,
+                                        d_f=cfg.cell // 2, train=True,
+                                        seed=args.seed,
+                                        with_depth=args.depth, device=dev)
+        print(f"device cache: {loader.n} items, "
+              f"{loader.nbytes() / 1e6:.1f} MB resident on {dev}")
+    else:
+        loader = PairLoader(dataset, args.batch_size, H, W,
+                            d_f=cfg.cell // 2, train=True, seed=args.seed,
+                            with_depth=args.depth, device=dev)
     steps_per_epoch = len(loader)
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
@@ -552,6 +579,13 @@ def main(argv=None):
     step_fn = make_train_step(cfg, H, W, train_flags=train_flags,
                               io_top_k=args.top_k,
                               watch_gradients=args.watch_gradients)
+    epoch_fn = None
+    if args.device_cache:
+        from nanovs_slam_torch.train.scan_epoch import (make_epoch_fn,
+                                                        weights_as_arrays)
+
+        epoch_fn = make_epoch_fn(step_fn, d_f=cfg.cell // 2,
+                                 with_depth=args.depth, augment=True)
     config_blob = {"input_args": vars(args), "train_config": train_config,
                    "size": size, "model_config": cfg.name,
                    "variant": cfg.variant,
@@ -565,27 +599,44 @@ def main(argv=None):
     ckpt_every = args.ckpt_every or (
         args.eval_every if not args.no_eval
         else max(1, train_config["n_epochs"] // 15))
+
+    def log_step(epoch, i, m):
+        losses.append(m["total_loss"])
+        logger.log_dict("loss/", m, step=epoch * steps_per_epoch + i)
+        print(f"E{epoch} it{i}/{steps_per_epoch} "
+              f"loss {m['total_loss']:.4f} "
+              f"seg {m.get('seg_loss', 0):.4f} "
+              f"vlad {m.get('vlad_loss', 0):.4f}", flush=True)
+
     t_start = time.time()
     for epoch in range(args.start_epoch, train_config["n_epochs"]):
         weights = loss_weights_for_epoch(epoch, args.loss_schedule,
                                          DEFAULT_LOSS_WEIGHTS)
         if args.no_vpr:
             weights = weights._replace(vlad_loss=0.0)
-        losses = []
-        # 2-deep prefetch: host augments and homographies for the next
-        # batches overlap the device's step
-        for i, batch in enumerate(loader.batches(prefetch=2)):
-            if i >= steps_per_epoch:
-                break
-            state, metrics = step_fn(state, batch, weights)
-            if (epoch * steps_per_epoch + i) % log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                losses.append(m["total_loss"])
-                logger.log_dict("loss/", m, step=epoch * steps_per_epoch + i)
-                print(f"E{epoch} it{i}/{steps_per_epoch} "
-                      f"loss {m['total_loss']:.4f} "
-                      f"seg {m.get('seg_loss', 0):.4f} "
-                      f"vlad {m.get('vlad_loss', 0):.4f}", flush=True)
+        losses.clear()
+        if epoch_fn is not None:
+            # the epoch's indices and homographies go up once; its stacked
+            # metrics come back once, at its end
+            idx_all, homos_all, gen = loader.epoch_arrays(epoch)
+            state, stack = epoch_fn(
+                state, loader.cache_arrays(), idx_all[:steps_per_epoch],
+                homos_all[:steps_per_epoch],
+                weights_as_arrays(weights, dev), gen)
+            stack = {k: v.tolist() for k, v in stack.items()}
+            for i in range(steps_per_epoch):
+                if (epoch * steps_per_epoch + i) % log_every == 0:
+                    log_step(epoch, i, {k: v[i] for k, v in stack.items()})
+        else:
+            # 2-deep prefetch: host augments and homographies for the next
+            # batches overlap the device's step
+            for i, batch in enumerate(loader.batches(prefetch=2)):
+                if i >= steps_per_epoch:
+                    break
+                state, metrics = step_fn(state, batch, weights)
+                if (epoch * steps_per_epoch + i) % log_every == 0:
+                    log_step(epoch, i,
+                             {k: float(v) for k, v in metrics.items()})
 
         if not args.no_eval and (epoch + 1) % args.eval_every == 0:
             results = evaluate_model(state.model, cfg, dataset_val, size,

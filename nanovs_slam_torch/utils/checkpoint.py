@@ -12,7 +12,8 @@ the pinned files without importing JAX.
 (``utils/convert.to_jax_variables``), and the port's optimizer state under
 keys of its own (``torch_optimizer/<parameter>/<slot>``, its param groups
 and step count in the meta); the JAX trainer ignores them on read, and so
-does ``restore_train_state``. ``filter_params`` is the JAX package's
+does ``restore_train_state``. ``save_model_checkpoint`` writes a model's
+variables alone (``train_visloc``). ``filter_params`` is the JAX package's
 partial-restore filter.
 """
 
@@ -54,7 +55,7 @@ def save_checkpoint(path: str, state, config: Optional[Dict] = None,
                     start_results: Optional[Dict] = None) -> str:
     """A ``train.train_step.TrainState`` -> ``path`` (``.npz``); returns
     the path written."""
-    from .convert import _flatten, to_jax_variables
+    from .convert import to_jax_variables
 
     params, batch_stats = to_jax_variables(state.model)
     tree = {"params": params, "batch_stats": batch_stats}
@@ -75,6 +76,24 @@ def save_checkpoint(path: str, state, config: Optional[Dict] = None,
             "optimizer": {"param_groups": groups,
                           "group_params": [[names[i] for i in g["params"]]
                                            for g in opt["param_groups"]]}}
+    return _write(path, tree, meta)
+
+
+def save_model_checkpoint(path: str, model, config: Optional[Dict] = None,
+                          epoch: int = 0) -> str:
+    """A model's ``params`` and ``batch_stats`` alone -> ``path``
+    (``.npz``), as the JAX ``train_visloc`` saves; returns the path
+    written."""
+    from .convert import to_jax_variables
+
+    params, batch_stats = to_jax_variables(model)
+    return _write(path, {"params": params, "batch_stats": batch_stats},
+                  {"epoch": epoch, "config": config or {}})
+
+
+def _write(path: str, tree: Dict, meta: Dict) -> str:
+    from .convert import _flatten
+
     flat = _flatten(tree)
     flat["__meta__"] = np.frombuffer(json.dumps(meta, default=str).encode(),
                                      np.uint8)

@@ -501,3 +501,63 @@ def test_netvlad_backward_kernel_matches_twin(cuda, B, H, W, C, K):
     for leaf, w in zip(leaves, want):
         err = (leaf.grad - w).abs().max().item()
         assert err <= 1e-5 * w.abs().max().item()
+
+
+def _bf16_ulps(got, want):
+    """max |got - want| in bf16 ulps of max |want|."""
+    import math
+
+    _, e = math.frexp(want.float().abs().max().item())
+    return (got.float() - want.float()).abs().max().item() / 2.0 ** (e - 8)
+
+
+@pytest.mark.parametrize("B,H,W,C,K", [
+    (4, 30, 40, 64, 64), (12, 60, 80, 64, 64), (1, 60, 80, 48, 32),
+    (3, 13, 17, 48, 64), (2, 9, 11, 128, 64), (2, 9, 11, 30, 20)])
+def test_netvlad_backward_bf16_kernel_matches_twin(cuda, B, H, W, C, K):
+    """A bfloat16 x (the bf16 train path's, the VPR shape's, config N's,
+    ragged and padded widths): dx comes back bf16 within two bf16 ulps of
+    its largest magnitude against the twin (autograd through
+    ``netvlad_plain`` at bf16; dx^ and dx are each rounded to bf16 on both
+    sides, and a rounding on the other side of a midpoint moves an element
+    by one ulp; measured 0.25-1.0), dW and dcen float32 within 1e-4 of
+    their largest magnitudes (the kernel and the twin sum |x|^2 in other
+    orders, so x / den can differ by a float32 ulp and, across a bf16
+    midpoint, round x^ one bf16 ulp apart; measured 1.9e-5 at the train
+    shape), for the NCHW view and NHWC memory; dW and dcen equal across
+    two launches; through ``netvlad``'s autograd the same gradients, one
+    bf16 forward and one bf16 backward launch."""
+    rs = np.random.RandomState(B + C + 1)
+    x = torch.from_numpy(rs.randn(B, C, H, W).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    aw = torch.from_numpy(rs.randn(C, K).astype(np.float32) * 0.3).to(cuda)
+    cen = torch.from_numpy(rs.rand(K, C).astype(np.float32)).to(cuda)
+    gy = torch.from_numpy(rs.randn(B, K * C).astype(np.float32)).to(cuda)
+    x_nhwc = x.permute(0, 2, 3, 1)
+    want = netvlad_backward_plain(gy, x_nhwc, aw, cen)
+    assert want[0].dtype == torch.bfloat16
+
+    def check(got):
+        assert got[0].dtype == torch.bfloat16
+        assert _bf16_ulps(got[0], want[0]) <= 2.0
+        for g, w in zip(got[1:], want[1:]):
+            err = (g - w).abs().max().item()
+            assert err <= 1e-4 * w.abs().max().item(), (err, w.abs().max())
+
+    for xv in (x_nhwc, x_nhwc.contiguous()):
+        _, u, m = netvlad_residuals(xv, aw, cen)
+        before = netvlad_backward.launches_bf16
+        got = netvlad_backward(gy, xv, aw, cen, u, m)
+        again = netvlad_backward(gy, xv, aw, cen, u, m)
+        torch.cuda.synchronize()
+        assert netvlad_backward.launches_bf16 == before + 2
+        assert got[0].stride() == xv.stride()
+        check(got)
+        assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    leaves = [t.clone().requires_grad_() for t in (x_nhwc, aw, cen)]
+    fwd, bwd = netvlad.launches_bf16, netvlad_backward.launches_bf16
+    netvlad(*leaves).backward(gy)
+    torch.cuda.synchronize()
+    assert (netvlad.launches_bf16, netvlad_backward.launches_bf16) == (
+        fwd + 1, bwd + 1)
+    check([leaf.grad for leaf in leaves])

@@ -7,8 +7,8 @@ same batch, with channel dropout patched to the identity on both sides
 checkpoint round trip through the JAX ``load_checkpoint``, a resumed
 run's first step against the JAX trainer's (``restore_train_state``
 against ``filter_params`` + ``merge_params`` into a fresh state), the
-CLI's refusal of the flags whose modules wait in ROADMAP.md, and
-freeze_backbone."""
+CLI's refusal of the flags whose modules wait in ROADMAP.md (and its
+acceptance of the ported ones), and freeze_backbone."""
 
 import os
 
@@ -320,8 +320,7 @@ def test_checkpoint_loads_in_jax_and_gives_the_same_forward(one_step,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--bf16"], "item 4"), (["--qat"], "item 6"), (["--to_mcu"], "item 6"),
-    (["--device_cache"], "item 4"), (["--scan_epoch"], "item 4"),
+    (["--qat"], "item 6"), (["--to_mcu"], "item 6"),
     (["--num_devices", "2"], "item 7"), (["--num_processes", "2"], "item 7"),
     (["--coordinator_address", "localhost:1"], "item 7"),
     (["--process_id", "1"], "item 7"), (["--wandb"], "item 7"),
@@ -342,6 +341,24 @@ def test_cli_accepts_its_evaluation_flags(flags):
     from nanovs_slam_torch.train_multitask import check_supported, parse_args
 
     check_supported(parse_args(flags + ["--device", "cpu"]))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--bf16"], ["--device_cache"], ["--device_cache", "--scan_epoch"]])
+def test_cli_accepts_the_rest_of_training(flags):
+    """bf16 training, the card-resident loader and the epoch loop are
+    ported (they were refused, naming ROADMAP Queue 1 item 4)."""
+    from nanovs_slam_torch.train_multitask import check_supported, parse_args
+
+    check_supported(parse_args(flags + ["--device", "cpu"]))
+
+
+def test_cli_scan_epoch_requires_device_cache():
+    """--scan_epoch alone exits with the JAX trainer's message."""
+    from nanovs_slam_torch.train_multitask import check_supported, parse_args
+
+    with pytest.raises(SystemExit, match="it requires --device_cache"):
+        check_supported(parse_args(["--scan_epoch", "--device", "cpu"]))
 
 
 def test_freeze_backbone_keeps_the_backbone_out_of_adamw(one_step):
