@@ -182,7 +182,33 @@ Phases, each of which raises (exit code != 0) on failure:
     1 --max_eval_items 8``), timed, whose checkpoint must hold
     segmentation, keypoint and retrieval numbers and no error (VO may only
     be skipped for want of cv2);
- 15. one JSON line describing each kernel, the card's line before it, and
+ 15. KeypointFormer phase: "tiny" and "default" (28 classes, seeded
+    weights and BN stats, scores spread) served at 256x320 through
+    make_infer_fn(top_k=1000, conf_threshold=0.7) at B=1 and 8, float32
+    and bf16: the postprocess (C = 64 / 256, cell 8) and the vladv2
+    NetVLAD launched once a request each and nothing else, B=1 against
+    the CPU (compare_with_cpu; hold_bf16 at bf16), ms per request in
+    turns; ``eval_multitask --model_type KeypointFormer --config default
+    --im_h 256 --im_w 320 --keypoints`` (and ``--bf16``) on a seeded
+    synthetic HPatches set written in the run (cv2), card against CPU
+    within 1e-3 at float32; training at 96x128, batch 4, for both
+    configs: one step against the CPU (compare_train_steps, grad_norm to
+    1e-3; bf16 by compare_bf16_steps over the VPR head), 20 steps at each
+    dtype (falling losses; NetVLAD's forward and backward with the bias
+    twice a step and nothing else; ms a step), and ``train_multitask
+    --model_type KeypointFormer`` for 3 steps at each config and dtype,
+    whose checkpoints load back; the kernel phase holds the postprocess
+    and the vladv2 NetVLAD at KeypointFormer's shapes (``_kf``: C = 256,
+    ``_kf_tiny``: 64; B=1 and 8; float32 and bf16) and the backward with
+    the bias and db at its train shape (batch 4, 13x17; C = 256 in the
+    wide kernel);
+ 16. LightGlue training phase: ``train_lightglue``'s defaults (extractor
+    N, kp2dtiny_S, 120x160, K = 256, batch 2): one step on the card
+    against the CPU on the same batch, 20 steps (the NLL falling; the
+    stem and postprocess kernels twice a step, the LightGlue kernel never:
+    the stack trains through its plain blocks), ms a step, then ``main()``
+    for 3 steps, whose ``.npz`` matches a pair through make_pair_matcher;
+ 17. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
     the match path, K=512; the stem at (64, 128): the D cell; the odd
@@ -196,7 +222,10 @@ Phases, each of which raises (exit code != 0) on failure:
     the paths of phases 11 and 12: ``vo_dense``, ``vo_offline_dense``,
     ``vo_offline_bf``, ``vo_offline_lg``, ``lg_adaptive``,
     ``lg_width``, ``train``, ``train_bf16``, ``scan_epoch``, ``visloc``
-    and ``eval``; ``netvlad_backward``'s first path is ``train``, its bf16
+    and ``eval``; of phases 15 and 16: ``kf_tiny``, ``kf_default`` (and
+    ``_bf16``), ``kf_eval``, ``kf_train_tiny``, ``kf_train_default`` (and
+    ``_bf16``), ``lg_train``; ``_kf`` / ``_kf_tiny`` keys KeypointFormer's
+    shapes); ``netvlad_backward``'s first path is ``train``, its bf16
     entry's ``train_bf16``; ``_visloc`` the VPR step's shape).
     The bfloat16 instances have entries of their own (``*_bf16``, named
     ``...[bf16]``): unsuffixed the N cell's shapes, ``_s`` S_A's, ``_d``
@@ -244,6 +273,14 @@ OFFLINE_BATCH = 16
 PP_BF16 = "fused_postprocess_bf16"
 NV_BF16 = "netvlad_bf16"
 NVB_BF16 = "netvlad_backward_bf16"
+# KeypointFormer: served at 256x320 (its sides must be multiples of 32),
+# trained on the synthetic set at 96x128, batch 4; its VPR head's map is
+# 33x41 at 256x320 (a 1x1 conv with stride 2 and pad 1 on the 64x80 fused
+# map) and 13x17 at 96x128
+KF_HW = (256, 320)
+KF_TRAIN_HW, KF_TRAIN_B = (96, 128), 4
+KF_VLAD_HW, KF_TRAIN_VLAD_HW = (33, 41), (13, 17)
+KF_CLASSES = 8  # the synthetic train config's
 
 
 def log(msg: str) -> None:
@@ -383,10 +420,12 @@ def kernel_cases(B: int, dev) -> list[Case]:
 
     cell = 4
 
-    def postprocess_case(suffix, C, h=H, w=W, bf16=False):
-        """The postprocess with C descriptor channels (N: 32; D: 128) on
-        h x w frames; with ``bf16``, bfloat16 inputs (float32 out)."""
-        Hc, Wc, Hf, Wf = h // cell, w // cell, h // 2, w // 2
+    def postprocess_case(suffix, C, h=H, w=W, bf16=False, cell=cell):
+        """The postprocess with C descriptor channels (N: 32; D: 128;
+        KeypointFormer at cell 8: 256 and 64) on h x w frames; with
+        ``bf16``, bfloat16 inputs (float32 out)."""
+        Hc, Wc = h // cell, w // cell
+        Hf, Wf = 2 * Hc, 2 * Wc
         score = nhwc(rs.rand(B, 1, Hc, Wc))
         shift = nhwc(rs.uniform(-1, 1, (B, 2, Hc, Wc)))
         feat = nhwc(rs.randn(B, C, Hf, Wf))
@@ -470,14 +509,16 @@ def kernel_cases(B: int, dev) -> list[Case]:
     Hc, Wc = H // cell, W // cell
     S = Hc * Wc
 
-    def netvlad_case(suffix, Cv, K, bf16=False):
-        """NetVLAD at widths C, K (N: 48, 32; S: 64, 64); with ``bf16``, a
-        bfloat16 x."""
-        xv = nhwc(rs.randn(B, Cv, Hc, Wc))
+    def netvlad_case(suffix, Cv, K, bf16=False, hw=(Hc, Wc), bias=False):
+        """NetVLAD at widths C, K (N: 48, 32; S: 64, 64) on an hw map; with
+        ``bf16``, a bfloat16 x; with ``bias``, the vladv2 bias
+        (KeypointFormer's head: C = 256 and 64, K = 64 on 33x41)."""
+        xv = nhwc(rs.randn(B, Cv, *hw))
         aw, cen = t(rs.randn(Cv, K) * 0.2), t(rs.rand(K, Cv))
         if bf16:
             xv = xv.to(torch.bfloat16)
-        nv = (xv, aw, cen)
+        nv = (xv, aw, cen) + ((t(rs.randn(K) * 0.5),) if bias else ())
+        S = hw[0] * hw[1]
 
         def check(got, want):
             require(max_err(got, want) <= 1e-5, f"netvlad {Cv}, {K}")
@@ -489,11 +530,12 @@ def kernel_cases(B: int, dev) -> list[Case]:
                     "nanovs_slam_tpu/ops/pallas/netvlad_kernel.py:59",
                     lambda: netvlad(*nv), lambda: netvlad_plain(*nv), None,
                     (2 if bf16 else 4) * B * S * Cv
-                    + 4 * (2 * Cv * K + B * K * Cv),
+                    + 4 * (2 * Cv * K + B * K * Cv + bias * K),
                     B * S * (4 * Cv * K + 3 * Cv + 3 * K), FP32_FLOP_PER_S,
                     check)
 
-    def netvlad_backward_case(suffix, Bb, h, w, Cv, K, bf16=False):
+    def netvlad_backward_case(suffix, Bb, h, w, Cv, K, bf16=False,
+                              bias=False):
         """The NetVLAD backward at x (Bb, h, w, Cv) as NCHW memory (the
         VPR head's), K clusters: the train path's (4, 30, 40, 64) at
         K = 64 (config S, 120x160, batch 4), config N's (1, 60, 80, 48)
@@ -511,41 +553,56 @@ def kernel_cases(B: int, dev) -> list[Case]:
         equal across two launches (fixed-order reductions). Bound: five
         S x K x C products an image (logits, da, a du, dl W^T, x^T dl)
         and x, gy, u, m, W, cen read once, dx, dW, dcen written once (x
-        and dx at 2 bytes for bf16)."""
-        rb = np.random.RandomState(SEED + 500 + Bb + bf16)
+        and dx at 2 bytes for bf16). With ``bias`` the vladv2 bias and its
+        gradient db (KeypointFormer's train path: C = 256 in the wide
+        kernel, 64 in the tiles; 13x17 at batch 4), db held within the
+        same relative tolerance of its terms' size (max over k of the sum
+        over the pixels of |dl|: a pixel's dl sums to 0 over k, so db's
+        terms cancel) and equal across two launches too."""
+        rb = np.random.RandomState(SEED + 500 + Bb + bf16 + Cv * bias)
         xb = t(rb.randn(Bb, Cv, h, w)).permute(0, 2, 3, 1)
         if bf16:
             xb = xb.to(torch.bfloat16)
         aw, cen = t(rb.randn(Cv, K) * 0.3), t(rb.rand(K, Cv))
         gy = t(rb.randn(Bb, K * Cv))
-        _, u, m = netvlad_residuals(xb, aw, cen)
+        bb = (t(rb.randn(K) * 0.5),) if bias else ()
+        _, u, m = netvlad_residuals(xb, aw, cen, *bb)
         args = (gy, xb, aw, cen)
         name = "netvlad_backward[bf16]" if bf16 else "netvlad_backward"
+        db_scale = None
+        if bias:  # dl through the twin: the gradient of a per-pixel bias
+            b_full = bb[0].expand(Bb, h * w, K).clone().requires_grad_()
+            with torch.enable_grad():
+                dl, = torch.autograd.grad(
+                    netvlad_plain(xb, aw, cen, b_full), b_full, gy)
+            db_scale = float(dl.abs().sum((0, 1)).max())
 
         def check(got, want):
-            for g, w_, part in zip(got, want, ("dx", "dW", "dcen")):
+            for g, w_, part in zip(got, want, ("dx", "dW", "dcen", "db")):
                 require(g.dtype == w_.dtype, f"{name} {part}: {g.dtype}")
                 if bf16 and part == "dx":
                     ulps = bf16_ulps(g, w_)
                     require(ulps <= 2.0, f"{name} dx: {ulps} bf16 ulps")
                     continue
                 err = max_err(g, w_)
-                lim = (1e-4 if bf16 else 1e-5) * float(w_.abs().max())
+                scale = db_scale if part == "db" else float(w_.abs().max())
+                lim = (1e-4 if bf16 else 1e-5) * scale
                 require(err <= lim, f"{name} {part}: {err} > {lim}")
-            again = netvlad_backward(*args, u, m)
-            require(torch.equal(got[1], again[1])
-                    and torch.equal(got[2], again[2]),
-                    f"{name}: dW or dcen differ across launches")
+            again = netvlad_backward(*args, u, m, *bb)
+            require(all(torch.equal(a, b) for a, b in zip(got[1:],
+                                                          again[1:])),
+                    f"{name}: dW, dcen or db differ across launches")
 
         S_b = h * w
         xbytes = 2 if bf16 else 4
         return Case(NVB_BF16 if bf16 else "netvlad_backward", name, suffix,
                     "nanovs_slam_torch/csrc/netvlad.cu",
                     "nanovs_slam_tpu/modules/aggregators.py:40",
-                    lambda: netvlad_backward(*args, u, m),
-                    lambda: netvlad_backward_plain(*args), None,
+                    lambda: netvlad_backward(*args, u, m, *bb),
+                    lambda: netvlad_backward_plain(*args, *bb), None,
                     2 * xbytes * Bb * S_b * Cv
-                    + 4 * (2 * Bb * K * Cv + Bb * K + 4 * Cv * K),
+                    + 4 * (2 * Bb * K * Cv + Bb * K + 4 * Cv * K
+                           + 2 * K * bias),
                     10 * Bb * S_b * K * Cv, FP32_FLOP_PER_S, check, 3, 4)
 
     if B == OFFLINE_BATCH:  # the offline VO's batch of padded frames
@@ -585,6 +642,19 @@ def kernel_cases(B: int, dev) -> list[Case]:
                   netvlad_backward_case("_n", 1, 60, 80, 48, 32),
                   netvlad_backward_case("_visloc", 12, 60, 80, 64, 64),
                   netvlad_backward_case("", 4, 30, 40, 64, 64, bf16=True)]
+    # KeypointFormer ("default": C = 256, "tiny": 64; cell 8 at 256x320):
+    # the postprocess, the vladv2 NetVLAD on its head's 33x41 map, and at
+    # B = 1 the backward with the bias at its train shape (batch 4, 13x17)
+    for sfx, C in (("_kf", 256), ("_kf_tiny", 64)):
+        for bf in (False, True):
+            cases += [postprocess_case(sfx + b8, C, *KF_HW, bf16=bf,
+                                       cell=8),
+                      netvlad_case(sfx + b8, C, 64, bf16=bf, hw=KF_VLAD_HW,
+                                   bias=True)]
+            if B == 1:
+                cases.append(netvlad_backward_case(
+                    sfx, KF_TRAIN_B, *KF_TRAIN_VLAD_HW, C, 64, bf16=bf,
+                    bias=True))
     return cases
 
 
@@ -653,18 +723,27 @@ def randomize_bn(model, gen) -> None:
                 m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
 
 
+def answer_dims(cfg) -> tuple:
+    """(descriptor width, global descriptor width, depth head) of a
+    KP2DTiny or a KeypointFormer config."""
+    if hasattr(cfg, "feat_dim"):  # KeypointFormer
+        return cfg.feat_dim, cfg.num_clusters * cfg.feat_dim, False
+    return cfg.nfeatures, cfg.global_desc_dim, cfg.depth
+
+
 def check_answer(out, B, h, w, cfg, top_k) -> None:
     import torch
 
     hc, wc = h // cfg.cell, w // cfg.cell
     top_k = min(top_k, hc * wc)
+    nfeat, gdim, depth = answer_dims(cfg)
     shapes = {"score": (B, hc, wc, 1), "coord": (B, hc, wc, 2),
-              "feat": (B, hc, wc, cfg.nfeatures),
-              "seg": (B, 2 * hc, 2 * wc, 1), "vlad": (B, cfg.global_desc_dim),
+              "feat": (B, hc, wc, nfeat),
+              "seg": (B, 2 * hc, 2 * wc, 1), "vlad": (B, gdim),
               "keypoints": (B, top_k, 2), "keypoint_scores": (B, top_k),
-              "descriptors": (B, top_k, cfg.nfeatures),
+              "descriptors": (B, top_k, nfeat),
               "keypoint_valid": (B, top_k)}
-    if cfg.depth:
+    if depth:
         shapes["depth"] = (B, 2 * hc, 2 * wc, 1)
     require(set(out) == set(shapes), f"keys {sorted(out)}")
     for k, shape in shapes.items():
@@ -2370,7 +2449,8 @@ def train_state(device, dtype: str = "float32"):
     return cfg, create_train_state(model, spec, io_net=io)
 
 
-def compare_train_steps(card, cpu, lr: float) -> dict:
+def compare_train_steps(card, cpu, lr: float, grad_norm_rel: float = 1e-4
+                        ) -> dict:
     """One step's results on the card against the CPU's: loss terms within
     1e-4 of max(1, |term|), grad_norm within 1e-4 relative, BN buffers
     within 1e-5, the raw gradients within 5e-2 in relative L2, and the
@@ -2382,14 +2462,18 @@ def compare_train_steps(card, cpu, lr: float) -> dict:
     input noise moves the keypoint terms' gradient by 1.4% in L2, the
     segmentation term's by 0.13%). Adam's first step, lr g / (|g| + 1e-8),
     turns a flipped sign into up to 2 lr: those weights (counted) are held
-    to 2 lr."""
+    to 2 lr. ``grad_norm_rel``: KeypointFormer's step is held to 1e-3 (a
+    1e-7 relative perturbation of its images alone moves its grad_norm by
+    6.4e-5 relative on the CPU; tests/test_torch_port_keypoint_former.py
+    measured 2.3e-4 between the port and the JAX package)."""
     import torch
 
     (c_state, c_met), (p_state, p_met) = card, cpu
     errs = {}
     for k, v in p_met.items():
         err = abs(c_met[k] - v)
-        lim = 1e-4 * (abs(v) if k == "grad_norm" else max(1.0, abs(v)))
+        lim = (grad_norm_rel * abs(v) if k == "grad_norm"
+               else 1e-4 * max(1.0, abs(v)))
         require(err <= lim, f"train: {k} card {c_met[k]} cpu {v}")
         errs[k] = err
     p_max = b_max = 0.0
@@ -2425,15 +2509,16 @@ def compare_train_steps(card, cpu, lr: float) -> dict:
     return errs
 
 
-def _head_grads(state, head: str) -> dict:
+def _head_grads(state, heads: tuple, skip: tuple = ()) -> dict:
     """{parameter: raw gradient as float64 on the CPU} of the model's
-    parameters under ``head`` (zeros where one has none)."""
+    parameters under the modules ``heads``, but those named in ``skip``
+    (zeros where one has none)."""
     import torch
 
     return {k: (p.grad if p.grad is not None else torch.zeros_like(p))
             .detach().double().cpu()
             for k, p in state.model.named_parameters()
-            if k.startswith(head + ".")}
+            if k.startswith(tuple(h + "." for h in heads)) and k not in skip}
 
 
 def leaf_distances(grads: dict, ref: dict) -> tuple:
@@ -2443,7 +2528,10 @@ def leaf_distances(grads: dict, ref: dict) -> tuple:
     return statistics.median(d), max(d)
 
 
-def compare_bf16_steps(card, cpu, ref, card_f32) -> dict:
+def compare_bf16_steps(card, cpu, ref, card_f32,
+                       vpr_heads: tuple = ("vlad_head",),
+                       recall_cells: int = 936, skip: tuple = (),
+                       unit_floor: bool = False) -> dict:
     """One bf16 step on the card against the CPU's bf16 step, relative to
     the CPU's float32 step (``ref``), as tests/test_torch_port_train_bf16.py
     holds the port against the JAX package: the bf16 roundings of cuDNN
@@ -2451,13 +2539,20 @@ def compare_bf16_steps(card, cpu, ref, card_f32) -> dict:
     to the float32 one instead of to each other.
 
     Loss terms: each one's distance to the float32 term at most twice the
-    larger of the CPU bf16 one's and 2^-8 of the term, plus 1e-3 relative
-    (``recall`` two of its 936 interior cells more: an argmin flipped by
-    bf16 noise).
+    larger of the CPU bf16 one's and 2^-8 of the term (with
+    ``unit_floor``, of max(1, |term|): KeypointFormer's ``usp_loss`` is a
+    sum of O(1) parts that cancels to ~1e-2, and one bf16 rounding of a
+    part moves it by ~4e-3), plus 1e-3 relative
+    (``recall`` two of its ``recall_cells`` interior cells more, 936 at
+    120x160, batch 4: an argmin flipped by bf16 noise).
 
     Gradients, leaf by leaf over the VPR head (``vlad_head``: 11 leaves
     whose gradient is the VPR loss's alone, through the bf16 NetVLAD
-    backward kernel; nothing in it picks by argmin): each leaf's relative
+    backward kernel; nothing in it picks by argmin; ``vpr_heads`` names
+    its modules, KeypointFormer's are ``vlad_conv0``, ``vlad_bn0``,
+    ``vlad_conv1`` and ``netvlad``, less ``skip``: ``vlad_conv0.bias``,
+    whose gradient is 0 but for float32 noise, a train-mode BN
+    following it): each leaf's relative
     L2 distance to its float32 gradient. The card's median leaf at most
     twice the CPU bf16 step's and at least a quarter of it (the bf16
     roundings are there), its worst leaf at most three times the CPU's.
@@ -2474,23 +2569,25 @@ def compare_bf16_steps(card, cpu, ref, card_f32) -> dict:
     (c_state, c_met), (p_state, p_met), (r_state, r_met) = card, cpu, ref
     errs = {}
     for k, r in r_met.items():
-        tol = (2 * max(abs(p_met[k] - r), 2 ** -8 * abs(r))
-               + 1e-3 * max(1.0, abs(r)) + (2 / 936 if k == "recall" else 0))
+        floor = 2 ** -8 * (max(1.0, abs(r)) if unit_floor else abs(r))
+        tol = (2 * max(abs(p_met[k] - r), floor)
+               + 1e-3 * max(1.0, abs(r))
+               + (2 / recall_cells if k == "recall" else 0))
         err = abs(c_met[k] - r)
         require(err <= tol, f"train bf16: {k} card {c_met[k]} cpu "
                 f"{p_met[k]} float32 {r}")
         errs[k] = [err, abs(p_met[k] - r)]
-    g_ref = _head_grads(r_state, "vlad_head")
-    g_cpu = leaf_distances(_head_grads(p_state, "vlad_head"), g_ref)
+    g_ref = _head_grads(r_state, vpr_heads, skip)
+    g_cpu = leaf_distances(_head_grads(p_state, vpr_heads, skip), g_ref)
 
     def holds(med_worst):
         med, worst = med_worst
         return g_cpu[0] / 4 <= med <= 2 * g_cpu[0] and worst <= 3 * g_cpu[1]
 
-    g_card = leaf_distances(_head_grads(c_state, "vlad_head"), g_ref)
+    g_card = leaf_distances(_head_grads(c_state, vpr_heads, skip), g_ref)
     zeroed = leaf_distances({k: torch.zeros_like(v)
                              for k, v in g_ref.items()}, g_ref)
-    as_f32 = leaf_distances(_head_grads(card_f32, "vlad_head"), g_ref)
+    as_f32 = leaf_distances(_head_grads(card_f32, vpr_heads, skip), g_ref)
     errs["vlad_head_leaves_median_worst"] = [g_card, g_cpu]
     errs["controls_zeroed_card_f32"] = [zeroed, as_f32]
     log(f"train bf16: one step, [card, cpu] bf16 against the cpu's float32 "
@@ -3358,6 +3455,548 @@ def eval_phase(dev, repo: str) -> dict:
     return {"eval": launches}
 
 
+# ------------------------------------------------------ KeypointFormer phase
+
+def all_launches() -> dict:
+    """Every wrapper's launch count, the bf16 instances' under
+    ``<name>_bf16``."""
+    from nanovs_slam_torch.kernels import BF16_KERNELS, KERNELS
+
+    every = {k.__name__: k.launches for k in KERNELS}
+    every.update({k.__name__ + "_bf16": k.launches_bf16
+                  for k in BF16_KERNELS})
+    return every
+
+
+def kf_model(name: str, seed: int, n_classes: int = 28, dtype="float32"):
+    """(cfg, KeypointFormer ``name`` on the CPU in eval mode) with
+    init_model's seeded weights and random BN statistics."""
+    import dataclasses
+
+    import torch
+
+    from nanovs_slam_torch.models.keypoint_former import (
+        KEYPOINTFORMER_CONFIGS, init_model)
+
+    cfg = dataclasses.replace(KEYPOINTFORMER_CONFIGS[name],
+                              n_classes=n_classes, dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    model = init_model(cfg, gen, "cpu")
+    randomize_bn(model, gen)
+    return cfg, model
+
+
+def kf_spread_scores(model, x, gain: float = 10.0) -> None:
+    """As spread_scores for KeypointFormer: the score head's last conv
+    spread by ``gain`` and shifted so that a tenth of the cells of the
+    model input ``x`` (B, H, W, 3) in [-1, 1] pass the 0.7 threshold."""
+    import torch
+
+    conv = model.score_conv1
+    logits = []
+    hook = conv.register_forward_hook(lambda m, i, o: logits.append(o))
+    try:
+        with torch.no_grad():
+            conv.weight.mul_(gain)
+            conv.bias.zero_()
+            model(torch.as_tensor(x, dtype=torch.float32).permute(0, 3, 1, 2))
+            z = logits[0].float()  # before the sigmoid, which saturates
+            conv.bias.fill_(math.log(0.7 / 0.3)
+                            - float(torch.quantile(z, 0.9)))
+    finally:
+        hook.remove()
+
+
+def kf_serving_cell(dev, name: str, seed: int) -> dict:
+    """KeypointFormer ``name`` (28 classes, seeded weights and BN stats,
+    scores spread) served at 256x320 through make_infer_fn(top_k=1000,
+    conf_threshold=0.7) on a batch-1 and a batch-8 uint8 request, at
+    float32 and at bfloat16: the postprocess and NetVLAD kernels (the
+    float32 or the bf16 instance, C = feat_dim) launched once a request
+    each and no other kernel; the batch-1 answers against the CPU's
+    (compare_with_cpu at float32, hold_bf16 at bf16); the steady median
+    ms per request, float32 and bf16 in turns. Returns the launches by
+    path."""
+    import dataclasses
+
+    import torch
+
+    from nanovs_slam_torch.inference import make_infer_fn
+    from nanovs_slam_torch.kernels import (fused_postprocess, netvlad,
+                                           reset_launches)
+    from nanovs_slam_torch.models.keypoint_former import build_model
+    from nanovs_slam_torch.ops.image import to_model_input
+
+    h, w = KF_HW
+    cfg32, model32 = kf_model(name, seed)
+    rs = np.random.RandomState(seed)
+    requests = [rs.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
+                for b in (1, 8)]
+    kf_spread_scores(model32, to_model_input(torch.from_numpy(
+        requests[0])))
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    model16 = build_model(cfg16).eval()
+    model16.load_state_dict(model32.state_dict())
+    cpu32, cpu16 = copy.deepcopy(model32), copy.deepcopy(model16)
+    kw = dict(top_k=1000, conf_threshold=0.7)
+    infers = {"float32": make_infer_fn(model32, cfg32, h, w, device=dev,
+                                       **kw),
+              "bfloat16": make_infer_fn(model16, cfg16, h, w, device=dev,
+                                        **kw)}
+    label = f"kf {name}"
+    paths, answers = {}, {}
+    for dt, cfg in (("float32", cfg32), ("bfloat16", cfg16)):
+        bf = dt == "bfloat16"
+        reset_launches()
+        answers[dt] = [infers[dt](frames) for frames in requests]
+        torch.cuda.synchronize()
+        on_path = ({PP_BF16: fused_postprocess.launches_bf16,
+                    NV_BF16: netvlad.launches_bf16} if bf else
+                   {"fused_postprocess": fused_postprocess.launches,
+                    "netvlad": netvlad.launches})
+        every = all_launches()
+        log(f"{label} {dt}: launches during {len(requests)} requests "
+            f"{every}")
+        require(all(n == len(requests) for n in on_path.values())
+                and sum(every.values()) == 2 * len(requests),
+                f"{label} {dt}: one launch a request of the postprocess "
+                f"and NetVLAD, nothing else: {every}")
+        for frames, out in zip(requests, answers[dt]):
+            check_answer(out, len(frames), h, w, cfg, kw["top_k"])
+        paths[f"kf_{name}" + ("_bf16" if bf else "")] = on_path
+    ref = make_infer_fn(cpu32, cfg32, h, w, device="cpu",
+                        **kw)(requests[0])
+    errs = compare_with_cpu(answers["float32"][0], ref)
+    n_valid = [int(a["keypoint_valid"].sum()) for a in answers["float32"]]
+    log(f"{label}: B=1 vs CPU {json.dumps(errs)}; valid keypoints "
+        f"{n_valid} (CPU {int(ref['keypoint_valid'].sum())})")
+    require(min(n_valid) > 0, f"{label}: a request has no valid keypoint")
+    peer = make_infer_fn(cpu16, cfg16, h, w, device="cpu",
+                         **kw)(requests[0])
+    errs16 = hold_bf16(f"{label} bf16",
+                       {k: v.cpu() for k, v in
+                        answers["bfloat16"][0].items()}, peer,
+                       {k: v.cpu() for k, v in
+                        answers["float32"][0].items()},
+                       kw["conf_threshold"])
+    log(f"{label} bf16: B=1 vs the CPU at bf16 and the card at float32 "
+        f"{json.dumps(errs16)}")
+    ms = {}
+    for frames in requests:
+        times = {"float32": [], "bfloat16": []}
+        for dt in ("float32", "bfloat16", "bfloat16", "float32") * 6:
+            t0 = time.perf_counter()
+            infers[dt](frames)
+            torch.cuda.synchronize()
+            times[dt].append((time.perf_counter() - t0) * 1e3)
+        for dt in times:
+            ms[f"{dt}_B{len(frames)}"] = statistics.median(times[dt][4:])
+    log(f"{label} ({card_line()}): steady median ms per request (host "
+        f"clock, float32 and bf16 in turns) {json.dumps(ms)}; one launch "
+        "of the postprocess and one of NetVLAD a request")
+    return paths
+
+
+def kf_eval_cli(dev, repo: str, tmp: str) -> dict:
+    """``eval_multitask --model_type KeypointFormer --config default
+    --im_h 256 --im_w 320 --keypoints`` (in process) on a seeded 1-sequence
+    synthetic HPatches set written in this run
+    (scripts/make_synthetic_hpatches.py, cv2), for a seeded checkpoint
+    with scores spread on the set's first image, on the card at float32
+    and with ``--bf16``, and
+    on the CPU at float32: keypoint results without error, the
+    postprocess and NetVLAD once a request on the card (their bf16
+    instances with ``--bf16``), repeatability, localisation error and
+    matching score within 1e-3 of the CPU's at float32 (the bf16 results
+    printed beside them: the seeded model's bf16 scores may pass no cell
+    of a pair at 0.7, a repeatability of -1). Returns the launches by
+    path."""
+    import torch
+
+    from nanovs_slam_torch import eval_multitask
+    from nanovs_slam_torch.data.hpatches import HPatchesDataset
+    from nanovs_slam_torch.inference import make_eval_fn
+    from nanovs_slam_torch.kernels import (fused_postprocess, netvlad,
+                                           reset_launches)
+    from nanovs_slam_torch.utils.checkpoint import save_model_checkpoint
+
+    hp = os.path.join(tmp, "hpatches")
+    r = subprocess.run([sys.executable, os.path.join(
+        repo, "scripts", "make_synthetic_hpatches.py"), hp, "--n-seq", "1"],
+        capture_output=True, text=True, timeout=300)
+    require(r.returncode == 0, "kf eval: the HPatches fixture needs cv2: "
+            f"{r.stderr[-400:]}")
+    ds_cfg = os.path.join(tmp, "datasets.json")
+    with open(ds_cfg, "w") as f:
+        json.dump({"hpatches_data_path": hp}, f)
+    h, w = KF_HW
+    cfg, model = kf_model("default", SEED + 1700)
+    items = list(HPatchesDataset(hp, (w, h)))[:4]
+    first = items[0]
+    # both sides of the pairs: with a spread of 10 the random score head
+    # passes none of a darker warp's cells (seen with cv2 4.13's fixture)
+    kf_spread_scores(model, np.concatenate(
+        [it[k] for it in items for k in ("image", "image_aug")]), 1.0)
+    ck = save_model_checkpoint(os.path.join(tmp, "kf_default"), model)
+    above = {}
+    for d in (dev, torch.device("cpu")):
+        out = make_eval_fn(copy.deepcopy(model).to(d), cfg, h, w)(
+            first["image"])
+        above[d.type] = int((out["score"] > 0.7).sum())
+    log(f"kf eval: cells above 0.7 in the set's first image {above}")
+    require(above[dev.type] > 0, "kf eval: no cell above the threshold")
+    n_items, top_k = 4, 300
+    paths = {}
+    res = {}
+    for flags in ([], ["--bf16"]):
+        for d in ("cuda",) if flags else ("cuda", "cpu"):
+            out = os.path.join(tmp, f"kf_eval_{d}{len(flags)}.json")
+            reset_launches()
+            t0 = time.perf_counter()
+            eval_multitask.main(
+                ["--model_type", "KeypointFormer", "--config", "default",
+                 "--n_classes", "28", "--model_path", ck, "--im_h", str(h),
+                 "--im_w", str(w), "--keypoints", "--max_items",
+                 str(n_items), "--top_k", str(top_k), "--dataset_config",
+                 ds_cfg, "--device", d, "--out", out] + flags)
+            secs = time.perf_counter() - t0
+            with open(out) as f:
+                res[d + "".join(flags)] = json.load(f)[
+                    f"keypoints_top{top_k}"]
+            if d == "cuda":
+                bf = bool(flags)
+                launches = ({PP_BF16: fused_postprocess.launches_bf16,
+                             NV_BF16: netvlad.launches_bf16} if bf else
+                            {"fused_postprocess": fused_postprocess.launches,
+                             "netvlad": netvlad.launches})
+                require(all(n == 2 * n_items for n in launches.values()),
+                        f"kf eval {flags}: launches {launches} for "
+                        f"{2 * n_items} requests")
+                paths["kf_eval" + ("_bf16" if bf else "")] = launches
+                log(f"kf eval {flags}: the CLI on the card in {secs:.1f} s "
+                    f"({n_items} pairs); launches {launches}")
+    require(res["cuda"]["repeatability"] >= 0, f"kf eval: {res['cuda']}")
+    require("error" not in res["cuda--bf16"], f"kf eval --bf16: "
+            f"{res['cuda--bf16']}")  # the seeded model's bf16 scores may
+    # pass no cell of a pair at 0.7: repeatability -1 is a result there
+    for k in ("repeatability", "localization_error", "mscore"):
+        gap = abs(res["cuda"][k] - res["cpu"][k])
+        require(gap <= 1e-3, f"kf eval: {k} card {res['cuda'][k]} cpu "
+                f"{res['cpu'][k]}")
+    log("kf eval: card, card --bf16, cpu " + json.dumps(res))
+    return paths
+
+
+def kf_train_batch(seed: int) -> dict:
+    """A batch of the KeypointFormer trainer's synthetic data at 96x128
+    (8 classes, batch 4, d_f = cell / 2 = 4), the pair built on the CPU."""
+    from nanovs_slam_torch.data.datasets import SyntheticShapesDataset
+    from nanovs_slam_torch.data.pipeline import PairLoader
+
+    h, w = KF_TRAIN_HW
+    loader = PairLoader(SyntheticShapesDataset((h, w), 64, KF_CLASSES,
+                                               seed=0),
+                        KF_TRAIN_B, h, w, d_f=4, seed=seed, device="cpu")
+    return next(iter(loader))
+
+
+def kf_train_state(name: str, device, dtype: str = "float32"):
+    """KeypointFormer ``name`` (8 classes, compute ``dtype``) with
+    init_model's seeded weights, a seeded inlier net and Adam at 5e-4 on
+    the cosine schedule (16 steps an epoch, 2 epochs), as the CLI builds
+    them on the synthetic set."""
+    import torch
+
+    from nanovs_slam_torch.models.inlier_net import init_inlier_net
+    from nanovs_slam_torch.train.schedules import make_lr_schedule
+    from nanovs_slam_torch.train.train_step import (create_train_state,
+                                                    make_optimizer)
+
+    cfg, model = kf_model(name, SEED + 1800, KF_CLASSES, dtype)
+    io = init_inlier_net(torch.Generator().manual_seed(SEED + 2),
+                         device=device)
+    spec = make_optimizer("adam", schedule=make_lr_schedule(
+        "cosine", 5e-4, 16, 2))
+    return cfg, create_train_state(model.to(device), spec, io_net=io)
+
+
+KF_VPR = ("vlad_conv0", "vlad_bn0", "vlad_conv1", "netvlad")
+
+
+def kf_train_cell(dev, name: str) -> dict:
+    """KeypointFormer ``name`` trained on the card (96x128, batch 4, the
+    synthetic set's 8 classes): one float32 step against the CPU's
+    (compare_train_steps, grad_norm to 1e-3 relative) and one bf16 step
+    against the CPU's bf16 and float32 steps (compare_bf16_steps over the
+    VPR head); then 20 steps at each dtype on a fixed batch: finite
+    losses, the loss without the gated IO term falling, NetVLAD's forward
+    and backward kernels (with the bias; at bf16 their bf16 instances)
+    twice a step and nothing else; the steady ms a step. Returns the
+    launches by path."""
+    import torch
+
+    from nanovs_slam_torch.kernels import (netvlad, netvlad_backward,
+                                           reset_launches)
+    from nanovs_slam_torch.train.schedules import DEFAULT_LOSS_WEIGHTS
+    from nanovs_slam_torch.train.train_step import make_train_step
+
+    h, w = KF_TRAIN_HW
+    batch = kf_train_batch(SEED + 1900)
+    weights = DEFAULT_LOSS_WEIGHTS
+    label = f"kf train {name}"
+    steps = {}  # (dtype, "card" or "cpu") -> (state, metrics)
+    for dtype in ("float32", "bfloat16"):
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            cfg, state = kf_train_state(name, device, dtype)
+            step = make_train_step(cfg, h, w, io_top_k=300)
+            state, met = step(state, {k: v.to(device) for k, v in
+                                      batch.items()}, weights)
+            steps[(dtype, where)] = (state, {k: float(v) for k, v in
+                                             met.items()})
+    log(f"{label}: one step's terms on the card "
+        f"{json.dumps(steps[('float32', 'card')][1])}")
+    compare_train_steps(steps[("float32", "card")], steps[("float32", "cpu")],
+                        5e-4, grad_norm_rel=1e-3)
+    n_interior = (h // 8 - 2) * (w // 8 - 2) * KF_TRAIN_B
+    compare_bf16_steps(steps[("bfloat16", "card")],
+                       steps[("bfloat16", "cpu")], steps[("float32", "cpu")],
+                       steps[("float32", "card")][0], KF_VPR, n_interior,
+                       ("vlad_conv0.bias",), unit_floor=True)
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+    paths = {}
+    for dtype in ("float32", "bfloat16"):
+        bf = dtype == "bfloat16"
+        cfg, state = kf_train_state(name, dev, dtype)
+        step = make_train_step(cfg, h, w, io_top_k=300)
+        torch.cuda.synchronize()
+        reset_launches()
+        losses, io_terms, step_ms = [], [], []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            state, met = step(state, dbatch, weights)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["total_loss"]))
+            io_terms.append(float(met["io_loss"]))
+        on_path = ({NV_BF16: netvlad.launches_bf16,
+                    NVB_BF16: netvlad_backward.launches_bf16} if bf else
+                   {"netvlad": netvlad.launches,
+                    "netvlad_backward": netvlad_backward.launches})
+        every = all_launches()
+        log(f"{label} {dtype}: launches during 20 steps {every}")
+        require(all(n == 40 for n in on_path.values())
+                and sum(every.values()) == 80,
+                f"{label} {dtype}: NetVLAD's forward and backward twice a "
+                f"step and nothing else: {every}")
+        require(all(math.isfinite(v) for v in losses),
+                f"{label} {dtype}: losses {losses}")
+        rest = [t - weights.keypoint_loss * io
+                for t, io in zip(losses, io_terms)]
+        log(f"{label} {dtype}: 20 steps on a fixed batch, without the IO "
+            "term " + ", ".join(f"{v:.3f}" for v in rest))
+        require(rest[-1] < rest[0], f"{label} {dtype}: the loss without "
+                "the IO term did not fall")
+        log(f"{label} {dtype} ({card_line()}): ms a step "
+            f"{steady(step_ms):.3f} (steady median of the 20, host clock, "
+            f"synchronised); first step {step_ms[0]:.1f} ms")
+        paths[f"kf_train_{name}" + ("_bf16" if bf else "")] = on_path
+    return paths
+
+
+def kf_train_cli(repo: str, tmp: str) -> None:
+    """``python -m nanovs_slam_torch.train_multitask --model_type
+    KeypointFormer --dataset_name synthetic`` (in process) at "tiny" and
+    "default", float32 and ``--bf16``, 1 epoch of 3 steps without the
+    evaluation: each checkpoint loads back into the port's KeypointFormer
+    (flax names, strict) and gives a finite forward."""
+    import dataclasses
+
+    import torch
+
+    from nanovs_slam_torch import train_multitask
+    from nanovs_slam_torch.models.keypoint_former import (
+        KEYPOINTFORMER_CONFIGS, build_model)
+    from nanovs_slam_torch.utils.checkpoint import load_npz_checkpoint
+    from nanovs_slam_torch.utils.convert import load_jax_variables
+
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        for name in ("tiny", "default"):
+            for flags in ([], ["--bf16"]):
+                out = os.path.join(tmp, f"kf_{name}{len(flags)}")
+                t0 = time.perf_counter()
+                train_multitask.main(
+                    ["--model_type", "KeypointFormer", "--config", name,
+                     "--dataset_name", "synthetic", "--no_eval",
+                     "--n_epochs", "1", "--max_steps_per_epoch", "3",
+                     "--log_every", "1", "--out_model_path", out] + flags)
+                secs = time.perf_counter() - t0
+                tree, meta = load_npz_checkpoint(out + ".npz")
+                cfg = dataclasses.replace(KEYPOINTFORMER_CONFIGS[name],
+                                          n_classes=KF_CLASSES)
+                model = load_jax_variables(build_model(cfg), tree["params"],
+                                           tree["batch_stats"]).eval()
+                with torch.no_grad():
+                    o = model(torch.zeros(1, 3, *KF_TRAIN_HW))
+                require(meta["step"] == 3 and all(
+                    bool(torch.isfinite(v).all()) for v in o.values()),
+                    f"kf train CLI {name} {flags}: step {meta['step']}")
+                log(f"kf train CLI {name} {flags}: 3 steps in {secs:.1f} s; "
+                    "its .npz loads back and serves a finite forward")
+    finally:
+        os.chdir(cwd)
+
+
+def keypoint_former_phase(dev, repo: str) -> dict:
+    """KeypointFormer on the card: serving ("tiny" and "default" at
+    256x320, float32 and bf16), the evaluation CLI, training (both configs
+    and dtypes) and the training CLI. Returns the launches by path."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    paths = {}
+    for i, name in enumerate(("tiny", "default")):
+        paths.update(kf_serving_cell(dev, name, SEED + 1600 + i))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(kf_eval_cli(dev, repo, tmp))
+    for name in ("tiny", "default"):
+        paths.update(kf_train_cell(dev, name))
+    with tempfile.TemporaryDirectory() as tmp:
+        kf_train_cli(repo, tmp)
+    log(f"kf: phase {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+# ---------------------------------------------------- LightGlue training
+
+def lightglue_train_phase(dev, repo: str) -> dict:
+    """LightGlue training at the CLI's defaults (extractor N seeded,
+    kp2dtiny_S at D = 32, 120x160, K = 256, batch 2, Adam 1e-4): one
+    step's batch made on the card, the step on the card against the same
+    step on the CPU (loss within 1e-5 relative; parameters within 1e-5
+    where both gradients are at least 1e-6 and agree in sign, 2 lr
+    everywhere); 20 steps through the CLI's own pieces
+    (``train_lightglue``'s build_extractor, build_matcher, make_batch_fn
+    and train_step): finite NLLs whose mean over the last 5 steps is below
+    that over the first 5, the stem and postprocess kernels twice a step
+    (the frozen extractor on the pair) and nothing else (the stack trains
+    through its plain blocks), ms a step; then ``main()`` for 3 steps,
+    whose ``.npz`` loads into ``make_pair_matcher`` and matches a pair
+    with the LightGlue kernel. Returns the launches by path."""
+    import tempfile
+
+    import torch
+
+    from nanovs_slam_torch import train_lightglue as tl
+    from nanovs_slam_torch.kernels import (fused_postprocess,
+                                           fused_stem_pair_pool,
+                                           lightglue_transformer,
+                                           reset_launches)
+    from nanovs_slam_torch.matching.configs import LIGHTGLUE_CONFIGS
+    from nanovs_slam_torch.matching.extractor import make_extractor
+    from nanovs_slam_torch.matching.lightglue import LightGlue
+    from nanovs_slam_torch.matching.pair import make_pair_matcher
+    from nanovs_slam_torch.matching.synthetic import (textured_frame,
+                                                      warp_frame)
+    from nanovs_slam_torch.utils.checkpoint import load_npz_checkpoint
+    from nanovs_slam_torch.utils.convert import load_jax_lightglue
+
+    t_phase = time.perf_counter()
+    args = tl.parse_args(["--device", "cuda"])
+    h, w = args.im_h, args.im_w
+    ex_model, cfg = tl.build_extractor(args, dev)
+    extract = make_extractor(ex_model, cfg, h, w,
+                             max_keypoints=args.max_keypoints, device=dev)
+    make_batch = tl.make_batch_fn(args, extract, tl.image_source(args),
+                                  np.random.RandomState(args.seed), dev)
+    data, gt = make_batch(0)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        m = tl.build_matcher(args.lg_config, cfg.nfeatures, args.seed, device)
+        loss, _ = tl.train_step(m, tl.make_optimizer(m, args.lr),
+                                {k: v.to(device) for k, v in data.items()},
+                                {k: v.to(device) for k, v in gt.items()})
+        results.append((m, float(loss)))
+    (cm, closs), (pm, ploss) = results
+    require(abs(closs - ploss) <= 1e-5 * abs(ploss),
+            f"lg train: loss card {closs} cpu {ploss}")
+    p_max, n_flip = 0.0, 0
+    cpu_params = dict(pm.named_parameters())
+    for k, p in cm.named_parameters():
+        q = cpu_params[k]
+        d = (p.detach().cpu() - q.detach()).abs()
+        require(d.max().item() <= 2 * args.lr, f"lg train: parameter {k}")
+        if p.grad is None:
+            continue
+        gc, gp = p.grad.cpu(), q.grad
+        agree = ((gc.abs() >= 1e-6) & (gp.abs() >= 1e-6)
+                 & (torch.sign(gc) == torch.sign(gp)))
+        if agree.any():
+            p_max = max(p_max, d[agree].max().item())
+        n_flip += int((torch.sign(gc) != torch.sign(gp)).sum())
+    log(f"lg train: one step, card vs CPU: loss {closs} / {ploss}, "
+        f"parameters {p_max} apart where the gradients agree, "
+        f"{n_flip} gradient signs differ")
+    require(p_max <= 1e-5, f"lg train: parameters {p_max} apart")
+
+    matcher = tl.build_matcher(args.lg_config, cfg.nfeatures, args.seed, dev)
+    opt = tl.make_optimizer(matcher, args.lr)
+    torch.cuda.synchronize()
+    reset_launches()
+    nll, step_ms = [], []
+    for i in range(20):
+        t0 = time.perf_counter()
+        d_i, g_i = make_batch(i)
+        loss, _ = tl.train_step(matcher, opt, d_i, g_i)
+        nll.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    on_path = {"fused_stem_pair_pool": fused_stem_pair_pool.launches,
+               "fused_postprocess": fused_postprocess.launches}
+    every = all_launches()
+    log(f"lg train: launches during 20 steps {every}")
+    require(all(n == 40 for n in on_path.values())
+            and sum(every.values()) == 80,
+            f"lg train: the stem and postprocess twice a step and nothing "
+            f"else: {every}")
+    log("lg train: NLL over 20 steps " + ", ".join(f"{v:.4f}" for v in nll))
+    require(all(math.isfinite(v) for v in nll), f"lg train: NLL {nll}")
+    require(np.mean(nll[-5:]) < np.mean(nll[:5]),
+            "lg train: the NLL did not fall")
+    log(f"lg train ({card_line()}): ms a step {steady(step_ms):.3f} (steady "
+        f"median of 20, host clock: the batch (2 images, their warps, "
+        f"extraction, ground truth on the host) and the step); first step "
+        f"{step_ms[0]:.1f} ms; 2 stem and 2 postprocess launches a step")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "lg")
+        t0 = time.perf_counter()
+        require(tl.main(["--n_steps", "3", "--log_every", "1",
+                         "--out_model_path", out]) == 0, "lg train: main")
+        secs = time.perf_counter() - t0
+        tree, meta = load_npz_checkpoint(out + ".npz")
+    lg = load_jax_lightglue(LightGlue(LIGHTGLUE_CONFIGS[
+        meta["config"]["lg_config"]]), tree["params"])
+    match = make_pair_matcher(ex_model, cfg, lg, h, w, args.max_keypoints,
+                              device=dev)
+    img0 = textured_frame(h, w, SEED + 2000)
+    img1 = warp_frame(img0)
+    reset_launches()
+    pair = match(torch.from_numpy(img0[None] * 2 - 1).to(dev),
+                 torch.from_numpy(img1[None] * 2 - 1).to(dev))
+    torch.cuda.synchronize()
+    m0 = pair["matches0"]
+    require(lightglue_transformer.launches == 1
+            and bool(((m0 >= -1) & (m0 < args.max_keypoints)).all()),
+            f"lg train: the trained matcher's pair: "
+            f"{lightglue_transformer.launches} kernel launches")
+    log(f"lg train: main() 3 steps in {secs:.1f} s; its .npz matches a "
+        f"pair through make_pair_matcher ({int((m0 >= 0).sum())} matches, "
+        "one LightGlue kernel launch)")
+    log(f"lg train: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"lg_train": on_path}
+
+
 def main() -> int:
     import torch
 
@@ -3414,6 +4053,8 @@ def main() -> int:
     paths.update(train_cache_phase(dev))
     paths.update(visloc_phase(dev, repo))
     paths.update(eval_phase(dev, repo))
+    paths.update(keypoint_former_phase(dev, repo))
+    paths.update(lightglue_train_phase(dev, repo))
 
     lines = []
     for key, entry in kernels.items():

@@ -4,10 +4,13 @@
 // (netvlad_pallas). For each image x (S pixels, C channels), assignment
 // weights W (C, K) and centroids (K, C):
 //   x_s   <- x_s / max(sqrt(|x_s|^2 + eps^2), eps)       (per pixel)
-//   a_s   <- softmax_k(x_s W)
+//   a_s   <- softmax_k(x_s W + b)     (b: the vladv2 bias, or none)
 //   vlad  <- sum_s a_s^T x_s - (sum_s a_s) * centroids   (K, C)
 //   vlad  <- intra-normalise per cluster, then global L2 over K*C
-// with the normalisation of the module (modules/aggregators.NetVLAD).
+// with the normalisation of the module (modules/aggregators.NetVLAD). The
+// bias is KeypointFormer's (NetVLAD(vladv2=True),
+// nanovs_slam_tpu/modules/aggregators.py:64-69); without it the logits are
+// x_s W alone, as before it was added.
 // The (K, C, S) residual tensor is never formed. The bfloat16 instance reads
 // a bf16 x and computes in float32 as the module does at bf16: it rounds
 // the normalised x_s to bf16 (the module normalises in its compute dtype)
@@ -17,7 +20,7 @@
 // stages them and W in shared memory, computes each pixel's K logits with
 // four threads a pixel (the pixel's squared norm in the same loop), the
 // softmax with two shuffles, and a^T x and sum a with a register tile of
-// 2-4 clusters by 4-8 channels a thread. At 240x320 (S = 4800) that is
+// 2-4 clusters by 4-16 channels a thread. At 240x320 (S = 4800) that is
 // 75 blocks at batch 1 (80 with the cluster padding), B times that at
 // batch B. Blocks form thread-block clusters of kCluster = 8: each rank
 // adds one slice of the eight blocks' sums through distributed shared
@@ -38,6 +41,9 @@
 // 0.44 us at 67 TFLOP/s (float32, CUDA cores) and 0.28 us at 3.35 TB/s. The
 // kernel is bound by the latency of its chain (stage, logits, sums, cluster
 // reduce, last-cluster finish), which the design keeps to one pass.
+// KeypointFormer's head (C = 256, K = 64, x (33, 41) at 256x320) is 88.7
+// MFLOP an image, 1.3 us at 67 TFLOP/s; its block takes 145 KiB of dynamic
+// shared memory (W alone is 64 KiB), so one block an SM.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -54,7 +60,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;       // pixels a block
 constexpr int kCluster = 8;     // blocks a cluster
 constexpr int kMaxK = 64;
-constexpr int kMaxC = 128;
+constexpr int kMaxC = 256;
 constexpr int kCGroups = 16;    // channel groups of the a^T x tile
 constexpr float kEps = 1e-12f;
 
@@ -66,6 +72,7 @@ struct Args {
   const void* x;  // (B, S, C) float or bf16, element strides sx_b, sx_s, sx_c
   long long sx_b, sx_s, sx_c;
   const float* assign_w;   // (C, K)
+  const float* assign_b;   // (K), or null: no bias
   const float* centroids;  // (K, C)
   float* partial;          // (B, n_clusters, K*C + K)
   unsigned int* counter;   // (B), 0 between launches
@@ -154,7 +161,12 @@ netvlad_kernel(Args a) {
     float m = neg_inf;
 #pragma unroll
     for (int u = 0; u < KPT; ++u) {
-      acc[u] = j + 4 * u < K ? acc[u] / den : neg_inf;
+      const int k = j + 4 * u;
+      if (k < K)
+        acc[u] = a.assign_b != nullptr ? acc[u] / den + a.assign_b[k]
+                                       : acc[u] / den;
+      else
+        acc[u] = neg_inf;
       m = fmaxf(m, acc[u]);
     }
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
@@ -315,17 +327,21 @@ size_t smem_bytes(int C, int K) {
 }
 
 // The instances: x's type (float, bf16); KPT, RK by K (<= 32, <= 64); RC
-// by C (<= 64, <= 128).
-void (*const kKernels[2][2][2])(Args) = {
-    {{netvlad_kernel<8, 2, 4, float>, netvlad_kernel<8, 2, 8, float>},
-     {netvlad_kernel<16, 4, 4, float>, netvlad_kernel<16, 4, 8, float>}},
+// by C (<= 64, <= 128, <= 256).
+void (*const kKernels[2][2][3])(Args) = {
+    {{netvlad_kernel<8, 2, 4, float>, netvlad_kernel<8, 2, 8, float>,
+      netvlad_kernel<8, 2, 16, float>},
+     {netvlad_kernel<16, 4, 4, float>, netvlad_kernel<16, 4, 8, float>,
+      netvlad_kernel<16, 4, 16, float>}},
     {{netvlad_kernel<8, 2, 4, __nv_bfloat16>,
-      netvlad_kernel<8, 2, 8, __nv_bfloat16>},
+      netvlad_kernel<8, 2, 8, __nv_bfloat16>,
+      netvlad_kernel<8, 2, 16, __nv_bfloat16>},
      {netvlad_kernel<16, 4, 4, __nv_bfloat16>,
-      netvlad_kernel<16, 4, 8, __nv_bfloat16>}}};
+      netvlad_kernel<16, 4, 8, __nv_bfloat16>,
+      netvlad_kernel<16, 4, 16, __nv_bfloat16>}}};
 
 // Raises the dynamic shared-memory limit of every instance once per device
-// to the most the widths can ask (C = 128, K = 64).
+// to the most the widths can ask (C = 256, K = 64: 148,256 bytes).
 cudaError_t set_smem_limits() {
   return nvs::once_per_device([] {
     cudaError_t err = cudaSuccess;
@@ -348,7 +364,8 @@ int blocks_per_image(int S) {
 }
 
 int launch(const void* x, bool bf16, const long long* sx,
-           const float* assign_w, const float* centroids, float* partial,
+           const float* assign_w, const float* assign_b,
+           const float* centroids, float* partial,
            unsigned int* counter, float* out, float* residual, float* mass,
            int B, int S, int C, int K, cudaStream_t stream) {
   if (K < 1 || K > kMaxK || C < 1 || C > kMaxC || S < 1 || B < 1 ||
@@ -356,27 +373,29 @@ int launch(const void* x, bool bf16, const long long* sx,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = set_smem_limits();
   if (err != cudaSuccess) return (int)err;
-  const Args args{x,       sx[0],   sx[1], sx[2],    assign_w, centroids,
-                  partial, counter, out,   residual, mass,     S, C, K};
-  kKernels[bf16][K > 32][C > 64]<<<dim3(blocks_per_image(S), B), kThreads,
+  const Args args{x,         sx[0],    sx[1],   sx[2], assign_w,
+                  assign_b,  centroids, partial, counter, out,
+                  residual,  mass,      S,       C,     K};
+  const int rc = C > 128 ? 2 : C > 64 ? 1 : 0;
+  kKernels[bf16][K > 32][rc]<<<dim3(blocks_per_image(S), B), kThreads,
                                    smem_bytes(C, K), stream>>>(args);
   return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ backward
 //
-// The gradient of the function above with respect to x, W and the
-// centroids, for a float32 or a bfloat16 x. It starts from the forward's
-// u (K, C) and
-// masses m (K) of each image (written by the forward when a gradient will
-// be needed) and follows the chain with l2_normalize's
+// The gradient of the function above with respect to x, W, the centroids
+// and, where the forward had one, the bias, for a float32 or a bfloat16 x.
+// It starts from the forward's u (K, C) and masses m (K) of each image
+// (written by the forward when a gradient will be needed) and follows the
+// chain with l2_normalize's
 // x / max(sqrt(|x|^2 + eps^2), eps) at each of its three places:
 //   global L2:     dv = (gy - (gy . y) y) / Q,        y = v / Q
 //   cluster norm:  du_k = (dv_k - (dv_k . v_k) v_k) / q_k,  v_k = u_k / q_k
 //   centroids:     dcen += -m (.) du,   dm_k = -du_k . cen_k
-//   per pixel:     l = x^ W;  a = softmax(l);  da = x^ du^T + dm;
+//   per pixel:     l = x^ W + b;  a = softmax(l);  da = x^ du^T + dm;
 //                  dl = a (.) (da - (a . da));
-//                  dx^ = [a | dl] [du ; W^T];  dW += x^T dl;
+//                  dx^ = [a | dl] [du ; W^T];  dW += x^T dl;  db += dl;
 //                  dx = (dx^ - (dx^ . x^) x^) / den.
 // At bfloat16 (the forward's bf16 instance, and autograd through its plain
 // twin with a bf16 x): x is read as bf16, x^ is rounded to bf16 where the
@@ -402,11 +421,20 @@ int launch(const void* x, bool bf16, const long long* sx,
 //      (48, 64) V3 N, (64, 64) the S family, (128, 64) F; any other
 //      C <= 128, K <= 64 runs in the smallest that holds it, zero-padded
 //      (padded clusters take no part in the softmax). Blocks form clusters
-//      of 8 that add their tiles' dW through distributed shared memory: one
-//      partial a cluster.
-//   3. netvlad_bwd_reduce: dW from the clusters' partials and dcen from the
-//      images', each in a fixed order. No atomics: two runs give the same
-//      bits.
+//      of 8 that add their tiles' dW (and the column sums of dl, db)
+//      through distributed shared memory: one partial a cluster.
+//   3. netvlad_bwd_reduce: dW and db from the clusters' partials and dcen
+//      from the images', each in a fixed order. No atomics: two runs give
+//      the same bits.
+// At 128 < C <= 256 (KeypointFormer's "default" head, C = 256, K = 64) the
+// tile kernel cannot hold [W | du^T] and [du ; W^T]: 256 KiB of shared
+// memory. There netvlad_bwd_wide takes the place of step 2: a block a tile
+// of 32 pixels, a warp 4 of them; W, du^T, du and W^T are read through L1
+// from the prologue's padded copies, each load serving the warp's 4
+// pixels (a lane takes clusters lane and lane + 32 in the logits and da,
+// channels lane + 32 j in dx^); the tile's x^, a and dl stay in shared
+// memory (58 KiB), and each block writes its tile's x^T dl and column sums
+// of dl as a partial, which the same reduction adds in block order.
 // Phase timers on the card: a design with a block a 32-pixel tile, the
 // image's prologue in every block and scalar products over shared memory
 // spent 38% of a block on the repeated prologue and 44% on the products.
@@ -444,9 +472,16 @@ struct BwdArgs {
   float* dcen_part;  // (B, K*C) an image's -m (.) du
   float* dw;         // (C, K)
   float* dcen;       // (K, C)
+  const float* assign_b;  // (K), or null: no bias
+  float* db;              // (K), or null: not written
   int B, S, C, K;
   int tiles;  // tiles an image
 };
+
+// A dW partial: x^T dl at the padded widths, then the column sums of dl.
+__host__ __device__ constexpr long long part_floats(int cp, int kp) {
+  return (long long)cp * kp + kp;
+}
 
 // The tile kernel's shapes at padded widths (CP, KP).
 template <int CP, int KP>
@@ -466,6 +501,7 @@ struct BwdCfg {
   static constexpr int kB2 = 2 * KP * CP;  // [du ; W^T], later dW
   static constexpr int kFloats = kB1 + kB2 + kBwdTile * (LDX + LDA) + KP +
                                  2 * kBwdTile;
+  static_assert(CP * KP + KP <= kB2, "the tile's dW and db");
   static_assert(kBwdTile / TP1 * KG == kBwdThreads, "[l | da]: a task each");
   static_assert(NT2 <= kBwdThreads && NTW <= kBwdThreads, "a task each");
   static_assert(kBwdTile * LDX <= kB1 && CP * KP <= kB2, "aliases");
@@ -767,7 +803,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     float mx = neg_inf;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if (4 * kg + j >= K) av[i][j] = neg_inf;  // a padded cluster
+      const int k = 4 * kg + j;
+      if (k >= K)
+        av[i][j] = neg_inf;  // a padded cluster
+      else if (a.assign_b != nullptr)
+        av[i][j] += __ldg(a.assign_b + k);
       mx = fmaxf(mx, av[i][j]);
     }
     mx = group_reduce<KG, true>(mx);
@@ -844,12 +884,16 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   const int k4 = tid % KG, c0 = tid / KG * DWC;
   float w[DWC][4] = {};
   if (dw_thread) mac_cols<DWC, P>(s_x + c0, LDX, s_a + KP + 4 * k4, LDA, w);
+  float db_tile = 0.f;  // the tile's column sum of dl, pixels in order
+  if (tid < KP)
+    for (int p = 0; p < P; ++p) db_tile += s_a[p * LDA + KP + tid];
   __syncthreads();
   if (dw_thread)
 #pragma unroll
     for (int i = 0; i < DWC; ++i)
       *reinterpret_cast<float4*>(s_b2 + (c0 + i) * KP + 4 * k4) =
           make_float4(w[i][0], w[i][1], w[i][2], w[i][3]);
+  if (tid < KP) s_b2[CP * KP + tid] = db_tile;  // W^T's space, read
 
   // 7. the pixels' norm backward: dx = (dx^ - (dx^ . x^) x^) / den; at
   // bf16 with dx^ rounded to bf16 and x^ = x / den unrounded (x read again)
@@ -890,11 +934,19 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   }
 
   // 8. the cluster's dW: rank r adds slice r of the eight tiles' dW, in
-  // rank order, and writes it as the cluster's partial
+  // rank order, and writes it as the cluster's partial; rank 0 also adds
+  // their db
   cluster.sync();
   constexpr int kSlice = CP * KP / kCluster;
   const int rank = (int)cluster.block_rank();
-  float* part = a.dw_part + (long long)(blockIdx.x / kCluster) * CP * KP;
+  float* part = a.dw_part + (blockIdx.x / kCluster) * part_floats(CP, KP);
+  if (rank == 0 && tid < KP) {
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q)
+      v += cluster.map_shared_rank(s_b2, q)[CP * KP + tid];
+    part[CP * KP + tid] = v;
+  }
   for (int e = rank * kSlice + 4 * tid; e < (rank + 1) * kSlice;
        e += 4 * kBwdThreads) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -912,24 +964,232 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   cluster.sync();  // keep every rank's dW alive until it has been read
 }
 
-// dW from the clusters' partials and dcen from the images', in order.
+// dW and db from the partials and dcen from the images', in order.
 template <int CP, int KP>
 __global__ void __launch_bounds__(256)
 netvlad_bwd_reduce(BwdArgs a, int n_parts) {
   wait_previous_launch();
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int KC = a.K * a.C;
+  constexpr long long kPart = part_floats(CP, KP);
   if (e < KC) {
     const float* p = a.dw_part + (e / a.K) * KP + e % a.K;
     float s = 0.f;
 #pragma unroll 8
-    for (int q = 0; q < n_parts; ++q) s += p[(long long)q * CP * KP];
+    for (int q = 0; q < n_parts; ++q) s += p[q * kPart];
     a.dw[e] = s;
   } else if (e < 2 * KC) {
     const int i = e - KC;
     float s = 0.f;
     for (int q = 0; q < a.B; ++q) s += a.dcen_part[(long long)q * KC + i];
     a.dcen[i] = s;
+  } else if (e < 2 * KC + a.K && a.db != nullptr) {
+    const float* p = a.dw_part + CP * KP + (e - 2 * KC);
+    float s = 0.f;
+    for (int q = 0; q < n_parts; ++q) s += p[q * kPart];
+    a.db[e - 2 * KC] = s;
+  }
+}
+
+// The tile kernel's place at 128 < C <= 256 (see the notes above the
+// backward): a block a tile of kWideTile pixels of one image, a warp
+// kWidePix of them. T: x's and dx's type.
+constexpr int kWideCP = 256, kWideKP = 64;  // the prologue's padded widths
+constexpr int kWideTile = 32;
+constexpr int kWideThreads = 256;
+constexpr int kWidePix = kWideTile / (kWideThreads / 32);
+constexpr int kWideLDX = kWideCP + 4;
+constexpr size_t kWideSmem =
+    sizeof(float) * (kWideTile * kWideLDX + 2 * kWideTile * kWideKP +
+                     kWideTile);
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) netvlad_bwd_wide(BwdArgs a) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int P = kWideTile, CP = kWideCP, KP = kWideKP, LDX = kWideLDX;
+  constexpr int NP = kWidePix, NC = CP / 32;
+  extern __shared__ float4 smem4[];
+  float* s_x = reinterpret_cast<float*>(smem4);  // P x LDX: x, x^, then dx
+  float* s_a = s_x + P * LDX;                    // P x KP: a
+  float* s_dl = s_a + P * KP;                    // P x KP: dl
+  float* s_den = s_dl + P * KP;                  // P
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = a.C, K = a.K;
+  const int b = blockIdx.x / a.tiles;
+  const int s0 = (blockIdx.x % a.tiles) * P;
+  const int n = min(P, a.S - s0);
+  const T* xb = static_cast<const T*>(a.x) + b * a.sx_b;
+  const bool nhwc = a.sx_c == 1;
+
+  // 1. the tile's x, zeros past C and the image's last pixel (NHWC memory:
+  // neighbouring threads, channels; NCHW: pixels)
+  for (int e = tid; e < P * CP; e += kWideThreads) {
+    const int p = nhwc ? e / CP : e % P, c = nhwc ? e % CP : e / P;
+    s_x[p * LDX + c] =
+        p < n && c < C ? load_f32(xb + (long long)(s0 + p) * a.sx_s +
+                                  (long long)c * a.sx_c)
+                       : 0.f;
+  }
+  __syncthreads();
+
+  // 2. the warp's pixels: x^ = x / den in place (rounded to bf16 at bf16)
+  const int p0 = warp * NP;
+  float den[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    float* xs = s_x + (p0 + i) * LDX;
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) ss = fmaf(xs[lane + 32 * j],
+                                           xs[lane + 32 * j], ss);
+    den[i] = l2_denominator(nvs::warp_sum(ss));
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const float v = xs[lane + 32 * j] / den[i];
+      xs[lane + 32 * j] = kBf16 ? round_bf16(v) : v;
+    }
+    if (lane == 0) s_den[p0 + i] = den[i];
+  }
+  __syncwarp();
+
+  // 3. logits l = x^ W + b and da = x^ du^T + dm: lane takes clusters
+  // lane and lane + 32; each load of W and du^T serves the NP pixels
+  const float* dutb = a.du_t + (long long)b * CP * KP;
+  const int kk[2] = {lane, lane + 32};
+  float l[NP][2] = {}, da[NP][2] = {};
+  for (int c = 0; c < C; ++c) {
+    float w[2], d[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      w[h] = kk[h] < K ? __ldg(a.assign_w + c * K + kk[h]) : 0.f;
+      d[h] = __ldg(dutb + c * KP + kk[h]);
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const float xv = s_x[(p0 + i) * LDX + c];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[i][h] = fmaf(xv, w[h], l[i][h]);
+        da[i][h] = fmaf(xv, d[h], da[i][h]);
+      }
+    }
+  }
+  const float neg_inf = -__int_as_float(0x7f800000);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int p = p0 + i;
+    float mx = neg_inf;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (kk[h] >= K)
+        l[i][h] = neg_inf;
+      else if (a.assign_b != nullptr)
+        l[i][h] += __ldg(a.assign_b + kk[h]);
+      mx = fmaxf(mx, l[i][h]);
+    }
+    mx = nvs::warp_max(mx);
+    float av[2], sum = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      av[h] = expf(l[i][h] - mx);  // 0 past K
+      sum += av[h];
+    }
+    sum = nvs::warp_sum(sum);
+    float dot = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      av[h] /= sum;
+      da[i][h] += a.dm[(long long)b * KP + kk[h]];
+      dot = fmaf(av[h], da[i][h], dot);
+    }
+    dot = nvs::warp_sum(dot);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s_a[p * KP + kk[h]] = av[h];
+      s_dl[p * KP + kk[h]] = p < n ? av[h] * (da[i][h] - dot) : 0.f;
+    }
+  }
+  __syncwarp();
+
+  // 4. dx^ = a du + dl W^T: lane takes channels lane + 32 j
+  const float* dub = a.du + (long long)b * KP * CP;
+  float g[NP][NC] = {};
+  for (int k = 0; k < K; ++k) {
+    float u[NC], wt[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      u[j] = __ldg(dub + k * CP + lane + 32 * j);
+      wt[j] = __ldg(a.w_t + k * CP + lane + 32 * j);
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const float ak = s_a[(p0 + i) * KP + k];
+      const float dk = s_dl[(p0 + i) * KP + k];
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        g[i][j] = fmaf(dk, wt[j], fmaf(ak, u[j], g[i][j]));
+    }
+  }
+
+  // 5. the pixels' norm backward: dx = (dx^ - (dx^ . x^) x^) / den; at
+  // bf16 with dx^ rounded to bf16 and x^ = x / den unrounded (x read again)
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int p = p0 + i;
+    float xh[NC], dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = lane + 32 * j;
+      if (kBf16) {
+        g[i][j] = round_bf16(g[i][j]);
+        xh[j] = p < n && c < C
+                    ? load_f32(xb + (long long)(s0 + p) * a.sx_s +
+                               (long long)c * a.sx_c) /
+                          den[i]
+                    : 0.f;
+      } else {
+        xh[j] = s_x[p * LDX + c];
+      }
+      dot = fmaf(g[i][j], xh[j], dot);
+    }
+    dot = nvs::warp_sum(dot);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) g[i][j] = (g[i][j] - dot * xh[j]) / den[i];
+  }
+
+  // 6. the tile's partial: x^T dl (thread: 16 channels by 4 clusters) and
+  // the column sums of dl, pixels in order
+  __syncthreads();
+  {
+    const int k4 = tid % (KP / 4), c0 = tid / (KP / 4) * 16;
+    float w[16][4] = {};
+    mac_cols<16, P>(s_x + c0, LDX, s_dl + 4 * k4, KP, w);
+    float* part = a.dw_part + blockIdx.x * part_floats(CP, KP);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      *reinterpret_cast<float4*>(part + (c0 + i) * KP + 4 * k4) =
+          make_float4(w[i][0], w[i][1], w[i][2], w[i][3]);
+    if (tid < KP) {
+      float v = 0.f;
+      for (int p = 0; p < P; ++p) v += s_dl[p * KP + tid];
+      part[CP * KP + tid] = v;
+    }
+  }
+  __syncthreads();
+
+  // 7. dx through shared memory, stored as x was read
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) s_x[(p0 + i) * LDX + lane + 32 * j] = g[i][j];
+  __syncthreads();
+  T* dxb = static_cast<T*>(a.dx) + b * a.sd_b;
+  const bool dnhwc = a.sd_c == 1;
+  for (int e = tid; e < P * CP; e += kWideThreads) {
+    const int p = dnhwc ? e / CP : e % P, c = dnhwc ? e % CP : e / P;
+    if (p < n && c < C)
+      store_as(dxb + (long long)(s0 + p) * a.sd_s + (long long)c * a.sd_c,
+               s_x[p * LDX + c]);
   }
 }
 
@@ -952,20 +1212,29 @@ cudaError_t launch_pdl(void (*kernel)(Params...), int grid, int threads,
 }
 
 // The instance for widths C, K: (48, 32), (48, 64), (64, 64) or
-// (128, 64), the first that holds them
+// (128, 64), the first that holds them; (256, 64) the wide kernel
 struct BwdWidths {
   int cp, kp;
 };
 
 BwdWidths bwd_widths(int C, int K) {
   if (C <= 48) return {48, K <= 32 ? 32 : 64};
+  if (C > 128) return {kWideCP, kWideKP};
   return {C <= 64 ? 64 : 128, 64};
 }
 
-int bwd_tiles(int S) { return (S + kBwdTile - 1) / kBwdTile; }
+int bwd_tiles(int S, int C) {
+  const int tile = C > 128 ? kWideTile : kBwdTile;
+  return (S + tile - 1) / tile;
+}
 
 int bwd_blocks(int B, int S) {
-  return (B * bwd_tiles(S) + kCluster - 1) / kCluster * kCluster;
+  return (B * bwd_tiles(S, 0) + kCluster - 1) / kCluster * kCluster;
+}
+
+// The dW partials at widths C: one a cluster of tiles, or one a wide block
+int bwd_parts(int B, int S, int C) {
+  return C > 128 ? B * bwd_tiles(S, C) : bwd_blocks(B, S) / kCluster;
 }
 
 // The scratch's parts, in floats from its start (16-byte aligned each but
@@ -983,7 +1252,7 @@ BwdScratch bwd_scratch(int B, int S, int C, int K) {
   s.w_t = s.du_t + B * pc;
   s.dm = s.w_t + pc;
   s.dw_part = s.dm + (long long)B * w.kp;
-  s.dcen_part = s.dw_part + bwd_blocks(B, S) / kCluster * pc;
+  s.dcen_part = s.dw_part + bwd_parts(B, S, C) * part_floats(w.cp, w.kp);
   s.total = s.dcen_part + (long long)B * K * C;
   return s;
 }
@@ -1015,8 +1284,29 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
                         smem, stream, a)) != cudaSuccess)
     return err;
   return launch_pdl(netvlad_bwd_reduce<CP, KP>,
-                    (2 * a.K * a.C + 255) / 256, 256, 0, stream, a,
+                    (2 * a.K * a.C + a.K + 255) / 256, 256, 0, stream, a,
                     blocks / kCluster);
+}
+
+// The backward at 128 < C <= 256: the prologue, the wide tiles, the
+// reduction, in stream order.
+template <typename T>
+cudaError_t launch_bwd_wide(const BwdArgs& a, cudaStream_t stream) {
+  cudaError_t err = nvs::once_per_device([] {
+    return cudaFuncSetAttribute(netvlad_bwd_wide<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kWideSmem);
+  });
+  if (err != cudaSuccess) return err;
+  netvlad_bwd_prologue<kWideCP, kWideKP>
+      <<<dim3(kWideKP / 8, a.B), kPrologueThreads, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  netvlad_bwd_wide<T><<<a.B * a.tiles, kWideThreads, kWideSmem, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  netvlad_bwd_reduce<kWideCP, kWideKP>
+      <<<(2 * a.K * a.C + a.K + 255) / 256, 256, 0, stream>>>(
+          a, a.B * a.tiles);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1028,28 +1318,30 @@ extern "C" int nvs_netvlad_partial_size(int S, int C, int K) {
 }
 
 // x (B,S,C) float32 with element strides [b, s, c]; assign_w (C,K),
-// centroids (K,C) contiguous; partial (B, nvs_netvlad_partial_size) float
-// scratch; counter (B) unsigned ints, zero before the first launch (each
+// centroids (K,C) contiguous, assign_b (K) or null (no bias); partial
+// (B, nvs_netvlad_partial_size) float scratch; counter (B) unsigned ints,
+// zero before the first launch (each
 // launch leaves them zero); out contiguous (B, K*C); residual (B, K*C) and
 // mass (B, K) contiguous, or both null (not written). One launch.
 extern "C" int nvs_netvlad(const float* x, const long long* sx,
-                           const float* assign_w, const float* centroids,
-                           float* partial, unsigned int* counter, float* out,
+                           const float* assign_w, const float* assign_b,
+                           const float* centroids, float* partial,
+                           unsigned int* counter, float* out,
                            float* residual, float* mass, int B, int S, int C,
                            int K, cudaStream_t stream) {
-  return launch(x, false, sx, assign_w, centroids, partial, counter, out,
-                residual, mass, B, S, C, K, stream);
+  return launch(x, false, sx, assign_w, assign_b, centroids, partial,
+                counter, out, residual, mass, B, S, C, K, stream);
 }
 
 // The same with a bfloat16 x; everything else float32.
 extern "C" int nvs_netvlad_bf16(const __nv_bfloat16* x, const long long* sx,
-                                const float* assign_w, const float* centroids,
-                                float* partial, unsigned int* counter,
-                                float* out, float* residual, float* mass,
-                                int B, int S, int C, int K,
-                                cudaStream_t stream) {
-  return launch(x, true, sx, assign_w, centroids, partial, counter, out,
-                residual, mass, B, S, C, K, stream);
+                                const float* assign_w, const float* assign_b,
+                                const float* centroids, float* partial,
+                                unsigned int* counter, float* out,
+                                float* residual, float* mass, int B, int S,
+                                int C, int K, cudaStream_t stream) {
+  return launch(x, true, sx, assign_w, assign_b, centroids, partial, counter,
+                out, residual, mass, B, S, C, K, stream);
 }
 
 // Floats of the backward's scratch at batch B: du, du^T, W^T and dm at the
@@ -1063,10 +1355,11 @@ namespace {
 
 template <typename T>
 int backward(const float* gy, const T* x, const long long* sx,
-             const float* assign_w, const float* centroids,
-             const float* residual, const float* mass, T* dx,
-             const long long* sdx, float* scratch, float* dw, float* dcen,
-             int B, int S, int C, int K, cudaStream_t stream) {
+             const float* assign_w, const float* assign_b,
+             const float* centroids, const float* residual,
+             const float* mass, T* dx, const long long* sdx, float* scratch,
+             float* dw, float* dcen, float* db, int B, int S, int C, int K,
+             cudaStream_t stream) {
   if (K < 1 || K > kMaxK || C < 1 || C > kMaxC || S < 1 || B < 1 ||
       B > 65535 || reinterpret_cast<uintptr_t>(scratch) % 16)
     return (int)cudaErrorInvalidValue;
@@ -1076,9 +1369,11 @@ int backward(const float* gy, const T* x, const long long* sx,
                      sdx[0], sdx[1], sdx[2],    scratch + s.du,
                      scratch + s.du_t,  scratch + s.w_t, scratch + s.dm,
                      scratch + s.dw_part, scratch + s.dcen_part, dw, dcen,
+                     assign_b, db,
                      B,      S,      C,         K,
-                     bwd_tiles(S)};
+                     bwd_tiles(S, C)};
   const BwdWidths w = bwd_widths(C, K);
+  if (w.cp == kWideCP) return (int)launch_bwd_wide<T>(args, stream);
   if (w.cp == 48)
     return (int)(w.kp == 32 ? launch_bwd<48, 32, T>(args, stream)
                             : launch_bwd<48, 64, T>(args, stream));
@@ -1089,29 +1384,30 @@ int backward(const float* gy, const T* x, const long long* sx,
 }  // namespace
 
 // gy (B, K*C), residual (B, K*C) and mass (B, K) from nvs_netvlad,
-// assign_w (C, K) and centroids (K, C) contiguous, float32; x and dx
-// (B, S, C) with element strides sx, sdx [b, s, c]; scratch of
-// nvs_netvlad_backward_scratch_size floats, 16-byte aligned; dw (C, K),
-// dcen (K, C) contiguous. Three launches (the images' prologue, the tiles,
-// the fixed-order reduction), the last two programmatically dependent.
+// assign_w (C, K), assign_b (K) or null and centroids (K, C) contiguous,
+// float32; x and dx (B, S, C) with element strides sx, sdx [b, s, c];
+// scratch of nvs_netvlad_backward_scratch_size floats, 16-byte aligned;
+// dw (C, K), dcen (K, C), db (K) or null contiguous. Three launches (the
+// images' prologue, the tiles, the fixed-order reduction), at C <= 128 the
+// last two programmatically dependent.
 extern "C" int nvs_netvlad_backward(
     const float* gy, const float* x, const long long* sx,
-    const float* assign_w, const float* centroids, const float* residual,
-    const float* mass, float* dx, const long long* sdx, float* scratch,
-    float* dw, float* dcen, int B, int S, int C, int K,
-    cudaStream_t stream) {
-  return backward(gy, x, sx, assign_w, centroids, residual, mass, dx, sdx,
-                  scratch, dw, dcen, B, S, C, K, stream);
+    const float* assign_w, const float* assign_b, const float* centroids,
+    const float* residual, const float* mass, float* dx,
+    const long long* sdx, float* scratch, float* dw, float* dcen, float* db,
+    int B, int S, int C, int K, cudaStream_t stream) {
+  return backward(gy, x, sx, assign_w, assign_b, centroids, residual, mass,
+                  dx, sdx, scratch, dw, dcen, db, B, S, C, K, stream);
 }
 
 // The same with a bfloat16 x and dx (residual and mass from
 // nvs_netvlad_bf16); everything else float32.
 extern "C" int nvs_netvlad_backward_bf16(
     const float* gy, const __nv_bfloat16* x, const long long* sx,
-    const float* assign_w, const float* centroids, const float* residual,
-    const float* mass, __nv_bfloat16* dx, const long long* sdx,
-    float* scratch, float* dw, float* dcen, int B, int S, int C, int K,
-    cudaStream_t stream) {
-  return backward(gy, x, sx, assign_w, centroids, residual, mass, dx, sdx,
-                  scratch, dw, dcen, B, S, C, K, stream);
+    const float* assign_w, const float* assign_b, const float* centroids,
+    const float* residual, const float* mass, __nv_bfloat16* dx,
+    const long long* sdx, float* scratch, float* dw, float* dcen, float* db,
+    int B, int S, int C, int K, cudaStream_t stream) {
+  return backward(gy, x, sx, assign_w, assign_b, centroids, residual, mass,
+                  dx, sdx, scratch, dw, dcen, db, B, S, C, K, stream);
 }

@@ -3,7 +3,8 @@ package's root ``eval_multitask.py``, with its flags, defaults and
 results JSON:
 
     python -m nanovs_slam_torch.eval_multitask [--device cuda]
-        [--model_path CK.npz] [--config S] [--model_type KP2DtinyV2]
+        [--model_path CK.npz] [--config S]
+        [--model_type KP2DtinyV2|KP2DtinyV3|KeypointFormer]
         [--n_classes 28] [--dataset_config datasets.json] [--keypoints]
         [--visloc] [--segmentation] [--depth] [--vo
         [--vo_matcher bf|flann|crosscheck|semantic|lightglue|dense]
@@ -20,9 +21,12 @@ with cv2 by ``scripts/make_synthetic_hpatches.py``), a task without its
 data stores ``{"error": ...}``. ``--use_pallas`` is accepted and changes
 nothing: the port runs its kernels for every CUDA tensor. Flags whose
 modules the port does not have yet exit, naming their ROADMAP item:
-``--int8`` and ``--int8_weight_only`` (item 6), ``--model_type
-KeypointFormer`` and a torch ``.ckpt`` ``--model_path`` (item 7) and
-``--wandb`` (item 7).
+``--int8`` and ``--int8_weight_only`` (item 6), a torch ``.ckpt``
+``--model_path`` (item 7) and ``--wandb`` (item 7). ``--model_type
+KeypointFormer`` evaluates ``models/keypoint_former.py`` at ``--config``
+where it names one of its configs, else "tiny" (the JAX CLI's rule); its
+frame sides must give ceil(side / 4) divisible by 8 (``--im_h 256 --im_w
+320``): at the 240x320 default the JAX model fails, and this CLI exits.
 """
 
 from __future__ import annotations
@@ -104,10 +108,6 @@ def check_supported(args) -> None:
     for flag, why in DEFERRED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: not in the port yet; {why}")
-    if args.model_type == "KeypointFormer":
-        raise SystemExit("--model_type KeypointFormer: not in the port yet; "
-                         "models/keypoint_former.py waits in ROADMAP Queue 1 "
-                         "item 7")
     path = args.model_path
     if path and not path.endswith(".npz"):
         if os.path.isdir(path):
@@ -117,6 +117,13 @@ def check_supported(args) -> None:
         raise SystemExit(f"--model_path {path}: torch checkpoints are not "
                          "read by the port yet; utils/torch_import waits in "
                          "ROADMAP Queue 1 item 7")
+    if args.model_type == "KeypointFormer":
+        from .models.keypoint_former import check_frame_size
+
+        try:
+            check_frame_size(args.im_h, args.im_w)
+        except ValueError as e:
+            raise SystemExit(f"--im_h {args.im_h} --im_w {args.im_w}: {e}")
 
 
 def build(args, dev):
@@ -124,13 +131,9 @@ def build(args, dev):
     the ``--model_path`` checkpoint's."""
     import torch
 
-    from .configs import get_config
-    from .models.kp2dtiny import init_model
+    from .train_multitask import build_config
 
-    v3 = args.model_type in ("KP2DtinyV3", "DF")
-    cfg = get_config(args.config, v3=v3, n_classes=args.n_classes,
-                     depth=args.depth,
-                     dtype="bfloat16" if args.bf16 else "float32")
+    cfg, init_model = build_config(args, args.n_classes)
     model = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     if args.model_path:
         from .utils.checkpoint import load_npz_checkpoint

@@ -2,6 +2,11 @@
 postprocess (border mask, coordinate decode, descriptor sampling + L2),
 segmentation argmax and optional fixed-K keypoint selection. The counterpart
 of ``nanovs_slam_tpu/inference.py::make_infer_fn``.
+
+The model is a KP2DTiny (``configs.KP2DTinyConfig``) or a KeypointFormer
+(``models.keypoint_former.KeypointFormerConfig``). A KeypointFormer, like
+KP2DTiny V3, takes no ``heads=`` and computes every head; its config has no
+``variant`` or ``depth``, and none is read from it.
 """
 
 from __future__ import annotations
@@ -20,19 +25,25 @@ from .utils.device import resolve_device
 Tensor = torch.Tensor
 
 
-def forward_post_process(model: nn.Module, cfg: KP2DTinyConfig, x: Tensor,
+def has_depth(cfg) -> bool:
+    """Whether the model has a depth head (a KP2DTiny config with depth)."""
+    return isinstance(cfg, KP2DTinyConfig) and cfg.depth
+
+
+def forward_post_process(model: nn.Module, cfg, x: Tensor,
                          H: int, W: int, heads) -> Dict[str, Tensor]:
     """x (B, H, W, 3) model input in [-1, 1] on the model's device -> the
-    eval ``post_process`` of the asked-for heads (V2; V3 computes every
-    head), NHWC."""
-    kw = {} if cfg.variant == "v3" else {"heads": heads}
+    eval ``post_process`` of the asked-for heads (V2; V3 and KeypointFormer
+    compute every head), NHWC."""
+    v2 = isinstance(cfg, KP2DTinyConfig) and cfg.variant != "v3"
+    kw = {"heads": heads} if v2 else {}
     out = model(x.permute(0, 3, 1, 2).contiguous(), **kw)
     nhwc = {k: v.permute(0, 2, 3, 1) if v.dim() == 4 else v
             for k, v in out.items()}
     return post_process(nhwc, H, W, cfg.cell, cfg.cross_ratio, eval_mode=True)
 
 
-def make_infer_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int,
+def make_infer_fn(model: nn.Module, cfg, H: int, W: int,
                   top_k: Optional[int] = None, conf_threshold: float = 0.0,
                   with_seg: bool = True, with_vlad: bool = True,
                   device=None) -> Callable[[Tensor], Dict[str, Tensor]]:
@@ -48,12 +59,14 @@ def make_infer_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int,
     vlad (B,D) if ``with_vlad``; depth (B,Hs,Ws,1) where the config has
     it; and with ``top_k`` keypoints (B,K,2), keypoint_scores (B,K),
     descriptors (B,K,C), keypoint_valid (B,K). V2 computes only the heads
-    whose output is asked for; V3, like the JAX model, computes them all.
+    whose output is asked for; V3 and KeypointFormer, like the JAX models,
+    compute them all.
     """
     dev = resolve_device(device)
     model.to(dev).eval()
     heads = ("score", "loc", "desc") + (("seg",) if with_seg else ()) \
-        + (("vlad",) if with_vlad else ()) + (("depth",) if cfg.depth else ())
+        + (("vlad",) if with_vlad else ()) \
+        + (("depth",) if has_depth(cfg) else ())
 
     @torch.inference_mode()
     def infer(images) -> Dict[str, Tensor]:
@@ -82,7 +95,7 @@ def make_infer_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int,
     return infer
 
 
-def make_eval_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int
+def make_eval_fn(model: nn.Module, cfg, H: int, W: int
                  ) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
     """The evaluators' ``infer_np`` on the model's device: model input
     (B, H, W, 3) already in [-1, 1] (numpy; taken as it is, as the JAX
@@ -92,7 +105,7 @@ def make_eval_fn(model: nn.Module, cfg: KP2DTinyConfig, H: int, W: int
     each call; the caller restores training mode."""
     dev = next(model.parameters()).device
     heads = ("score", "loc", "desc", "seg", "vlad") + (
-        ("depth",) if cfg.depth else ())
+        ("depth",) if has_depth(cfg) else ())
 
     @torch.inference_mode()
     def infer_np(images: np.ndarray) -> Dict[str, np.ndarray]:

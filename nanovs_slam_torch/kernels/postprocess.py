@@ -22,7 +22,7 @@ from .common import (FLOAT32_OR_BF16, check_kernel_inputs, check_nhwc_dense,
 _P, _S, _I = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int
 _ARGTYPES = ([_P, _S] * 3 + [_P] * 3 + [_I] * 9
              + [ctypes.c_float, _P])
-MAX_CHANNELS = 128
+MAX_CHANNELS = 256
 
 
 def postprocess_plain(score: torch.Tensor, shift: torch.Tensor,

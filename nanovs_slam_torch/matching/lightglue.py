@@ -19,7 +19,18 @@ On a CUDA device the transformer stack runs through the hand-written
 kernel (``kernels/lightglue.lightglue_transformer``): all layers in one
 call at static depth, one layer per call with ``depth_confidence > 0``.
 On the CPU it runs the blocks below. The embedding and the assignment tail
-are plain PyTorch on both. Training (deep supervision) is not ported yet.
+are plain PyTorch on both.
+
+Training (``forward(train=True)``) runs the stack's layers through the
+plain blocks (``run_layer``) under autograd, on the card too: the JAX
+trainer computes the stack in XLA (``LightGlue.__call__`` never reaches
+``fused_transformer``, which has no VJP), so this is the JAX training
+computation, not a fallback from the kernel (the rule
+``modules/backbone.stem_kernel_allowed`` applies to the stem). It returns
+every layer's log assignment stacked (``all_log_assignments``) and the
+layers' descriptors (``ref_descriptors0/1``); ``assignment_at_layer``
+recomputes layer i's assignment from stored descriptors for the loss
+(``matching/loss.py``).
 Host-staged adaptive depth is ``matching/adaptive.py``; width pruning,
 which ``inference_forward`` runs for ``width_confidence > 0``, is
 ``matching/width_pruning.py``; both run one layer a kernel call.
@@ -372,14 +383,14 @@ class LightGlue(nn.Module):
                 ) -> Dict[str, Tensor]:
         """data: keypoints0/1 (B,M,2)/(B,N,2) NORMALIZED (see
         normalize_keypoints), descriptors0/1 (B,M,C)/(B,N,C), optional
-        mask0/mask1 (B,M)/(B,N) bool validity."""
-        if train:
-            raise NotImplementedError(
-                "LightGlue training (deep supervision, confidence heads) "
-                "is not ported yet")
+        mask0/mask1 (B,M)/(B,N) bool validity. ``train`` returns every
+        layer's descriptors and log assignment (see the module doc)."""
         cfg, L = self.cfg, self.cfg.n_layers
         mask0, mask1 = data.get("mask0"), data.get("mask1")
         desc0, desc1, enc0, enc1 = self.embed(data)
+        if train:
+            return self._train_forward(desc0, desc1, enc0, enc1, mask0,
+                                       mask1)
         if cfg.depth_confidence > 0:
             # value-level early exit: once stopped, layers become no-ops
             stopped = torch.zeros((), dtype=torch.bool, device=desc0.device)
@@ -398,6 +409,38 @@ class LightGlue(nn.Module):
         pred["ref_descriptors0"] = desc0[:, None]
         pred["ref_descriptors1"] = desc1[:, None]
         return pred
+
+    def _train_forward(self, desc0, desc1, enc0, enc1, mask0, mask1
+                       ) -> Dict[str, Tensor]:
+        """Every layer through the plain blocks (no early exit), each
+        layer's descriptors and log assignment kept (JAX ``__call__`` with
+        ``train=True``)."""
+        L = self.cfg.n_layers
+        all_desc0, all_desc1, all_la = [], [], []
+        for i in range(L):
+            desc0, desc1 = self.run_layer(i, desc0, desc1, enc0, enc1,
+                                          mask0, mask1)
+            all_desc0.append(desc0)
+            all_desc1.append(desc1)
+            if i < L - 1:
+                all_la.append(assignment_at_layer(self, i, desc0, desc1,
+                                                  mask0, mask1))
+        pred = self.finalize(L - 1, desc0, desc1, mask0, mask1)
+        all_la.append(pred["log_assignment"])
+        pred["ref_descriptors0"] = torch.stack(all_desc0, 1)
+        pred["ref_descriptors1"] = torch.stack(all_desc1, 1)
+        pred["all_log_assignments"] = torch.stack(all_la, 1)
+        return pred
+
+
+def assignment_at_layer(model: LightGlue, layer: int, desc0: Tensor,
+                        desc1: Tensor, mask0: Optional[Tensor] = None,
+                        mask1: Optional[Tensor] = None) -> Tensor:
+    """Layer ``layer``'s log assignment (B, M+1, N+1) of stored
+    descriptors (the deep-supervision loss re-runs it, reference loss
+    :646-656)."""
+    return getattr(model, f"log_assignment_{layer}")(desc0, desc1, mask0,
+                                                     mask1)[0]
 
 
 def inference_forward(model: LightGlue, data: Dict[str, Tensor]

@@ -165,6 +165,14 @@ def init_model(cfg: KP2DTinyConfig, generator: torch.Generator,
     "cuda")."""
     dev = resolve_device(device)
     model = build_model(cfg)
+    init_weights_(model, generator)
+    return model.to(dev).eval()
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
+    """``model``'s weights in place by the JAX package's initialisers (see
+    ``init_model``)."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             # Conv2d (O, I, kH, kW): fan_in I*kH*kW; ConvTranspose2d
@@ -179,4 +187,5 @@ def init_model(cfg: KP2DTinyConfig, generator: torch.Generator,
         elif isinstance(mod, NetVLAD):
             _lecun_normal_(mod.assign_w, mod.dim, generator)
             nn.init.uniform_(mod.centroids, 0.0, 1.0, generator=generator)
-    return model.to(dev).eval()
+            if mod.assign_b is not None:
+                mod.assign_b.zero_()

@@ -4,7 +4,9 @@
 NetVLAD: L2-normalise each pixel across channels, soft-assign with a 1x1
 conv and a softmax over K clusters, sum the assignment-weighted residuals
 to the centroids over space as ``a^T x - (sum a) * centroids``,
-intra-normalise per cluster, flatten, L2. The forward is the NetVLAD
+intra-normalise per cluster, flatten, L2. ``vladv2=True`` (KeypointFormer's
+head) adds a learned bias ``assign_b`` (K,) to the assignment logits,
+zeros at init, as the JAX module's ``assign_b``. The forward is the NetVLAD
 kernel's wrapper: the CUDA kernel for CUDA tensors, its plain twin for CPU
 tensors; in training its gradient is the ``netvlad_backward`` kernel on
 CUDA, autograd through the twin on the CPU.
@@ -32,19 +34,23 @@ from .blocks import Conv2d, l2_normalize
 
 
 class NetVLAD(nn.Module):
-    def __init__(self, num_clusters: int = 64, dim: int = 128):
+    def __init__(self, num_clusters: int = 64, dim: int = 128,
+                 vladv2: bool = False):
         super().__init__()
         self.num_clusters = num_clusters
         self.dim = dim
         self.assign_w = nn.Parameter(torch.empty(dim, num_clusters))
         self.centroids = nn.Parameter(torch.empty(num_clusters, dim))
+        self.assign_b = nn.Parameter(torch.zeros(num_clusters)) \
+            if vladv2 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) dense features -> (B, K*C) global descriptor."""
         if x.shape[1] != self.dim:
             raise ValueError(f"NetVLAD: {x.shape[1]} channels, expected "
                              f"{self.dim}")
-        return netvlad(x.permute(0, 2, 3, 1), self.assign_w, self.centroids)
+        return netvlad(x.permute(0, 2, 3, 1), self.assign_w, self.centroids,
+                       self.assign_b)
 
     @staticmethod
     def init_params_from_clusters(clsts: np.ndarray, traindescs: np.ndarray):

@@ -4,9 +4,14 @@
 - ``ChannelLayerNorm``: over the channels with the reference's formula
   ``(x - mean) / (sqrt(biased var) + eps) * g + b`` (eps outside the
   square root, so not ``F.layer_norm``);
-- ``EfficientSelfAttention``: q from a 1x1 conv, k and v from one 2x2
-  stride-2 conv with 2C outputs (k first, then v; no biases), 4 heads as
-  head-major channel groups, softmax over the keys, a 1x1 ``to_out``;
+- ``EfficientSelfAttention``: q from a 1x1 conv, k and v from one r x r
+  stride-r conv with 2C outputs (k first, then v; no biases; r = 2 in
+  KP2DTiny, up to 8 in KeypointFormer's MiT), 4 heads (or the MiT stage's)
+  as head-major channel groups, softmax over the keys, a 1x1 ``to_out``.
+  The r x r stride-r conv is computed as one matmul over the r x r patches
+  (the same function): PyTorch's CPU convolution at bfloat16 returns wrong
+  values for an 8x8 stride-8 kernel (2.4 off on a 24x32 map whose float32
+  values are about 1), where its matmul does not;
 - ``MixFeedForward``: 1x1 expand, depthwise 3x3, pointwise 1x1, exact-erf
   GELU, 1x1 project (all with bias), expansion 2;
 - ``SegFormerAttentionModule``: norm, attention, norm, mix-FF, with no
@@ -56,11 +61,25 @@ class EfficientSelfAttention(nn.Module):
         self.to_kv = Conv2d(dim, 2 * dim, r, stride=r, bias=False)
         self.to_out = Conv2d(dim, dim, 1, bias=False)
 
+    def _kv(self, x: torch.Tensor) -> torch.Tensor:
+        """``to_kv`` (an r x r stride-r conv, no padding: floor at the
+        edge) as a matmul over the r x r patches, in its compute dtype."""
+        conv = self.to_kv
+        dt = conv.compute_dtype
+        B, C, H, W = x.shape
+        r = conv.stride[0]
+        Hr, Wr = H // r, W // r
+        patches = x[:, :, :Hr * r, :Wr * r].to(dt).reshape(
+            B, C, Hr, r, Wr, r).permute(0, 2, 4, 1, 3, 5).reshape(
+            B, Hr * Wr, C * r * r)
+        kv = patches @ conv.weight.to(dt).reshape(-1, C * r * r).t()
+        return kv.transpose(1, 2).reshape(B, -1, Hr, Wr)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
         h = self.heads
         dh = C // h
-        k, v = self.to_kv(x).chunk(2, dim=1)
+        k, v = self._kv(x).chunk(2, dim=1)
 
         def to_heads(t):  # (B, h*dh, H', W') -> (B, h, H'*W', dh)
             return t.reshape(B, h, dh, -1).transpose(2, 3)

@@ -2,7 +2,7 @@
 package's ``train_multitask.py``, with its flags and defaults:
 
     python -m nanovs_slam_torch.train_multitask [--device cuda]
-        [--config S] [--model_type KP2DtinyV2|KP2DtinyV3]
+        [--config S] [--model_type KP2DtinyV2|KP2DtinyV3|KeypointFormer]
         [--dataset_name cocostuff|cityscapes|synthetic] [--batch_size 4]
         [--lr ...] [--n_epochs ...] [--seed 42069] [--model_path CK.npz]
         [--out_model_path model_ckpt] [--top_k 300] [--depth]
@@ -35,9 +35,16 @@ epoch's indices and homographies uploaded once, the metrics read once at
 its end and logged at the ``--log_every`` steps. ``--scan_epoch`` is
 the JAX CLI's name for that loop: it is accepted, and still requires
 ``--device_cache``.
+``--model_type KeypointFormer`` trains ``models/keypoint_former.py`` at
+``--config`` where it names one of its configs, else "tiny" (the JAX
+trainer's rule), with the same losses and step; it needs a frame size
+whose sides give ceil(side / 4) divisible by 8 (the synthetic 96x128
+does; the COCO / Cityscapes 120x160 fails here as in the JAX trainer).
+``--freeze_backbone`` freezes nothing there: the JAX optimizer's mask
+freezes a top-level ``backbone``, which KeypointFormer's tree lacks.
 Flags whose modules the port does not have yet raise, naming their
-ROADMAP item: ``--qat``, ``--to_mcu``, ``KeypointFormer``, ``--wandb``
-and the multi-process flags.
+ROADMAP item: ``--qat``, ``--to_mcu``, ``--wandb`` and the
+multi-process flags.
 """
 
 from __future__ import annotations
@@ -157,10 +164,31 @@ def check_supported(args) -> None:
     if args.scan_epoch and not args.device_cache:
         raise SystemExit("--scan_epoch assembles batches from the HBM "
                          "dataset cache; it requires --device_cache")
+
+
+def build_config(args, n_classes: int):
+    """(cfg, its ``init_model``) for ``--model_type`` and ``--config``: a
+    KeypointFormer config where the model type says so (``--config`` if it
+    names one, else "tiny", as the JAX trainer chooses), else KP2DTiny's;
+    both at bfloat16 with ``--bf16``."""
+    import dataclasses
+
+    dtype = "bfloat16" if args.bf16 else "float32"
     if args.model_type == "KeypointFormer":
-        raise SystemExit("--model_type KeypointFormer: not in the port yet; "
-                         "models/keypoint_former.py waits in ROADMAP Queue 1 "
-                         "item 7")
+        from nanovs_slam_torch.models.keypoint_former import (
+            KEYPOINTFORMER_CONFIGS, init_model)
+
+        name = args.config if args.config in KEYPOINTFORMER_CONFIGS \
+            else "tiny"
+        return dataclasses.replace(KEYPOINTFORMER_CONFIGS[name],
+                                   n_classes=n_classes, dtype=dtype), \
+            init_model
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.models.kp2dtiny import init_model
+
+    v3 = args.model_type in ("KP2DtinyV3", "DF")
+    return get_config(args.config, v3=v3, n_classes=n_classes,
+                      depth=args.depth, dtype=dtype), init_model
 
 
 def get_dataset(args, train_config, size):
@@ -475,10 +503,8 @@ def synthetic_homography_pairs(dataset, size, n_items, device=None):
 def main(argv=None):
     args = parse_args(argv)
     check_supported(args)
-    from nanovs_slam_torch.configs import get_config
     from nanovs_slam_torch.data.pipeline import PairLoader
     from nanovs_slam_torch.models.inlier_net import init_inlier_net
-    from nanovs_slam_torch.models.kp2dtiny import init_model
     from nanovs_slam_torch.modules.blocks import set_dropout
     from nanovs_slam_torch.train.schedules import (DEFAULT_LOSS_WEIGHTS,
                                                    PlateauController,
@@ -509,10 +535,12 @@ def main(argv=None):
     size = (train_config["im_h"], train_config["im_w"])
     H, W = size
 
-    v3 = args.model_type in ("KP2DtinyV3", "DF")
-    cfg = get_config(args.config, v3=v3, n_classes=train_config["n_classes"],
-                     depth=args.depth,
-                     dtype="bfloat16" if args.bf16 else "float32")
+    cfg, init_model = build_config(args, train_config["n_classes"])
+    if args.model_type == "KeypointFormer":
+        from nanovs_slam_torch.models.keypoint_former import \
+            check_frame_size
+
+        check_frame_size(H, W)
     train_flags = {"keypoints": True, "segmentation": True, "visloc": True,
                    "depth": args.depth}
     if args.only_segmentation:
@@ -587,8 +615,9 @@ def main(argv=None):
         epoch_fn = make_epoch_fn(step_fn, d_f=cfg.cell // 2,
                                  with_depth=args.depth, augment=True)
     config_blob = {"input_args": vars(args), "train_config": train_config,
-                   "size": size, "model_config": cfg.name,
-                   "variant": cfg.variant,
+                   "size": size,
+                   "model_config": getattr(cfg, "name", args.config),
+                   "variant": getattr(cfg, "variant", args.model_type),
                    "loss_weights_schedule": args.loss_schedule,
                    "device": str(dev)}
     logger = MetricLogger(config=config_blob)

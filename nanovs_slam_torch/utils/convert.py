@@ -19,8 +19,13 @@ LightGlue (``load_jax_lightglue``) has Dense layers instead of convs:
   keeps the flax layout.
 
 The inlier net (``load_jax_inlier_net``) has Dense layers too, and BNs.
-``to_jax_variables`` is the way back (port -> flax-layout numpy trees),
-which ``utils/checkpoint.save_checkpoint`` writes.
+KeypointFormer (``models/keypoint_former.py``) keeps the flax names as
+KP2DTiny does, so ``load_jax_variables`` loads its tree as it is
+(ChannelLayerNorm ``g`` / ``b`` and NetVLAD's ``assign_b`` carry over as
+they are). ``to_jax_variables`` is the way back (port -> flax-layout
+numpy trees), which ``utils/checkpoint.save_checkpoint`` writes, for
+KP2DTiny and KeypointFormer alike; ``to_jax_lightglue`` is
+``load_jax_lightglue``'s.
 
 Inputs are nested dicts of numpy arrays (flax ``params``/``batch_stats``) or
 flat dicts with ``/``-joined keys as stored in a pinned ``.npz``.
@@ -156,6 +161,17 @@ def load_jax_inlier_net(net: nn.Module, params: Mapping,
     layers) into the port's ``InlierNet`` in place and return it; strict
     as ``load_jax_variables``."""
     return _load_strict(net, convert_variables(params, batch_stats, True))
+
+
+def to_jax_lightglue(model: nn.Module) -> Dict:
+    """The reverse of ``load_jax_lightglue``: a ``LightGlue``'s flax
+    ``params`` as nested dicts of numpy arrays (Linear -> Dense kernel (in,
+    out), LayerNorm ``weight`` -> ``scale``, ``posenc/Wr`` as it is)."""
+    params, stats = to_jax_variables(model)
+    if stats:
+        raise ValueError("to_jax_lightglue: the matcher has no BN "
+                         f"statistics, got {sorted(stats)}")
+    return params
 
 
 def to_jax_variables(model: nn.Module) -> Tuple[Dict, Dict]:

@@ -146,11 +146,12 @@ def test_cli_matches_the_jax_evaluators(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--int8"], "item 6"), (["--int8_weight_only"], "item 6"),
-    (["--model_type", "KeypointFormer"], "item 7"),
+    (["--model_type", "KeypointFormer", "--model_path", "kf.ckpt"],
+     "item 7"),
     (["--model_path", "model.ckpt"], "item 7"), (["--wandb"], "item 7")])
 def test_cli_refuses_deferred_flags(flags, item):
     """Each flag whose module the port lacks exits, naming its ROADMAP
-    item."""
+    item (KeypointFormer is ported; its reference .ckpt import is not)."""
     from nanovs_slam_torch import eval_multitask
 
     with pytest.raises(SystemExit, match=item):

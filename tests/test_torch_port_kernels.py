@@ -561,3 +561,139 @@ def test_netvlad_backward_bf16_kernel_matches_twin(cuda, B, H, W, C, K):
     assert (netvlad.launches_bf16, netvlad_backward.launches_bf16) == (
         fwd + 1, bwd + 1)
     check([leaf.grad for leaf in leaves])
+
+
+# ------------------------------- KeypointFormer's widths: bias, C = 256
+
+@pytest.mark.parametrize("B,C,bf16", [(1, 256, False), (8, 256, False),
+                                      (1, 64, False), (1, 256, True),
+                                      (2, 64, True)])
+def test_postprocess_keypoint_former_widths(cuda, B, C, bf16):
+    """KeypointFormer at 256x320 (cell 8): score (B,32,40), feat
+    (B,64,80,C) as NCHW memory, C = 256 ("default") and 64 ("tiny"), float32
+    and bf16 inputs: score and coord within 1e-5, descriptor cosine >
+    0.99999 against the twin."""
+    H, W, cell = 256, 320, 8
+    score, shift, feat = (torch.from_numpy(a).to(cuda) for a in _pp_inputs(
+        B, H, W, cell, C, seed=B + C, edge_shifts=True))
+    score, shift, feat = (t.permute(0, 3, 1, 2).contiguous().permute(
+        0, 2, 3, 1) for t in (score, shift, feat))
+    if bf16:
+        score, shift, feat = (t.to(torch.bfloat16)
+                              for t in (score, shift, feat))
+    want = postprocess_plain(score, shift, feat, H, W, cell)
+    got = fused_postprocess(score, shift, feat, H, W, cell)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
+    assert (got[2] * want[2]).sum(-1).min().item() > 0.99999
+
+
+def _vladv2_inputs(dev, B, H, W, C, K, seed, bf16=False):
+    """x (B,H,W,C) as NCHW memory, W, the centroids, a bias of spread 0.5
+    (so that it moves the softmax) and an upstream gradient."""
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.randn(B, C, H, W).astype(np.float32)).to(
+        dev).permute(0, 2, 3, 1)
+    if bf16:
+        x = x.to(torch.bfloat16)
+    aw = torch.from_numpy(rs.randn(C, K).astype(np.float32) * 0.3).to(dev)
+    cen = torch.from_numpy(rs.rand(K, C).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rs.randn(K).astype(np.float32) * 0.5).to(dev)
+    gy = torch.from_numpy(rs.randn(B, K * C).astype(np.float32)).to(dev)
+    return x, aw, cen, b, gy
+
+
+def _db_scale(gy, x, aw, cen, b):
+    """max over k of sum over the pixels of |dl[., k]|: db's terms cancel
+    (a pixel's dl sums to 0 over k), so its error is measured against the
+    size of its terms, not of the sum. dl is the gradient of a bias given
+    to every pixel, through the twin."""
+    B, H, W, _ = x.shape
+    b_full = b.expand(B, H * W, b.shape[0]).clone().requires_grad_()
+    with torch.enable_grad():
+        dl, = torch.autograd.grad(netvlad_plain(x, aw, cen, b_full), b_full,
+                                  gy)
+    return dl.abs().sum((0, 1)).max().item()
+
+
+@pytest.mark.parametrize("B,H,W,C,bf16", [
+    (1, 33, 41, 256, False), (8, 33, 41, 256, False), (1, 33, 41, 64, False),
+    (2, 33, 41, 256, True), (1, 33, 41, 64, True), (3, 13, 17, 200, False)])
+def test_netvlad_vladv2_kernel_matches_plain(cuda, B, H, W, C, bf16):
+    """The vladv2 forward at KeypointFormer's vlad head (33x41 at 256x320,
+    K = 64, C = 256 and 64; bf16 x too) and at a width no instance has
+    (C = 200): within 1e-5 of the twin with the bias; without the bias the
+    kernel computes the function it computed before (the twin without
+    it)."""
+    x, aw, cen, b, _ = _vladv2_inputs(cuda, B, H, W, C, 64, B + C, bf16)
+    for bias in (b, None):
+        want = netvlad_plain(x, aw, cen, bias)
+        got = netvlad(x, aw, cen, bias)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("B,H,W,C,bf16", [
+    (8, 13, 17, 256, False), (8, 13, 17, 64, False), (2, 33, 41, 256, False),
+    (8, 13, 17, 256, True), (8, 13, 17, 64, True), (3, 7, 9, 160, False)])
+def test_netvlad_vladv2_backward_matches_twin(cuda, B, H, W, C, bf16):
+    """The backward with the bias at KeypointFormer's training shape (13x17
+    at 96x128, K = 64, C = 256 in the wide kernel and 64 in the tiles; bf16
+    x too), at serving's 33x41 and at C = 160 (the wide kernel,
+    zero-padded): dx, dW and dcen within 1e-5 of each gradient's largest
+    magnitude against autograd through the twin, db within 1e-5 of its
+    terms' size (``_db_scale``) (at bf16: dx two bf16 ulps, the rest
+    1e-4, as for the bf16 backward without a bias);
+    dW, dcen and db equal across two launches; through ``netvlad``'s
+    autograd the same gradients with one forward and one backward
+    launch."""
+    x, aw, cen, b, gy = _vladv2_inputs(cuda, B, H, W, C, 64, B + C + 7, bf16)
+    want = netvlad_backward_plain(gy, x, aw, cen, b)
+    assert len(want) == 4
+    db_scale = _db_scale(gy, x, aw, cen, b)
+
+    def check(got):
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype
+            if bf16 and i == 0:
+                assert _bf16_ulps(g, w) <= 2.0
+                continue
+            err = (g - w).abs().max().item()
+            scale = db_scale if i == 3 else w.abs().max().item()
+            lim = (1e-4 if bf16 else 1e-5) * scale
+            assert err <= lim, (i, err, lim)
+
+    for xv in (x, x.contiguous()):
+        _, u, m = netvlad_residuals(xv, aw, cen, b)
+        got = netvlad_backward(gy, xv, aw, cen, u, m, b)
+        again = netvlad_backward(gy, xv, aw, cen, u, m, b)
+        torch.cuda.synchronize()
+        assert got[0].stride() == xv.stride()
+        check(got)
+        assert all(torch.equal(g, a) for g, a in zip(got[1:], again[1:]))
+    leaves = [t.clone().requires_grad_() for t in (x, aw, cen, b)]
+    counts = (netvlad_backward.launches_bf16 if bf16
+              else netvlad_backward.launches)
+    netvlad(*leaves).backward(gy)
+    torch.cuda.synchronize()
+    assert (netvlad_backward.launches_bf16 if bf16
+            else netvlad_backward.launches) == counts + 1
+    check([leaf.grad for leaf in leaves])
+
+
+def test_kernels_refuse_widths_past_their_limits(cuda):
+    """A CUDA tensor outside a kernel's limits raises (no fallback to the
+    twin): C = 257 for the postprocess and both NetVLAD kernels, K = 65
+    for NetVLAD."""
+    score, shift, feat = (torch.from_numpy(a).to(cuda) for a in _pp_inputs(
+        1, 64, 64, 8, 257))
+    with pytest.raises(ValueError, match="C=257"):
+        fused_postprocess(score, shift, feat, 64, 64, 8)
+    for C, K in ((257, 64), (64, 65)):
+        x, aw, cen, b, gy = _vladv2_inputs(cuda, 1, 5, 6, C, K, 0)
+        with pytest.raises(ValueError, match="the kernel takes"):
+            netvlad(x, aw, cen, b)
+        with pytest.raises(ValueError, match="the kernel takes"):
+            netvlad_backward(gy, x, aw, cen, gy, gy[:, :K].contiguous(),
+                             b)

@@ -337,7 +337,8 @@ def test_inference_forward_width_pruning_raises():
     """Width pruning is ported: inference_forward with width_confidence >
     0 runs it (prune0 / prune1 in the result; a pair of 8 points has
     nothing to prune, so the matches are the plain forward's). Training
-    still raises."""
+    is ported: ``train=True`` returns every layer's log assignment
+    (tests/test_torch_port_lightglue_train.py holds it against JAX)."""
     cfg = dataclasses.replace(LIGHTGLUE_CONFIGS["kp2dtiny_S"],
                               width_confidence=0.99)
     data = _torch_data(_pair_data(8, 8, 32))
@@ -347,8 +348,8 @@ def test_inference_forward_width_pruning_raises():
     assert (pruned["prune0"] == cfg.n_layers).all()
     with torch.no_grad():
         assert torch.equal(pruned["matches0"], lg(data)["matches0"])
-    with pytest.raises(NotImplementedError, match="training"):
-        LightGlue(LIGHTGLUE_CONFIGS["kp2dtiny_S"])(data, train=True)
+    train = LightGlue(LIGHTGLUE_CONFIGS["kp2dtiny_S"])(data, train=True)
+    assert tuple(train["all_log_assignments"].shape) == (1, 4, 9, 9)
     with torch.no_grad():
         pred = inference_forward(LightGlue(LIGHTGLUE_CONFIGS["kp2dtiny_S"]),
                                  data)
