@@ -208,7 +208,27 @@ Phases, each of which raises (exit code != 0) on failure:
     stem and postprocess kernels twice a step, the LightGlue kernel never:
     the stack trains through its plain blocks), ms a step, then ``main()``
     for 3 steps, whose ``.npz`` matches a pair through make_pair_matcher;
- 17. one JSON line describing each kernel, the card's line before it, and
+ 17. int8 phase: pinned S8 at 240x320 calibrated on the card as
+    ``eval_multitask --int8`` does (8 synthetic-shapes images), then the
+    int8 conv kernel against its twin at every one of the chained int8
+    request's 23 calls at B=1 and 8 (float and int8 in; float, int8 and
+    pooled int8 out: codes equal, floats within 1e-5), each timed beside
+    its bound (bytes at 3.35 TB/s or operations at 1,979 int8 TOP/s) and
+    ``torch._int_mm`` over an im2col of the same codes, the entry's keys
+    the sums over the request's calls; the int8 request
+    (make_infer_fn(int8_scales=...), top_k 1000) at B=1 and 8: one int8
+    launch a calibrated conv, one postprocess and one NetVLAD a request,
+    no stem, B=1 against the CPU (compare_with_cpu), int8 against float32
+    by tests/test_int8_execution.py's rule (scales calibrated on the
+    frame), ms a request beside float32's; a ``to_mcu`` bundle exported
+    from a seeded card model, its numpy and C runs against the card's
+    int8 score / loc / desc (tests/test_deploy_bundle.py's rule); 3
+    ``--qat`` and 3 ``--to_mcu`` trainer steps (finite losses); ``eval_
+    multitask --int8`` and ``--int8_weight_only`` on a synthetic HPatches
+    set, card against CPU within 1e-3; ``export_model --format
+    pt2|int8|mcu`` and ``export_onnx``, the pt2 program against
+    make_export_fn;
+ 18. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
     the match path, K=512; the stem at (64, 128): the D cell; the odd
@@ -224,8 +244,9 @@ Phases, each of which raises (exit code != 0) on failure:
     ``lg_width``, ``train``, ``train_bf16``, ``scan_epoch``, ``visloc``
     and ``eval``; of phases 15 and 16: ``kf_tiny``, ``kf_default`` (and
     ``_bf16``), ``kf_eval``, ``kf_train_tiny``, ``kf_train_default`` (and
-    ``_bf16``), ``lg_train``; ``_kf`` / ``_kf_tiny`` keys KeypointFormer's
-    shapes); ``netvlad_backward``'s first path is ``train``, its bf16
+    ``_bf16``), ``lg_train``; of phase 17: ``int8``; ``_kf`` /
+    ``_kf_tiny`` keys KeypointFormer's shapes); ``int8_conv3x3``'s first
+    path is ``int8``; ``netvlad_backward``'s first path is ``train``, its bf16
     entry's ``train_bf16``; ``_visloc`` the VPR step's shape).
     The bfloat16 instances have entries of their own (``*_bf16``, named
     ``...[bf16]``): unsuffixed the N cell's shapes, ``_s`` S_A's, ``_d``
@@ -3997,6 +4018,470 @@ def lightglue_train_phase(dev, repo: str) -> dict:
     return {"lg_train": on_path}
 
 
+# --------------------------------------------------------------- int8 phase
+
+INT8 = "int8_conv3x3"
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
+INT8_CALIB = 8  # eval_multitask's --calib_batches default
+INT8_REPLACES = ("none: XLA's int8 conv in nanovs_slam_tpu/quant.py:124 "
+                 "(int8_conv); no Pallas kernel")
+
+
+def int8_pinned(repo: str, device):
+    """Pinned S8 (config S, 8 classes) on ``device`` in eval mode."""
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.models.kp2dtiny import build_model
+    from nanovs_slam_torch.utils.checkpoint import load_npz_checkpoint
+    from nanovs_slam_torch.utils.convert import load_jax_variables
+
+    tree, _ = load_npz_checkpoint(os.path.join(repo, "pinned",
+                                               "extractor_S8.npz"))
+    cfg = get_config("S", n_classes=8)
+    model = load_jax_variables(build_model(cfg), tree["params"],
+                               tree["batch_stats"])
+    return model.to(device).eval(), cfg
+
+
+def int8_calls(model, x, scales) -> list:
+    """The int8 kernel's calls of one chained int8 forward of ``x`` (B, 3,
+    H, W), in order: (path, the wrapper's arguments), read off the
+    blocks' inputs, outputs and cached weight plans."""
+    import torch
+    import torch.nn as nn
+
+    from nanovs_slam_torch import quant
+    from nanovs_slam_torch.modules.blocks import ConvBNAct
+
+    seen = {}
+    blocks = [m for m in model.modules()
+              if isinstance(m, ConvBNAct) and m.path in scales]
+    hooks = [b.register_forward_hook(
+        lambda mod, a, o: seen.__setitem__(mod.path, (a[0], o)))
+        for b in blocks]
+    try:
+        with torch.no_grad(), quant.int8_execution(scales, chain=True):
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    calls = []
+    for b in blocks:
+        xin, out = seen[b.path]
+        pre_q, emits = isinstance(xin, quant.QTensor), \
+            isinstance(out, quant.QTensor)
+        s_in = xin.scale if pre_q else scales[b.path]
+        wq, m, a, bb = b._int8_plan[1]
+        xv = xin.values if pre_q else xin.float().contiguous()
+        h_in = xv.shape[1] if pre_q else xv.shape[2]
+        pool = emits and out.values.shape[1] < h_in
+        slope = 0.01 if isinstance(b.act, nn.LeakyReLU) else 0.0
+        calls.append((b.path, (xv, wq, m, a, bb, s_in, slope,
+                               out.scale if emits else None, pool)))
+    return calls
+
+
+def int8_work(args) -> tuple:
+    """(bytes, operations) of one int8 conv call: each input read once
+    (x, the int8 weights, m, a, b), the output written once; 2 operations
+    a multiply-add of the 9 Cin (unpadded) products an output."""
+    from nanovs_slam_torch.kernels.int8conv import in_channels
+
+    x, wq, m, a, b, _, _, out_scale, pool = args
+    B, cin = x.shape[0], in_channels(x)
+    H, W = (x.shape[1], x.shape[2]) if x.dtype.itemsize == 1 \
+        else (x.shape[2], x.shape[3])
+    cout = wq.shape[0]
+    out_elems = B * cout * ((H // 2) * (W // 2) if pool else H * W)
+    nbytes = (x.numel() * x.element_size() + wq.numel() + 12 * cout
+              + out_elems * (4 if out_scale is None else 1))
+    return nbytes, 2.0 * B * H * W * cout * 9 * cin
+
+
+def int8_im2col(args):
+    """(A (M, Kpad) int8, B (Kpad, Cout) int8) of the call's codes: the
+    same int8 product as one ``torch._int_mm`` (the library yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nanovs_slam_torch.kernels.int8conv import in_channels, true_divide
+
+    x, wq, _, _, _, s_in, _, _, _ = args
+    cin = in_channels(x)
+    if x.dtype == torch.int8:
+        q = x.permute(0, 3, 1, 2).float()
+    else:
+        q = torch.clamp(torch.round(true_divide(x, s_in)), -127, 127)
+    B, _, H, W = q.shape
+    cols = F.unfold(q, 3, padding=1)  # (B, Cin*9, H*W), (c, tap) order
+    cols = cols.view(B, cin, 9, H * W).permute(0, 3, 2, 1).reshape(
+        B * H * W, 9 * cin)
+    A = torch.zeros(B * H * W, wq.shape[1], device=x.device,
+                    dtype=torch.int8)
+    A[:, :9 * cin] = cols.to(torch.int8)
+    return A, wq.t()
+
+
+def int8_kernel_cases(dev, model, scales, B: int) -> dict:
+    """The int8 kernel against its twin at every call of a chained int8
+    S8 request of batch ``B`` (float and int8 in, float and int8 out,
+    pooled or not): codes and float outputs equal; each call's
+    kernel, twin and ``torch._int_mm`` (im2col) time and bound. Returns
+    the kernels-line keys (times and bounds summed over the request's
+    calls)."""
+    import torch
+
+    from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
+
+    rs = np.random.RandomState(SEED + 1800 + B)
+    x = torch.from_numpy(rs.uniform(-1, 1, (B, 3, H, W)).astype(
+        np.float32)).to(dev)
+    calls = int8_calls(model, x, scales)
+    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "t_bytes": 0.0, "t_ops": 0.0}
+    err = 0.0
+    for path, args in calls:
+        got = int8_conv3x3(*args)
+        want = int8_conv3x3_plain(*args)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        kind = "float" if args[7] is None else (
+            "int8+pool" if args[8] else "int8")
+        require(e == 0, f"int8 {path} B={B}: {kind} out {e} from the twin")
+        err = max(err, e)
+        A, Bm = int8_im2col(args)
+        ms = cuda_ms(lambda: int8_conv3x3(*args))
+        plain_ms = cuda_ms(lambda: int8_conv3x3_plain(*args), inner=3,
+                           trials=5)
+        try:  # cuBLASLt's int8 GEMM takes B column-major (wq's rows)
+            torch._int_mm(A, Bm)
+        except RuntimeError:
+            Bm = Bm.contiguous()
+        lib_ms = cuda_ms(lambda: torch._int_mm(A, Bm))
+        nbytes, ops = int8_work(args)
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+        sums["ms"] += ms
+        sums["plain_ms"] += plain_ms
+        sums["library_ms"] += lib_ms
+        sums["t_bytes"] += tb
+        sums["t_ops"] += to
+        xin = "int8" if args[0].dtype == torch.int8 else "float"
+        log(f"kernel {INT8} B={B} {path} ({xin} in, {kind} out, "
+            f"{tuple(args[0].shape)} -> Cout {args[1].shape[0]}): "
+            f"max_abs_err {e:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+            f" ms, _int_mm {lib_ms:.4f} ms, bound {max(tb, to):.5f} ms "
+            f"({'bytes' if tb >= to else 'operations'}), "
+            f"{max(tb, to) / ms:.1%} of it")
+    b_ms = max(sums["t_bytes"], sums["t_ops"])
+    by = "bytes" if sums["t_bytes"] >= sums["t_ops"] else "operations"
+    log(f"kernel {INT8} B={B}: {len(calls)} calls a request, summed kernel "
+        f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, _int_mm "
+        f"{sums['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({by}), "
+        f"{b_ms / sums['ms']:.1%} of it")
+    sfx = "" if B == 1 else f"_b{B}"
+    return {"max_abs_err" + sfx: err, "ms" + sfx: sums["ms"],
+            "plain_ms" + sfx: sums["plain_ms"], "bound_ms" + sfx: b_ms,
+            "bound_by" + sfx: by, "library_ms" + sfx: sums["library_ms"],
+            "calls_a_request" + sfx: len(calls)}
+
+
+def int8_raw_gaps(model, x) -> dict:
+    """tests/test_int8_execution.py's rule: scales calibrated on ``x``
+    itself, the int8 forward's score and feat differ from float32's (the
+    path is active) by a mean relative error under 0.02 and 0.15."""
+    import torch
+
+    from nanovs_slam_torch import quant
+
+    scales = quant.calibrate_conv_scales(model, [x.permute(0, 2, 3, 1)])
+    with torch.no_grad():
+        f32 = model(x)
+        with quant.int8_execution(scales, chain=True):
+            i8 = model(x)
+    rel = {}
+    for k, lim in (("score", 0.02), ("feat", 0.15)):
+        a, b = f32[k], i8[k]
+        require(not torch.allclose(a, b), f"int8: {k} equals float32's")
+        rel[k] = float((a - b).abs().mean() / (a.abs().mean() + 1e-9))
+        require(rel[k] < lim, f"int8: {k} mean relative gap {rel[k]}")
+    return rel
+
+
+def int8_serving(dev, repo: str, kernels: dict) -> dict:
+    """The int8 S8 request at 240x320 (make_infer_fn with the scales of
+    eval_multitask --int8's calibration, chained), B=1 and 8: launch counts
+    (one int8 launch a calibrated conv, one postprocess and one NetVLAD a
+    request, no stem), B=1 against the CPU, int8 against float32, ms a
+    request. Returns its launches."""
+    import torch
+
+    from nanovs_slam_torch.data.datasets import SyntheticShapesDataset
+    from nanovs_slam_torch.inference import make_infer_fn
+    from nanovs_slam_torch.kernels import (fused_postprocess,
+                                           fused_stem_pair_pool,
+                                           int8_conv3x3, netvlad,
+                                           reset_launches)
+    from nanovs_slam_torch.ops.image import to_model_input
+    from nanovs_slam_torch.quant import calibrate_conv_scales
+
+    model, cfg = int8_pinned(repo, dev)
+    cpu_model, _ = int8_pinned(repo, "cpu")
+    calib = SyntheticShapesDataset((H, W), INT8_CALIB, 8, seed=3)
+    t0 = time.perf_counter()
+    scales = calibrate_conv_scales(
+        model, [calib[i]["image"][None] * 2.0 - 1.0
+                for i in range(INT8_CALIB)])
+    torch.cuda.synchronize()
+    log(f"int8: {len(scales)} convs calibrated on the card in "
+        f"{time.perf_counter() - t0:.2f} s ({INT8_CALIB} images)")
+    cpu_scales = calibrate_conv_scales(
+        cpu_model, [calib[i]["image"][None] * 2.0 - 1.0 for i in range(2)])
+    require(set(cpu_scales) == set(scales), "int8: calibration keys differ "
+            "between the card and the CPU")
+
+    kernels[INT8].update(int8_kernel_cases(dev, model, scales, 1))
+    kernels[INT8].update(int8_kernel_cases(dev, model, scales, 8))
+
+    rs = np.random.RandomState(SEED + 1900)
+    requests = [rs.randint(0, 256, (b, H, W, 3)).astype(np.uint8)
+                for b in (1, 8)]
+    top_k = 1000
+    infer = make_infer_fn(model, cfg, H, W, top_k=top_k, device=dev,
+                          int8_scales=scales)
+    infer(requests[0])
+    torch.cuda.synchronize()
+    reset_launches()
+    answers = [infer(f) for f in requests]
+    torch.cuda.synchronize()
+    launches = {INT8: int8_conv3x3.launches,
+                "fused_postprocess": fused_postprocess.launches,
+                "netvlad": netvlad.launches,
+                "fused_stem_pair_pool": fused_stem_pair_pool.launches}
+    log(f"int8: launches during 2 requests {launches}")
+    require(launches[INT8] == 2 * len(scales), f"int8: {launches[INT8]} "
+            f"int8 launches for 2 requests of {len(scales)} convs")
+    require(launches["fused_postprocess"] == 2 and launches["netvlad"] == 2,
+            "int8: the postprocess or NetVLAD not once a request")
+    require(launches["fused_stem_pair_pool"] == 0,
+            "int8: the float stem ran on the int8 path")
+    for frames, out in zip(requests, answers):
+        check_answer(out, len(frames), H, W, cfg, top_k)
+    ref = make_infer_fn(cpu_model, cfg, H, W, top_k=top_k, device="cpu",
+                        int8_scales=scales)(requests[0])
+    errs = compare_with_cpu(answers[0], ref)
+    log(f"int8: B=1 vs CPU {json.dumps(errs)}")
+    x = to_model_input(torch.from_numpy(requests[0]).to(dev))
+    rel = int8_raw_gaps(model, x.permute(0, 3, 1, 2))
+    log(f"int8: against float32, scales calibrated on the frame (mean "
+        f"relative gap) {json.dumps(rel)}")
+
+    f32 = make_infer_fn(model, cfg, H, W, top_k=top_k, device=dev)
+    steady_ms = {}
+    # in turns: int8, float32, float32, int8
+    for name, fn in (("int8", infer), ("float32", f32), ("float32", f32),
+                     ("int8", infer)):
+        for frames in requests:
+            times = []
+            for _ in range(30):
+                t0 = time.perf_counter()
+                fn(frames)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            steady_ms.setdefault(f"{name} B={len(frames)}", []).append(
+                statistics.median(times[5:]))
+    dev_ms, share = busy_share(lambda: infer(requests[0]))
+    log(f"int8 ({card_line()}): steady-state median ms per request, in "
+        "turns, "
+        + "; ".join(f"{k}: " + ", ".join(f"{v:.3f}" for v in t)
+                    for k, t in steady_ms.items())
+        + f"; int8 B=1 device {dev_ms:.3f} ms by the profiler, "
+        f"{100 * share:.1f}% busy")
+    return launches
+
+
+def int8_bundle(dev) -> None:
+    """A to_mcu S model (seeded weights and BN stats) calibrated on the
+    card (heads score/loc/desc), exported as an .nvsb bundle; the numpy
+    and C runtimes against the card's int8 forward (unchained, as the
+    bundle runs): max error under 2e-2 and mean error under 2e-3 of the
+    output's mean magnitude (tests/test_deploy_bundle.py's rule); the C
+    runtime's largest gap to numpy printed beside (their float32 sums
+    differ in order, which can move a code)."""
+    import tempfile
+
+    import torch
+
+    from nanovs_slam_torch import deploy, quant
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.models.kp2dtiny import init_model
+
+    cfg = get_config("S", n_classes=8, to_mcu=True, to_export=True)
+    gen = torch.Generator().manual_seed(SEED + 2000)
+    model = init_model(cfg, gen, "cpu")
+    randomize_bn(model, gen)
+    model = model.to(dev).eval()
+    img = np.random.RandomState(SEED + 2001).rand(H, W, 3).astype(
+        np.float32)
+    heads = ("score", "loc", "desc")
+    scales = quant.calibrate_conv_scales(model, [img[None]], heads=heads)
+    with torch.no_grad(), quant.int8_execution(scales):
+        card = model(torch.from_numpy(img[None]).to(dev).permute(
+            0, 3, 1, 2), heads=heads)
+    card = {k: v[0].permute(1, 2, 0).cpu().numpy() for k, v in card.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = deploy.export_mcu_bundle(model, cfg,
+                                        os.path.join(tmp, "s.nvsb"), scales)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        got_np = deploy.run_bundle_numpy(path, img)
+        t_np = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_c = deploy.run_bundle_c(path, img)
+        t_c = time.perf_counter() - t0
+    gaps = {}
+    for name, got in (("numpy", got_np), ("c", got_c)):
+        require(set(got) == set(card), f"bundle {name}: keys {sorted(got)}")
+        for k, r in card.items():
+            g = got[k]
+            require(g.shape == r.shape, f"bundle {name} {k}: {g.shape}")
+            scale = np.abs(r).mean() + 1e-6
+            mx, mean = np.abs(g - r).max() / scale, \
+                np.abs(g - r).mean() / scale
+            gaps[f"{name}/{k}"] = (float(mx), float(mean))
+            require(mx < 2e-2 and mean < 2e-3,
+                    f"bundle {name} {k}: {mx} / {mean} of the mean")
+    c_np = max(float(np.abs(got_c[k] - got_np[k]).max()) for k in got_np)
+    log(f"int8: bundle of {len(scales)} int8 convs, {size} bytes; numpy "
+        f"{t_np:.2f} s, C {t_c:.2f} s (host, {H}x{W}); C against numpy "
+        f"{c_np:.3g}; (max, mean) gap to the card / mean |output| "
+        + json.dumps(gaps))
+
+
+def int8_train() -> None:
+    """3 steps of the trainer with --qat and 3 with --to_mcu (config S,
+    the cocostuff config's 120x160 on its synthetic fallback, batch 4) on
+    the card: every logged loss finite."""
+    import tempfile
+
+    from nanovs_slam_torch import train_multitask
+
+    cwd = os.getcwd()
+    for flag in ("--qat", "--to_mcu"):
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                os.chdir(tmp)
+                t0 = time.perf_counter()
+                train_multitask.main(
+                    ["--no_eval", "--n_epochs", "1", "--max_steps_per_epoch",
+                     "3", "--log_every", "1", "--out_model_path",
+                     os.path.join(tmp, "ck"), flag])
+                secs = time.perf_counter() - t0
+                with open("metrics.jsonl") as f:
+                    rows = [json.loads(line) for line in f]
+            finally:
+                os.chdir(cwd)
+        losses = [r["loss/total_loss"] for r in rows
+                  if "loss/total_loss" in r]
+        require(len(losses) == 3 and all(map(math.isfinite, losses)),
+                f"int8: {flag} losses {losses}")
+        log(f"int8: train {flag} 3 steps in {secs:.1f} s, losses "
+            + ", ".join(f"{v:.4f}" for v in losses))
+
+
+def int8_eval_cli(repo: str) -> None:
+    """eval_multitask --int8 and --int8_weight_only (pinned S8, 120x160,
+    --keypoints on a seeded 1-sequence synthetic HPatches set, 2 pairs,
+    --calib_batches 4) on the card and on the CPU: keypoint results within
+    1e-3."""
+    import tempfile
+
+    from nanovs_slam_torch import eval_multitask
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = os.path.join(tmp, "hpatches")
+        r = subprocess.run([sys.executable, os.path.join(
+            repo, "scripts", "make_synthetic_hpatches.py"), hp, "--n-seq",
+            "1"], capture_output=True, text=True, timeout=300)
+        require(r.returncode == 0, "int8 eval: the HPatches fixture needs "
+                f"cv2: {r.stderr[-400:]}")
+        ds_cfg = os.path.join(tmp, "datasets.json")
+        with open(ds_cfg, "w") as f:
+            json.dump({"hpatches_data_path": hp}, f)
+        res = {}
+        for flag in ("--int8", "--int8_weight_only"):
+            for d in ("cuda", "cpu"):
+                out = os.path.join(tmp, f"r{flag}{d}.json")
+                t0 = time.perf_counter()
+                eval_multitask.main(
+                    ["--config", "S", "--n_classes", "8", "--model_path",
+                     os.path.join(repo, "pinned", "extractor_S8.npz"),
+                     "--im_h", "120", "--im_w", "160", "--keypoints",
+                     "--max_items", "2", "--top_k", "300",
+                     "--calib_batches", "4", "--dataset_config", ds_cfg,
+                     "--device", d, "--out", out, flag])
+                with open(out) as f:
+                    res[flag + " " + d] = json.load(f)["keypoints_top300"]
+                log(f"int8: eval_multitask {flag} on {d} in "
+                    f"{time.perf_counter() - t0:.1f} s")
+            card, cpu = res[flag + " cuda"], res[flag + " cpu"]
+            require("error" not in card, f"int8 eval {flag}: {card}")
+            for k in ("repeatability", "localization_error", "mscore"):
+                require(abs(card[k] - cpu[k]) <= 1e-3, f"int8 eval {flag}: "
+                        f"{k} card {card[k]} cpu {cpu[k]}")
+    log("int8: eval_multitask keypoints " + json.dumps(res))
+
+
+def int8_exports(repo: str) -> None:
+    """export_model --format pt2 / int8 / mcu (--to_mcu, --device cuda
+    calibration) and export_onnx on this machine's torch; the pt2 program
+    against make_export_fn on the CPU."""
+    import tempfile
+
+    import torch
+
+    from nanovs_slam_torch import export, export_model, export_onnx
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "m")
+        common = ["--config", "S", "--n_classes", "8", "--model_path",
+                  os.path.join(repo, "pinned", "extractor_S8.npz")]
+        paths = [export_model.main(common + ["--format", f, "--out", out])
+                 for f in ("pt2", "int8")]
+        paths.append(export_model.main(
+            ["--config", "S", "--n_classes", "8", "--to_mcu", "--format",
+             "mcu", "--out", out]))
+        paths.append(export_onnx.main(["--model_path", tmp]))
+        sizes = {os.path.basename(p): os.path.getsize(p) for p in paths}
+        require(all(n > 0 for n in sizes.values()), f"exports {sizes}")
+        model, cfg = int8_pinned(repo, "cpu")
+        x = torch.from_numpy(np.random.RandomState(SEED + 2100).uniform(
+            -1, 1, (1, H, W, 3)).astype(np.float32))
+        with torch.no_grad():
+            got = export.load_program(paths[0]).module()(x)
+        want = export.make_export_fn(model, cfg, H, W)(x)
+        err = max_err(got, want)
+        require(err <= 1e-5, f"exports: the pt2 program against "
+                f"make_export_fn {err}")
+    log(f"int8: exports {json.dumps(sizes)} (torch {torch.__version__}); "
+        f"the pt2 program against make_export_fn {err:.3g}")
+
+
+def int8_phase(dev, repo: str, kernels: dict) -> dict:
+    """Phase 17: int8 serving (the int8 kernel against its twin at every
+    call of the S8 request, the request itself), the MCU bundle, QAT and
+    to_mcu training, the eval CLI's int8 flags and the exports."""
+    t_phase = time.perf_counter()
+    kernels[INT8] = {"name": INT8, "route": "cuda",
+                     "source": "nanovs_slam_torch/csrc/int8conv.cu",
+                     "replaces": INT8_REPLACES}
+    launches = int8_serving(dev, repo, kernels)
+    int8_bundle(dev)
+    int8_train()
+    int8_eval_cli(repo)
+    int8_exports(repo)
+    log(f"int8: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"int8": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4055,16 +4540,20 @@ def main() -> int:
     paths.update(eval_phase(dev, repo))
     paths.update(keypoint_former_phase(dev, repo))
     paths.update(lightglue_train_phase(dev, repo))
+    paths.update(int8_phase(dev, repo, kernels))
 
     lines = []
     for key, entry in kernels.items():
-        # `launches` is the count of the first path that runs the kernel,
-        # whose shapes its unsuffixed keys carry; a later path's count goes
-        # under `launches_<path>`, beside that path's `_<path>` keys
-        first, *rest = [p for p in paths if key in paths[p]]
+        # `launches` is the count of the first path that launches the
+        # kernel, whose shapes its unsuffixed keys carry; another path's
+        # count goes under `launches_<path>`, beside that path's `_<path>`
+        # keys
+        counted = [p for p in paths if key in paths[p]]
+        first = next((p for p in counted if paths[p][key]), counted[0])
         entry["path"] = first
         entry["launches"] = paths[first][key]
-        entry.update({f"launches_{p}": paths[p][key] for p in rest})
+        entry.update({f"launches_{p}": paths[p][key] for p in counted
+                      if p != first})
         lines.append(entry)
     require(all(k.__name__ in kernels for k in KERNELS)
             and all(k in kernels for k in (STEM_BF16, PP_BF16, NV_BF16,

@@ -10,7 +10,8 @@ results JSON:
         [--vo_matcher bf|flann|crosscheck|semantic|lightglue|dense]
         [--lg_ckpt LG.npz] [--device_pose] [--lg_threshold 0.0]
         [--lg_width -1]] [--top_k 300 1000] [--im_h 240] [--im_w 320]
-        [--bf16] [--max_items N] [--out eval_results.json]
+        [--bf16] [--int8 [--calib_batches 8]] [--int8_weight_only]
+        [--max_items N] [--out eval_results.json]
         [--debug --result_dir results]
 
 The model and its postprocess run on ``--device`` (default cuda; a
@@ -19,10 +20,16 @@ host in numpy. Each task reads its dataset from datasets.json, as the JAX
 CLI does: keypoints fall back to the synthetic HPatches fixture (written
 with cv2 by ``scripts/make_synthetic_hpatches.py``), a task without its
 data stores ``{"error": ...}``. ``--use_pallas`` is accepted and changes
-nothing: the port runs its kernels for every CUDA tensor. Flags whose
-modules the port does not have yet exit, naming their ROADMAP item:
-``--int8`` and ``--int8_weight_only`` (item 6), a torch ``.ckpt``
-``--model_path`` (item 7) and ``--wandb`` (item 7). ``--model_type
+nothing: the port runs its kernels for every CUDA tensor. ``--int8``
+calibrates every conv block's input scale on ``--calib_batches`` seeded
+synthetic-shapes images (``quant.calibrate_conv_scales``, every head) and
+runs the keypoint, segmentation, depth and retrieval tasks with int8
+convs (``make_eval_fn(int8_scales=...)``, chained); VO stays float32, as
+in the JAX CLI. ``--int8_weight_only`` evaluates the float model on
+int8 fake-quantised weights (``quant.fake_quant_params``). Flags whose
+modules the port does not have yet exit, naming their ROADMAP item: a
+torch ``.ckpt`` ``--model_path`` (item 7) and ``--wandb`` (item 7).
+``--model_type
 KeypointFormer`` evaluates ``models/keypoint_former.py`` at ``--config``
 where it names one of its configs, else "tiny" (the JAX CLI's rule); its
 frame sides must give ceil(side / 4) divisible by 8 (``--im_h 256 --im_w
@@ -39,10 +46,6 @@ import numpy as np
 
 # flag -> why it exits (the ROADMAP.md item its module waits in)
 DEFERRED = {
-    "int8": "int8 inference (quant.py) waits in ROADMAP Queue 1 item 6 "
-            "(int8 and export)",
-    "int8_weight_only": "fake-quantised weights (quant.py) wait in ROADMAP "
-                        "Queue 1 item 6 (int8 and export)",
     "wandb": "the port writes its results JSON only (wandb: ROADMAP Queue "
              "1 item 7, utils)",
 }
@@ -85,8 +88,11 @@ def parse_args(argv=None):
                    help="accepted for the JAX CLI's sake; changes nothing: "
                         "the port runs its CUDA kernels for every CUDA "
                         "tensor")
-    p.add_argument("--int8", action="store_true")
-    p.add_argument("--int8_weight_only", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="calibrate activation scales, then run every conv "
+                        "block int8")
+    p.add_argument("--int8_weight_only", action="store_true",
+                   help="evaluate with int8 fake-quantised weights")
     p.add_argument("--calib_batches", type=int, default=8,
                    help="int8 calibration batches (with --int8)")
     p.add_argument("--seed", type=int, default=42069)
@@ -128,20 +134,44 @@ def check_supported(args) -> None:
 
 def build(args, dev):
     """(model on ``dev`` in eval mode, cfg): seeded init_model weights, or
-    the ``--model_path`` checkpoint's."""
+    the ``--model_path`` checkpoint's; with ``--int8_weight_only`` their
+    int8 fake-quantised values."""
     import torch
 
     from .train_multitask import build_config
+    from .utils.convert import load_jax_variables, to_jax_variables
 
     cfg, init_model = build_config(args, args.n_classes)
     model = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     if args.model_path:
         from .utils.checkpoint import load_npz_checkpoint
-        from .utils.convert import load_jax_variables
 
         tree, _ = load_npz_checkpoint(args.model_path)
         load_jax_variables(model, tree["params"], tree["batch_stats"])
+    if args.int8_weight_only:
+        from .quant import fake_quant_params
+
+        params, stats = to_jax_variables(model)
+        load_jax_variables(model, fake_quant_params(params), stats)
+        print("evaluating with int8 fake-quantized weights (weight-only)")
     return model.to(dev).eval(), cfg
+
+
+def calibrate(args, model):
+    """``--int8``'s scales: ``--calib_batches`` synthetic-shapes images
+    (seed 3, in [-1, 1]) through every head, as the JAX CLI calibrates."""
+    from .data.datasets import SyntheticShapesDataset
+    from .quant import calibrate_conv_scales
+
+    calib = SyntheticShapesDataset((args.im_h, args.im_w),
+                                   args.calib_batches, args.n_classes,
+                                   seed=3)
+    batches = [calib[i]["image"][None] * 2.0 - 1.0
+               for i in range(len(calib))]
+    scales = calibrate_conv_scales(model, batches,
+                                   max_batches=args.calib_batches)
+    print(f"int8 inference: {len(scales)} convs calibrated")
+    return scales
 
 
 def eval_keypoints(args, paths, infer_np, results) -> None:
@@ -327,7 +357,9 @@ def main(argv=None) -> dict:
     set_seed(args.seed)
     dev = resolve_device(args.device)
     model, cfg = build(args, dev)
-    infer_np = make_eval_fn(model, cfg, args.im_h, args.im_w)
+    int8_scales = calibrate(args, model) if args.int8 else None
+    infer_np = make_eval_fn(model, cfg, args.im_h, args.im_w,
+                            int8_scales=int8_scales)
     paths = load_datasets_json(args.dataset_config)
 
     results = {}

@@ -11,12 +11,14 @@ KP2DTiny V3, takes no ``heads=`` and computes every head; its config has no
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from . import quant
 from .configs import KP2DTinyConfig
 from .ops.image import to_model_input
 from .ops.postprocess import post_process, top_k_keypoints
@@ -28,6 +30,14 @@ Tensor = torch.Tensor
 def has_depth(cfg) -> bool:
     """Whether the model has a depth head (a KP2DTiny config with depth)."""
     return isinstance(cfg, KP2DTinyConfig) and cfg.depth
+
+
+def int8_context(int8_scales: Optional[Dict[str, float]]):
+    """Chained ``quant.int8_execution`` where scales are given, else no
+    context."""
+    if int8_scales is None:
+        return contextlib.nullcontext()
+    return quant.int8_execution(int8_scales, chain=True)
 
 
 def forward_post_process(model: nn.Module, cfg, x: Tensor,
@@ -46,7 +56,9 @@ def forward_post_process(model: nn.Module, cfg, x: Tensor,
 def make_infer_fn(model: nn.Module, cfg, H: int, W: int,
                   top_k: Optional[int] = None, conf_threshold: float = 0.0,
                   with_seg: bool = True, with_vlad: bool = True,
-                  device=None) -> Callable[[Tensor], Dict[str, Tensor]]:
+                  device=None,
+                  int8_scales: Optional[Dict[str, float]] = None
+                  ) -> Callable[[Tensor], Dict[str, Tensor]]:
     """Returns ``infer(images) -> dict`` on ``device`` (default "cuda"; a
     CUDA device without a card raises). ``model`` is moved to the device and
     put in eval mode.
@@ -61,6 +73,10 @@ def make_infer_fn(model: nn.Module, cfg, H: int, W: int,
     descriptors (B,K,C), keypoint_valid (B,K). V2 computes only the heads
     whose output is asked for; V3 and KeypointFormer, like the JAX models,
     compute them all.
+
+    ``int8_scales`` (``quant.calibrate_conv_scales``): every calibrated
+    ``ConvBNAct`` runs int8 (``quant.int8_execution``), chained over
+    ``quant.BACKBONE_CHAIN``, as the JAX ``make_infer_fn``'s default.
     """
     dev = resolve_device(device)
     model.to(dev).eval()
@@ -76,7 +92,8 @@ def make_infer_fn(model: nn.Module, cfg, H: int, W: int,
             raise ValueError(f"images must be (B, {H}, {W}, 3), got "
                              f"{tuple(images.shape)}")
         x = to_model_input(images.to(dev, non_blocking=True))
-        post = forward_post_process(model, cfg, x, H, W, heads)
+        with int8_context(int8_scales):
+            post = forward_post_process(model, cfg, x, H, W, heads)
         result = {k: post[k] for k in ("score", "coord", "feat")}
         if with_seg:
             result["seg"] = post["seg"]
@@ -95,14 +112,16 @@ def make_infer_fn(model: nn.Module, cfg, H: int, W: int,
     return infer
 
 
-def make_eval_fn(model: nn.Module, cfg, H: int, W: int
+def make_eval_fn(model: nn.Module, cfg, H: int, W: int,
+                 int8_scales: Optional[Dict[str, float]] = None
                  ) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
     """The evaluators' ``infer_np`` on the model's device: model input
     (B, H, W, 3) already in [-1, 1] (numpy; taken as it is, as the JAX
     ``infer`` takes it, not normalised again) -> numpy score, coord, feat,
     seg, vlad (and depth where the config has it), as ``make_infer_fn``
-    with its defaults computes them. The model is put in eval mode at
-    each call; the caller restores training mode."""
+    with its defaults computes them (int8 as there, with ``int8_scales``).
+    The model is put in eval mode at each call; the caller restores
+    training mode."""
     dev = next(model.parameters()).device
     heads = ("score", "loc", "desc", "seg", "vlad") + (
         ("depth",) if has_depth(cfg) else ())
@@ -114,7 +133,8 @@ def make_eval_fn(model: nn.Module, cfg, H: int, W: int
             raise ValueError(f"images must be (B, {H}, {W}, 3), got "
                              f"{tuple(x.shape)}")
         model.eval()
-        post = forward_post_process(model, cfg, x.to(dev), H, W, heads)
+        with int8_context(int8_scales):
+            post = forward_post_process(model, cfg, x.to(dev), H, W, heads)
         return {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
                 for k, v in post.items()
                 if k in ("score", "coord", "feat", "seg", "vlad", "depth")}

@@ -5,9 +5,11 @@ its ``launches`` attribute (a bfloat16 instance's in ``launches_bf16``);
 for CPU tensors it runs the plain PyTorch twin of the same module. The
 library is built from ``csrc/`` at first launch. ``netvlad`` is
 differentiable: its backward is the ``netvlad_backward`` kernel; the other
-wrappers refuse autograd.
+wrappers refuse autograd. ``int8_conv3x3`` is the conv block of int8
+serving (``quant.int8_execution``).
 """
 
+from .int8conv import int8_conv3x3, int8_conv3x3_plain  # noqa: F401
 from .lightglue import (lightglue_transformer,  # noqa: F401
                         lightglue_transformer_plain, split_weights,
                         split_weights_plain)
@@ -18,7 +20,8 @@ from .postprocess import fused_postprocess, postprocess_plain  # noqa: F401
 from .stem import fused_stem_pair_pool, stem_plain  # noqa: F401
 
 KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad,
-           netvlad_backward, lightglue_transformer, split_weights)
+           netvlad_backward, lightglue_transformer, split_weights,
+           int8_conv3x3)
 # the wrappers that have bfloat16 instances too
 BF16_KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad,
                 netvlad_backward)

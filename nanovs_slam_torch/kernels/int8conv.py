@@ -1,0 +1,142 @@
+"""Int8 3x3 convolution (stride 1, SAME) with BatchNorm and (Leaky)ReLU:
+the conv block of int8 serving (``quant.int8_execution``).
+
+``int8_conv3x3`` launches ``csrc/int8conv.cu`` for CUDA tensors and runs
+``int8_conv3x3_plain`` for CPU tensors. It replaces no Pallas kernel: its
+JAX counterpart is XLA's int8 convolution in
+``nanovs_slam_tpu/quant.py::int8_conv`` (``lax.conv_general_dilated`` on
+int8 with int32 results), and PyTorch has no int8 convolution on CUDA.
+
+The function, for a float32 NCHW input x (quantised as it loads) or an
+int8 NHWC input (a chained producer's codes, already at ``scale_in``):
+
+    xq  = clip(round(x / scale_in), -127, 127)          (float32 division)
+    acc = conv3x3(xq, wq)                               (int32, exact)
+    v   = (float(acc) * m) * a + b,  m = float32(scale_in) * s_w
+    v   = v if v > 0 else v * slope
+
+then float32 NCHW out, or ``clip(round(v / out_scale), -127, 127)`` as
+int8 NHWC, 2x2 max-pooled (floor) where ``pool``. The weights ``wq``
+(Cout, Kpad) int8 hold K = 9 Cin in (tap, channel) order, zero-padded to
+Kpad, a multiple of 32 (``padded_k``). At config S's widths bytes bound
+it; the kernel is an implicit GEMM on the tensor cores' int8 products
+(``csrc/int8conv.cu`` says how).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .common import check_contiguous, device_of
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [_P, _I, _P, _P, _P, _P, _P, _I] + [_I] * 6 + [_F] * 3 + [_P]
+# out modes of the launcher
+_FLOAT, _INT8, _INT8_POOL = 0, 1, 2
+
+
+def padded_k(cin: int) -> int:
+    """The weights' row length: 9 Cin rounded up to a multiple of 32 (the
+    depth of one int8 tensor-core product)."""
+    return -(-9 * cin // 32) * 32
+
+
+def true_divide(t: torch.Tensor, scale: float) -> torch.Tensor:
+    """t / float32(scale) as a true division (a CUDA tensor divided by a
+    Python scalar is multiplied by its reciprocal, which can move a code
+    by one). The divisor is filled on the device: a copy from the host
+    would wait for the device."""
+    return t / torch.full((1,), scale, dtype=torch.float32, device=t.device)
+
+
+def in_channels(x: torch.Tensor) -> int:
+    """Cin of an input: dim 3 of int8 NHWC codes, dim 1 of float NCHW."""
+    return x.shape[3] if x.dtype == torch.int8 else x.shape[1]
+
+
+def int8_conv3x3_plain(x: torch.Tensor, wq: torch.Tensor, m: torch.Tensor,
+                       a: torch.Tensor, b: torch.Tensor, scale_in: float,
+                       slope: float, out_scale=None,
+                       pool: bool = False) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the integer conv in
+    float64 (exact: |acc| <= 127^2 9 Cin < 2^53), then the kernel's
+    epilogue, operation for operation."""
+    if x.dtype == torch.int8:
+        xq = x.permute(0, 3, 1, 2).double()
+    else:
+        xq = torch.clamp(torch.round(true_divide(x, scale_in)), -127,
+                         127).double()
+    cout, cin = wq.shape[0], in_channels(x)
+    w = wq[:, :9 * cin].reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
+    acc = F.conv2d(xq, w.double(), padding=1).to(torch.int32)
+    v = acc.float() * m.view(1, -1, 1, 1)
+    v = v * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
+    v = torch.where(v > 0, v, v * slope)
+    if out_scale is None:
+        return v.contiguous()
+    q = torch.clamp(torch.round(true_divide(v, out_scale)), -127, 127)
+    if pool:
+        q = F.max_pool2d(q, 2, 2)
+    return q.to(torch.int8).permute(0, 2, 3, 1).contiguous()
+
+
+def int8_conv3x3(x: torch.Tensor, wq: torch.Tensor, m: torch.Tensor,
+                 a: torch.Tensor, b: torch.Tensor, scale_in: float,
+                 slope: float, out_scale=None,
+                 pool: bool = False) -> torch.Tensor:
+    """x (B, Cin, H, W) float32 NCHW or (B, H, W, Cin) int8 NHWC; wq
+    (Cout, padded_k(Cin)) int8; m, a, b (Cout,) float32; ``slope`` 0.01
+    (LeakyReLU) or 0 (ReLU); ``out_scale`` None for float32 (B, Cout, H, W)
+    out, else int8 (B, H', W', Cout) NHWC with H' = H // 2 where ``pool``
+    (which needs ``out_scale``). Cout must be a multiple of 8. No
+    autograd: int8 execution is inference only."""
+    name = "int8_conv3x3"
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be 4-D, got {tuple(x.shape)}")
+    int8_in = x.dtype == torch.int8
+    if not int8_in and x.dtype != torch.float32:
+        raise TypeError(f"{name}: x must be float32 or int8, got {x.dtype}")
+    B, cin = x.shape[0], in_channels(x)
+    H, W = x.shape[1:3] if int8_in else x.shape[2:]
+    cout = wq.shape[0]
+    if (wq.dtype != torch.int8
+            or tuple(wq.shape) != (cout, padded_k(cin))
+            or any(t.shape != (cout,) or t.dtype != torch.float32
+                   for t in (m, a, b))):
+        raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype}, wq "
+                         f"{tuple(wq.shape)} {wq.dtype}")
+    if pool and out_scale is None:
+        raise ValueError(f"{name}: the fused pool emits int8 only")
+    dev = device_of(name, x, wq, m, a, b)
+    if dev.type == "cpu":
+        return int8_conv3x3_plain(x, wq, m, a, b, scale_in, slope,
+                                  out_scale, pool)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, m, a, b)):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward")
+    check_contiguous(name, x=x, wq=wq, m=m, a=a, b=b)
+    if cout % 8:
+        raise ValueError(f"{name}: Cout={cout} is not a multiple of 8")
+    if out_scale is None:
+        mode = _FLOAT
+        out = torch.empty((B, cout, H, W), device=dev, dtype=torch.float32)
+    else:
+        mode = _INT8_POOL if pool else _INT8
+        ho, wo = (H // 2, W // 2) if pool else (H, W)
+        out = torch.empty((B, ho, wo, cout), device=dev, dtype=torch.int8)
+    fn = _build.bind("nvs_int8_conv3x3", _ARGTYPES)
+    err = fn(x.data_ptr(), int(int8_in), wq.data_ptr(), m.data_ptr(),
+             a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, B, H, W, cin,
+             cout, padded_k(cin), scale_in,
+             0.0 if out_scale is None else out_scale, slope,
+             _build.stream_ptr(dev))
+    _build.check(err, name)
+    int8_conv3x3.launches += 1
+    return out
+
+
+int8_conv3x3.launches = 0

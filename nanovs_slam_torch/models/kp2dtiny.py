@@ -30,7 +30,7 @@ import torch.nn as nn
 from ..configs import KP2DTinyConfig
 from ..modules.aggregators import NetVLAD
 from ..modules.backbone import BackBone
-from ..modules.blocks import set_compute_dtype
+from ..modules.blocks import name_blocks, set_compute_dtype
 from ..modules.heads import SimpleTaskHead, UpscaleHead
 from ..modules.segmentation import (SegmentationFeatHeadLight,
                                     SegmentationFeatHeadLightATT,
@@ -73,6 +73,7 @@ class KP2DTinyV2(nn.Module):
         if cfg.depth:
             self.depth_head = seg_cls(c4, c4, c5, 1, d1, drop, m, up, leaky)
         set_compute_dtype(self, cfg.compute_dtype)
+        name_blocks(self)
 
     def forward(self, x: torch.Tensor, only_encoder: bool = False,
                 heads: Sequence[str] = ALL_HEADS) -> Dict[str, torch.Tensor]:
@@ -121,6 +122,7 @@ class KP2DTinyV3(nn.Module):
                                 cfg.depth)
         self.vlad_head = _vpr_head(cfg)
         set_compute_dtype(self, cfg.compute_dtype)
+        name_blocks(self)
 
     def forward(self, x: torch.Tensor, only_encoder: bool = False
                 ) -> Dict[str, torch.Tensor]:

@@ -10,9 +10,15 @@ fused stem kernel on BN-folded weights, its bfloat16 instance for a
 bfloat16 input, wherever ``stem_kernel_allowed`` says so: in eval mode
 (dropout the identity, BN's running statistics) and with no gradient to
 flow through the stem, since the kernel has no backward (nor has the JAX
-one). An eval-mode forward under autograd (VPR finetuning differentiates
-the model in inference mode) and train mode run the plain chain, as the
-CPU always does.
+one), and with conv1a and conv1b in float32 and unobserved (no int8 scale
+under ``quant.int8_execution``, no forward hooks: calibration observes
+their inputs). An eval-mode forward under autograd (VPR finetuning
+differentiates the model in inference mode), train mode, int8 execution
+and calibration run the block chain, as the CPU always does.
+
+Under ``quant.int8_execution(..., chain=True)`` the blocks of
+``quant.BACKBONE_CHAIN`` hand int8 ``QTensor``s to each other; a producer
+that a max-pool follows pools in its kernel (``ConvBNAct``'s ``pool``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import quant
 from ..kernels.stem import fused_stem_pair_pool
 from ..utils.fuse import fold_conv_bn
 from .blocks import ConvBNAct, Dropout2d
@@ -30,16 +37,29 @@ from .blocks import ConvBNAct, Dropout2d
 
 def stem_kernel_allowed(backbone: "BackBone", x: torch.Tensor) -> bool:
     """Whether the backbone's stem may run as the fused kernel for ``x``:
-    eval mode, downsample >= 2, and grad mode off or neither ``x`` nor a
-    parameter of conv1a / conv1b requiring grad. The choice is by what
-    autograd needs, not a fallback: the kernel cannot pass a gradient."""
+    eval mode, downsample >= 2, conv1a and conv1b float32 and unobserved
+    (no int8 scale or chained output, no forward hook), and grad mode off
+    or neither ``x`` nor a parameter of conv1a / conv1b requiring grad.
+    The choice is by what the call needs, not a fallback: the kernel
+    cannot pass a gradient, run int8 or show a hook the blocks' inputs."""
     if backbone.training or backbone.downsample < 2:
         return False
+    for m in (backbone.conv1a, backbone.conv1b):
+        if (quant.active_int8_scale(m.path) is not None
+                or quant.active_int8_out_scale(m.path) is not None
+                or m._forward_pre_hooks or m._forward_hooks):
+            return False
     if not torch.is_grad_enabled():
         return True
     stem = (p for m in (backbone.conv1a, backbone.conv1b)
             for p in m.parameters())
     return not (x.requires_grad or any(p.requires_grad for p in stem))
+
+
+def max_pool_2x2(x):
+    """2x2 max-pool of a float map; a ``QTensor`` comes pooled already
+    (its producer pooled in its kernel)."""
+    return x if isinstance(x, quant.QTensor) else F.max_pool2d(x, 2, 2)
 
 
 class BackBone(nn.Module):
@@ -70,14 +90,16 @@ class BackBone(nn.Module):
             y = fused_stem_pair_pool(x.permute(0, 2, 3, 1), w1, b1, w2, b2,
                                      0.01 if self.leaky_relu else 0.0)
             return y.permute(0, 3, 1, 2)
-        x = self.drop(self.conv1b(self.conv1a(x)))
-        return F.max_pool2d(x, 2, 2) if self.downsample >= 2 else x
+        pool = self.downsample >= 2
+        x = self.drop(self.conv1b(self.conv1a(x), pool=pool))
+        return max_pool_2x2(x) if pool else x
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self._stem(x)
-        x = self.drop(self.conv2b(self.conv2a(x)))
-        if self.downsample >= 3:
-            x = F.max_pool2d(x, 2, 2)
+        pool = self.downsample >= 3
+        x = self.drop(self.conv2b(self.conv2a(x), pool=pool))
+        if pool:
+            x = max_pool_2x2(x)
         skip = self.drop(self.conv3b(self.conv3a(x)))
         x = F.max_pool2d(skip, 2, 2) if self.downsample >= 1 else skip
         x = self.drop(self.conv4b(self.conv4a(x)))

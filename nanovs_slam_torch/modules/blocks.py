@@ -33,6 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import quant
+
 
 def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
                      dims) -> torch.Tensor:
@@ -86,8 +88,9 @@ class Dropout2d(nn.Module):
         self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
+        if (not self.training or self.rate == 0.0
+                or isinstance(x, quant.QTensor)):
+            return x  # a chained int8 tensor only flows at inference
         keep = 1.0 - self.rate
         mask = torch.empty(x.shape[:2] + (1,) * (x.dim() - 2),
                            device=x.device, dtype=x.dtype)
@@ -159,7 +162,13 @@ def act(leaky: bool) -> nn.Module:
 
 
 class ConvBNAct(nn.Module):
-    """Conv(3x3, no bias) + BatchNorm + (Leaky)ReLU."""
+    """Conv(3x3, no bias) + BatchNorm + (Leaky)ReLU.
+
+    ``path`` is the block's flax path ("backbone/conv1a"; ``name_blocks``
+    sets it), by which ``quant.int8_execution`` finds its scales: in eval
+    mode under that context a block with an input scale, or given a
+    chained ``QTensor``, runs its conv in int8 (``quant.int8_block``).
+    """
 
     def __init__(self, c_in: int, c_out: int, bn_momentum: float = 0.1,
                  leaky_relu: bool = True):
@@ -167,9 +176,28 @@ class ConvBNAct(nn.Module):
         self.conv = Conv2d(c_in, c_out, 3, padding=1, bias=False)
         self.bn = BatchNorm2d(c_out, eps=1e-5, momentum=bn_momentum)
         self.act = act(leaky_relu)
+        self.path = ""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x, pool: bool = False):
+        """``pool``: a 2x2 max-pool follows the block (after its dropout).
+        A block that emits chained int8 pools in its kernel and returns the
+        pooled ``QTensor``; otherwise the caller pools."""
+        if not self.training:
+            scale = quant.active_int8_scale(self.path)
+            out_scale = quant.active_int8_out_scale(self.path)
+            if (scale is not None or out_scale is not None
+                    or isinstance(x, quant.QTensor)):
+                return quant.int8_block(self, x, scale, out_scale, pool)
         return self.act(self.bn(self.conv(x)))
+
+
+def name_blocks(model: nn.Module) -> None:
+    """Set every ``ConvBNAct``'s ``path`` to its flax path under ``model``
+    (the port keeps the flax module names: "seg_head.convs_0" ->
+    "seg_head/convs_0")."""
+    for name, m in model.named_modules():
+        if isinstance(m, ConvBNAct):
+            m.path = name.replace(".", "/")
 
 
 class Upsampler(nn.Module):

@@ -10,6 +10,11 @@ zeroed (``optax.zero_nans``), clipped by value at ``grad_clip``
 schedule read at the step count before the update (as optax does).
 ``metrics["grad_norm"]`` is the global norm of the raw gradients.
 
+``qat`` (quantisation-aware training) runs both forwards on
+``quant.qat_params``: every flax ``kernel`` leaf of the model (not of the
+inlier net) fake-quantised to int8 per output channel, with a
+straight-through gradient to the float weights.
+
 ``freeze_backbone`` keeps the backbone out of the optimizer (the JAX
 package zeroes its updates after the optimizer, which for adamw also
 skips the weight decay; leaving the parameters out does the same). Its
@@ -25,6 +30,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn as nn
 
+from .. import quant
 from ..configs import KP2DTinyConfig
 from ..models.inlier_net import InlierNet
 from ..ops.postprocess import post_process
@@ -138,9 +144,11 @@ def global_norm(tensors) -> torch.Tensor:
 
 def make_train_step(cfg: KP2DTinyConfig, H: int, W: int,
                     train_flags: Optional[Dict[str, bool]] = None,
-                    io_top_k: int = 300, watch_gradients: bool = False):
+                    io_top_k: int = 300, watch_gradients: bool = False,
+                    qat: bool = False):
     """Returns train_step(state, batch, weights) -> (state, metrics) for
-    the state's model and inlier net (no IO loss where it has none).
+    the state's model and inlier net (no IO loss where it has none), with
+    int8 fake-quantised kernels in the forwards where ``qat``.
 
     batch: image / image_aug (B,H,W,3) in [-1,1], seg / seg_aug (B,hs,ws)
     int, homography (B,3,3), optional depth / depth_aug (B,hs,ws,1), on
@@ -153,8 +161,11 @@ def make_train_step(cfg: KP2DTinyConfig, H: int, W: int,
         state.model.train()
         if state.io_net is not None:
             state.io_net.train()
-        out_aug = _nhwc(state.model(batch["image_aug"].permute(0, 3, 1, 2)))
-        out = _nhwc(state.model(batch["image"].permute(0, 3, 1, 2)))
+        fq = quant.qat_params(state.model) if qat else {}
+        out_aug = _nhwc(torch.func.functional_call(
+            state.model, fq, (batch["image_aug"].permute(0, 3, 1, 2),)))
+        out = _nhwc(torch.func.functional_call(
+            state.model, fq, (batch["image"].permute(0, 3, 1, 2),)))
         out_aug = post_process(out_aug, H, W, cfg.cell, cfg.cross_ratio,
                                eval_mode=False)
         out = post_process(out, H, W, cfg.cell, cfg.cross_ratio,

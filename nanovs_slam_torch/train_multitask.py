@@ -12,7 +12,7 @@ package's ``train_multitask.py``, with its flags and defaults:
         [--ckpt_every N] [--lr_scheduler none|step|cosine|plateau]
         [--watch_gradients] [--no_eval] [--eval_every 1] [--full_eval 3]
         [--max_eval_items 16] [--debug] [--bf16] [--device_cache]
-        [--scan_epoch]
+        [--scan_epoch] [--qat] [--to_mcu]
 
 It runs on ``--device`` (default cuda; a machine without a card needs
 ``--device cpu``). Without the dataset named in datasets.json it trains
@@ -42,9 +42,12 @@ whose sides give ceil(side / 4) divisible by 8 (the synthetic 96x128
 does; the COCO / Cityscapes 120x160 fails here as in the JAX trainer).
 ``--freeze_backbone`` freezes nothing there: the JAX optimizer's mask
 freezes a top-level ``backbone``, which KeypointFormer's tree lacks.
-Flags whose modules the port does not have yet raise, naming their
-ROADMAP item: ``--qat``, ``--to_mcu``, ``--wandb`` and the
-multi-process flags.
+``--qat`` trains with int8 fake-quantised kernels (``quant.qat_params``,
+a straight-through gradient; the inlier net stays float), and ``--to_mcu``
+trains the MCU export variant (convtranspose upsample, plain ReLU), whose
+checkpoint ``python -m nanovs_slam_torch.export_model --to_mcu --format
+mcu`` bundles. Flags whose modules the port does not have yet raise,
+naming their ROADMAP item: ``--wandb`` and the multi-process flags.
 """
 
 from __future__ import annotations
@@ -70,9 +73,6 @@ SYNTHETIC_CONFIG = dict(lr=0.0005, n_classes=8, im_h=96, im_w=128,
 
 # flag -> why it raises (the ROADMAP.md item its module waits in)
 DEFERRED = {
-    "qat": "QAT waits in ROADMAP Queue 1 item 6 (int8 and export)",
-    "to_mcu": "the MCU export configs wait in ROADMAP Queue 1 item 6 "
-              "(int8 and export)",
     "wandb": "the port logs to metrics.jsonl only (wandb: ROADMAP Queue 1 "
              "item 7, utils)",
     "num_devices": "data parallel training waits in ROADMAP Queue 1 item 7 "
@@ -120,7 +120,8 @@ def parse_args(argv=None):
                    choices=["default", "refined", "D", "none"])
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute, float32 parameters")
-    p.add_argument("--qat", action="store_true")
+    p.add_argument("--qat", action="store_true",
+                   help="int8 fake-quant QAT (straight-through estimator)")
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--watch_gradients", action="store_true",
                    help="log per-module gradient norms")
@@ -188,6 +189,7 @@ def build_config(args, n_classes: int):
 
     v3 = args.model_type in ("KP2DtinyV3", "DF")
     return get_config(args.config, v3=v3, n_classes=n_classes,
+                      to_mcu=getattr(args, "to_mcu", False),
                       depth=args.depth, dtype=dtype), init_model
 
 
@@ -606,7 +608,8 @@ def main(argv=None):
 
     step_fn = make_train_step(cfg, H, W, train_flags=train_flags,
                               io_top_k=args.top_k,
-                              watch_gradients=args.watch_gradients)
+                              watch_gradients=args.watch_gradients,
+                              qat=args.qat)
     epoch_fn = None
     if args.device_cache:
         from nanovs_slam_torch.train.scan_epoch import (make_epoch_fn,

@@ -201,12 +201,35 @@ def to_jax_variables(model: nn.Module) -> Tuple[Dict, Dict]:
         if leaf in ("running_mean", "running_var"):
             put(stats, f"{owner}.{leaf[len('running_'):]}", value)
             continue
-        if leaf == "weight":
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-                value, leaf = value.permute(2, 3, 1, 0), "kernel"
-            elif isinstance(mod, nn.Linear):
-                value, leaf = value.t(), "kernel"
-            else:  # BatchNorm, LayerNorm
-                leaf = "scale"
-        put(params, f"{owner}.{leaf}" if owner else leaf, value)
+        flax = _flax_leaf(mod, leaf)
+        if flax == "kernel":
+            value = value.t() if isinstance(mod, nn.Linear) \
+                else value.permute(2, 3, 1, 0)
+        put(params, f"{owner}.{flax}" if owner else flax, value)
     return params, stats
+
+
+def _flax_leaf(mod: nn.Module, leaf: str) -> str:
+    """The flax name of parameter ``leaf`` of ``mod``: a conv's,
+    transposed conv's or Linear's ``weight`` is a ``kernel``, another
+    module's ``weight`` (BatchNorm, LayerNorm) a ``scale``; the rest keep
+    their names."""
+    if leaf != "weight":
+        return leaf
+    if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        return "kernel"
+    return "scale"
+
+
+def kernel_parameters(model: nn.Module) -> Dict[str, nn.Parameter]:
+    """The parameters of ``model`` that are flax ``kernel`` leaves (conv,
+    transposed-conv and Linear weights; ``to_jax_variables``'s map), by
+    name. Their dim 0 is the flax kernel's last axis (OIHW O; the
+    transposed conv's (I, O, kH, kW) I; Linear's out)."""
+    modules = dict(model.named_modules())
+    out = {}
+    for key, p in model.named_parameters():
+        owner, _, leaf = key.rpartition(".")
+        if _flax_leaf(modules[owner], leaf) == "kernel":
+            out[key] = p
+    return out

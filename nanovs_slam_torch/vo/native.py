@@ -17,19 +17,14 @@ compilers (or the loader) said.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
 import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG.parent / "native" / "matcher.cpp"
-BUILD_ROOT = _PKG / "_build"
+from ..utils.host_build import BUILD_ROOT, NATIVE, build_library, compilers
+
+SOURCE = NATIVE / "matcher.cpp"
 # native/Makefile's CXXFLAGS
 CXXFLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
             "-std=c++17"]
@@ -43,39 +38,14 @@ build_log: Optional[str] = None
 
 def _compilers() -> list:
     """$CXX, c++ and g++ as paths, each once, in that order."""
-    found = []
-    for name in (os.environ.get("CXX"), "c++", "g++"):
-        path = shutil.which(name) if name else None
-        if path and os.path.realpath(path) not in map(os.path.realpath,
-                                                      found):
-            found.append(path)
-    return found
+    return compilers("CXX", ("c++", "g++"))
 
 
-def _build(cxx: str) -> Path:
+def _build(cxx: str):
     """The library built from SOURCE (or already there); raises
     RuntimeError with the compiler's output if the build fails."""
-    h = hashlib.sha256(" ".join([cxx, *CXXFLAGS]).encode())
-    h.update(SOURCE.read_bytes())
-    out_dir = BUILD_ROOT / f"matcher-{h.hexdigest()[:16]}"
-    so = out_dir / "libmatcher.so"
-    if so.exists():
-        return so
-    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
-        staged = Path(tmp) / "done"
-        staged.mkdir()
-        cmd = [cxx, *CXXFLAGS, str(SOURCE), "-o", str(staged / so.name)]
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-        if r.returncode != 0:
-            raise RuntimeError(f"{' '.join(cmd)} exited with {r.returncode}:"
-                               f"\n{r.stdout}{r.stderr}")
-        try:
-            os.replace(staged, out_dir)
-        except OSError:
-            if not so.exists():  # not a concurrent build
-                raise
-    return so
+    return build_library(SOURCE, cxx, CXXFLAGS, "matcher", "libmatcher.so",
+                         root=BUILD_ROOT)
 
 
 def _load() -> Optional[ctypes.CDLL]:

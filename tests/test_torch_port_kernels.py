@@ -697,3 +697,66 @@ def test_kernels_refuse_widths_past_their_limits(cuda):
         with pytest.raises(ValueError, match="the kernel takes"):
             netvlad_backward(gy, x, aw, cen, gy, gy[:, :K].contiguous(),
                              b)
+
+
+def _int8_inputs(dev, B, H, W, cin, cout, int8_in, seed=0):
+    """Random int8 weights (Kpad zero-padded), multipliers, BN affine and
+    an input (float32 NCHW, or int8 NHWC codes) for ``int8_conv3x3``."""
+    from nanovs_slam_torch.kernels.int8conv import padded_k
+
+    rs = np.random.RandomState(seed)
+    wq = np.zeros((cout, padded_k(cin)), np.int8)
+    wq[:, :9 * cin] = rs.randint(-127, 128, (cout, 9 * cin))
+    m = (rs.rand(cout) * 1e-4 + 1e-5).astype(np.float32)
+    a = (1.0 + 0.1 * rs.randn(cout)).astype(np.float32)
+    b = (0.1 * rs.randn(cout)).astype(np.float32)
+    if int8_in:
+        x = rs.randint(-127, 128, (B, H, W, cin)).astype(np.int8)
+    else:
+        x = rs.uniform(-1.5, 1.5, (B, cin, H, W)).astype(np.float32)
+    return [torch.from_numpy(v).to(dev) for v in (x, wq, m, a, b)]
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout,int8_in,out", [
+    (1, 240, 320, 3, 16, False, "int8"),      # conv1a: Cin 3, K 27 -> 32
+    (2, 240, 320, 16, 32, True, "pool"),      # conv1b, its fused pool
+    (1, 60, 80, 64, 64, False, "float"),      # a head's conv
+    (2, 30, 40, 64, 128, False, "float"),     # K 576 in two chunks
+    (1, 120, 160, 96, 64, False, "float"),    # Cin 96 (the concats)
+    (3, 37, 51, 32, 24, True, "pool"),        # odd sizes, 24 of 32 lanes
+    (1, 19, 23, 48, 256, True, "int8"),       # Cout 256: two n-blocks
+    (2, 5, 3, 3, 8, False, "float")])         # a frame under one tile
+def test_int8_conv_kernel_matches_twin(cuda, B, H, W, cin, cout, int8_in,
+                                       out):
+    """The int8 conv kernel against its plain twin: the int32 sums are
+    exact on both sides and the epilogue rounds each product and sum as
+    the twin does, so codes and float32 outputs are equal bit for bit;
+    one launch counted."""
+    from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
+
+    x, wq, m, a, b = _int8_inputs(cuda, B, H, W, cin, cout, int8_in)
+    args = (x, wq, m, a, b, 0.0123, 0.01,
+            None if out == "float" else 0.0371, out == "pool")
+    n = int8_conv3x3.launches
+    got = int8_conv3x3(*args)
+    want = int8_conv3x3_plain(*args)
+    torch.cuda.synchronize()
+    assert int8_conv3x3.launches == n + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert float(got.abs().max()) > 0
+
+
+def test_int8_conv_refuses_what_it_does_not_take(cuda):
+    """Cout not a multiple of 8, a pooled float output and a bfloat16
+    input raise for CUDA tensors (no fallback to the twin)."""
+    from nanovs_slam_torch.kernels import int8_conv3x3
+
+    x, wq, m, a, b = _int8_inputs(cuda, 1, 8, 8, 4, 12, False)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        int8_conv3x3(x, wq, m, a, b, 0.1, 0.0)
+    x, wq, m, a, b = _int8_inputs(cuda, 1, 8, 8, 4, 16, False)
+    with pytest.raises(ValueError, match="emits int8 only"):
+        int8_conv3x3(x, wq, m, a, b, 0.1, 0.0, None, True)
+    with pytest.raises(TypeError, match="float32 or int8"):
+        int8_conv3x3(x.bfloat16(), wq, m, a, b, 0.1, 0.0)

@@ -320,7 +320,6 @@ def test_checkpoint_loads_in_jax_and_gives_the_same_forward(one_step,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--qat"], "item 6"), (["--to_mcu"], "item 6"),
     (["--num_devices", "2"], "item 7"), (["--num_processes", "2"], "item 7"),
     (["--coordinator_address", "localhost:1"], "item 7"),
     (["--process_id", "1"], "item 7"), (["--wandb"], "item 7"),
@@ -342,6 +341,24 @@ def test_cli_accepts_its_evaluation_flags(flags):
     from nanovs_slam_torch.train_multitask import check_supported, parse_args
 
     check_supported(parse_args(flags + ["--device", "cpu"]))
+
+
+@pytest.mark.parametrize("flags", [["--qat"], ["--to_mcu"],
+                                   ["--qat", "--to_mcu"]])
+def test_cli_accepts_int8_and_mcu_training(flags):
+    """QAT and the MCU export variant are ported (they were refused,
+    naming ROADMAP Queue 1 item 6); --to_mcu builds the convtranspose,
+    ReLU config."""
+    from nanovs_slam_torch.train_multitask import (build_config,
+                                                   check_supported,
+                                                   parse_args)
+
+    args = parse_args(flags + ["--device", "cpu"])
+    check_supported(args)
+    cfg, _ = build_config(args, 8)
+    mcu = "--to_mcu" in flags
+    assert (cfg.upscale_method == "convtranspose") == mcu
+    assert cfg.leaky_relu != mcu
 
 
 @pytest.mark.parametrize("flags", [
