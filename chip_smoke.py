@@ -212,9 +212,11 @@ Phases, each of which raises (exit code != 0) on failure:
     ``eval_multitask --int8`` does (8 synthetic-shapes images), then the
     int8 conv kernel against its twin at every one of the chained int8
     request's 23 calls at B=1 and 8 (float and int8 in; float, int8 and
-    pooled int8 out: codes equal, floats within 1e-5), each timed beside
-    its bound (bytes at 3.35 TB/s or operations at 1,979 int8 TOP/s) and
-    ``torch._int_mm`` over an im2col of the same codes, the entry's keys
+    pooled int8 out: codes and floats equal), each timed beside its
+    bound (bytes at 3.35 TB/s or operations at 1,979 int8 TOP/s) and
+    ``torch._int_mm`` over an im2col of the same codes, with its launch
+    shape (persistent blocks, SMs covered, weights resident or in K
+    chunks; ``int8conv.launch_shape``), the entry's keys
     the sums over the request's calls; the int8 request
     (make_infer_fn(int8_scales=...), top_k 1000) at B=1 and 8: one int8
     launch a calibrated conv, one postprocess and one NetVLAD a request,
@@ -4131,6 +4133,7 @@ def int8_kernel_cases(dev, model, scales, B: int) -> dict:
     import torch
 
     from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
+    from nanovs_slam_torch.kernels.int8conv import launch_shape
 
     rs = np.random.RandomState(SEED + 1800 + B)
     x = torch.from_numpy(rs.uniform(-1, 1, (B, 3, H, W)).astype(
@@ -4165,12 +4168,21 @@ def int8_kernel_cases(dev, model, scales, B: int) -> dict:
         sums["t_bytes"] += tb
         sums["t_ops"] += to
         xin = "int8" if args[0].dtype == torch.int8 else "float"
+        sh = launch_shape(args[0], args[1].shape[0], args[7], args[8])
         log(f"kernel {INT8} B={B} {path} ({xin} in, {kind} out, "
             f"{tuple(args[0].shape)} -> Cout {args[1].shape[0]}): "
             f"max_abs_err {e:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f}"
             f" ms, _int_mm {lib_ms:.4f} ms, bound {max(tb, to):.5f} ms "
             f"({'bytes' if tb >= to else 'operations'}), "
-            f"{max(tb, to) / ms:.1%} of it")
+            f"{max(tb, to) / ms:.1%} of it; launch {sh['blocks_x']}x"
+            f"{sh['blocks_y']} persistent blocks of 256 threads, cluster 1, "
+            f"{sh['blocks_per_sm']} an SM, {sh['smem_bytes']} B shared, "
+            f"{sh['sms_covered']} of {sh['sms']} SMs; {sh['tile_rows']}x16 "
+            f"pixel tiles, {sh['channels_a_warp']} channels a warp; weights "
+            + ("resident" if sh["weights_resident"]
+               else f"in K chunks of {sh['k_chunk']}")
+            + (f"; {sh['staged_channels']} channels staged x "
+               f"{sh['chunks_a_tile']}" if xin == "float" else ""))
     b_ms = max(sums["t_bytes"], sums["t_ops"])
     by = "bytes" if sums["t_bytes"] >= sums["t_ops"] else "operations"
     log(f"kernel {INT8} B={B}: {len(calls)} calls a request, summed kernel "

@@ -93,6 +93,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
 }
 
+// ... through L1
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src,
+                                              bool in = true) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+// 4 bytes global -> shared (through L1), zero-filled when !in
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in = true) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(s), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -100,6 +116,39 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Hopper's warpgroup products (wgmma.mma_async): a warpgroup of 4 warps
+// multiplies a 64-row A held in registers (each warp 16 rows, the fragment
+// of an mma.sync m16n8k*) by a B in shared memory that a matrix descriptor
+// describes: here K-major without swizzle, core matrices of 8 rows (output
+// channels) by 16 bytes, `sbo` bytes apart along N and `lbo` bytes apart
+// along K.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int lbo,
+                                               int sbo = 128) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// until at most N committed groups of the warpgroup are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// makes this thread's shared-memory writes (cp.async included) visible to
+// later wgmma reads (the async proxy); a barrier then hands them on
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // Calls set() once per device, e.g. to raise a kernel's dynamic

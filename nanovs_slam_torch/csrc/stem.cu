@@ -344,41 +344,16 @@ cudaError_t launch(const float* x, const long long* sx, const float* w1,
 
 // ------------------------------------------------ the wide instance (64, 128)
 
-// Hopper's warpgroup products (wgmma.mma_async): a warpgroup of 4 warps
-// multiplies a 64-row A held in registers (each warp 16 rows, the fragment
-// of an mma.sync m16n8k8 / m16n8k16) by a B in shared memory that a matrix
-// descriptor describes. B is K-major without swizzle: core matrices of 8
-// rows (output channels) by 16 bytes, kSbo bytes apart along N and `lbo`
-// bytes apart along K. The sums stay in registers; with g = lane / 4 and
-// t = lane % 4, d[4j + i] of warp w is row 16 w + g + 8 (i >> 1), column
-// 8 j + 2 t + (i & 1).
-constexpr int kSbo = 128;
-
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int lbo) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(kSbo >> 4) << 32;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-// until at most N committed groups of the warpgroup are still running
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// makes this thread's shared-memory writes (cp.async included) visible to
-// later wgmma reads (the async proxy); a barrier then hands them on
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
+// Hopper's warpgroup products: nvs::wgmma_desc and the fences, commits and
+// waits in common.cuh. B is K-major without swizzle (core matrices 8 output
+// channels by 16 bytes, 128 bytes apart along N, `lbo` along K); with g =
+// lane / 4 and t = lane % 4, d[4j + i] of warp w is row 16 w + g + 8 (i >>
+// 1), column 8 j + 2 t + (i & 1).
+using nvs::fence_async_shared;
+using nvs::wgmma_commit;
+using nvs::wgmma_desc;
+using nvs::wgmma_fence;
+using nvs::wgmma_wait;
 
 // keeps the compiler from moving accesses of the sums across a wait
 __device__ __forceinline__ void fence_regs(float (&d)[64]) {

@@ -18,9 +18,19 @@ int8 NHWC input (a chained producer's codes, already at ``scale_in``):
 then float32 NCHW out, or ``clip(round(v / out_scale), -127, 127)`` as
 int8 NHWC, 2x2 max-pooled (floor) where ``pool``. The weights ``wq``
 (Cout, Kpad) int8 hold K = 9 Cin in (tap, channel) order, zero-padded to
-Kpad, a multiple of 32 (``padded_k``). At config S's widths bytes bound
-it; the kernel is an implicit GEMM on the tensor cores' int8 products
-(``csrc/int8conv.cu`` says how).
+Kpad, a multiple of 32 (``padded_k``).
+
+At config S's widths bytes bound it; on the H100 what bounds a call of the
+S8 request is latency (a block's chain of copies, quantisation, products
+and epilogue) and how many chains an SM keeps in flight. The kernel
+(``csrc/int8conv.cu`` says how) is an implicit GEMM on the tensor cores
+(``wgmma`` s8 where a warp has 64 or more channels, ``mma.sync`` below,
+each the faster there: ``tools/int8_variants.py``) in persistent
+blocks, as many as the card holds, that keep their weights in shared
+memory for all their tiles; the next tile's input is copied with
+``cp.async`` while the current one is worked on; a float input is staged a
+channel plane's halo rows at a time and quantised from shared memory.
+``launch_shape`` reads the launch a call makes.
 """
 
 from __future__ import annotations
@@ -140,3 +150,29 @@ def int8_conv3x3(x: torch.Tensor, wq: torch.Tensor, m: torch.Tensor,
 
 
 int8_conv3x3.launches = 0
+
+_SHAPE_KEYS = ("blocks_x", "blocks_y", "smem_bytes", "blocks_per_sm", "sms",
+               "weights_resident", "k_chunk", "staged_channels",
+               "chunks_a_tile", "channels_a_warp", "tile_rows")
+
+
+def launch_shape(x: torch.Tensor, cout: int, out_scale=None,
+                 pool: bool = False) -> dict:
+    """The launch ``int8_conv3x3`` makes for this input on the current
+    card (nothing is launched): the persistent grid (``blocks_x`` blocks
+    walking the tiles, for each of ``blocks_y`` channel groups), shared
+    memory a block, blocks an SM, the card's SMs and the SMs the grid
+    covers, whether the weights stay resident (else their K chunk), a float
+    input's staged channels and chunks a tile, a warp's channels and the
+    tile's rows."""
+    int8_in = x.dtype == torch.int8
+    B, cin = x.shape[0], in_channels(x)
+    H, W = x.shape[1:3] if int8_in else x.shape[2:]
+    mode = _FLOAT if out_scale is None else (_INT8_POOL if pool else _INT8)
+    shape = (ctypes.c_int * len(_SHAPE_KEYS))()
+    fn = _build.bind("nvs_int8_conv3x3_shape", [_I] * 8 + [_P])
+    _build.check(fn(int(int8_in), mode, B, H, W, cin, cout, padded_k(cin),
+                    shape), "int8_conv3x3")
+    out = dict(zip(_SHAPE_KEYS, shape))
+    out["sms_covered"] = min(out["sms"], out["blocks_x"] * out["blocks_y"])
+    return out

@@ -725,13 +725,43 @@ def _int8_inputs(dev, B, H, W, cin, cout, int8_in, seed=0):
     (1, 120, 160, 96, 64, False, "float"),    # Cin 96 (the concats)
     (3, 37, 51, 32, 24, True, "pool"),        # odd sizes, 24 of 32 lanes
     (1, 19, 23, 48, 256, True, "int8"),       # Cout 256: two n-blocks
-    (2, 5, 3, 3, 8, False, "float")])         # a frame under one tile
+    (2, 5, 3, 3, 8, False, "float"),          # a frame under one tile
+    # a map under one 4x16 tile, and pixel counts not a multiple of 64
+    (1, 3, 7, 16, 16, True, "int8"),
+    (2, 9, 13, 32, 32, False, "pool"),
+    # each instance, its channels a warp zero-padded: 8-row tiles of 8
+    # (Cout 8), 16 (Cout 16, 24 padded) and 32 channels a warp; 4-row tiles
+    # of 32 (Cout 64), 64 (128) and 128 (256); and 8-row tiles of 64 (Cout
+    # 64 on a map of many tiles, desc_head/convAa's at batch 8)
+    (1, 7, 9, 16, 8, True, "float"),
+    (1, 11, 21, 64, 16, False, "int8"),
+    (2, 6, 10, 24, 24, True, "float"),
+    (1, 10, 18, 32, 32, False, "int8"),
+    (1, 12, 20, 64, 64, True, "pool"),
+    (1, 9, 17, 96, 128, False, "float"),
+    (1, 6, 34, 32, 256, False, "float"),
+    (8, 120, 160, 96, 64, False, "float"),
+    # more than 256 channels: two channel groups of the grid
+    (1, 3, 5, 8, 264, False, "float"),
+    # weights beyond the resident budget: the K-chunk ring (and, for the
+    # float input, its channels staged in chunks)
+    (1, 6, 10, 256, 256, True, "float"),
+    (1, 5, 12, 256, 256, False, "pool"),
+    # float halo rows off 16-byte alignment (W % 4 != 0): 4-byte copies
+    (1, 7, 81, 64, 64, False, "float"),
+    # int8 codes copied 4 bytes at a time (Cin % 16 != 0), and byte by
+    # byte (Cin % 4 != 0)
+    (1, 4, 8, 12, 40, True, "int8"),
+    (1, 4, 8, 7, 16, True, "float")])
 def test_int8_conv_kernel_matches_twin(cuda, B, H, W, cin, cout, int8_in,
                                        out):
     """The int8 conv kernel against its plain twin: the int32 sums are
     exact on both sides and the epilogue rounds each product and sum as
     the twin does, so codes and float32 outputs are equal bit for bit;
-    one launch counted."""
+    one launch counted. The cases cover the edges of the kernel's design
+    (``csrc/int8conv.cu``): partial tiles, each instance's tile rows and
+    channels a warp, channel groups, streamed weights, staged float chunks
+    and each input copy."""
     from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
 
     x, wq, m, a, b = _int8_inputs(cuda, B, H, W, cin, cout, int8_in)
@@ -745,6 +775,33 @@ def test_int8_conv_kernel_matches_twin(cuda, B, H, W, cin, cout, int8_in,
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want)
     assert float(got.abs().max()) > 0
+
+
+@pytest.mark.parametrize("scale", [0.0123, 0.1, 1.0 / 3, 7.1e-3])
+def test_int8_conv_kernel_exact_at_ties(cuda, scale):
+    """Float inputs whose quotients x / scale lie on or a few ulps beside
+    half-integers (where a product with the reciprocal rounds to another
+    code than the IEEE division) and beyond the clip, zeros and denormals:
+    the kernel's codes are the twin's (float32 out shows every int32 sum)."""
+    from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
+
+    rs = np.random.RandomState(5)
+    B, H, W, cin, cout = 2, 9, 21, 16, 16
+    s32 = np.float32(scale)
+    k = rs.randint(-130, 130, (B, cin, H, W)).astype(np.float32)
+    x = (k + np.float32(0.5)) * s32
+    steps = rs.randint(-3, 4, x.shape)
+    for d in range(1, 4):
+        x = np.where(steps >= d, np.nextafter(x, np.float32(np.inf)), x)
+        x = np.where(steps <= -d, np.nextafter(x, np.float32(-np.inf)), x)
+    x = x.astype(np.float32)
+    x[0, 0, 0, :4] = [0.0, -0.0, 1e-40, -3e-39]
+    _, wq, m, a, b = _int8_inputs(cuda, B, H, W, cin, cout, False)
+    xt = torch.from_numpy(x).to(cuda)
+    got = int8_conv3x3(xt, wq, m, a, b, float(s32), 0.01)
+    want = int8_conv3x3_plain(xt, wq, m, a, b, float(s32), 0.01)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_int8_conv_refuses_what_it_does_not_take(cuda):

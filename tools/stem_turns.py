@@ -1,13 +1,15 @@
-"""The stem and the NetVLAD backward of two source trees in turns on one
-NVIDIA card.
+"""The stem, the NetVLAD backward and the int8 conv of two source trees in
+turns on one NVIDIA card.
 
-    python3 tools/stem_turns.py PARENT_DIR CHANGE_DIR
+    python3 tools/stem_turns.py PARENT_DIR CHANGE_DIR [--parts stem,int8]
 
 Each directory is a checkout of this repository (for example a commit's
 ``git archive`` unpacked into a directory that ``.gitignore`` lists). In
 the order parent, change, change, parent, a subprocess imports that tree's
 ``nanovs_slam_torch`` (whose kernels build from its own ``csrc/``) and
-``chip_smoke.py`` and measures:
+``chip_smoke.py`` and measures the parts asked for (both by default):
+
+``stem``:
 
 - the stem kernel on 240x320 frames at batch 1 and 8: config D's
   (64, 128) at float32 and bf16 and the narrow bf16 instances, N's
@@ -25,6 +27,18 @@ the order parent, change, change, parent, a subprocess imports that tree's
   batch, dropout off): the host-clock median ms of 10 steps and the
   device ms of a step and of its NetVLAD backward kernels (torch.profiler).
 
+``int8``:
+
+- ``int8_conv3x3`` at every one of the int8 S8 request's 23 calls at
+  batch 1 and 8 (pinned S8 calibrated as ``chip_smoke.py``'s int8 phase
+  does; ``chip_smoke.int8_calls`` on the seeded input of
+  ``int8_kernel_cases``), each held to its twin at 0 and timed by
+  ``cuda_ms``; the sums over the request, over its float-input calls and
+  over its two 120x160x96 calls;
+- the int8 S8 request (``make_infer_fn(int8_scales=...)``, top_k 1000) at
+  batch 1 and 8: host-clock median ms of 20 steady requests and the
+  device ms of a request.
+
 Prints the card's name and power limit, one JSON line a turn, and the
 medians of each tree's two turns. It imports neither jax nor
 nanovs_slam_tpu.
@@ -41,6 +55,7 @@ import sys
 CHILD = r"""
 import json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
+PARTS = sys.argv[2].split(",")
 import numpy as np
 import torch
 import chip_smoke as cs
@@ -55,11 +70,25 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 out = {}
+
+
+def request_ms(infer, frames, tag):
+    times = []
+    for _ in range(25):
+        t0 = time.perf_counter()
+        infer(frames)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, busy = cs.busy_share(lambda: infer(frames))
+    out[f"request_{tag}"] = statistics.median(times[5:])
+    out[f"request_device_{tag}"] = dev_ms
+
+
 KEYS = {(cs.STEM_D, ""): "stem_d_float32", (cs.STEM_BF16, "_d"): "stem_d_bf16",
         (cs.STEM_BF16, ""): "stem_n_bf16", (cs.STEM_BF16, "_s"): "stem_s_bf16",
         ("netvlad_backward", ""): "netvlad_bwd_train",
         ("netvlad_backward", "_n"): "netvlad_bwd_n"}
-for B in (1, 8):
+for B in ((1, 8) if "stem" in PARTS else ()):
     b8 = "" if B == 1 else f"_b{B}"
     for c in cs.kernel_cases(B, dev):
         suffix = c.suffix[:-len(b8)] if b8 and c.suffix.endswith(b8) \
@@ -73,7 +102,7 @@ for B in (1, 8):
         out[f"kernel_{key}" + ("" if c.entry == "netvlad_backward"
                                else f"_B{B}")] = cs.cuda_ms(c.run)
 rs = np.random.RandomState(cs.SEED + 1300)
-for name in ("D", "N"):
+for name in (("D", "N") if "stem" in PARTS else ()):
     gen = torch.Generator().manual_seed(cs.SEED + 1300)
     cfg32 = get_config(name, n_classes=28)
     cfg16 = get_config(name, n_classes=28, dtype="bfloat16")
@@ -87,16 +116,44 @@ for name in ("D", "N"):
         for dt, model, cfg in dtypes[name == "N":]:
             infer = make_infer_fn(model, cfg, cs.H, cs.W, device=dev,
                                   top_k=1000, conf_threshold=0.7)
-            times = []
-            for _ in range(25):
-                t0 = time.perf_counter()
-                infer(frames)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            dev_ms, busy = cs.busy_share(lambda: infer(frames))
-            tag = f"{name}_{dt}_B{B}"
-            out[f"request_{tag}"] = statistics.median(times[5:])
-            out[f"request_device_{tag}"] = dev_ms
+            request_ms(infer, frames, f"{name}_{dt}_B{B}")
+if "int8" in PARTS:
+    from nanovs_slam_torch.data.datasets import SyntheticShapesDataset
+    from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
+    from nanovs_slam_torch.quant import calibrate_conv_scales
+
+    model, cfg = cs.int8_pinned(sys.argv[1], dev)
+    calib = SyntheticShapesDataset((cs.H, cs.W), cs.INT8_CALIB, 8, seed=3)
+    scales = calibrate_conv_scales(
+        model, [calib[i]["image"][None] * 2.0 - 1.0
+                for i in range(cs.INT8_CALIB)])
+    for B in (1, 8):
+        rs8 = np.random.RandomState(cs.SEED + 1800 + B)
+        x = torch.from_numpy(rs8.uniform(-1, 1, (B, 3, cs.H, cs.W)).astype(
+            np.float32)).to(dev)
+        sums = {"all": 0.0, "float_in": 0.0, "wide": 0.0}
+        for path, args in cs.int8_calls(model, x, scales):
+            got, want = int8_conv3x3(*args), int8_conv3x3_plain(*args)
+            torch.cuda.synchronize()
+            cs.require(cs.max_err(got, want) == 0, f"int8 {path} B={B}")
+            ms = cs.cuda_ms(lambda: int8_conv3x3(*args))
+            out[f"int8_{path}_B{B}"] = ms
+            sums["all"] += ms
+            if args[0].dtype == torch.float32:
+                sums["float_in"] += ms
+                if args[0].shape[1:] == (96, 120, 160):
+                    sums["wide"] += ms
+        for k, v in sums.items():
+            out[f"int8_sum_{k}_B{B}"] = v
+    rs8 = np.random.RandomState(cs.SEED + 1900)
+    infer = make_infer_fn(model, cfg, cs.H, cs.W, top_k=1000, device=dev,
+                          int8_scales=scales)
+    for B in (1, 8):
+        frames = rs8.randint(0, 256, (B, cs.H, cs.W, 3)).astype(np.uint8)
+        request_ms(infer, frames, f"S8_int8_B{B}")
+if "stem" not in PARTS:
+    print(json.dumps(out))
+    sys.exit(0)
 cfg, state = cs.train_state(dev)
 set_dropout(state.model, rate=0.0)
 step = make_train_step(cfg, *cs.TRAIN_HW, io_top_k=300)
@@ -117,9 +174,9 @@ print(json.dumps(out))
 """
 
 
-def turn(tree: str) -> dict:
+def turn(tree: str, parts: str) -> dict:
     env = dict(os.environ, PYTHONPATH=tree)
-    r = subprocess.run([sys.executable, "-c", CHILD, tree], env=env,
+    r = subprocess.run([sys.executable, "-c", CHILD, tree, parts], env=env,
                        cwd=tree, capture_output=True, text=True)
     if r.returncode != 0:
         raise SystemExit(f"{tree}: rc {r.returncode}\n{r.stdout[-4000:]}\n"
@@ -128,7 +185,10 @@ def turn(tree: str) -> dict:
 
 
 def main(argv) -> int:
-    if len(argv) != 2:
+    parts = "stem,int8"
+    if len(argv) == 4 and argv[2] == "--parts":
+        parts, argv = argv[3], argv[:2]
+    if len(argv) != 2 or not set(parts.split(",")) <= {"stem", "int8"}:
         print(__doc__, file=sys.stderr)
         return 2
     trees = {"parent": os.path.abspath(argv[0]),
@@ -140,7 +200,7 @@ def main(argv) -> int:
     print(card, flush=True)
     runs = {"parent": [], "change": []}
     for name in ("parent", "change", "change", "parent"):
-        res = turn(trees[name])
+        res = turn(trees[name], parts)
         runs[name].append(res)
         print(json.dumps({"turn": name, **res}), flush=True)
     summary = {name: {k: statistics.median(r[k] for r in rs)
