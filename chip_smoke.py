@@ -134,8 +134,9 @@ Phases, each of which raises (exit code != 0) on failure:
     ``python -m nanovs_slam_torch.train_multitask --no_eval --n_epochs 1
     --max_steps_per_epoch 5`` in a subprocess on the card, whose .npz
     loads back into the port. The kernel phase holds ``netvlad_backward``
-    (three device kernels a call: the images' prologue, the tiles, the
-    reduction) against its twin, autograd through
+    (three device kernels a call at C <= 128: the images' prologue, the
+    tiles, the reduction; two above: the wide tiles and the reduction)
+    against its twin, autograd through
     netvlad_plain, at the train shape (unsuffixed), config N's
     (``_n``) and the VPR step's (``_visloc``: 12 images at 240x320), its
     dW and dcen equal across two launches, and its bf16 instance at the
@@ -247,7 +248,8 @@ Phases, each of which raises (exit code != 0) on failure:
     and ``eval``; of phases 15 and 16: ``kf_tiny``, ``kf_default`` (and
     ``_bf16``), ``kf_eval``, ``kf_train_tiny``, ``kf_train_default`` (and
     ``_bf16``), ``lg_train``; of phase 17: ``int8``; ``_kf`` /
-    ``_kf_tiny`` keys KeypointFormer's shapes); ``int8_conv3x3``'s first
+    ``_kf_tiny`` keys KeypointFormer's shapes, ``_kf_train`` the forward
+    at its train shape); ``int8_conv3x3``'s first
     path is ``int8``; ``netvlad_backward``'s first path is ``train``, its bf16
     entry's ``train_bf16``; ``_visloc`` the VPR step's shape).
     The bfloat16 instances have entries of their own (``*_bf16``, named
@@ -393,7 +395,8 @@ class Case(NamedTuple):
     ``suffix`` the suffix of its keys there, ``device_kernels`` the device
     kernels one call enqueues, ``plain_inner`` the calls of the twin a
     timed run takes (fewer for a twin of many launches, so that they all
-    queue behind the spin)."""
+    queue behind the spin), ``launch`` (where given) a line on the launch
+    the kernel makes."""
     entry: str
     name: str
     suffix: str
@@ -408,6 +411,7 @@ class Case(NamedTuple):
     check: Callable
     device_kernels: int = 1
     plain_inner: int = 20
+    launch: Callable | None = None
 
 
 def kernel_cases(B: int, dev) -> list[Case]:
@@ -532,11 +536,13 @@ def kernel_cases(B: int, dev) -> list[Case]:
     Hc, Wc = H // cell, W // cell
     S = Hc * Wc
 
-    def netvlad_case(suffix, Cv, K, bf16=False, hw=(Hc, Wc), bias=False):
-        """NetVLAD at widths C, K (N: 48, 32; S: 64, 64) on an hw map; with
-        ``bf16``, a bfloat16 x; with ``bias``, the vladv2 bias
-        (KeypointFormer's head: C = 256 and 64, K = 64 on 33x41)."""
-        xv = nhwc(rs.randn(B, Cv, *hw))
+    def netvlad_case(suffix, Cv, K, bf16=False, hw=(Hc, Wc), bias=False,
+                     Bn=B):
+        """NetVLAD at widths C, K (N: 48, 32; S: 64, 64) on an hw map of
+        batch Bn; with ``bf16``, a bfloat16 x; with ``bias``, the vladv2
+        bias (KeypointFormer's head: C = 256 and 64, K = 64 on 33x41, and
+        at its train shape, 4 images of 13x17)."""
+        xv = nhwc(rs.randn(Bn, Cv, *hw))
         aw, cen = t(rs.randn(Cv, K) * 0.2), t(rs.rand(K, Cv))
         if bf16:
             xv = xv.to(torch.bfloat16)
@@ -552,10 +558,10 @@ def kernel_cases(B: int, dev) -> list[Case]:
                     "nanovs_slam_torch/csrc/netvlad.cu",
                     "nanovs_slam_tpu/ops/pallas/netvlad_kernel.py:59",
                     lambda: netvlad(*nv), lambda: netvlad_plain(*nv), None,
-                    (2 if bf16 else 4) * B * S * Cv
-                    + 4 * (2 * Cv * K + B * K * Cv + bias * K),
-                    B * S * (4 * Cv * K + 3 * Cv + 3 * K), FP32_FLOP_PER_S,
-                    check)
+                    (2 if bf16 else 4) * Bn * S * Cv
+                    + 4 * (2 * Cv * K + Bn * K * Cv + bias * K),
+                    Bn * S * (4 * Cv * K + 3 * Cv + 3 * K), FP32_FLOP_PER_S,
+                    check, launch=wide_launch(Bn, S, Cv, bf16, False))
 
     def netvlad_backward_case(suffix, Bb, h, w, Cv, K, bf16=False,
                               bias=False):
@@ -618,6 +624,7 @@ def kernel_cases(B: int, dev) -> list[Case]:
 
         S_b = h * w
         xbytes = 2 if bf16 else 4
+        # above C = 128: the wide tiles and the reduction
         return Case(NVB_BF16 if bf16 else "netvlad_backward", name, suffix,
                     "nanovs_slam_torch/csrc/netvlad.cu",
                     "nanovs_slam_tpu/modules/aggregators.py:40",
@@ -626,7 +633,9 @@ def kernel_cases(B: int, dev) -> list[Case]:
                     2 * xbytes * Bb * S_b * Cv
                     + 4 * (2 * Bb * K * Cv + Bb * K + 4 * Cv * K
                            + 2 * K * bias),
-                    10 * Bb * S_b * K * Cv, FP32_FLOP_PER_S, check, 3, 4)
+                    10 * Bb * S_b * K * Cv, FP32_FLOP_PER_S, check,
+                    2 if Cv > 128 else 3, 4,
+                    wide_launch(Bb, S_b, Cv, bf16, True))
 
     if B == OFFLINE_BATCH:  # the offline VO's batch of padded frames
         return [stem_case("_vo" + b8, 16, 32, h=VO_SIZE[0], w=VO_SIZE[1]),
@@ -668,6 +677,7 @@ def kernel_cases(B: int, dev) -> list[Case]:
     # KeypointFormer ("default": C = 256, "tiny": 64; cell 8 at 256x320):
     # the postprocess, the vladv2 NetVLAD on its head's 33x41 map, and at
     # B = 1 the backward with the bias at its train shape (batch 4, 13x17)
+    # and, for "default", the forward there (``_kf_train``)
     for sfx, C in (("_kf", 256), ("_kf_tiny", 64)):
         for bf in (False, True):
             cases += [postprocess_case(sfx + b8, C, *KF_HW, bf16=bf,
@@ -678,7 +688,56 @@ def kernel_cases(B: int, dev) -> list[Case]:
                 cases.append(netvlad_backward_case(
                     sfx, KF_TRAIN_B, *KF_TRAIN_VLAD_HW, C, 64, bf16=bf,
                     bias=True))
+    if B == 1:
+        cases += [netvlad_case("_kf_train", 256, 64, bf16=bf,
+                               hw=KF_TRAIN_VLAD_HW, bias=True, Bn=KF_TRAIN_B)
+                  for bf in (False, True)]
     return cases
+
+
+def ptxas_report(kernel: str, bf16: bool) -> str:
+    """ptxas's registers and spills for ``kernel``'s float32 or bf16
+    instance, from this process's build of the kernels (empty where the
+    library was built by an earlier process)."""
+    from nanovs_slam_torch.kernels import _build
+
+    mangled = f"{kernel}I{'13__nv_bfloat16' if bf16 else 'f'}E"
+    lines = (_build.build_log or "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and mangled in line:
+            out = []
+            for nxt in lines[i + 1:i + 5]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "registers" in nxt or "spill" in nxt:
+                    out.append(nxt.split(":", 1)[-1].strip())
+            return "; ".join(out)
+    return ""
+
+
+def wide_launch(B: int, S: int, C: int, bf16: bool, backward: bool):
+    """Above C = 128: a function giving a line on the launch of the
+    forward's kernel or the backward's tiles (blocks, SMs used, shared
+    memory, registers and spills); None at C <= 128."""
+    if C <= 128:
+        return None
+
+    def line() -> str:
+        from nanovs_slam_torch.kernels.netvlad import wide_launch_shape
+
+        sh = wide_launch_shape(B, S, bf16, backward)
+        name = "netvlad_bwd_wide" if backward else "netvlad_wide_kernel"
+        held = ("" if backward else
+                f", the card holding {sh['resident_clusters']} clusters")
+        return (f"{name}<{'bf16' if bf16 else 'float'}> {sh['blocks']} "
+                f"blocks of {sh['threads']} threads in clusters of "
+                f"{sh['cluster']}{held}, {sh['blocks_per_sm']} an SM, "
+                f"{sh['sms_covered']} of {sh['sms']} SMs, "
+                f"{sh['smem_bytes']} B dynamic shared memory a block, "
+                f"{sh['registers']} registers and {sh['local_bytes']} B "
+                f"local a thread; ptxas: "
+                f"{ptxas_report(name, bf16) or 'built by an earlier process'}")
+    return line
 
 
 def kernel_phase(dev):
@@ -703,6 +762,8 @@ def kernel_phase(dev):
                         f"cores {bound(c.nbytes, c.flops)[0]:.5f} ms")
             elif c.rate == BF16_FLOP_PER_S:
                 note = ", bf16 on the tensor cores"
+            if c.launch is not None:
+                log(f"kernel {tag}: launch {c.launch()}")
             n_dev, parts = kernels_a_call(c.run, c.device_kernels)
             log(f"kernel {tag}: {n_dev:g} device kernels a call, "
                 + ", ".join(f"{t:.4f} ms {k[:48]}" for k, (_, t) in

@@ -16,7 +16,8 @@
 // the normalised x_s to bf16 (the module normalises in its compute dtype)
 // and takes everything after it in float32.
 //
-// Design. A block takes kTile = 64 pixels of one image in one pass: it
+// Design at C <= 128 (netvlad_kernel). A block takes kTile = 64 pixels of
+// one image in one pass: it
 // stages them and W in shared memory, computes each pixel's K logits with
 // four threads a pixel (the pixel's squared norm in the same loop), the
 // softmax with two shuffles, and a^T x and sum a with a register tile of
@@ -36,14 +37,38 @@
 // image's u = a^T x - (sum a) * centroids (K, C) before normalisation and
 // the masses sum a (K): the backward below starts from them.
 //
+// Design at 128 < C <= 256 (netvlad_wide_kernel; KeypointFormer's head,
+// C = 256, K = 64). One block holding all of W (64 KiB) and a 64-pixel tile
+// would be one block an SM, with W staged again by every block. Instead a
+// cluster of 8 blocks takes two tiles of 32 pixels at a time, block
+// (sl, h) the slice of 64 channels sl of tile h, and keeps its slice of W
+// (16 KiB) for the whole launch: the clusters, as many as the card holds
+// at once shared out over the images (the grid is fixed for a card and a
+// shape), walk their image's pairs of tiles in a fixed order, the next
+// tile's x in flight while one is computed. A tile's logits are a partial
+// a slice (its channels split over two warp halves, register tiles of 4
+// pixels by 4 clusters on float4 loads of W), added with the pixels'
+// |x|^2 over distributed shared memory in rank order, double-buffered so
+// that one cluster barrier a tile suffices (two at bf16, whose x^ is
+// rounded before the products); the slice's a^T x^ is summed in registers
+// over the walk. At its end each block adds its rows over the pair's two
+// tiles into the cluster's partial, and the image's last cluster (the same
+// counter) adds the partials in order, subtracts the centroid term and
+// normalises, the rows' and the global sums of squares added over the
+// slices in rank order. An image of 221 pixels takes 4 pairs of tiles, no
+// padding block.
+//
 // Bound on an H100: operations, barely. At 240x320 (S = 4800, C = 48,
 // K = 32) an image is 2 * 2*S*C*K = 29.5 MFLOP against 0.9 MB read, about
 // 0.44 us at 67 TFLOP/s (float32, CUDA cores) and 0.28 us at 3.35 TB/s. The
 // kernel is bound by the latency of its chain (stage, logits, sums, cluster
 // reduce, last-cluster finish), which the design keeps to one pass.
 // KeypointFormer's head (C = 256, K = 64, x (33, 41) at 256x320) is 88.7
-// MFLOP an image, 1.3 us at 67 TFLOP/s; its block takes 145 KiB of dynamic
-// shared memory (W alone is 64 KiB), so one block an SM.
+// MFLOP an image, 1.3 us at 67 TFLOP/s. The wide kernel is bound by its
+// chain a tile (a tile's loads, the partial logits, a cluster barrier, the
+// softmax over remote partials, a^T x^), which phase timers on the card
+// found several times longer than its products, and at batch 8 by the
+// length of the walk (an image's 22 pairs over a few clusters each).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -327,21 +352,18 @@ size_t smem_bytes(int C, int K) {
 }
 
 // The instances: x's type (float, bf16); KPT, RK by K (<= 32, <= 64); RC
-// by C (<= 64, <= 128, <= 256).
-void (*const kKernels[2][2][3])(Args) = {
-    {{netvlad_kernel<8, 2, 4, float>, netvlad_kernel<8, 2, 8, float>,
-      netvlad_kernel<8, 2, 16, float>},
-     {netvlad_kernel<16, 4, 4, float>, netvlad_kernel<16, 4, 8, float>,
-      netvlad_kernel<16, 4, 16, float>}},
+// by C (<= 64, <= 128). Above C = 128 netvlad_wide_kernel (below) runs.
+constexpr int kNarrowMaxC = 128;
+void (*const kKernels[2][2][2])(Args) = {
+    {{netvlad_kernel<8, 2, 4, float>, netvlad_kernel<8, 2, 8, float>},
+     {netvlad_kernel<16, 4, 4, float>, netvlad_kernel<16, 4, 8, float>}},
     {{netvlad_kernel<8, 2, 4, __nv_bfloat16>,
-      netvlad_kernel<8, 2, 8, __nv_bfloat16>,
-      netvlad_kernel<8, 2, 16, __nv_bfloat16>},
+      netvlad_kernel<8, 2, 8, __nv_bfloat16>},
      {netvlad_kernel<16, 4, 4, __nv_bfloat16>,
-      netvlad_kernel<16, 4, 8, __nv_bfloat16>,
-      netvlad_kernel<16, 4, 16, __nv_bfloat16>}}};
+      netvlad_kernel<16, 4, 8, __nv_bfloat16>}}};
 
 // Raises the dynamic shared-memory limit of every instance once per device
-// to the most the widths can ask (C = 256, K = 64: 148,256 bytes).
+// to the most the widths can ask (C = 128, K = 64: 82,720 bytes).
 cudaError_t set_smem_limits() {
   return nvs::once_per_device([] {
     cudaError_t err = cudaSuccess;
@@ -351,7 +373,7 @@ cudaError_t set_smem_limits() {
           if (err == cudaSuccess)
             err = cudaFuncSetAttribute(
                 kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                (int)smem_bytes(kMaxC, kMaxK));
+                (int)smem_bytes(kNarrowMaxC, kMaxK));
     return err;
   });
 }
@@ -363,6 +385,9 @@ int blocks_per_image(int S) {
   return (p + kCluster - 1) / kCluster * kCluster;
 }
 
+template <typename T>
+cudaError_t launch_wide(const Args& a, int B, cudaStream_t stream);
+
 int launch(const void* x, bool bf16, const long long* sx,
            const float* assign_w, const float* assign_b,
            const float* centroids, float* partial,
@@ -371,14 +396,16 @@ int launch(const void* x, bool bf16, const long long* sx,
   if (K < 1 || K > kMaxK || C < 1 || C > kMaxC || S < 1 || B < 1 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_smem_limits();
+  cudaError_t err = C > kNarrowMaxC ? cudaSuccess : set_smem_limits();
   if (err != cudaSuccess) return (int)err;
   const Args args{x,         sx[0],    sx[1],   sx[2], assign_w,
                   assign_b,  centroids, partial, counter, out,
                   residual,  mass,      S,       C,     K};
-  const int rc = C > 128 ? 2 : C > 64 ? 1 : 0;
-  kKernels[bf16][K > 32][rc]<<<dim3(blocks_per_image(S), B), kThreads,
-                                   smem_bytes(C, K), stream>>>(args);
+  if (C > kNarrowMaxC)
+    return (int)(bf16 ? launch_wide<__nv_bfloat16>(args, B, stream)
+                      : launch_wide<float>(args, B, stream));
+  kKernels[bf16][K > 32][C > 64]<<<dim3(blocks_per_image(S), B), kThreads,
+                                       smem_bytes(C, K), stream>>>(args);
   return (int)cudaGetLastError();
 }
 
@@ -403,7 +430,8 @@ int launch(const void* x, bool bf16, const long long* sx,
 // cast's gradient), the norm's backward takes the unrounded x / den, and
 // dx is written as bf16; everything between is float32. Only the tile
 // kernel's x loads and dx stores change type.
-// Design: three launches, chained by programmatic dependent launch.
+// Design at C <= 128: three launches, chained by programmatic dependent
+// launch.
 //   1. netvlad_bwd_prologue, 8 cluster rows of an image a block: du, dm
 //      and -m (.) du from u, m and gy; du written twice (K x C and C x K)
 //      and W^T once, zero-padded to the instance's widths, so that the
@@ -426,15 +454,6 @@ int launch(const void* x, bool bf16, const long long* sx,
 //   3. netvlad_bwd_reduce: dW and db from the clusters' partials and dcen
 //      from the images', each in a fixed order. No atomics: two runs give
 //      the same bits.
-// At 128 < C <= 256 (KeypointFormer's "default" head, C = 256, K = 64) the
-// tile kernel cannot hold [W | du^T] and [du ; W^T]: 256 KiB of shared
-// memory. There netvlad_bwd_wide takes the place of step 2: a block a tile
-// of 32 pixels, a warp 4 of them; W, du^T, du and W^T are read through L1
-// from the prologue's padded copies, each load serving the warp's 4
-// pixels (a lane takes clusters lane and lane + 32 in the logits and da,
-// channels lane + 32 j in dx^); the tile's x^, a and dl stay in shared
-// memory (58 KiB), and each block writes its tile's x^T dl and column sums
-// of dl as a partial, which the same reduction adds in block order.
 // Phase timers on the card: a design with a block a 32-pixel tile, the
 // image's prologue in every block and scalar products over shared memory
 // spent 38% of a block on the repeated prologue and 44% on the products.
@@ -442,10 +461,33 @@ int launch(const void* x, bool bf16, const long long* sx,
 // [a | dl] split once into hi and lo) was slower than these register
 // tiles: each fragment is 8 scalar loads from shared memory, which then
 // bound it.
+// Design at 128 < C <= 256 (KeypointFormer's "default" head, C = 256,
+// K = 64), where [W | du^T] and [du ; W^T] of a whole image would take
+// 256 KiB of shared memory: two launches, netvlad_bwd_wide and the same
+// reduction by programmatic dependent launch. A cluster of 4 blocks takes
+// a tile of 32 pixels, block sl the channels [64 sl, 64 sl + 64), and
+// stages its slices of W (cp.async), x, u, gy and the centroids once (28
+// clusters, 112 blocks at the train shape's x (4, 13, 17, 256)). It
+// derives the prologue's du and dm itself: the rows' |u_k|^2 and
+// gy_k . u_k and the pixels' |x|^2 are partials a slice, added over
+// distributed shared memory in rank order, so that every tile of an image
+// gets the same du. du^T sits beside W in one padded [W | du^T] (a row a
+// channel), which the products read as it is for the logits and da and
+// transposed for dx^ = [dl | a] [W | du^T]^T: nothing is written twice.
+// The slice's [l | da + dm] is a partial added over distributed shared
+// memory in rank order, the softmax and dl follow in every block, and
+// dx^, x^T dl and the norm's dot (a third exchange) are register tiles
+// over shared memory (float4 loads, fixed orders of sums). Each tile
+// writes its x^T dl and column sums of dl as a partial, the image's first
+// tile -m (.) du as the image's dcen partial. The products stay on the
+// CUDA cores: 3xTF32 fragments cost the loads above, and phase timers on
+// the card found the tile's barriers and loads, not its products, taking
+// most of a block's time.
 //
 // Bound on an H100: operations. At config S's train shape (B = 4, S =
 // 1200, C = K = 64) the five S x K x C products are 197 MFLOP against ~2.6
-// MB moved: 2.9 us at 67 TFLOP/s.
+// MB moved: 2.9 us at 67 TFLOP/s; at KeypointFormer's (B = 4, S = 221,
+// C = 256, K = 64), 145 MFLOP: 2.2 us.
 
 constexpr int kBwdTile = 40;      // pixels a tile block
 constexpr int kBwdThreads = 320;  // 10 warps
@@ -991,206 +1033,885 @@ netvlad_bwd_reduce(BwdArgs a, int n_parts) {
   }
 }
 
-// The tile kernel's place at 128 < C <= 256 (see the notes above the
-// backward): a block a tile of kWideTile pixels of one image, a warp
-// kWidePix of them. T: x's and dx's type.
-constexpr int kWideCP = 256, kWideKP = 64;  // the prologue's padded widths
-constexpr int kWideTile = 32;
+// ------------------------------------------------------- 128 < C <= 256
+//
+// The forward and the backward above C = 128 (see the notes at the head of
+// the file and of the backward): a tile of kWideP pixels is shared by the
+// kWideSlices blocks of a thread-block cluster (two tiles by a forward
+// cluster), each holding one slice of kWideCS channels of x and W (and of
+// u, gy and the centroids) in its own shared memory. Whatever sums over C
+// (the pixels' norms, the logits, da, the rows' norms, dx^ . x^) is a
+// partial a block, added over distributed shared memory in rank order, so
+// that every block of a tile gets the same bits.
+constexpr int kWideSlices = 4;                 // blocks splitting C
+constexpr int kWideCS = kMaxC / kWideSlices;   // channels a block
+constexpr int kWideP = 32;                     // pixels a tile
 constexpr int kWideThreads = 256;
-constexpr int kWidePix = kWideTile / (kWideThreads / 32);
-constexpr int kWideLDX = kWideCP + 4;
-constexpr size_t kWideSmem =
-    sizeof(float) * (kWideTile * kWideLDX + 2 * kWideTile * kWideKP +
-                     kWideTile);
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideLdp = kWideP + 4;           // a row over the tile's pixels
+constexpr int kWideLdk = kMaxK + 4;            // a row over the clusters
+constexpr int kWideLdj = 2 * kMaxK + 4;        // a row over [W | du^T]
+constexpr int kWideTiles = 2;                  // tiles a forward cluster
+constexpr int kWideCluster = kWideSlices * kWideTiles;
+constexpr int kWideCP = kMaxC, kWideKP = kMaxK;  // the dW partials' widths
+static_assert(kWideCS == 64 && kWideThreads == 256 && kWideP == 32,
+              "the thread maps below");
 
+// All threads of all blocks of the cluster: arrive after the block's last
+// read of a peer's shared memory, wait before it exits (cluster.sync() in
+// two halves).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void add4(float (&acc)[4], float4 v) {
+  acc[0] += v.x;
+  acc[1] += v.y;
+  acc[2] += v.z;
+  acc[3] += v.w;
+}
+
+// sum_d a[d] b[d] over a float4 each, added to acc in d order
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// A slice of x's tile into registers: element e = tid + 256 i is pixel p,
+// channel c of the slice (NHWC memory: neighbouring threads, channels;
+// NCHW: pixels); zeros past the image's last pixel and past C.
 template <typename T>
-__global__ void __launch_bounds__(kWideThreads) netvlad_bwd_wide(BwdArgs a) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int P = kWideTile, CP = kWideCP, KP = kWideKP, LDX = kWideLDX;
-  constexpr int NP = kWidePix, NC = CP / 32;
-  extern __shared__ float4 smem4[];
-  float* s_x = reinterpret_cast<float*>(smem4);  // P x LDX: x, x^, then dx
-  float* s_a = s_x + P * LDX;                    // P x KP: a
-  float* s_dl = s_a + P * KP;                    // P x KP: dl
-  float* s_den = s_dl + P * KP;                  // P
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int C = a.C, K = a.K;
-  const int b = blockIdx.x / a.tiles;
-  const int s0 = (blockIdx.x % a.tiles) * P;
-  const int n = min(P, a.S - s0);
-  const T* xb = static_cast<const T*>(a.x) + b * a.sx_b;
-  const bool nhwc = a.sx_c == 1;
-
-  // 1. the tile's x, zeros past C and the image's last pixel (NHWC memory:
-  // neighbouring threads, channels; NCHW: pixels)
-  for (int e = tid; e < P * CP; e += kWideThreads) {
-    const int p = nhwc ? e / CP : e % P, c = nhwc ? e % CP : e / P;
-    s_x[p * LDX + c] =
-        p < n && c < C ? load_f32(xb + (long long)(s0 + p) * a.sx_s +
-                                  (long long)c * a.sx_c)
-                       : 0.f;
-  }
-  __syncthreads();
-
-  // 2. the warp's pixels: x^ = x / den in place (rounded to bf16 at bf16)
-  const int p0 = warp * NP;
-  float den[NP];
+__device__ __forceinline__ void load_x_slice(const T* xb, long long sx_s,
+                                             long long sx_c, int s0, int n,
+                                             int c0, int cn,
+                                             float (&v)[kWideP * kWideCS /
+                                                        kWideThreads]) {
+  const bool nhwc = sx_c == 1;
 #pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    float* xs = s_x + (p0 + i) * LDX;
+  for (int i = 0; i < kWideP * kWideCS / kWideThreads; ++i) {
+    const int e = threadIdx.x + kWideThreads * i;
+    const int p = nhwc ? e / kWideCS : e % kWideP;
+    const int c = nhwc ? e % kWideCS : e / kWideP;
+    v[i] = p < n && c < cn ? load_f32(xb + (long long)(s0 + p) * sx_s +
+                                      (long long)(c0 + c) * sx_c)
+                           : 0.f;
+  }
+}
+
+// ... and from registers to shared memory, channel-major (c x kWideLdp)
+__device__ __forceinline__ void store_x_slice(
+    float* dst, long long sx_c,
+    const float (&v)[kWideP * kWideCS / kWideThreads]) {
+  const bool nhwc = sx_c == 1;
+#pragma unroll
+  for (int i = 0; i < kWideP * kWideCS / kWideThreads; ++i) {
+    const int e = threadIdx.x + kWideThreads * i;
+    const int p = nhwc ? e / kWideCS : e % kWideP;
+    const int c = nhwc ? e % kWideCS : e / kWideP;
+    dst[c * kWideLdp + p] = v[i];
+  }
+}
+
+// A pixel's |x|^2 over a block's slice, 8 lanes a pixel (channels j8 + 8 i
+// of the channel-major tile xt), in every lane of the 8: in float32, or
+// (kExact, for a bf16 x) in double, where each x^2 is exact and the sum
+// over C rounds once, to the float32 that a correctly rounded sum gives,
+// so that x / den rounds to bf16 as the twin's normalisation does and not
+// a bf16 ulp away at the odd element near a midpoint.
+template <bool kExact>
+__device__ __forceinline__ double slice_sumsq(const float* xt, int px,
+                                              int j8) {
+  if constexpr (kExact) {
+    double ss = 0.0;
+#pragma unroll
+    for (int i = 0; i < kWideCS / 8; ++i) {
+      const double v = xt[(j8 + 8 * i) * kWideLdp + px];
+      ss = fma(v, v, ss);
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    return ss;
+  } else {
     float ss = 0.f;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) ss = fmaf(xs[lane + 32 * j],
-                                           xs[lane + 32 * j], ss);
-    den[i] = l2_denominator(nvs::warp_sum(ss));
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const float v = xs[lane + 32 * j] / den[i];
-      xs[lane + 32 * j] = kBf16 ? round_bf16(v) : v;
+    for (int i = 0; i < kWideCS / 8; ++i) {
+      const float v = xt[(j8 + 8 * i) * kWideLdp + px];
+      ss = fmaf(v, v, ss);
     }
-    if (lane == 0) s_den[p0 + i] = den[i];
+    return group_reduce<8, false>(ss);
   }
-  __syncwarp();
+}
 
-  // 3. logits l = x^ W + b and da = x^ du^T + dm: lane takes clusters
-  // lane and lane + 32; each load of W and du^T serves the NP pixels
-  const float* dutb = a.du_t + (long long)b * CP * KP;
-  const int kk[2] = {lane, lane + 32};
-  float l[NP][2] = {}, da[NP][2] = {};
-  for (int c = 0; c < C; ++c) {
-    float w[2], d[2];
+// ... and over the kWideSlices slices whose blocks are ranks r0 .. of the
+// cluster (their slice_sumsq at buf + px), in rank order
+template <bool kExact>
+__device__ __forceinline__ float tile_sumsq(const cg::cluster_group& cluster,
+                                            double* buf, int r0) {
+  if constexpr (kExact) {
+    double ss = 0.0;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      w[h] = kk[h] < K ? __ldg(a.assign_w + c * K + kk[h]) : 0.f;
-      d[h] = __ldg(dutb + c * KP + kk[h]);
+    for (int q = 0; q < kWideSlices; ++q)
+      ss += *cluster.map_shared_rank(buf, r0 + q);
+    return (float)ss;
+  } else {
+    float ss = 0.f;
+#pragma unroll
+    for (int q = 0; q < kWideSlices; ++q)
+      ss += (float)*cluster.map_shared_rank(buf, r0 + q);
+    return ss;
+  }
+}
+
+// W's rows [c0, c0 + cn) into dst (kWideCS rows of ld floats, columns
+// [0, kMaxK)), zeros past C and K: cp.async through L1, 16 bytes a copy
+// where W's rows are 16-byte aligned, else 4; one commit group.
+__device__ __forceinline__ void stage_w_slice(float* dst, int ld,
+                                              const float* w, int K, int c0,
+                                              int cn) {
+  if (K % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < kWideCS * kMaxK / 4 / kWideThreads; ++i) {
+      const int e = threadIdx.x + kWideThreads * i;
+      const int c = e / (kMaxK / 4), k = 4 * (e % (kMaxK / 4));
+      const bool in = c < cn && k < K;
+      nvs::cp_async16_ca(dst + c * ld + k,
+                         in ? w + (long long)(c0 + c) * K + k : w, in);
     }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < kWideCS * kMaxK / kWideThreads; ++i) {
+      const int e = threadIdx.x + kWideThreads * i;
+      const int c = e / kMaxK, k = e % kMaxK;
+      const bool in = c < cn && k < K;
+      nvs::cp_async4(dst + c * ld + k,
+                     in ? w + (long long)(c0 + c) * K + k : w, in);
+    }
+  }
+  nvs::cp_async_commit();
+}
+
+// The forward at 128 < C <= 256: a cluster of kWideCluster blocks walks
+// pairs of tiles of kWideP pixels of one image (pairs cl, cl + ncl, ...;
+// ncl from wide_clusters: as many clusters as the card holds at once);
+// block (slice sl, tile h) keeps W's rows [64 sl, 64 sl + 64) for the whole
+// walk and takes tile h of each pair, summing its a^T x^ in registers.
+// T: x's type.
+template <typename T>
+__global__ void __cluster_dims__(kWideCluster, 1, 1)
+    __launch_bounds__(kWideThreads, 2) netvlad_wide_kernel(Args a) {
+  constexpr bool kRoundX = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int P = kWideP, CS = kWideCS, KP = kMaxK;
+  constexpr int LDP = kWideLdp, LDK = kWideLdk;
+  extern __shared__ float4 smem4[];
+  float* s_w = reinterpret_cast<float*>(smem4);  // CS x LDK: W's rows
+  float* s_xt = s_w + CS * LDK;   // CS x LDP: x (x^ at bf16), channel-major
+  float* s_l = s_xt + CS * LDP;   // 2 x P x LDK: the slice's logits
+  float* s_lh = s_l + 2 * P * LDK;  // P x LDK: its upper half of channels'
+  float* s_at = s_lh + P * LDK;     // KP x LDP: a^T / den
+  float* s_a = s_at + KP * LDP;     // KP x LDP: a^T
+  float* s_u = s_at;  // KP x LDK: the walk's a^T x^ (s_at's, s_a's space)
+  // 2 x P: the slice's |x|^2 (in double: see slice_sumsq)
+  double* s_ss = reinterpret_cast<double*>(s_a + KP * LDP);
+  float* s_m = reinterpret_cast<float*>(s_ss + 2 * P);  // KP: the masses
+  float* s_row = s_m + KP;        // 32: the finish's rows, slice's |v|^2
+  float* s_red = s_row + 32;      // kWideWarps
+  float* s_bias = s_red + kWideWarps;  // KP
+  __shared__ float s_blk;
+  __shared__ int s_last;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int sl = rank % kWideSlices, h = rank / kWideSlices;
+  const int hr = h * kWideSlices;  // the tile's first rank
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = a.C, K = a.K, b = blockIdx.y;
+  const int cl = blockIdx.x / kWideCluster, ncl = gridDim.x / kWideCluster;
+  const int c0 = sl * CS, cn = min(CS, C - c0);  // cn <= 0: an empty slice
+  const int pairs = (a.S + kWideTiles * P - 1) / (kWideTiles * P);
+  const T* xb = static_cast<const T*>(a.x) + (long long)b * a.sx_b;
+  const int px = tid >> 3, j8 = tid & 7;  // a pixel (or a row), 8 lanes
+  const int cg = lane & 15, kg = 2 * warp + (lane >> 4);  // a^T x^'s
+
+  // W's slice by cp.async, the bias (zeros without one); the first pair's
+  // x through registers (each next pair's loads are in flight while this
+  // one is computed)
+  stage_w_slice(s_w, LDK, a.assign_w, K, c0, cn);
+  if (tid < KP)
+    s_bias[tid] = a.assign_b != nullptr && tid < K ? __ldg(a.assign_b + tid)
+                                                   : 0.f;
+  float xv[P * CS / kWideThreads];
+  const int step = ncl * kWideTiles * P;  // pixels from a tile to the next
+  int s0 = (cl * kWideTiles + h) * P;     // the tile's first pixel
+  load_x_slice(xb, a.sx_s, a.sx_c, s0, a.S - s0, c0, cn, xv);
+  float acc[4][4] = {}, mass = 0.f;
+  for (int pr = cl, it = 0; pr < pairs; pr += ncl, ++it, s0 += step) {
+    const int n = min(P, a.S - s0);  // n <= 0: a padding tile
+    float* l_buf = s_l + (it & 1) * P * LDK;  // peers read the last tile's
+    double* ss_buf = s_ss + (it & 1) * P;
+    store_x_slice(s_xt, a.sx_c, xv);
+    if (pr + ncl < pairs)
+      load_x_slice(xb, a.sx_s, a.sx_c, s0 + step, a.S - s0 - step, c0, cn,
+                   xv);
+    __syncthreads();
+
+    // 1. the pixels' |x|^2 over the slice (8 lanes a pixel)
+    {
+      const double ss = slice_sumsq<kRoundX>(s_xt, px, j8);
+      if (j8 == 0) ss_buf[px] = ss;
+    }
+    if constexpr (kRoundX) {
+      // x^ = x / den rounded to bf16 before the products, as the module
+      cluster.sync();
+      const float den =
+          l2_denominator(tile_sumsq<true>(cluster, ss_buf + px, hr));
 #pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const float xv = s_x[(p0 + i) * LDX + c];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        l[i][h] = fmaf(xv, w[h], l[i][h]);
-        da[i][h] = fmaf(xv, d[h], da[i][h]);
+      for (int i = 0; i < CS / 8; ++i) {
+        float* v = s_xt + (j8 + 8 * i) * LDP + px;
+        *v = round_bf16(*v / den);
       }
     }
-  }
-  const float neg_inf = -__int_as_float(0x7f800000);
+    nvs::cp_async_wait<0>();  // W (the first tile)
+    __syncthreads();
+
+    // 2. the slice's logits: warps 0-3 take its channels [0, 32), warps
+    // 4-7 [32, 64), added in that order; thread pixels 4 pq .., clusters
+    // 4 kq ..
+    {
+      const int kq = lane & 15, pq = 2 * (warp & 3) + (lane >> 4);
+      const int half = warp >> 2;
+      float l[4][4] = {};
+#pragma unroll 8
+      for (int c = half * (CS / 2); c < (half + 1) * (CS / 2); ++c) {
+        const float4 x4 = ld4(s_xt + c * LDP + 4 * pq);
+        const float4 wv = ld4(s_w + c * LDK + 4 * kq);
+        const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    const int p = p0 + i;
+        for (int i = 0; i < 4; ++i) {
+          l[i][0] = fmaf(xs[i], wv.x, l[i][0]);
+          l[i][1] = fmaf(xs[i], wv.y, l[i][1]);
+          l[i][2] = fmaf(xs[i], wv.z, l[i][2]);
+          l[i][3] = fmaf(xs[i], wv.w, l[i][3]);
+        }
+      }
+      if (half)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(s_lh + (4 * pq + i) * LDK + 4 * kq) =
+              make_float4(l[i][0], l[i][1], l[i][2], l[i][3]);
+      __syncthreads();
+      if (!half)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 v = ld4(s_lh + (4 * pq + i) * LDK + 4 * kq);
+          *reinterpret_cast<float4*>(l_buf + (4 * pq + i) * LDK + 4 * kq) =
+              make_float4(l[i][0] + v.x, l[i][1] + v.y, l[i][2] + v.z,
+                          l[i][3] + v.w);
+        }
+    }
+    cluster.sync();  // every slice's logits (and |x|^2) written
+
+    // 3. the tile's logits, slices added in rank order; softmax (8 lanes a
+    // pixel: clusters 4 j8 .. 4 j8 + 3 and 32 + 4 j8 ..)
+    {
+      float l[8] = {};
+#pragma unroll
+      for (int q = 0; q < kWideSlices; ++q) {
+        const float* r = cluster.map_shared_rank(l_buf, hr + q) + px * LDK;
+        const float4 v0 = ld4(r + 4 * j8), v1 = ld4(r + 32 + 4 * j8);
+        const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) l[i] += v[i];
+      }
+      float den = 1.f;  // at bf16 x^ is normalised already
+      if constexpr (!kRoundX)
+        den = l2_denominator(tile_sumsq<false>(cluster, ss_buf + px, hr));
+      const float neg_inf = -__int_as_float(0x7f800000);
+      float mx = neg_inf;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int k = (i & 3) + 4 * j8 + 32 * (i >> 2);
+        l[i] = k >= K ? neg_inf : l[i] / den + s_bias[k];
+        mx = fmaxf(mx, l[i]);
+      }
+      mx = group_reduce<8, true>(mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        l[i] = expf(l[i] - mx);  // 0 past K
+        sum += l[i];
+      }
+      sum = group_reduce<8, false>(sum);
+      const float inv = 1.f / den;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int k = (i & 3) + 4 * j8 + 32 * (i >> 2);
+        const float av = px < n ? l[i] / sum : 0.f;
+        s_a[k * LDP + px] = av;
+        s_at[k * LDP + px] = av * inv;
+      }
+    }
+    __syncthreads();
+
+    // 4. the tile's a^T x^ over the slice, added to the walk's (thread
+    // clusters 4 kg .., channels cg + 16 u; pixels in order), and masses
+#pragma unroll 2
+    for (int p = 0; p < P; p += 4) {
+      float4 av[4], x4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = ld4(s_at + (4 * kg + i) * LDP + p);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) x4[u] = ld4(s_xt + (cg + 16 * u) * LDP + p);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[i][u] = dot4(av[i], x4[u], acc[i][u]);
+    }
+    if (tid < KP) {
+      float m = 0.f;
+#pragma unroll 8
+      for (int p = 0; p < P; ++p) m += s_a[tid * LDP + p];
+      mass += m;
+    }
+    __syncthreads();  // s_xt, s_at and s_a free for the next tile
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      s_u[(4 * kg + i) * LDK + cg + 16 * u] = acc[i][u];
+  if (tid < KP) s_m[tid] = mass;
+  cluster.sync();
+
+  // 5. the cluster's partial: block (sl, h) adds rows [32 h, 32 h + 32) of
+  // its slice over the two tiles' walks, in tile order (block (0, h) the
+  // masses)
+  const long long nv = (long long)K * C + K;
+  {
+    float* part = a.partial + ((long long)b * ncl + cl) * nv;
+    const int k = 32 * h + px;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = 4 * j8 + 32 * i;
+      float sum[4] = {};
+#pragma unroll
+      for (int t = 0; t < kWideTiles; ++t)
+        add4(sum, ld4(cluster.map_shared_rank(s_u, t * kWideSlices + sl) +
+                      k * LDK + c));
+      if (k < K)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (c + u < cn) part[(long long)k * C + c0 + c + u] = sum[u];
+    }
+    if (sl == 0 && tid < 32 && 32 * h + tid < K) {
+      float m = 0.f;
+#pragma unroll
+      for (int t = 0; t < kWideTiles; ++t)
+        m += *cluster.map_shared_rank(s_m + 32 * h + tid, t * kWideSlices);
+      part[(long long)K * C + 32 * h + tid] = m;
+    }
+  }
+  __threadfence();
+  cluster.sync();  // partials written and fenced; remote reads done
+  if (rank == 0 && tid == 0) {
+    const unsigned int done = atomicAdd(a.counter + b, 1u) + 1;
+    const int last = done == (unsigned int)ncl;
+    if (last) a.counter[b] = 0;  // ready for the next launch
+    for (int q = 0; q < kWideCluster; ++q)
+      *cluster.map_shared_rank(&s_last, q) = last;
+  }
+  cluster.sync();
+  if (!s_last) return;  // the whole cluster: not the image's last
+  __threadfence();
+
+  // 6. the last cluster: block (sl, h) finishes rows [32 h, 32 h + 32) of
+  // its slice, 8 lanes a row (channels j8 + 8 i): the clusters' partials
+  // in order (four in flight at once), the centroid term, the rows' norms
+  // over the slices (in rank order), the global norm over the cluster's
+  // blocks (in rank order)
+  const int k = 32 * h + px;
+  const bool row_in = k < K;
+  const float* pb = a.partial + (long long)b * ncl * nv;
+  float m = 0.f, v[8] = {};
+  if (row_in) {
+    const float* pm = pb + (long long)K * C + k;
+    const float* pr = pb + (long long)k * C + c0 + j8;
+    int q = 0;
+    for (; q + 4 <= ncl; q += 4) {
+      float mm[4], t[4][8];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        mm[u] = __ldcg(pm + (q + u) * nv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          t[u][i] = j8 + 8 * i < cn ? __ldcg(pr + (q + u) * nv + 8 * i) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        m += mm[u];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] += t[u][i];
+      }
+    }
+    for (; q < ncl; ++q) {
+      m += __ldcg(pm + q * nv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (j8 + 8 * i < cn) v[i] += __ldcg(pr + q * nv + 8 * i);
+    }
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = j8 + 8 * i;
+    if (row_in && c < cn) {
+      v[i] -= m * a.centroids[(long long)k * C + c0 + c];
+      if (a.residual != nullptr)
+        a.residual[((long long)b * K + k) * C + c0 + c] = v[i];
+    } else {
+      v[i] = 0.f;
+    }
+    ss = fmaf(v[i], v[i], ss);
+  }
+  if (a.mass != nullptr && sl == 0 && j8 == 0 && row_in)
+    a.mass[(long long)b * K + k] = m;
+  ss = group_reduce<8, false>(ss);
+  if (j8 == 0) s_row[px] = ss;
+  cluster.sync();
+  float rs = 0.f;
+#pragma unroll
+  for (int q = 0; q < kWideSlices; ++q)
+    rs += *cluster.map_shared_rank(s_row + px, hr + q);
+  const float den = l2_denominator(rs);
+  float ssn = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    v[i] /= den;
+    ssn = fmaf(v[i], v[i], ssn);
+  }
+  ssn = group_reduce<8, false>(ssn);  // the row's, in all 8 lanes
+  {
+    // the warp's four rows in order, then the warps in order
+    float w = 0.f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w += __shfl_sync(0xffffffffu, ssn, 8 * r);
+    if (lane == 0) s_red[warp] = w;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWideWarps; ++w) t += s_red[w];
+    s_blk = t;
+  }
+  cluster.sync();
+  float total = 0.f;
+#pragma unroll
+  for (int q = 0; q < kWideCluster; ++q)
+    total += *cluster.map_shared_rank(&s_blk, q);
+  const float qd = l2_denominator(total);
+  if (row_in) {
+    float* ob = a.out + ((long long)b * K + k) * C + c0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (j8 + 8 * i < cn) ob[j8 + 8 * i] = v[i] / qd;
+  }
+  cluster.sync();  // keep s_row and s_blk alive until every block read them
+}
+
+size_t wide_smem_bytes() {
+  return sizeof(float) * (kWideCS * kWideLdk + kWideCS * kWideLdp +
+                          3 * kWideP * kWideLdk + 2 * kMaxK * kWideLdp +
+                          4 * kWideP + 2 * kMaxK + 32 + kWideWarps);
+}
+
+// Pairs of tiles an image of S pixels has in the forward above C = 128.
+int wide_pairs(int S) {
+  return (S + kWideTiles * kWideP - 1) / (kWideTiles * kWideP);
+}
+
+// The backward's tiles at 128 < C <= 256: a cluster of kWideSlices blocks
+// a tile of kWideP pixels, block sl holding channels [64 sl, 64 sl + 64).
+// It derives du and dm from u, m and gy itself (every tile of an image the
+// same sums in the same order), and writes dx, the tile's x^T dl and
+// column sums of dl as a dW partial, and (the image's first tile) -m (.) du
+// as the image's dcen partial. T: x's and dx's type.
+template <typename T>
+__global__ void __cluster_dims__(kWideSlices, 1, 1)
+    __launch_bounds__(kWideThreads, 2) netvlad_bwd_wide(BwdArgs a) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int P = kWideP, CS = kWideCS, KP = kMaxK;
+  constexpr int LDP = kWideLdp, LDJ = kWideLdj;
+  extern __shared__ float4 smem4[];
+  float* s_b1 = reinterpret_cast<float*>(smem4);  // CS x LDJ: [W | du^T]
+  float* s_xt = s_b1 + CS * LDJ;     // CS x LDP: x^, channel-major
+  float* s_xr = s_xt + CS * LDP;     // CS x LDP: x (bf16: x / den again)
+  float* s_part = s_xr + CS * LDP;   // P x LDJ: the slice's [l | da + dm]
+  float* s_dx = s_part;              // CS x LDP: dx (the partials' space)
+  float* s_A = s_part + P * LDJ;     // P x LDJ: [dl | a]
+  float* s_dlt = s_A + P * LDJ;      // KP x LDP: dl^T
+  // P: the slice's |x|^2 (in double: see slice_sumsq)
+  double* s_ssx = reinterpret_cast<double*>(s_dlt + KP * LDP);
+  float* s_ssu = reinterpret_cast<float*>(s_ssx + P);  // KP: its |u_k|^2
+  float* s_gu = s_ssu + KP;          // KP: the slice's gy_k . u_k
+  float* s_dmp = s_gu + KP;          // KP: the slice's dm
+  float* s_q = s_dmp + KP;           // KP: q_k
+  float* s_dk = s_q + KP;            // KP: dv_k . v_k
+  float* s_den = s_dk + KP;          // P
+  float* s_dotp = s_den + P;         // P: the slice's dx^ . x^
+  __shared__ float s_QG[2];
+  allow_next_launch();  // the reduction's blocks wait for this grid
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int sl = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = a.C, K = a.K;
+  const int t = blockIdx.x / kWideSlices;  // the tile
+  const int b = t / a.tiles, s0 = (t % a.tiles) * P;
+  const int n = min(P, a.S - s0);
+  const int c0 = sl * CS, cn = min(CS, C - c0);  // cn <= 0: an empty slice
+  const long long KC = (long long)K * C;
+  const T* xb = static_cast<const T*>(a.x) + (long long)b * a.sx_b;
+
+  // 1. every load in flight at once: W's slice by cp.async; x's, and the
+  // slice of u, gy and the centroids (row kr, channels qr + 4 i) through
+  // registers
+  stage_w_slice(s_b1, LDJ, a.assign_w, K, c0, cn);
+  const int kr = tid >> 2, qr = tid & 3;
+  constexpr int RU = CS / 4;
+  float u[RU], g[RU], ce[RU];
+  {
+    const bool in_k = kr < K;
+    const float* ub = a.residual + b * KC + (long long)kr * C + c0;
+    const float* gb = a.gy + b * KC + (long long)kr * C + c0;
+    const float* cb = a.centroids + (long long)kr * C + c0;
+#pragma unroll
+    for (int i = 0; i < RU; ++i) {
+      const int c = qr + 4 * i;
+      const bool in = in_k && c < cn;
+      u[i] = in ? __ldg(ub + c) : 0.f;
+      g[i] = in ? __ldg(gb + c) : 0.f;
+      ce[i] = in ? __ldg(cb + c) : 0.f;
+    }
+  }
+  const float mk = kr < K ? __ldg(a.mass + (long long)b * K + kr) : 0.f;
+  {
+    float xv[P * CS / kWideThreads];
+    load_x_slice(xb, a.sx_s, a.sx_c, s0, n, c0, cn, xv);
+    store_x_slice(s_xt, a.sx_c, xv);
+    if constexpr (kBf16) store_x_slice(s_xr, a.sx_c, xv);
+  }
+  __syncthreads();
+
+  // 2. the slice's sums: |x|^2 a pixel (8 lanes a pixel), |u_k|^2 and
+  // gy_k . u_k a row (4 lanes a row)
+  const int px = tid >> 3, j8 = tid & 7;
+  {
+    const double ss = slice_sumsq<kBf16>(s_xt, px, j8);
+    if (j8 == 0) s_ssx[px] = ss;
+    float su = 0.f, gu = 0.f;
+#pragma unroll
+    for (int i = 0; i < RU; ++i) {
+      su = fmaf(u[i], u[i], su);
+      gu = fmaf(g[i], u[i], gu);
+    }
+    su = group_reduce<4, false>(su);
+    gu = group_reduce<4, false>(gu);
+    if (qr == 0) {
+      s_ssu[kr] = su;
+      s_gu[kr] = gu;
+    }
+  }
+  cluster.sync();
+
+  // 3. the sums over C, slices in rank order: warp 0 the rows' q_k, the
+  // global Q and G = gy . y and each row's dv_k . v_k; warp 1 the pixels'
+  // denominators
+  if (warp == 0) {
+    float q[2], ssv[2], gv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int k = lane + 32 * hh;
+      float su = 0.f, gu = 0.f;
+#pragma unroll
+      for (int r = 0; r < kWideSlices; ++r) {
+        su += *cluster.map_shared_rank(s_ssu + k, r);
+        gu += *cluster.map_shared_rank(s_gu + k, r);
+      }
+      q[hh] = l2_denominator(su);
+      ssv[hh] = su / (q[hh] * q[hh]);  // |v_k|^2, v_k = u_k / q_k
+      gv[hh] = gu / q[hh];             // gy_k . v_k
+    }
+    const float Q = l2_denominator(nvs::warp_sum(ssv[0] + ssv[1]));
+    const float G = nvs::warp_sum(gv[0] + gv[1]) / Q;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      s_q[lane + 32 * hh] = q[hh];
+      s_dk[lane + 32 * hh] = (gv[hh] - G * (ssv[hh] / Q)) / Q;
+    }
+    if (lane == 0) {
+      s_QG[0] = Q;
+      s_QG[1] = G;
+    }
+  } else if (warp == 1) {
+    s_den[lane] = l2_denominator(tile_sumsq<kBf16>(cluster, s_ssx + lane, 0));
+  }
+  __syncthreads();
+
+  // 4. x^ = x / den in place (rounded to bf16 at bf16); du^T beside W,
+  // the slice's dm, and the image's dcen partial from its first tile
+#pragma unroll
+  for (int i = 0; i < P * CS / kWideThreads; ++i) {
+    const int e = tid + kWideThreads * i, c = e / P, p = e % P;
+    const float v = s_xt[c * LDP + p] / s_den[p];
+    s_xt[c * LDP + p] = kBf16 ? round_bf16(v) : v;
+  }
+  {
+    // (by reciprocals: within float32 rounding of the chain's divisions)
+    const float iq = 1.f / s_q[kr], dk = s_dk[kr], iQ = 1.f / s_QG[0];
+    const float G = s_QG[1];
+    const bool first = t % a.tiles == 0 && kr < K;
+    float* dcb = a.dcen_part + b * KC + (long long)kr * C + c0;
+    float dm = 0.f;
+#pragma unroll
+    for (int i = 0; i < RU; ++i) {
+      const int c = qr + 4 * i;
+      const float v = u[i] * iq;
+      const float dv = (g[i] - G * (v * iQ)) * iQ;
+      const float du = (dv - dk * v) * iq;  // 0 past C and K
+      s_b1[c * LDJ + KP + kr] = du;
+      dm = fmaf(du, ce[i], dm);
+      if (first && c < cn) dcb[c] = -mk * du;
+    }
+    dm = group_reduce<4, false>(dm);
+    if (qr == 0) s_dmp[kr] = -dm;
+  }
+  nvs::cp_async_wait<0>();
+  __syncthreads();
+
+  // 5. the slice's [l | da] = x^ [W | du^T] over its channels, in channel
+  // order (thread pixels 4 pg .., columns 4 jg ..), its dm added to da
+  {
+    const int jg = (warp & 3) * 8 + (lane & 7);
+    const int pg = (warp >> 2) * 4 + (lane >> 3);
+    float acc[4][4] = {};
+#pragma unroll 4
+    for (int c = 0; c < CS; ++c) {
+      const float4 xv = ld4(s_xt + c * LDP + 4 * pg);
+      const float4 bv = ld4(s_b1 + c * LDJ + 4 * jg);
+      const float x4[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] = fmaf(x4[i], bv.x, acc[i][0]);
+        acc[i][1] = fmaf(x4[i], bv.y, acc[i][1]);
+        acc[i][2] = fmaf(x4[i], bv.z, acc[i][2]);
+        acc[i][3] = fmaf(x4[i], bv.w, acc[i][3]);
+      }
+    }
+    if (4 * jg >= KP) {
+      const float4 dm = ld4(s_dmp + 4 * jg - KP);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] += dm.x;
+        acc[i][1] += dm.y;
+        acc[i][2] += dm.z;
+        acc[i][3] += dm.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(s_part + (4 * pg + i) * LDJ + 4 * jg) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  cluster.sync();
+
+  // 6. l and da over C (slices in rank order), the softmax and dl = a (.)
+  // (da - a . da), 8 lanes a pixel (clusters 4 j8 .. and 32 + 4 j8 ..)
+  {
+    float l[8] = {}, da[8] = {};
+#pragma unroll
+    for (int r = 0; r < kWideSlices; ++r) {
+      const float* row = cluster.map_shared_rank(s_part, r) + px * LDJ;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float4 lv = ld4(row + 32 * hh + 4 * j8);
+        const float4 dv = ld4(row + KP + 32 * hh + 4 * j8);
+        l[4 * hh] += lv.x;
+        l[4 * hh + 1] += lv.y;
+        l[4 * hh + 2] += lv.z;
+        l[4 * hh + 3] += lv.w;
+        da[4 * hh] += dv.x;
+        da[4 * hh + 1] += dv.y;
+        da[4 * hh + 2] += dv.z;
+        da[4 * hh + 3] += dv.w;
+      }
+    }
+    const float neg_inf = -__int_as_float(0x7f800000);
     float mx = neg_inf;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (kk[h] >= K)
-        l[i][h] = neg_inf;
+    for (int i = 0; i < 8; ++i) {
+      const int k = (i & 3) + 4 * j8 + 32 * (i >> 2);
+      if (k >= K)
+        l[i] = neg_inf;  // a padded cluster
       else if (a.assign_b != nullptr)
-        l[i][h] += __ldg(a.assign_b + kk[h]);
-      mx = fmaxf(mx, l[i][h]);
+        l[i] += __ldg(a.assign_b + k);
+      mx = fmaxf(mx, l[i]);
     }
-    mx = nvs::warp_max(mx);
-    float av[2], sum = 0.f;
+    mx = group_reduce<8, true>(mx);
+    float sum = 0.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      av[h] = expf(l[i][h] - mx);  // 0 past K
-      sum += av[h];
+    for (int i = 0; i < 8; ++i) {
+      l[i] = expf(l[i] - mx);
+      sum += l[i];
     }
-    sum = nvs::warp_sum(sum);
+    sum = group_reduce<8, false>(sum);
     float dot = 0.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      av[h] /= sum;
-      da[i][h] += a.dm[(long long)b * KP + kk[h]];
-      dot = fmaf(av[h], da[i][h], dot);
+    for (int i = 0; i < 8; ++i) {
+      l[i] /= sum;  // a
+      dot = fmaf(l[i], da[i], dot);
     }
-    dot = nvs::warp_sum(dot);
+    dot = group_reduce<8, false>(dot);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      s_a[p * KP + kk[h]] = av[h];
-      s_dl[p * KP + kk[h]] = p < n ? av[h] * (da[i][h] - dot) : 0.f;
-    }
-  }
-  __syncwarp();
-
-  // 4. dx^ = a du + dl W^T: lane takes channels lane + 32 j
-  const float* dub = a.du + (long long)b * KP * CP;
-  float g[NP][NC] = {};
-  for (int k = 0; k < K; ++k) {
-    float u[NC], wt[NC];
+    for (int hh = 0; hh < 2; ++hh) {
+      float dl[4];
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      u[j] = __ldg(dub + k * CP + lane + 32 * j);
-      wt[j] = __ldg(a.w_t + k * CP + lane + 32 * j);
-    }
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const float ak = s_a[(p0 + i) * KP + k];
-      const float dk = s_dl[(p0 + i) * KP + k];
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-        g[i][j] = fmaf(dk, wt[j], fmaf(ak, u[j], g[i][j]));
-    }
-  }
-
-  // 5. the pixels' norm backward: dx = (dx^ - (dx^ . x^) x^) / den; at
-  // bf16 with dx^ rounded to bf16 and x^ = x / den unrounded (x read again)
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    const int p = p0 + i;
-    float xh[NC], dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = lane + 32 * j;
-      if (kBf16) {
-        g[i][j] = round_bf16(g[i][j]);
-        xh[j] = p < n && c < C
-                    ? load_f32(xb + (long long)(s0 + p) * a.sx_s +
-                               (long long)c * a.sx_c) /
-                          den[i]
-                    : 0.f;
-      } else {
-        xh[j] = s_x[p * LDX + c];
+      for (int i = 0; i < 4; ++i) {
+        const float av = l[4 * hh + i];
+        dl[i] = px < n ? av * (da[4 * hh + i] - dot) : 0.f;
+        s_dlt[(32 * hh + 4 * j8 + i) * LDP + px] = dl[i];
       }
-      dot = fmaf(g[i][j], xh[j], dot);
+      *reinterpret_cast<float4*>(s_A + px * LDJ + 32 * hh + 4 * j8) =
+          make_float4(dl[0], dl[1], dl[2], dl[3]);
+      *reinterpret_cast<float4*>(s_A + px * LDJ + KP + 32 * hh + 4 * j8) =
+          make_float4(l[4 * hh], l[4 * hh + 1], l[4 * hh + 2], l[4 * hh + 3]);
     }
-    dot = nvs::warp_sum(dot);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) g[i][j] = (g[i][j] - dot * xh[j]) / den[i];
   }
-
-  // 6. the tile's partial: x^T dl (thread: 16 channels by 4 clusters) and
-  // the column sums of dl, pixels in order
   __syncthreads();
+
+  // 7. dx^ = [dl | a] [W | du^T]^T (thread pixels 2 pp, 2 pp + 1, channels
+  // cg + 16 u) and the tile's x^T dl (channels 4 cw .., clusters kg + 16 i),
+  // written as its dW partial with the column sums of dl (block 0)
+  const int cg = lane & 15, pp = 2 * warp + (lane >> 4);
+  float gx[2][4] = {};
+#pragma unroll 4
+  for (int j = 0; j < 2 * KP; j += 4) {
+    float4 av[2], bv[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) av[i] = ld4(s_A + (2 * pp + i) * LDJ + j);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) bv[u] = ld4(s_b1 + (cg + 16 * u) * LDJ + j);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) gx[i][u] = dot4(av[i], bv[u], gx[i][u]);
+  }
   {
-    const int k4 = tid % (KP / 4), c0 = tid / (KP / 4) * 16;
-    float w[16][4] = {};
-    mac_cols<16, P>(s_x + c0, LDX, s_dl + 4 * k4, KP, w);
-    float* part = a.dw_part + blockIdx.x * part_floats(CP, KP);
+    const int kg = lane & 15, cw = 2 * warp + (lane >> 4);
+    float w[4][4] = {};
+#pragma unroll 2
+    for (int p = 0; p < P; p += 4) {
+      float4 xv[4], dv[4];
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
-      *reinterpret_cast<float4*>(part + (c0 + i) * KP + 4 * k4) =
-          make_float4(w[i][0], w[i][1], w[i][2], w[i][3]);
-    if (tid < KP) {
+      for (int u = 0; u < 4; ++u) xv[u] = ld4(s_xt + (4 * cw + u) * LDP + p);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dv[i] = ld4(s_dlt + (kg + 16 * i) * LDP + p);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[u][i] = dot4(xv[u], dv[i], w[u][i]);
+    }
+    float* part = a.dw_part + t * part_floats(kWideCP, kWideKP);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        part[(c0 + 4 * cw + u) * kWideKP + kg + 16 * i] = w[u][i];
+    if (sl == 0 && tid < KP) {
       float v = 0.f;
-      for (int p = 0; p < P; ++p) v += s_dl[p * KP + tid];
-      part[CP * KP + tid] = v;
+#pragma unroll 8
+      for (int p = 0; p < P; ++p) v += s_dlt[tid * LDP + p];
+      part[kWideCP * kWideKP + tid] = v;
+    }
+  }
+
+  // 8. the pixels' norm backward: dx = (dx^ - (dx^ . x^) x^) / den, the
+  // dot over C from the slices' (in rank order); at bf16 with dx^ rounded
+  // to bf16 and x^ = x / den unrounded
+  float xh[2][4];
+  {
+    float dot[2] = {};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int p = 2 * pp + i;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cg + 16 * u;
+        if constexpr (kBf16) {
+          gx[i][u] = round_bf16(gx[i][u]);
+          xh[i][u] = s_xr[c * LDP + p] / s_den[p];
+        } else {
+          xh[i][u] = s_xt[c * LDP + p];
+        }
+        dot[i] = fmaf(gx[i][u], xh[i][u], dot[i]);
+      }
+      dot[i] = group_reduce<16, false>(dot[i]);
+    }
+    if (cg == 0) {
+      s_dotp[2 * pp] = dot[0];
+      s_dotp[2 * pp + 1] = dot[1];
+    }
+  }
+  cluster.sync();  // the dots written; every block's partials read
+  {
+    float dot[2] = {};
+#pragma unroll
+    for (int r = 0; r < kWideSlices; ++r)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        dot[i] += *cluster.map_shared_rank(s_dotp + 2 * pp + i, r);
+    cluster_arrive();  // the block's last read of a peer
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int p = 2 * pp + i;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        s_dx[(cg + 16 * u) * LDP + p] =
+            (gx[i][u] - dot[i] * xh[i][u]) / s_den[p];
     }
   }
   __syncthreads();
 
-  // 7. dx through shared memory, stored as x was read
+  // 9. dx stored as x was read
+  {
+    T* dxb = static_cast<T*>(a.dx) + (long long)b * a.sd_b;
+    const bool nhwc = a.sd_c == 1;
 #pragma unroll
-  for (int i = 0; i < NP; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) s_x[(p0 + i) * LDX + lane + 32 * j] = g[i][j];
-  __syncthreads();
-  T* dxb = static_cast<T*>(a.dx) + b * a.sd_b;
-  const bool dnhwc = a.sd_c == 1;
-  for (int e = tid; e < P * CP; e += kWideThreads) {
-    const int p = dnhwc ? e / CP : e % P, c = dnhwc ? e % CP : e / P;
-    if (p < n && c < C)
-      store_as(dxb + (long long)(s0 + p) * a.sd_s + (long long)c * a.sd_c,
-               s_x[p * LDX + c]);
+    for (int i = 0; i < P * CS / kWideThreads; ++i) {
+      const int e = tid + kWideThreads * i;
+      const int p = nhwc ? e / CS : e % P, c = nhwc ? e % CS : e / P;
+      if (p < n && c < cn)
+        store_as(dxb + (long long)(s0 + p) * a.sd_s +
+                     (long long)(c0 + c) * a.sd_c,
+                 s_dx[c * LDP + p]);
+    }
   }
+  cluster_wait();  // no peer reads this block's shared memory any more
+}
+
+size_t wide_bwd_smem_bytes() {
+  return sizeof(float) * (kWideCS * kWideLdj + 2 * kWideCS * kWideLdp +
+                          2 * kWideP * kWideLdj + kMaxK * kWideLdp +
+                          4 * kWideP + 5 * kMaxK);
 }
 
 // kernel<<<grid, threads, smem, stream>>>(args...), allowed to start while
@@ -1212,7 +1933,8 @@ cudaError_t launch_pdl(void (*kernel)(Params...), int grid, int threads,
 }
 
 // The instance for widths C, K: (48, 32), (48, 64), (64, 64) or
-// (128, 64), the first that holds them; (256, 64) the wide kernel
+// (128, 64), the first that holds them; (256, 64) the wide kernel's dW
+// partials
 struct BwdWidths {
   int cp, kp;
 };
@@ -1224,7 +1946,7 @@ BwdWidths bwd_widths(int C, int K) {
 }
 
 int bwd_tiles(int S, int C) {
-  const int tile = C > 128 ? kWideTile : kBwdTile;
+  const int tile = C > 128 ? kWideP : kBwdTile;
   return (S + tile - 1) / tile;
 }
 
@@ -1232,26 +1954,28 @@ int bwd_blocks(int B, int S) {
   return (B * bwd_tiles(S, 0) + kCluster - 1) / kCluster * kCluster;
 }
 
-// The dW partials at widths C: one a cluster of tiles, or one a wide block
+// The dW partials at widths C: one a cluster of tiles, or one a wide tile
 int bwd_parts(int B, int S, int C) {
   return C > 128 ? B * bwd_tiles(S, C) : bwd_blocks(B, S) / kCluster;
 }
 
 // The scratch's parts, in floats from its start (16-byte aligned each but
-// the last)
+// the last); above C = 128 the tiles derive du and dm themselves, and the
+// prologue's parts are empty
 struct BwdScratch {
   long long du, du_t, w_t, dm, dw_part, dcen_part, total;
 };
 
 BwdScratch bwd_scratch(int B, int S, int C, int K) {
   const BwdWidths w = bwd_widths(C, K);
-  const long long pc = (long long)w.cp * w.kp;
+  const bool wide = C > 128;
+  const long long pc = wide ? 0 : (long long)w.cp * w.kp;
   BwdScratch s;
   s.du = 0;
   s.du_t = s.du + B * pc;
   s.w_t = s.du_t + B * pc;
   s.dm = s.w_t + pc;
-  s.dw_part = s.dm + (long long)B * w.kp;
+  s.dw_part = s.dm + (wide ? 0 : (long long)B * w.kp);
   s.dcen_part = s.dw_part + bwd_parts(B, S, C) * part_floats(w.cp, w.kp);
   s.total = s.dcen_part + (long long)B * K * C;
   return s;
@@ -1288,33 +2012,147 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
                     blocks / kCluster);
 }
 
-// The backward at 128 < C <= 256: the prologue, the wide tiles, the
-// reduction, in stream order.
+// Raises the dynamic shared-memory limits of the kernels at 128 < C <= 256
+// for x's type T, once per device.
 template <typename T>
-cudaError_t launch_bwd_wide(const BwdArgs& a, cudaStream_t stream) {
-  cudaError_t err = nvs::once_per_device([] {
+cudaError_t set_wide_limits() {
+  return nvs::once_per_device([] {
+    cudaError_t err = cudaFuncSetAttribute(
+        netvlad_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)wide_smem_bytes());
+    if (err != cudaSuccess) return err;
     return cudaFuncSetAttribute(netvlad_bwd_wide<T>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)kWideSmem);
+                                (int)wide_bwd_smem_bytes());
   });
+}
+
+// The clusters of netvlad_wide_kernel<T> the card holds at once: the
+// occupancy calculator's (else the blocks an SM times the SMs), asked once
+// a device.
+template <typename T>
+int wide_resident_clusters() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> resident[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) dev = kMaxDevices;
+  int r = dev < kMaxDevices ? resident[dev].load() : 0;
+  if (r == 0) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kWideCluster);
+    cfg.blockDim = dim3(kWideThreads);
+    cfg.dynamicSmemBytes = wide_smem_bytes();
+    if (cudaOccupancyMaxActiveClusters(&r, netvlad_wide_kernel<T>, &cfg) !=
+            cudaSuccess ||
+        r < 1) {  // the blocks an SM, as if every SM took its share
+      cudaGetLastError();
+      int sms = 0, per_sm = 0;
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, netvlad_wide_kernel<T>, kWideThreads, wide_smem_bytes());
+      cudaGetLastError();
+      r = sms * per_sm / kWideCluster > 1 ? sms * per_sm / kWideCluster : 1;
+    }
+    if (dev < kMaxDevices) resident[dev].store(r);
+  }
+  return r;
+}
+
+// Clusters the forward above C = 128 gives each of B images of S pixels:
+// the resident clusters shared out, each walking as few pairs of tiles as
+// keep all B images' clusters resident at once (no second wave). The
+// grid, and with it the sums' order, is fixed for a card and a shape.
+template <typename T>
+int wide_clusters(int S, int B) {
+  const int r = wide_resident_clusters<T>();
+  const int pairs = wide_pairs(S);
+  int per = (int)(((long long)pairs * B + r - 1) / r);
+  while (per < pairs && (long long)((pairs + per - 1) / per) * B > r) ++per;
+  return (pairs + per - 1) / per;
+}
+
+// The forward at 128 < C <= 256: one launch.
+template <typename T>
+cudaError_t launch_wide(const Args& a, int B, cudaStream_t stream) {
+  cudaError_t err = set_wide_limits<T>();
   if (err != cudaSuccess) return err;
-  netvlad_bwd_prologue<kWideCP, kWideKP>
-      <<<dim3(kWideKP / 8, a.B), kPrologueThreads, 0, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  netvlad_bwd_wide<T><<<a.B * a.tiles, kWideThreads, kWideSmem, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  netvlad_bwd_reduce<kWideCP, kWideKP>
-      <<<(2 * a.K * a.C + a.K + 255) / 256, 256, 0, stream>>>(
-          a, a.B * a.tiles);
+  netvlad_wide_kernel<T>
+      <<<dim3(kWideCluster * wide_clusters<T>(a.S, B), B), kWideThreads,
+         wide_smem_bytes(), stream>>>(a);
   return cudaGetLastError();
+}
+
+// The backward at 128 < C <= 256: the tiles, then the reduction by
+// programmatic dependent launch.
+template <typename T>
+cudaError_t launch_bwd_wide(const BwdArgs& a, cudaStream_t stream) {
+  cudaError_t err = set_wide_limits<T>();
+  if (err != cudaSuccess) return err;
+  netvlad_bwd_wide<T><<<kWideSlices * a.B * a.tiles, kWideThreads,
+                        wide_bwd_smem_bytes(), stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_pdl(netvlad_bwd_reduce<kWideCP, kWideKP>,
+                    (2 * a.K * a.C + a.K + 255) / 256, 256, 0, stream, a,
+                    a.B * a.tiles);
+}
+
+// The launch of a kernel at 128 < C <= 256 (the forward, or the backward's
+// tiles) for x's type T at batch B and S pixels an image, as shape = {blocks,
+// blocks a cluster, threads a block, dynamic shared bytes a block, blocks
+// an SM (the occupancy calculator's; -1 if it refuses), the card's SMs,
+// registers a thread, local bytes a thread, the forward's resident
+// clusters (0 for the backward)}.
+template <typename T>
+int wide_shape(bool backward, int B, int S, int* shape) {
+  cudaError_t err = set_wide_limits<T>();
+  if (err != cudaSuccess) return (int)err;
+  const void* fn = backward
+                       ? reinterpret_cast<const void*>(netvlad_bwd_wide<T>)
+                       : reinterpret_cast<const void*>(netvlad_wide_kernel<T>);
+  const size_t smem = backward ? wide_bwd_smem_bytes() : wide_smem_bytes();
+  shape[0] = backward ? kWideSlices * B * ((S + kWideP - 1) / kWideP)
+                      : kWideCluster * wide_clusters<T>(S, B) * B;
+  shape[1] = backward ? kWideSlices : kWideCluster;
+  shape[2] = kWideThreads;
+  shape[3] = (int)smem;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kWideThreads,
+                                                    smem) != cudaSuccess) {
+    cudaGetLastError();
+    per_sm = -1;
+  }
+  shape[4] = per_sm;
+  int dev = 0;
+  cudaFuncAttributes attr;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(shape + 5, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess)
+    return (int)err;
+  shape[6] = attr.numRegs;
+  shape[7] = (int)attr.localSizeBytes;
+  shape[8] = backward ? 0 : wide_resident_clusters<T>();
+  return 0;
 }
 
 }  // namespace
 
 // Floats of the partial scratch one image of S pixels needs at widths C, K:
-// one K*C + K partial a cluster.
+// one K*C + K partial a cluster (above C = 128, at most one a pair of
+// tiles).
 extern "C" int nvs_netvlad_partial_size(int S, int C, int K) {
-  return blocks_per_image(S) / kCluster * (K * C + K);
+  const int clusters = C > kNarrowMaxC ? wide_pairs(S)
+                                       : blocks_per_image(S) / kCluster;
+  return clusters * (K * C + K);
+}
+
+// The launch a call at 128 < C <= 256 makes (``backward``: its tiles) for a
+// float32 or (``bf16``) bfloat16 x of batch B and S pixels an image: see
+// wide_shape. Nothing is launched.
+extern "C" int nvs_netvlad_wide_shape(int backward, int bf16, int B, int S,
+                                      int* shape) {
+  return bf16 ? wide_shape<__nv_bfloat16>(backward, B, S, shape)
+              : wide_shape<float>(backward, B, S, shape);
 }
 
 // x (B,S,C) float32 with element strides [b, s, c]; assign_w (C,K),

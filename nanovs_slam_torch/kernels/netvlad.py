@@ -11,9 +11,10 @@ which then also writes each image's u = a^T x - (sum a) * centroids and
 masses, and its backward launches ``netvlad_backward`` (x float32 or
 bfloat16; at bfloat16 dx is bfloat16, with the roundings of autograd
 through the twin: see ``csrc/netvlad.cu``; with a bias also its gradient
-db). Both kernels take C <= 256 and K <= 64; above C = 128 the backward's
-tiles run in a kernel of their own (``netvlad_bwd_wide``). The JAX package
-has no backward kernel: XLA differentiates its plain NetVLAD
+db). Both kernels take C <= 256 and K <= 64; above C = 128 each runs in a
+kernel of its own (``netvlad_wide_kernel``, ``netvlad_bwd_wide``: clusters
+of blocks splitting C; ``wide_launch_shape`` reads their launch). The JAX
+package has no backward kernel: XLA differentiates its plain NetVLAD
 (``nanovs_slam_tpu/modules/aggregators.py:40-80``). ``netvlad_backward_plain``
 (autograd through ``netvlad_plain``) is the backward's twin.
 """
@@ -267,6 +268,29 @@ def netvlad_backward(gy: torch.Tensor, x: torch.Tensor,
     else:
         netvlad_backward.launches += 1
     return (dx, dw, dcen) if db is None else (dx, dw, dcen, db)
+
+
+_SHAPE_KEYS = ("blocks", "cluster", "threads", "smem_bytes", "blocks_per_sm",
+               "sms", "registers", "local_bytes", "resident_clusters")
+
+
+def wide_launch_shape(B: int, S: int, bf16: bool = False,
+                      backward: bool = False) -> dict:
+    """The launch a call at 128 < C <= 256 makes on the current card for a
+    batch of B images of S pixels (``backward``: the backward's tiles, whose
+    reduction follows as a second launch): blocks, blocks a cluster,
+    threads and dynamic shared bytes a block, blocks an SM (-1 where the
+    occupancy calculator refuses a cluster kernel), the card's SMs, the
+    SMs the grid covers, registers and local bytes a thread, and for the
+    forward the clusters the card holds at once (the occupancy
+    calculator's, which sizes its grid). Nothing is launched."""
+    shape = (ctypes.c_int * len(_SHAPE_KEYS))()
+    fn = _build.bind("nvs_netvlad_wide_shape", [_I] * 4 + [_P])
+    _build.check(fn(int(backward), int(bf16), B, S, shape),
+                 "netvlad_backward" if backward else "netvlad")
+    out = dict(zip(_SHAPE_KEYS, shape))
+    out["sms_covered"] = min(out["sms"], out["blocks"])
+    return out
 
 
 netvlad.launches = 0

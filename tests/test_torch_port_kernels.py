@@ -617,41 +617,77 @@ def _db_scale(gy, x, aw, cen, b):
     return dl.abs().sum((0, 1)).max().item()
 
 
-@pytest.mark.parametrize("B,H,W,C,bf16", [
-    (1, 33, 41, 256, False), (8, 33, 41, 256, False), (1, 33, 41, 64, False),
-    (2, 33, 41, 256, True), (1, 33, 41, 64, True), (3, 13, 17, 200, False)])
-def test_netvlad_vladv2_kernel_matches_plain(cuda, B, H, W, C, bf16):
+# Above C = 128 the forward and the backward run kernels of their own, whose
+# thread-block clusters split C in slices of 64 channels and walk the
+# image's tiles of 32 pixels: widths that are no multiple of a slice (136,
+# 200), both K instances' widths (48, 64), a one-pixel image,
+# KeypointFormer's train (221 pixels) and serving (1,353) maps, batches of
+# 1, 4 and 12. Two flags cycle over the 24 cases: the forward's NHWC
+# memory (it takes both bias settings in each case) or the backward's bias
+# (it takes both layouts in each case), and bf16 x.
+_WIDE_CASES = [
+    (B, H, W, C, K, bool(i % 2), bool(i // 2 % 2))
+    for i, (B, H, W, C, K) in enumerate(
+        (B, H, W, C, K)
+        for B, H, W in ((1, 1, 1), (4, 13, 17), (1, 33, 41), (12, 33, 41))
+        for C in (136, 200, 256) for K in (48, 64))]
+
+
+@pytest.mark.parametrize("B,H,W,C,K,nhwc,bf16", [
+    (1, 33, 41, 256, 64, False, False), (8, 33, 41, 256, 64, False, False),
+    (1, 33, 41, 64, 64, False, False), (2, 33, 41, 256, 64, False, True),
+    (1, 33, 41, 64, 64, False, True), (3, 13, 17, 200, 64, False, False)]
+    + _WIDE_CASES)
+def test_netvlad_vladv2_kernel_matches_plain(cuda, B, H, W, C, K, nhwc,
+                                             bf16):
     """The vladv2 forward at KeypointFormer's vlad head (33x41 at 256x320,
-    K = 64, C = 256 and 64; bf16 x too) and at a width no instance has
-    (C = 200): within 1e-5 of the twin with the bias; without the bias the
-    kernel computes the function it computed before (the twin without
-    it)."""
-    x, aw, cen, b, _ = _vladv2_inputs(cuda, B, H, W, C, 64, B + C, bf16)
+    K = 64, C = 256 and 64; bf16 x too), at a width no instance has
+    (C = 200) and at the wide cases above: within 1e-5 of the twin with
+    the bias; without the bias the kernel computes the function it
+    computed before (the twin without it); one launch a call, and the
+    same bits from two launches (the sums' order is fixed by the grid,
+    which is fixed for a card and a shape)."""
+    x, aw, cen, b, _ = _vladv2_inputs(cuda, B, H, W, C, K, B + C, bf16)
+    if nhwc:
+        x = x.contiguous()
     for bias in (b, None):
         want = netvlad_plain(x, aw, cen, bias)
+        before = netvlad.launches_bf16 if bf16 else netvlad.launches
         got = netvlad(x, aw, cen, bias)
+        again = netvlad(x, aw, cen, bias)
         torch.cuda.synchronize()
+        assert (netvlad.launches_bf16 if bf16 else netvlad.launches) \
+            == before + 2
         assert (got - want).abs().max().item() <= 1e-5
+        assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("B,H,W,C,bf16", [
-    (8, 13, 17, 256, False), (8, 13, 17, 64, False), (2, 33, 41, 256, False),
-    (8, 13, 17, 256, True), (8, 13, 17, 64, True), (3, 7, 9, 160, False)])
-def test_netvlad_vladv2_backward_matches_twin(cuda, B, H, W, C, bf16):
-    """The backward with the bias at KeypointFormer's training shape (13x17
-    at 96x128, K = 64, C = 256 in the wide kernel and 64 in the tiles; bf16
-    x too), at serving's 33x41 and at C = 160 (the wide kernel,
-    zero-padded): dx, dW and dcen within 1e-5 of each gradient's largest
-    magnitude against autograd through the twin, db within 1e-5 of its
-    terms' size (``_db_scale``) (at bf16: dx two bf16 ulps, the rest
-    1e-4, as for the bf16 backward without a bias);
+@pytest.mark.parametrize("B,H,W,C,K,bias,bf16", [
+    (8, 13, 17, 256, 64, True, False), (8, 13, 17, 64, 64, True, False),
+    (2, 33, 41, 256, 64, True, False), (8, 13, 17, 256, 64, True, True),
+    (8, 13, 17, 64, 64, True, True), (3, 7, 9, 160, 64, True, False)]
+    + _WIDE_CASES)
+def test_netvlad_vladv2_backward_matches_twin(cuda, B, H, W, C, K, bias,
+                                              bf16):
+    """The backward at KeypointFormer's training shape (13x17 at 96x128,
+    K = 64, C = 256 in the wide kernel and 64 in the tiles; bf16 x too),
+    at serving's 33x41, at C = 160 (zero-padded slices) and at the wide
+    cases above, NCHW and NHWC memory: dx, dW and dcen within 1e-5 of
+    each gradient's largest magnitude against autograd through the twin,
+    db within 1e-5 of its terms' size (``_db_scale``) (at bf16: dx two
+    bf16 ulps, the rest 1e-4, as for the bf16 backward without a bias);
     dW, dcen and db equal across two launches; through ``netvlad``'s
     autograd the same gradients with one forward and one backward
-    launch."""
-    x, aw, cen, b, gy = _vladv2_inputs(cuda, B, H, W, C, 64, B + C + 7, bf16)
-    want = netvlad_backward_plain(gy, x, aw, cen, b)
-    assert len(want) == 4
-    db_scale = _db_scale(gy, x, aw, cen, b)
+    launch. On a one-pixel image y does not depend on the soft assignment
+    (each u_k is a_k (x^ - c_k), which the intra-normalisation divides
+    out), so dW and db are zero in exact arithmetic and both sides' are
+    rounding noise: there they are held to the same fraction of dcen's
+    largest magnitude."""
+    x, aw, cen, b, gy = _vladv2_inputs(cuda, B, H, W, C, K, B + C + 7, bf16)
+    bb = (b,) if bias else ()
+    want = netvlad_backward_plain(gy, x, aw, cen, *bb)
+    assert len(want) == 3 + bias
+    db_scale = _db_scale(gy, x, aw, cen, b) if bias else None
 
     def check(got):
         for i, (g, w) in enumerate(zip(got, want)):
@@ -659,20 +695,23 @@ def test_netvlad_vladv2_backward_matches_twin(cuda, B, H, W, C, bf16):
             if bf16 and i == 0:
                 assert _bf16_ulps(g, w) <= 2.0
                 continue
+            if H * W == 1 and i in (1, 3):
+                scale = want[2].abs().max().item()
+            else:
+                scale = db_scale if i == 3 else w.abs().max().item()
             err = (g - w).abs().max().item()
-            scale = db_scale if i == 3 else w.abs().max().item()
             lim = (1e-4 if bf16 else 1e-5) * scale
             assert err <= lim, (i, err, lim)
 
     for xv in (x, x.contiguous()):
-        _, u, m = netvlad_residuals(xv, aw, cen, b)
-        got = netvlad_backward(gy, xv, aw, cen, u, m, b)
-        again = netvlad_backward(gy, xv, aw, cen, u, m, b)
+        _, u, m = netvlad_residuals(xv, aw, cen, *bb)
+        got = netvlad_backward(gy, xv, aw, cen, u, m, *bb)
+        again = netvlad_backward(gy, xv, aw, cen, u, m, *bb)
         torch.cuda.synchronize()
         assert got[0].stride() == xv.stride()
         check(got)
         assert all(torch.equal(g, a) for g, a in zip(got[1:], again[1:]))
-    leaves = [t.clone().requires_grad_() for t in (x, aw, cen, b)]
+    leaves = [t.clone().requires_grad_() for t in (x, aw, cen) + bb]
     counts = (netvlad_backward.launches_bf16 if bf16
               else netvlad_backward.launches)
     netvlad(*leaves).backward(gy)

@@ -1,13 +1,14 @@
-"""The stem, the NetVLAD backward and the int8 conv of two source trees in
-turns on one NVIDIA card.
+"""The stem, NetVLAD and the int8 conv of two source trees in turns on one
+NVIDIA card.
 
-    python3 tools/stem_turns.py PARENT_DIR CHANGE_DIR [--parts stem,int8]
+    python3 tools/stem_turns.py PARENT_DIR CHANGE_DIR [--parts stem,int8,netvlad]
 
 Each directory is a checkout of this repository (for example a commit's
 ``git archive`` unpacked into a directory that ``.gitignore`` lists). In
 the order parent, change, change, parent, a subprocess imports that tree's
 ``nanovs_slam_torch`` (whose kernels build from its own ``csrc/``) and
-``chip_smoke.py`` and measures the parts asked for (both by default):
+``chip_smoke.py`` and measures the parts asked for (``stem`` and
+``int8`` by default):
 
 ``stem``:
 
@@ -38,6 +39,25 @@ the order parent, change, change, parent, a subprocess imports that tree's
 - the int8 S8 request (``make_infer_fn(int8_scales=...)``, top_k 1000) at
   batch 1 and 8: host-clock median ms of 20 steady requests and the
   device ms of a request.
+
+``netvlad``:
+
+- the NetVLAD forward (``netvlad``) and backward (``netvlad_backward``)
+  with the vladv2 bias at KeypointFormer's widths (C = 256, K = 64, x as
+  NCHW memory): the forward on its head's 33x41 map at batch 1 and 8 and
+  at its train shape (4 images of 13x17), the backward at the train
+  shape, float32 and bf16; and, as the control that must not move, the
+  C <= 128 instances: the forward at config N's (60x80, C = 48, K = 32)
+  at batch 1 and 8, config S's (C = K = 64) and KeypointFormer "tiny"'s
+  head (33x41, C = 64), the backward at config S's train shape (4x30x40,
+  C = K = 64), config N's (1x60x80, C = 48, K = 32) and "tiny"'s train
+  shape; each on seeded inputs of its own, held to its twin as
+  ``chip_smoke.py`` holds it and timed by ``chip_smoke.cuda_ms``;
+- one request of KeypointFormer "default" (28 classes, seeded, its
+  scores spread) at 256x320 through ``make_infer_fn`` (top_k 1000) at
+  batch 1 and 8, and one train step of it (96x128, batch 4, the
+  synthetic set's 8 classes): host-clock median ms, the device ms of a
+  request or a step and of its NetVLAD kernels (torch.profiler).
 
 Prints the card's name and power limit, one JSON line a turn, and the
 medians of each tree's two turns. It imports neither jax nor
@@ -151,6 +171,103 @@ if "int8" in PARTS:
     for B in (1, 8):
         frames = rs8.randint(0, 256, (B, cs.H, cs.W, 3)).astype(np.uint8)
         request_ms(infer, frames, f"S8_int8_B{B}")
+if "netvlad" in PARTS:
+    from nanovs_slam_torch.kernels import (netvlad, netvlad_backward,
+                                           netvlad_backward_plain,
+                                           netvlad_plain, netvlad_residuals)
+    from nanovs_slam_torch.ops.image import to_model_input
+
+    def nv_inputs(seed, B, h, w, C, K, bf16):
+        r = np.random.RandomState(seed)
+        x = torch.from_numpy(r.randn(B, C, h, w).astype(np.float32)).to(
+            dev).permute(0, 2, 3, 1)
+        if bf16:
+            x = x.to(torch.bfloat16)
+        f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+        return (x, f(r.randn(C, K) * 0.3), f(r.rand(K, C)),
+                f(r.randn(K) * 0.5), f(r.randn(B, K * C)))
+
+    for i, (key, B, h, w, C, K, bias) in enumerate((
+            ("fwd_kf_B1", 1, 33, 41, 256, 64, True),
+            ("fwd_kf_B8", 8, 33, 41, 256, 64, True),
+            ("fwd_kf_train", 4, 13, 17, 256, 64, True),
+            ("fwd_n_B1", 1, 60, 80, 48, 32, False),
+            ("fwd_n_B8", 8, 60, 80, 48, 32, False),
+            ("fwd_s_B1", 1, 60, 80, 64, 64, False),
+            ("fwd_kf_tiny_B1", 1, 33, 41, 64, 64, True))):
+        for bf in (False, True):
+            x, aw, cen, b, _ = nv_inputs(cs.SEED + 2100 + i, B, h, w, C, K,
+                                         bf)
+            args = (x, aw, cen) + ((b,) if bias else ())
+            got, want = netvlad(*args), netvlad_plain(*args)
+            torch.cuda.synchronize()
+            cs.require(cs.max_err(got, want) <= 1e-5, f"netvlad {key}")
+            out["kernel_nv_" + key + ("_bf16" if bf else "")] = cs.cuda_ms(
+                lambda: netvlad(*args))
+    for i, (key, B, h, w, C, K, bias) in enumerate((
+            ("bwd_kf_train", 4, 13, 17, 256, 64, True),
+            ("bwd_s_train", 4, 30, 40, 64, 64, False),
+            ("bwd_n", 1, 60, 80, 48, 32, False),
+            ("bwd_kf_tiny_train", 4, 13, 17, 64, 64, True))):
+        for bf in (False, True):
+            x, aw, cen, b, gy = nv_inputs(cs.SEED + 2200 + i, B, h, w, C, K,
+                                          bf)
+            bb = (b,) if bias else ()
+            _, u, m = netvlad_residuals(x, aw, cen, *bb)
+            got = netvlad_backward(gy, x, aw, cen, u, m, *bb)
+            want = netvlad_backward_plain(gy, x, aw, cen, *bb)
+            torch.cuda.synchronize()
+            for j, (g, w_) in enumerate(zip(got, want)):
+                if bf and j == 0:
+                    cs.require(cs.bf16_ulps(g, w_) <= 2.0, f"{key} dx")
+                    continue
+                if j == 3:  # db against its terms' size (dl sums to 0)
+                    b_full = b.expand(B, h * w, K).clone().requires_grad_()
+                    with torch.enable_grad():
+                        dl, = torch.autograd.grad(
+                            netvlad_plain(x, aw, cen, b_full), b_full, gy)
+                    scale = float(dl.abs().sum((0, 1)).max())
+                else:
+                    scale = float(w_.abs().max())
+                cs.require(cs.max_err(g, w_) <= (1e-4 if bf else 1e-5)
+                           * scale, f"{key} gradient {j}")
+            again = netvlad_backward(gy, x, aw, cen, u, m, *bb)
+            cs.require(all(torch.equal(p, q) for p, q in
+                           zip(got[1:], again[1:])), f"{key} bits")
+            out["kernel_nv_" + key + ("_bf16" if bf else "")] = cs.cuda_ms(
+                lambda: netvlad_backward(gy, x, aw, cen, u, m, *bb))
+
+    def nv_device(run, iters=10):
+        parts = cs.device_breakdown(run, iters)
+        return (sum(n * t for n, t in parts.values()),
+                sum(n * t for k, (n, t) in parts.items() if "netvlad" in k))
+
+    cfg, model = cs.kf_model("default", cs.SEED + 2300)
+    h, w = cs.KF_HW
+    rs2 = np.random.RandomState(cs.SEED + 2300)
+    frames = {b: rs2.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
+              for b in (1, 8)}
+    cs.kf_spread_scores(model, to_model_input(torch.from_numpy(frames[1])))
+    infer = make_infer_fn(model, cfg, h, w, device=dev, top_k=1000,
+                          conf_threshold=0.7)
+    for b in (1, 8):
+        request_ms(infer, frames[b], f"KF_default_B{b}")
+        out[f"request_device_KF_default_B{b}"], \
+            out[f"request_device_netvlad_KF_default_B{b}"] = nv_device(
+                lambda: infer(frames[b]))
+    kcfg, kstate = cs.kf_train_state("default", dev)
+    kstep = make_train_step(kcfg, *cs.KF_TRAIN_HW, io_top_k=300)
+    kbatch = {k: v.to(dev) for k, v in
+              cs.kf_train_batch(cs.SEED + 1900).items()}
+    times = []
+    for _ in range(15):
+        t0 = time.perf_counter()
+        kstep(kstate, kbatch, DEFAULT_LOSS_WEIGHTS)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["kf_train_step"] = statistics.median(times[5:])
+    out["kf_train_step_device"], out["kf_train_step_device_netvlad"] = \
+        nv_device(lambda: kstep(kstate, kbatch, DEFAULT_LOSS_WEIGHTS))
 if "stem" not in PARTS:
     print(json.dumps(out))
     sys.exit(0)
@@ -188,7 +305,8 @@ def main(argv) -> int:
     parts = "stem,int8"
     if len(argv) == 4 and argv[2] == "--parts":
         parts, argv = argv[3], argv[:2]
-    if len(argv) != 2 or not set(parts.split(",")) <= {"stem", "int8"}:
+    if len(argv) != 2 or not set(parts.split(",")) <= {"stem", "int8",
+                                                       "netvlad"}:
         print(__doc__, file=sys.stderr)
         return 2
     trees = {"parent": os.path.abspath(argv[0]),
