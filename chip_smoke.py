@@ -231,6 +231,17 @@ Phases, each of which raises (exit code != 0) on failure:
     set, card against CPU within 1e-3; ``export_model --format
     pt2|int8|mcu`` and ``export_onnx``, the pt2 program against
     make_export_fn;
+ 17b. parallel phase: two ranks sharing the card over gloo (start method
+    "spawn", the library built once before) run 3 data-parallel steps of
+    config S (120x160, global batch 4) against the single-process steps
+    on the card, pinned S8's offline VO over the corridor with its pairs
+    split over the ranks (BF and LightGlue) against ``relative_poses``,
+    pinned S8's eval fan-out at 240x320, and head-parallel LightGlue S and
+    "default" at K = 512 against the module's kernel forward; then the dp
+    step at world size 1 over NCCL and ``train_multitask --num_devices
+    2`` for 3 steps; ms a step (per rank, the gradient all-reduce's
+    share), a sequence, a pair, a batch and a forward, beside the card;
+    the kernels' launches on the ranks are the ``parallel`` path's;
  18. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
@@ -247,7 +258,8 @@ Phases, each of which raises (exit code != 0) on failure:
     ``lg_width``, ``train``, ``train_bf16``, ``scan_epoch``, ``visloc``
     and ``eval``; of phases 15 and 16: ``kf_tiny``, ``kf_default`` (and
     ``_bf16``), ``kf_eval``, ``kf_train_tiny``, ``kf_train_default`` (and
-    ``_bf16``), ``lg_train``; of phase 17: ``int8``; ``_kf`` /
+    ``_bf16``), ``lg_train``; of phase 17: ``int8``; of phase 17b:
+    ``parallel``, summed over the ranks; ``_kf`` /
     ``_kf_tiny`` keys KeypointFormer's shapes, ``_kf_train`` the forward
     at its train shape); ``int8_conv3x3``'s first
     path is ``int8``; ``netvlad_backward``'s first path is ``train``, its bf16
@@ -4555,6 +4567,272 @@ def int8_phase(dev, repo: str, kernels: dict) -> dict:
     return {"int8": launches}
 
 
+# ------------------------------------------------------------ parallel phase
+
+PARALLEL_RANKS = 2  # two ranks sharing the one card over gloo
+# the dp steps' later loss terms and final model BN statistics: the first
+# step moves weights whose gradient is near 0 by up to lr either way, and
+# the gated IO term's inputs are argmin associations (ROADMAP Queue 3)
+DP_LATER_GAP = 1e-2
+DP_LR = 5e-4  # the dp job's Adam learning rate
+
+
+def parallel_jobs(cor: Corridor) -> list:
+    """The parallel phase's jobs (``nanovs_slam_torch.dryrun.JOBS``) at
+    the slice's widths: 3 dp steps of config S (28 classes, 120x160,
+    global batch 4, Adam 5e-4 cosine, dropout on, top_k 300) on the train
+    phase's batch; pinned S8's offline VO over the corridor's 8 frames at
+    128x512 (BF and LightGlue, k = 1024, 8192 hypotheses x 3 restarts);
+    pinned S8's fan-out of 16 frames at 240x320 in batches of 8; LightGlue
+    S (pinned) and "default" (seeded) at K = 512, head parallel."""
+    import torch
+
+    from nanovs_slam_torch.vo.visual_odometry import prep_frame
+
+    h, w = TRAIN_HW
+    batch = {k: v.numpy() for k, v in train_batch(SEED).items()}
+    stack = torch.stack([prep_frame(f, VO_SIZE) for f in cor.frames])
+    vo = dict(frames=stack.cpu().numpy(), k=1024, n_hypotheses=8192,
+              restarts=3, cam=KITTI_HW[::-1], extract_chunk=OFFLINE_BATCH)
+    return [
+        ("dp", "dp_steps", dict(config="S", n_classes=28, H=h, W=w, steps=3,
+                                lr=DP_LR, cosine=(16, 20), batch=batch,
+                                grads=True, timing=True)),
+        ("vo_bf", "sharded_vo", dict(vo, matcher="bf")),
+        ("vo_lg", "sharded_vo", dict(vo, matcher="lightglue")),
+        ("fanout", "fanout", dict(pinned=True, H=H, W=W, n_items=16,
+                                  batch_size=8)),
+        ("tp_s", "tp_lightglue", dict(lg="pinned", K=512)),
+        ("tp_default", "tp_lightglue", dict(lg="default", K=512)),
+    ]
+
+
+def check_dp(name: str, got: dict, want: dict) -> dict:
+    """A data-parallel run against the single-process steps on the card.
+    The first step: its loss terms within 1e-4 of max(1, |term|) and
+    grad_norm within 1e-4 relative, its raw gradients within 5e-2 in
+    relative L2 (compare_train_steps's bounds); the state after it: the
+    BN statistics within 1e-5 of max(1, |value|) (the model's and the
+    inlier net's, as compare_train_steps holds BN buffers), the
+    parameters within 1e-5 where the single-process gradient is at least
+    1e-6 but for 1% of a tensor's such weights
+    (``dryrun.adam_step_offenders``). Later steps: their terms and the
+    final state's model BN statistics within DP_LATER_GAP (the first Adam
+    step sends a weight whose gradient is near 0 either way by lr, and the
+    steps after it drift from there), the parameters within 2 lr a
+    step."""
+    from nanovs_slam_torch.dryrun import (adam_step_offenders,
+                                          compare_states, compare_steps,
+                                          grad_rel_l2)
+
+    gaps, norms = compare_steps(got["metrics"], want["metrics"])
+    g_rel = grad_rel_l2(got["first"]["grads"], want["first"]["grads"])
+    first = compare_states(got["first"]["state"], want["first"]["state"])
+    off = adam_step_offenders(got["first"]["state"], want["first"]["state"],
+                              want["first"]["grads"])
+    st = compare_states(got["state"], want["state"])
+    res = {"loss_gaps": gaps, "grad_norm_gaps": norms, "grad_rel_l2": g_rel,
+           "first_state": first, "first_offenders": off, "state": st}
+    log(f"parallel {name}: against the single-process steps "
+        f"{json.dumps(res)}")
+    require(gaps[0] <= 1e-4 and norms[0] <= 1e-4,
+            f"parallel {name}: the first step {gaps[0]}, {norms[0]} apart")
+    require(g_rel <= 5e-2, f"parallel {name}: gradients {g_rel} apart")
+    require(first["model_bn"] <= 1e-5 and first["io_bn"] <= 1e-5 and not off,
+            f"parallel {name}: the states after the first step apart")
+    require(max(gaps) <= DP_LATER_GAP,
+            f"parallel {name}: later steps {gaps} apart")
+    require(st["params"] <= 2 * DP_LR * len(gaps)
+            and st["model_bn"] <= DP_LATER_GAP,
+            f"parallel {name}: final states {st} apart")
+    require(all(math.isfinite(m["total_loss"]) for m in got["metrics"]),
+            f"parallel {name}: a non-finite loss")
+    return res
+
+
+def nccl_dp_step(dev, job: tuple) -> dict:
+    """The dp job's first step at world size 1 over NCCL, in this
+    process: the group made and destroyed around it."""
+    import torch.distributed as dist
+
+    from nanovs_slam_torch.dryrun import run_jobs
+    from nanovs_slam_torch.parallel.distributed import free_port, initialize
+    from nanovs_slam_torch.parallel.mesh import make_mesh
+
+    name, kind, spec = job
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+               device=dev, timeout=120)
+    try:
+        return run_jobs(make_mesh(device=dev), [(name, kind, dict(
+            spec, steps=1))])[name]
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_trainer_clis(repo: str, card: str) -> None:
+    """``train_multitask --num_devices 2`` on the card (the synthetic set,
+    config S), two runs at once: 3 steps through the host loader, and 2
+    epochs of 3 steps through the card-resident one (``--device_cache``:
+    the state and the cache replicated once, each epoch's indices split).
+    Each run's first line says the ranks share the card over gloo; finite
+    losses; a checkpoint."""
+    import tempfile
+
+    runs = {"host loader": ([], 1), "device cache": (["--device_cache"], 2)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = {}
+        for tag, (flags, epochs) in runs.items():
+            out = os.path.join(tmp, tag.replace(" ", "_"))
+            os.makedirs(out)
+            procs[tag] = subprocess.Popen(
+                [sys.executable, "-m", "nanovs_slam_torch.train_multitask",
+                 "--num_devices", str(PARALLEL_RANKS), "--dataset_name",
+                 "synthetic", "--no_eval", "--batch_size", "4",
+                 "--synthetic_items", "12", "--max_steps_per_epoch", "3",
+                 "--n_epochs", str(epochs), "--log_every", "1",
+                 "--dist_timeout", "120", "--out_model_path",
+                 os.path.join(out, "ck")] + flags,
+                cwd=out, env={**os.environ,
+                              "PYTHONPATH": os.path.abspath(repo)},
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            done = {tag: p.communicate(timeout=300)
+                    for tag, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        secs = time.perf_counter() - t0
+        for tag, (stdout, stderr) in done.items():
+            name = f"parallel trainer CLI ({tag})"
+            code = procs[tag].returncode
+            require(code == 0, f"{name}: exit {code}\n{stdout[-2000:]}\n"
+                    f"{stderr[-3000:]}")
+            out = stdout.splitlines()
+            steps = [x for x in out if x.startswith("E") and " it" in x]
+            log(f"{name}: {out[0]!r}; {steps} [{card}]")
+            require(out[0].startswith(f"data parallel: {PARALLEL_RANKS} "
+                                      f"ranks") and "over gloo on cuda" in
+                    out[0] and "share" in out[0],
+                    f"{name}: first line {out[0]!r}")
+            require(len(steps) == 3 * runs[tag][1] and all(
+                math.isfinite(float(x.split()[3])) for x in steps),
+                f"{name}: steps {steps}")
+            require(os.path.exists(os.path.join(
+                tmp, tag.replace(" ", "_"), "ck.npz")),
+                f"{name}: no checkpoint")
+        log(f"parallel trainer CLI: both runs at once in {secs:.1f} s "
+            f"[{card}]")
+
+
+def parallel_phase(dev, repo: str, cor: Corridor) -> dict:
+    """Phase 18: the parallel layer on the card. Two ranks share it over
+    gloo (NCCL refuses two ranks on one card) and run ``parallel_jobs``;
+    this process runs the same jobs on one device as the reference: the
+    dp steps (check_dp, every rank's metrics and state alike), the sharded
+    VO against ``relative_poses`` (match and inlier counts equal, poses
+    within 1e-4), the fan-out against the plain infer (float outputs
+    within 1e-4, segmentation ids equal on 99.9%), TP LightGlue against
+    the module's kernel forward (the last layer's descriptors within 1e-4,
+    as the kernel to its twin; the log assignment within 1e-4 of max(1,
+    |value|): its terms reach tens, and the kernel's 3xTF32 against the
+    blocks' float32 moved it by 2.0e-4 absolute; matches equal on 99.9%).
+    Then the dp step at world size 1 over NCCL, and the trainer
+    CLI with two ranks (the host loader and, at the same time, the
+    card-resident one over two epochs). Prints the ms a step per rank and the gradient
+    all-reduce's share, the ms a sequence and a pair, a fan-out batch and
+    a TP forward, beside the card. Returns the ranks' launch counts (both
+    ranks, every job, the NCCL step too) as the ``parallel`` path."""
+    from nanovs_slam_torch.dryrun import (compare_outputs, compare_vo,
+                                          run_jobs)
+    from nanovs_slam_torch.parallel.distributed import (same_on_every_rank,
+                                                        spawn)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    jobs = parallel_jobs(cor)
+    t0 = time.perf_counter()
+    ranks = spawn(run_jobs, PARALLEL_RANKS, (jobs,), device=dev,
+                  backend="gloo", timeout=120, deadline=400)
+    log(f"parallel: {PARALLEL_RANKS} ranks over gloo sharing the card, "
+        f"their jobs in {time.perf_counter() - t0:.1f} s")
+    got = same_on_every_rank(ranks)
+    want = run_jobs(None, jobs, dev)
+    launches = {}
+    for r in ranks:
+        for job in r.values():
+            for k, n in job["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+
+    check_dp("dp", got["dp"], want["dp"])
+    for i, r in enumerate(ranks):
+        step, red = r["dp"]["step_ms"], r["dp"]["reduce_ms"]
+        log(f"parallel dp: rank {i} ms a step {[round(x, 3) for x in step]},"
+            f" the gradient all-reduce {[round(x, 3) for x in red]} "
+            f"(share {sum(red[1:]) / sum(step[1:]):.3f} after the first) "
+            f"[{card}]")
+    log(f"parallel dp: one process ms a step "
+        f"{[round(x, 3) for x in want['dp']['step_ms']]} [{card}]")
+    for tag in ("vo_bf", "vo_lg"):
+        c = compare_vo(got[tag], want[tag])
+        pairs = len(want[tag]["n_matches"])
+        log(f"parallel {tag}: sharded against relative_poses {json.dumps(c)}"
+            f"; matches {got[tag]['n_matches'].tolist()}; ms a sequence "
+            f"{ranks[0][tag]['ms']:.1f} and {ranks[1][tag]['ms']:.1f} "
+            f"(ranks), {want[tag]['ms']:.1f} (one process), ms a pair "
+            f"{ranks[0][tag]['ms'] / pairs:.2f} [{card}]")
+        require(c["matches_equal"] and c["inliers_equal"]
+                and c["R"] <= 1e-4 and c["t"] <= 1e-4,
+                f"parallel {tag}: {c}")
+    gf, wf = got["fanout"]["out"], want["fanout"]["out"]
+    floats = {k: v for k, v in wf.items() if v.dtype.kind == "f"}
+    gap = compare_outputs({k: gf[k] for k in floats}, floats)
+    seg = float((gf["seg"] == wf["seg"]).mean())
+    log(f"parallel fanout: {len(wf['score'])} frames, floats {gap:.3g} "
+        f"apart, seg ids equal on {seg:.5f}; ms a batch of 8 "
+        f"{ranks[0]['fanout']['ms']:.2f} (ranks), "
+        f"{want['fanout']['ms']:.2f} (one process) [{card}]")
+    require(gap <= 1e-4 and seg >= 0.999, "parallel fanout: outputs apart")
+    for tag in ("tp_s", "tp_default"):
+        g, wt = got[tag], want[tag]
+        desc = max(float(np.abs(g[k] - wt[k]).max())
+                   for k in ("descriptors0", "descriptors1"))
+        la = float((np.abs(g["log_assignment"] - wt["log_assignment"])
+                    / np.maximum(1.0, np.abs(wt["log_assignment"]))).max())
+        same = float((g["matches0"] == wt["matches0"]).mean())
+        log(f"parallel {tag}: against the kernel forward, descriptors "
+            f"{desc:.3g} apart, log assignment {la:.3g} (relative), "
+            f"matches equal on {same:.4f}; ms a forward "
+            f"{ranks[0][tag]['ms']:.2f} (2 ranks, plain blocks), "
+            f"{wt['ms']:.2f} (the kernel) [{card}]")
+        require(desc <= 1e-4 and la <= 1e-4 and same >= 0.999,
+                f"parallel {tag}: apart")
+
+    nccl = nccl_dp_step(dev, jobs[0])
+    gaps = {k: abs(nccl["metrics"][0][k] - want["dp"]["metrics"][0][k])
+            for k in want["dp"]["metrics"][0]}
+    log(f"parallel dp over NCCL at world size 1: first step against one "
+        f"process {json.dumps(gaps)}; ms {nccl['step_ms'][0]:.3f} (the "
+        f"first step of a new group) [{card}]")
+    require(all(v <= 1e-4 * max(1.0, abs(want["dp"]["metrics"][0][k]))
+                for k, v in gaps.items()), "parallel NCCL step: apart")
+    for k, n in nccl["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    parallel_trainer_clis(repo, card)
+
+    path = {k: launches[k] for k in ("fused_stem_pair_pool",
+                                     "fused_postprocess", "netvlad",
+                                     "netvlad_backward",
+                                     "lightglue_transformer")}
+    log(f"parallel: launches on the ranks {json.dumps(path)}")
+    require(all(n > 0 for n in path.values()),
+            f"parallel: a kernel of the path never launched {path}")
+    log(f"parallel: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"parallel": path}
+
+
 def main() -> int:
     import torch
 
@@ -4614,6 +4892,7 @@ def main() -> int:
     paths.update(keypoint_former_phase(dev, repo))
     paths.update(lightglue_train_phase(dev, repo))
     paths.update(int8_phase(dev, repo, kernels))
+    paths.update(parallel_phase(dev, repo, cor))
 
     lines = []
     for key, entry in kernels.items():

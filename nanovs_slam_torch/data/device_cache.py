@@ -49,14 +49,17 @@ def photometric_draws(B: int, generator: torch.Generator, device
 
 
 def _photometric(images: Tensor, generator: Optional[torch.Generator],
-                 augment: bool = True) -> Tensor:
+                 augment: bool = True, shard=None) -> Tensor:
     """Per-sample random grayscale (p = 0.2), then brightness and contrast
     jitter (contrast about the image's mean); (B, H, W, 3) in [0, 1] in and
-    out."""
+    out. ``shard`` = (rank, n): the images are rows rank of n equal shards
+    of a global batch, and take those rows of the global batch's draws."""
     if not augment:
         return images
-    u_gray, b, c = photometric_draws(images.shape[0], generator,
-                                     images.device)
+    B = images.shape[0]
+    rank, n = shard or (0, 1)
+    u_gray, b, c = (d[rank * B:(rank + 1) * B] for d in photometric_draws(
+        B * n, generator, images.device))
     luma = torch.tensor(_LUMA, dtype=images.dtype, device=images.device)
     gray = (images @ luma)[..., None]
     images = torch.where(u_gray < 0.2, gray, images)
@@ -69,14 +72,17 @@ def _photometric(images: Tensor, generator: Optional[torch.Generator],
 def _assemble(images: Tensor, segs: Tensor, depths: Optional[Tensor],
               idx: Tensor, homos: Tensor,
               generator: Optional[torch.Generator], d_f: int,
-              with_depth: bool, augment: bool) -> Dict[str, Tensor]:
+              with_depth: bool, augment: bool, shard=None
+              ) -> Dict[str, Tensor]:
     """One training batch from the cache, on its device: the gather of
     ``idx`` (B,), uint8 planes decoded, the photometric augment, the
-    homography pair for ``homos`` (B, 3, 3)."""
+    homography pair for ``homos`` (B, 3, 3). ``shard`` = (rank, n): the
+    batch is rows rank of n equal shards of a global batch (its augment
+    draws are those rows of the global batch's)."""
     imgs = images[idx]
     if imgs.dtype == torch.uint8:
         imgs = imgs.to(torch.float32) / 255.0
-    imgs = _photometric(imgs, generator, augment)
+    imgs = _photometric(imgs, generator, augment, shard)
     return build_pair_batch(imgs, segs[idx].to(torch.int64), homos,
                             depths[idx] if with_depth else None,
                             d_f=d_f, with_depth=with_depth)

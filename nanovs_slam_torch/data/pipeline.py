@@ -15,7 +15,7 @@ numpy: the card's machine has no cv2.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,12 +128,16 @@ class PairLoader:
     """Batches of a base dataset (items: image (H,W,3) [0,1] float32, seg
     (H,W) int, optional depth (H,W,1), all at (im_h, im_w)): host augments
     and homographies on the host, the pair built on ``device`` (default
-    "cuda")."""
+    "cuda"). ``rows`` = (r, n): only the r-th of n equal parts of each
+    batch (a data-parallel rank's rows of its host's batch) goes to the
+    device and is paired; the host still loads and draws for the whole
+    batch, from its one stream, so that the n parts together are the
+    batch one process would build."""
 
     def __init__(self, dataset, batch_size: int, im_h: int, im_w: int,
                  d_f: int = 2, train: bool = True, seed: int = 42069,
                  with_depth: bool = False, drop_last: bool = True,
-                 device=None):
+                 device=None, rows: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.im_h, self.im_w = im_h, im_w
@@ -143,6 +147,10 @@ class PairLoader:
         self.with_depth = with_depth
         self.drop_last = drop_last
         self.device = resolve_device(device)
+        if rows is not None and batch_size % rows[1]:
+            raise ValueError(f"batch {batch_size} does not split into "
+                             f"{rows[1]} parts")
+        self.rows = rows
 
     def __len__(self):
         n = len(self.dataset) // self.batch_size
@@ -161,7 +169,8 @@ class PairLoader:
 
     def host_batches(self) -> Iterator[Dict[str, Tensor]]:
         """The host half: per batch, CPU tensors images (B,H,W,3), segs
-        (B,H,W) int64, homographies (B,3,3) and, with depth, depths."""
+        (B,H,W) int64, homographies (B,3,3) and, with depth, depths (B / n
+        rows each with ``rows``)."""
         order = np.arange(len(self.dataset))
         if self.train:
             self.rng.shuffle(order)
@@ -187,6 +196,10 @@ class PairLoader:
             if self.with_depth:
                 hb["depths"] = torch.from_numpy(np.stack(depths).astype(
                     np.float32))
+            if self.rows is not None:
+                r, n = self.rows
+                hb = {k: v[r * B // n:(r + 1) * B // n]
+                      for k, v in hb.items()}
             yield hb
 
     def batches(self, prefetch: int = 0) -> Iterator[Dict[str, Tensor]]:

@@ -136,13 +136,17 @@ class SelfBlock(nn.Module):
 
     def forward(self, x: Tensor, enc: Tuple[Tensor, Tensor],
                 mask: Optional[Tensor] = None) -> Tensor:
-        B, N, d = x.shape
+        B, N, _ = x.shape
         h = self.heads
-        # torch packing: channel = h * (dh * 3) + dh_idx * 3 + {q,k,v}
-        qkv = self.Wqkv(x).reshape(B, N, h, d // h, 3).transpose(1, 2)
+        # torch packing: channel = h * (dh * 3) + dh_idx * 3 + {q,k,v}; the
+        # head width from the projection, so that a rank's share of the
+        # heads (parallel/tp.py) runs this block unchanged
+        qkv = self.Wqkv(x)
+        dh = qkv.shape[-1] // (3 * h)
+        qkv = qkv.reshape(B, N, h, dh, 3).transpose(1, 2)
         q, k, v = qkv[..., 0], qkv[..., 1], qkv[..., 2]
         q, k = apply_rotary(enc, q), apply_rotary(enc, k)
-        sim = q @ k.transpose(-1, -2) * (d // h) ** -0.5
+        sim = q @ k.transpose(-1, -2) * dh ** -0.5
         key_mask = None if mask is None else mask[:, None, None, :]
         ctx = _merge_heads(masked_softmax(sim, key_mask) @ v)
         return x + self.ffn(x, self.out_proj(ctx))
@@ -160,9 +164,9 @@ class CrossBlock(nn.Module):
     def forward(self, x0: Tensor, x1: Tensor, mask0: Optional[Tensor] = None,
                 mask1: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
         h = self.heads
-        s = (x0.shape[-1] // h) ** -0.5
         qk0 = _split_heads(self.to_qk(x0), h)
         qk1 = _split_heads(self.to_qk(x1), h)
+        s = qk0.shape[-1] ** -0.5  # the head width, as in SelfBlock
         v0 = _split_heads(self.to_v(x0), h)
         v1 = _split_heads(self.to_v(x1), h)
         sim = (qk0 * s ** 0.5) @ (qk1 * s ** 0.5).transpose(-1, -2)

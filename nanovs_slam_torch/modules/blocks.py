@@ -12,6 +12,10 @@ Counterparts of ``nanovs_slam_tpu/modules/blocks.py``:
 - ``Dropout2d``: channel dropout (whole channels, kept ones scaled by
   1/(1 - rate)) drawn from the ``generator`` that ``set_dropout`` gives it,
   a no-op in eval mode;
+- ``synced_batch``: the context of a data-parallel forward, in which each
+  rank holds a shard of the global batch: BatchNorm normalises with the
+  global batch's statistics and dropout keeps the rank's rows of the
+  global batch's mask;
 - ``l2_normalize``: ``x / max(sqrt(sum(x^2) + eps^2), eps)``;
 - ``pixel_unshuffle``: NHWC, the ordering of ``nn.PixelUnshuffle``;
 - ``Conv2d`` / ``ConvTranspose2d``: the layers with a compute dtype.
@@ -27,6 +31,7 @@ bfloat16 (``nn.BatchNorm2d`` computes so on a bfloat16 input), as flax's
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -43,7 +48,10 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     frameworks do), and the running variance averages the *biased* batch
     variance (flax), not the unbiased one (``nn.BatchNorm``). ``momentum``
     is torch's: new = (1 - m) old + m batch. ``dims`` are the reduced
-    dims of ``x``."""
+    dims of ``x``. Inside ``synced_batch`` the batch is the global one
+    (``_synced_batch_norm``)."""
+    if bn.batch_mesh is not None:
+        return _synced_batch_norm(bn, x, dims, bn.batch_mesh)
     y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
     with torch.no_grad():
         var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
@@ -53,9 +61,40 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     return y
 
 
+def _synced_batch_norm(bn, x: torch.Tensor, dims, mesh) -> torch.Tensor:
+    """``batch_norm_train`` over the global batch of which ``x`` is this
+    rank's equal shard (channels on dim 1). Each rank's per-channel mean
+    and centred sum of squares are gathered (one collective, whose
+    backward sums the ranks' partial gradients) and combined as Chan et
+    al.'s parallel variance does; the output is the float32 affine of
+    ``x`` against the global mean and biased variance, in ``x``'s dtype.
+    The running statistics take the global ones, as on one device."""
+    from ..parallel.mesh import gather_stats
+
+    xf = x.float()
+    shape = [1] * x.dim()
+    shape[1] = x.shape[1]
+    n = xf.numel() // x.shape[1]
+    mean_i = xf.mean(dim=dims)
+    m2_i = ((xf - mean_i.reshape(shape)) ** 2).sum(dim=dims)
+    stats = gather_stats(mesh, torch.stack([mean_i, m2_i])[None])
+    mean = stats[:, 0].mean(0)
+    m2 = (stats[:, 1] + n * (stats[:, 0] - mean) ** 2).sum(0)
+    var = m2 / (n * mesh.size)
+    y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + bn.eps)
+    y = y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
+        bn.num_batches_tracked += 1
+    return y.to(x.dtype)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (NCHW) with flax's running statistics in train
     mode (``batch_norm_train``); eval mode is ``nn.BatchNorm2d``'s."""
+
+    batch_mesh = None  # set inside ``synced_batch``
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -66,6 +105,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 class BatchNorm1d(nn.BatchNorm1d):
     """``nn.BatchNorm1d`` over the last dim of a (..., C) tensor, with
     flax's running statistics in train mode (``batch_norm_train``)."""
+
+    batch_mesh = None  # set inside ``synced_batch``
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
@@ -80,7 +121,10 @@ class Dropout2d(nn.Module):
     is kept with probability 1 - rate and scaled by 1 / (1 - rate), else
     zeroed, as flax's ``Dropout(broadcast_dims=(1, 2))`` does in NHWC.
     The keep mask is drawn from ``generator`` (on the input's device; the
-    device's default generator where it is None)."""
+    device's default generator where it is None); inside ``synced_batch``
+    it is the global batch's mask, of which the rank keeps its rows."""
+
+    batch_mesh = None  # set inside ``synced_batch``
 
     def __init__(self, rate: float = 0.2):
         super().__init__()
@@ -92,9 +136,13 @@ class Dropout2d(nn.Module):
                 or isinstance(x, quant.QTensor)):
             return x  # a chained int8 tensor only flows at inference
         keep = 1.0 - self.rate
-        mask = torch.empty(x.shape[:2] + (1,) * (x.dim() - 2),
+        mesh, B = self.batch_mesh, x.shape[0]
+        n = 1 if mesh is None else mesh.size
+        mask = torch.empty((B * n,) + x.shape[1:2] + (1,) * (x.dim() - 2),
                            device=x.device, dtype=x.dtype)
         mask.bernoulli_(keep, generator=self.generator)
+        if mesh is not None:
+            mask = mask[mesh.rank * B:(mesh.rank + 1) * B]
         return x * mask / keep
 
 
@@ -107,6 +155,25 @@ def set_dropout(module: nn.Module, rate: Optional[float] = None,
             m.generator = generator
             if rate is not None:
                 m.rate = rate
+
+
+@contextlib.contextmanager
+def synced_batch(module: nn.Module, mesh):
+    """Within the context, ``module``'s forwards in train mode take their
+    input as this rank's equal shard (rows ``mesh.rank`` of ``mesh.size``)
+    of a global batch: every BatchNorm normalises with, and keeps running
+    averages of, the global batch's statistics, and every Dropout2d keeps
+    the rank's rows of the mask it would draw for the global batch. The
+    ranks' generators must be seeded alike."""
+    mods = [m for m in module.modules()
+            if isinstance(m, (BatchNorm2d, BatchNorm1d, Dropout2d))]
+    for m in mods:
+        m.batch_mesh = mesh
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.batch_mesh = None
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

@@ -15,6 +15,10 @@ schedule read at the step count before the update (as optax does).
 inlier net) fake-quantised to int8 per output channel, with a
 straight-through gradient to the float weights.
 
+``parallel`` (``parallel.data_parallel.DataParallel``) makes the step a
+data-parallel one: each rank forwards its shard of the global batch and
+the step equals the single-device step on the global batch (see there).
+
 ``freeze_backbone`` keeps the backbone out of the optimizer (the JAX
 package zeroes its updates after the optimizer, which for adamw also
 skips the weight decay; leaving the parameters out does the same). Its
@@ -23,6 +27,7 @@ gradients are still computed and counted in ``grad_norm``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional
@@ -145,16 +150,18 @@ def global_norm(tensors) -> torch.Tensor:
 def make_train_step(cfg: KP2DTinyConfig, H: int, W: int,
                     train_flags: Optional[Dict[str, bool]] = None,
                     io_top_k: int = 300, watch_gradients: bool = False,
-                    qat: bool = False):
+                    qat: bool = False, parallel=None):
     """Returns train_step(state, batch, weights) -> (state, metrics) for
     the state's model and inlier net (no IO loss where it has none), with
     int8 fake-quantised kernels in the forwards where ``qat``.
 
     batch: image / image_aug (B,H,W,3) in [-1,1], seg / seg_aug (B,hs,ws)
     int, homography (B,3,3), optional depth / depth_aug (B,hs,ws,1), on
-    the model's device. The state is updated in place and returned;
-    metrics are 0-d tensors on the device (no host sync)."""
+    the model's device (with ``parallel``: this rank's rows of the global
+    batch). The state is updated in place and returned; metrics are 0-d
+    tensors on the device (no host sync)."""
     n_cells = (H // cfg.cell) * (W // cfg.cell)
+    dp = parallel
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    weights: LossWeights):
@@ -162,10 +169,14 @@ def make_train_step(cfg: KP2DTinyConfig, H: int, W: int,
         if state.io_net is not None:
             state.io_net.train()
         fq = quant.qat_params(state.model) if qat else {}
-        out_aug = _nhwc(torch.func.functional_call(
-            state.model, fq, (batch["image_aug"].permute(0, 3, 1, 2),)))
-        out = _nhwc(torch.func.functional_call(
-            state.model, fq, (batch["image"].permute(0, 3, 1, 2),)))
+        with (dp.forwards(state.model) if dp else contextlib.nullcontext()):
+            out_aug = _nhwc(torch.func.functional_call(
+                state.model, fq, (batch["image_aug"].permute(0, 3, 1, 2),)))
+            out = _nhwc(torch.func.functional_call(
+                state.model, fq, (batch["image"].permute(0, 3, 1, 2),)))
+        if dp:  # the loss tail runs on the global batch on every rank
+            out_aug, out = dp.gather_outputs(out_aug), dp.gather_outputs(out)
+            batch = dp.gather_labels(batch)
         out_aug = post_process(out_aug, H, W, cfg.cell, cfg.cross_ratio,
                                eval_mode=False)
         out = post_process(out, H, W, cfg.cell, cfg.cross_ratio,
@@ -181,6 +192,8 @@ def make_train_step(cfg: KP2DTinyConfig, H: int, W: int,
             p.grad = None
         total.backward()
         grads = [(k, p.grad) for k, p in named if p.grad is not None]
+        if dp:
+            dp.reduce_gradients(grads)
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["grad_norm"] = global_norm(g for _, g in grads)
         if watch_gradients:

@@ -12,7 +12,9 @@ package's ``train_multitask.py``, with its flags and defaults:
         [--ckpt_every N] [--lr_scheduler none|step|cosine|plateau]
         [--watch_gradients] [--no_eval] [--eval_every 1] [--full_eval 3]
         [--max_eval_items 16] [--debug] [--bf16] [--device_cache]
-        [--scan_epoch] [--qat] [--to_mcu]
+        [--scan_epoch] [--qat] [--to_mcu] [--num_devices N]
+        [--coordinator_address HOST:PORT --num_processes P --process_id I]
+        [--dist_timeout 1800]
 
 It runs on ``--device`` (default cuda; a machine without a card needs
 ``--device cpu``). Without the dataset named in datasets.json it trains
@@ -46,8 +48,27 @@ freezes a top-level ``backbone``, which KeypointFormer's tree lacks.
 a straight-through gradient; the inlier net stays float), and ``--to_mcu``
 trains the MCU export variant (convtranspose upsample, plain ReLU), whose
 checkpoint ``python -m nanovs_slam_torch.export_model --to_mcu --format
-mcu`` bundles. Flags whose modules the port does not have yet raise,
-naming their ROADMAP item: ``--wandb`` and the multi-process flags.
+mcu`` bundles. ``--wandb`` raises, naming its ROADMAP item.
+
+Data parallel (``parallel/data_parallel.py``): ``--num_devices N`` trains
+on N ranks in all, each a process of its own (start method "spawn") with
+one device; the step is the single-device step on the global batch
+``--batch_size``. On one host the ranks take the cards in turn, and where
+there are fewer cards than ranks they share them over gloo (the run says
+so on its first line). ``--coordinator_address``, ``--num_processes`` and
+``--process_id`` join P hosts (processes of this CLI), each spawning N / P
+ranks (default N = P). Each host's loader is seeded with seed + 1000 *
+process_id, as the JAX CLI seeds its processes, loads the host's share of
+the global batch, and each rank takes its rows of it. Rank 0 alone
+prints, writes ``metrics.jsonl``, evaluates and saves checkpoints.
+``--device_cache`` runs the epoch through ``shard_epoch_inputs`` on one
+host and exits with more than one process, as the JAX CLI does. A
+collective that waits ``--dist_timeout`` seconds raises. Started by a
+launcher (torchrun, SLURM or Open MPI) without these flags, every process
+of the launch is one rank of its group, on the card of its local rank
+(``parallel.distributed.initialize`` reads the layout and, from
+MASTER_ADDR / MASTER_PORT, the address; NCCL on cards, so each process
+needs a card of its own).
 """
 
 from __future__ import annotations
@@ -75,14 +96,6 @@ SYNTHETIC_CONFIG = dict(lr=0.0005, n_classes=8, im_h=96, im_w=128,
 DEFERRED = {
     "wandb": "the port logs to metrics.jsonl only (wandb: ROADMAP Queue 1 "
              "item 7, utils)",
-    "num_devices": "data parallel training waits in ROADMAP Queue 1 item 7 "
-                   "(parallel)",
-    "coordinator_address": "multi-process training waits in ROADMAP Queue 1 "
-                           "item 7 (parallel)",
-    "num_processes": "multi-process training waits in ROADMAP Queue 1 item "
-                     "7 (parallel)",
-    "process_id": "multi-process training waits in ROADMAP Queue 1 item 7 "
-                  "(parallel)",
 }
 
 
@@ -154,6 +167,8 @@ def parse_args(argv=None):
                         "<out_model_path>_media/ (needs cv2)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("--dist_timeout", type=float, default=1800.0,
+                   help="seconds a collective waits before it raises")
     return p.parse_args(argv)
 
 
@@ -165,6 +180,39 @@ def check_supported(args) -> None:
     if args.scan_epoch and not args.device_cache:
         raise SystemExit("--scan_epoch assembles batches from the HBM "
                          "dataset cache; it requires --device_cache")
+    ranks, procs = parallel_layout(args)
+    if args.device_cache and procs > 1:
+        raise SystemExit("--device_cache assembles batches on the local "
+                         "device set and is single-process only; drop it "
+                         "for multi-host runs")
+    if args.batch_size % ranks:
+        raise SystemExit(f"--batch_size {args.batch_size} does not split "
+                         f"over {ranks} ranks")
+
+
+def parallel_layout(args):
+    """(ranks in all, processes): ``--num_devices`` (default: one rank a
+    process) over ``--num_processes`` (default 1); the ranks must split
+    evenly over the processes."""
+    procs = args.num_processes or 1
+    ranks = args.num_devices or procs
+    if ranks % procs:
+        raise SystemExit(f"--num_devices {ranks} does not split over "
+                         f"{procs} processes")
+    if procs > 1 and (args.coordinator_address is None
+                      or args.process_id is None):
+        raise SystemExit("--num_processes > 1 needs --coordinator_address "
+                         "and --process_id")
+    return ranks, procs
+
+
+def launched(args) -> bool:
+    """Whether a launcher (torchrun, SLURM, Open MPI) started this process
+    as one rank of its group and the flags give no layout of their own."""
+    from nanovs_slam_torch.parallel.distributed import _pod_env
+
+    return _pod_env() is not None and args.num_devices is None \
+        and args.num_processes is None and args.process_id is None
 
 
 def build_config(args, n_classes: int):
@@ -504,7 +552,85 @@ def synthetic_homography_pairs(dataset, size, n_items, device=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if launched(args):
+        return train_launched(args)
     check_supported(args)
+    ranks, procs = parallel_layout(args)
+    if ranks == 1:
+        return train(args)
+    from nanovs_slam_torch.parallel.distributed import (free_port, spawn,
+                                                        spawn_backend)
+    from nanovs_slam_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    local = ranks // procs
+    backend = spawn_backend(dev, local)
+    shared = (dev.type == "cuda" and backend == "gloo")
+    print(f"data parallel: {ranks} ranks, {local} on process "
+          f"{args.process_id or 0} of {procs}, over {backend} on {dev.type}"
+          + (f"; {local} ranks share {torch.cuda.device_count()} card(s)"
+             if shared else ""), flush=True)
+    if dev.type == "cuda":
+        from nanovs_slam_torch.kernels import _build
+
+        _build.load_library()  # once, before the ranks start
+    spawn(train_rank, local, (args,), device=dev, backend=backend,
+          timeout=args.dist_timeout,
+          address=args.coordinator_address or f"127.0.0.1:{free_port()}",
+          world=ranks, rank0=(args.process_id or 0) * local)
+
+
+def train_launched(args) -> None:
+    """This process as one rank of a launcher's group, joined by
+    ``initialize`` from the launcher's environment: the process is the
+    host of its one rank (``--process_id``, ``--num_processes`` and
+    ``--num_devices`` from the launch, ``--coordinator_address`` from
+    MASTER_ADDR / MASTER_PORT unless given)."""
+    import torch.distributed as dist
+
+    from nanovs_slam_torch.parallel.distributed import (_pod_env,
+                                                        default_backend,
+                                                        global_mesh,
+                                                        initialize,
+                                                        local_rank,
+                                                        rank_device)
+    from nanovs_slam_torch.utils.device import resolve_device
+
+    args.process_id, args.num_processes = _pod_env()
+    args.num_devices = args.num_processes
+    if args.coordinator_address is None and os.environ.get("MASTER_ADDR"):
+        args.coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
+                                    f"{os.environ.get('MASTER_PORT', '')}")
+    check_supported(args)
+    dev = rank_device(resolve_device(args.device), local_rank())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = default_backend(dev)
+    initialize(args.coordinator_address, backend=backend, device=dev,
+               timeout=args.dist_timeout)
+    try:
+        if args.process_id == 0:
+            print(f"data parallel: {args.num_devices} ranks, 1 on process "
+                  f"0 of {args.num_processes}, over {backend} on "
+                  f"{dev.type}", flush=True)
+        train_rank(global_mesh(device=dev), args)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_rank(mesh, args) -> None:
+    """One rank of a data-parallel run: ranks other than 0 print
+    nothing."""
+    import sys
+
+    if mesh.rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    train(args, mesh)
+
+
+def train(args, mesh=None):
+    """The training run, on ``mesh``'s ranks (this process one of them)
+    or, where None, in this process on ``--device``."""
     from nanovs_slam_torch.data.pipeline import PairLoader
     from nanovs_slam_torch.models.inlier_net import init_inlier_net
     from nanovs_slam_torch.modules.blocks import set_dropout
@@ -522,7 +648,12 @@ def main(argv=None):
     from nanovs_slam_torch.utils.device import resolve_device
     from nanovs_slam_torch.utils.logging import MetricLogger
 
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0  # prints, logs, evaluates, saves
+    procs = args.num_processes or 1
+    host_bs = args.batch_size // procs  # this host's share of the batch
+    local = 1 if mesh is None else mesh.size // procs
+    local_rank = 0 if mesh is None else mesh.rank % local
     train_config = {"cocostuff": COCOSTUFF_CONFIG,
                     "cityscapes": CITYSCAPES_CONFIG,
                     "synthetic": SYNTHETIC_CONFIG}[args.dataset_name].copy()
@@ -559,16 +690,20 @@ def main(argv=None):
         from nanovs_slam_torch.data.device_cache import \
             DeviceCachedPairLoader
 
-        loader = DeviceCachedPairLoader(dataset, args.batch_size, H, W,
+        loader = DeviceCachedPairLoader(dataset, host_bs, H, W,
                                         d_f=cfg.cell // 2, train=True,
                                         seed=args.seed,
                                         with_depth=args.depth, device=dev)
         print(f"device cache: {loader.n} items, "
               f"{loader.nbytes() / 1e6:.1f} MB resident on {dev}")
     else:
-        loader = PairLoader(dataset, args.batch_size, H, W,
-                            d_f=cfg.cell // 2, train=True, seed=args.seed,
-                            with_depth=args.depth, device=dev)
+        # each host draws its own augments, as the JAX CLI seeds them
+        loader = PairLoader(dataset, host_bs, H, W,
+                            d_f=cfg.cell // 2, train=True,
+                            seed=args.seed + 1000 * (args.process_id or 0),
+                            with_depth=args.depth, device=dev,
+                            rows=None if mesh is None else (local_rank,
+                                                            local))
     steps_per_epoch = len(loader)
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
@@ -606,24 +741,35 @@ def main(argv=None):
         print(f"Restored model from {args.model_path} "
               f"(epoch {meta.get('epoch')})")
 
-    step_fn = make_train_step(cfg, H, W, train_flags=train_flags,
-                              io_top_k=args.top_k,
-                              watch_gradients=args.watch_gradients,
-                              qat=args.qat)
+    step_kw = dict(train_flags=train_flags, io_top_k=args.top_k,
+                   watch_gradients=args.watch_gradients, qat=args.qat)
+    if mesh is not None:
+        from nanovs_slam_torch.parallel.data_parallel import \
+            make_dp_train_step
+        from nanovs_slam_torch.parallel.mesh import (broadcast, replicate,
+                                                     shard_batch)
+
+        step_fn, _ = make_dp_train_step(mesh, cfg, H, W, **step_kw)
+        state = replicate(mesh, state)
+    else:
+        step_fn = make_train_step(cfg, H, W, **step_kw)
     epoch_fn = None
     if args.device_cache:
         from nanovs_slam_torch.train.scan_epoch import (make_epoch_fn,
+                                                        shard_epoch_inputs,
                                                         weights_as_arrays)
 
         epoch_fn = make_epoch_fn(step_fn, d_f=cfg.cell // 2,
-                                 with_depth=args.depth, augment=True)
+                                 with_depth=args.depth, augment=True,
+                                 mesh=mesh)
     config_blob = {"input_args": vars(args), "train_config": train_config,
                    "size": size,
                    "model_config": getattr(cfg, "name", args.config),
                    "variant": getattr(cfg, "variant", args.model_type),
                    "loss_weights_schedule": args.loss_schedule,
-                   "device": str(dev)}
-    logger = MetricLogger(config=config_blob)
+                   "device": str(dev),
+                   "ranks": 1 if mesh is None else mesh.size}
+    logger = MetricLogger(config=config_blob) if lead else None
 
     results = {}
     losses = []
@@ -634,7 +780,8 @@ def main(argv=None):
 
     def log_step(epoch, i, m):
         losses.append(m["total_loss"])
-        logger.log_dict("loss/", m, step=epoch * steps_per_epoch + i)
+        if logger is not None:
+            logger.log_dict("loss/", m, step=epoch * steps_per_epoch + i)
         print(f"E{epoch} it{i}/{steps_per_epoch} "
               f"loss {m['total_loss']:.4f} "
               f"seg {m.get('seg_loss', 0):.4f} "
@@ -651,9 +798,20 @@ def main(argv=None):
             # the epoch's indices and homographies go up once; its stacked
             # metrics come back once, at its end
             idx_all, homos_all, gen = loader.epoch_arrays(epoch)
+            idx_all = idx_all[:steps_per_epoch]
+            homos_all = homos_all[:steps_per_epoch]
+            if mesh is None:
+                cache = loader.cache_arrays()
+            elif epoch == args.start_epoch:
+                # the state and the cache replicated once (in place), each
+                # rank its columns of the batch
+                state, cache, idx_all, homos_all = shard_epoch_inputs(
+                    mesh, state, loader.cache_arrays(), idx_all, homos_all)
+            else:  # later epochs split only their indices and homographies
+                idx_all, homos_all = shard_batch(mesh, (idx_all, homos_all),
+                                                 dim=1)
             state, stack = epoch_fn(
-                state, loader.cache_arrays(), idx_all[:steps_per_epoch],
-                homos_all[:steps_per_epoch],
+                state, cache, idx_all, homos_all,
                 weights_as_arrays(weights, dev), gen)
             stack = {k: v.tolist() for k, v in stack.items()}
             for i in range(steps_per_epoch):
@@ -670,7 +828,7 @@ def main(argv=None):
                     log_step(epoch, i,
                              {k: float(v) for k, v in metrics.items()})
 
-        if not args.no_eval and (epoch + 1) % args.eval_every == 0:
+        if lead and not args.no_eval and (epoch + 1) % args.eval_every == 0:
             results = evaluate_model(state.model, cfg, dataset_val, size,
                                      args, train_flags, epoch)
             flat = {f"{task}/{k}": v for task, r in results.items()
@@ -682,16 +840,21 @@ def main(argv=None):
 
         if plateau_ctl is not None:
             metric = plateau_metric(results, losses)
+            if mesh is not None:  # rank 0's evaluation decides
+                metric = float(broadcast(mesh, torch.tensor(
+                    [metric], dtype=torch.float64, device=dev))[0])
             new_lr = plateau_ctl.step(metric)
             if not math.isclose(new_lr, get_learning_rate(state),
                                 rel_tol=1e-5):
                 print(f"E{epoch} plateau: metric {metric:.4f} stalled, "
                       f"lr -> {new_lr:.2e}")
                 set_learning_rate(state, new_lr)
-            logger.log_dict("scheduler/", {"lr": new_lr}, step=state.step)
+            if logger is not None:
+                logger.log_dict("scheduler/", {"lr": new_lr},
+                                step=state.step)
 
-        if ((epoch + 1) % ckpt_every == 0
-                or epoch + 1 == train_config["n_epochs"]):
+        if lead and ((epoch + 1) % ckpt_every == 0
+                     or epoch + 1 == train_config["n_epochs"]):
             path = save_checkpoint(args.out_model_path, state,
                                    config=config_blob, epoch=epoch + 1,
                                    results=results)

@@ -14,6 +14,11 @@ the whole trajectory in three device stages instead of a frame loop.
    so that a pair's stream does not depend on which pairs ran before it
    (the property ``jax.random.fold_in(key, i)`` gives the JAX package).
 
+``relative_poses_sharded`` splits the pairs over a mesh's ranks: each rank
+extracts only its pairs' frames and runs their match and pose maps with
+their global pair indices (so their RANSAC streams are those of
+``relative_poses``), and every rank gets all the poses.
+
 The host then integrates the relative poses with the ground truth's scale
 and computes the reference's error statistics. The JAX package runs each
 map as one ``lax.map`` program; here each is a loop of device calls that
@@ -42,8 +47,6 @@ PAIR_BATCH_NOT_PORTED = (
     "pair_batch > 1 (the JAX package's vmapped pose map, measured slower "
     "than 1 on its chip) is not ported: ROADMAP.md, 'Later kernel and perf "
     "work', the device RANSAC")
-SHARDED_NOT_PORTED = ("relative_poses_sharded (pairs over several devices) "
-                      "is not ported yet: ROADMAP.md Queue 1 item 7")
 
 
 def pair_generator(seed: int, i: int, device) -> torch.Generator:
@@ -212,15 +215,17 @@ class OfflineVO:
 
     @torch.inference_mode()
     def pose_map(self, kpn0: Tensor, kpn1: Tensor, valid: Tensor,
-                 seed: int = 0):
+                 seed: int = 0, pair_index=None):
         """Correspondences of T-1 pairs -> (R (T-1, 3, 3), t (T-1, 3),
         n_inliers (T-1,), n_matches (T-1,)) on the device, by the device
-        RANSAC in float64, pair i from ``pair_generator(seed, i)``."""
+        RANSAC in float64, pair i from ``pair_generator(seed,
+        pair_index[i])`` (default: i)."""
         out = []
         for i in range(kpn0.shape[0]):
+            g = i if pair_index is None else int(pair_index[i])
             R, t, inl = ransac_essential_device(
                 kpn0[i].double(), kpn1[i].double(),
-                pair_generator(seed, i, self.device), valid=valid[i],
+                pair_generator(seed, g, self.device), valid=valid[i],
                 n_hypotheses=self.n_hypotheses, restarts=self.restarts)
             out.append((R, t[:, 0], inl.sum(), valid[i].sum()))
         return tuple(torch.stack(parts) for parts in zip(*out))
@@ -232,8 +237,29 @@ class OfflineVO:
         return tuple(a.cpu().numpy() for a in out)
 
     def relative_poses_sharded(self, frames, mesh, seed: int = 0):
-        """Pairs over several devices: not ported yet."""
-        raise NotImplementedError(SHARDED_NOT_PORTED)
+        """``relative_poses`` with the pairs split over ``mesh``'s first
+        axis (this VO on the rank's device). The pair count is padded to a
+        multiple of the ranks by repeating the last pair; each rank takes
+        a contiguous run of pairs, extracts only their frames, and runs
+        their matches and poses, pair i drawing from ``pair_generator(seed,
+        i)`` with its global index; the results are gathered on every rank
+        and the pads dropped. Match sets equal ``relative_poses``'s; poses
+        equal them up to MSAC's ties between near-equal hypotheses."""
+        from ..parallel.mesh import all_gather_rows
+
+        mesh = mesh.axis(mesh.axis_names[0])
+        n_pairs = len(frames) - 1
+        per = -(-n_pairs // mesh.size)
+        index = [min(i, n_pairs - 1) for i in range(per * mesh.size)]
+        mine = index[mesh.rank * per:(mesh.rank + 1) * per]
+        lo = mine[0]
+        kpn0, kpn1, valid = self.match_map(
+            self.extract(frames[lo:mine[-1] + 2]))
+        sel = torch.tensor([i - lo for i in mine], device=self.device)
+        out = self.pose_map(kpn0[sel], kpn1[sel], valid[sel], seed=seed,
+                            pair_index=mine)
+        return tuple(all_gather_rows(mesh, a)[:n_pairs].cpu().numpy()
+                     for a in out)
 
 
 def offline_results(gt, R, t, n_inliers, n_matches,

@@ -240,8 +240,17 @@ def test_epoch_fn_takes_its_dropout_generator():
 
 
 def test_shard_epoch_inputs_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        shard_epoch_inputs(None, None, None, None, None)
+    """shard_epoch_inputs is ported (it raised, naming ROADMAP Queue 1
+    item 7): as the JAX one, it refuses a batch that the mesh's first axis
+    does not divide, naming both (tests/test_torch_port_parallel.py runs
+    its epoch on two ranks)."""
+    from nanovs_slam_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(None, (0, 1), 0, torch.device("cpu"), ("data",), (2,))
+    with pytest.raises(ValueError, match="batch 3 not divisible by mesh "
+                       "axis 'data' size 2"):
+        shard_epoch_inputs(mesh, None, None, torch.zeros(2, 3),
+                           torch.zeros(2, 3, 3, 3))
 
 
 @pytest.mark.parametrize("flags", [

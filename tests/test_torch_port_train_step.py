@@ -320,14 +320,15 @@ def test_checkpoint_loads_in_jax_and_gives_the_same_forward(one_step,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num_devices", "2"], "item 7"), (["--num_processes", "2"], "item 7"),
-    (["--coordinator_address", "localhost:1"], "item 7"),
-    (["--process_id", "1"], "item 7"), (["--wandb"], "item 7"),
+    (["--num_devices", "2", "--wandb"], "item 7"),
+    (["--num_processes", "2", "--wandb"], "item 7"),
+    (["--coordinator_address", "localhost:1", "--wandb"], "item 7"),
+    (["--process_id", "1", "--wandb"], "item 7"), (["--wandb"], "item 7"),
     (["--model_type", "KeypointFormer", "--wandb"], "item 7")])
 def test_cli_rejects_deferred_flags(flags, item):
     """Each flag whose module the port lacks raises, naming its ROADMAP
-    item (KeypointFormer is ported: with it, a deferred flag still
-    raises)."""
+    item (KeypointFormer and the data-parallel flags are ported: with
+    them, a deferred flag still raises)."""
     from nanovs_slam_torch.train_multitask import check_supported, parse_args
 
     with pytest.raises(SystemExit, match=item):
