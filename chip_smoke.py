@@ -242,6 +242,24 @@ Phases, each of which raises (exit code != 0) on failure:
     2`` for 3 steps; ms a step (per rank, the gradient all-reduce's
     share), a sequence, a pair, a batch and a forward, beside the card;
     the kernels' launches on the ranks are the ``parallel`` path's;
+ 17c. spatial phase: four ranks sharing the card over gloo run pinned
+    S8's 240x320 request (make_spatial_infer_fn, batch 1) with its height
+    split over 2 ranks and over 4 (slabs at multiples of 8 rows, halos
+    exchanged by all-reduces, the stem kernel on each rank's extended
+    slab, NetVLAD and the postprocess on the gathered maps) against the
+    single-process make_infer_fn request on the card (score, coord, the
+    sampled descriptors and vlad within 1e-4, classes equal on 99.9%), ms
+    a request beside it; 2 steps of config S (120x160, global batch 4) on
+    a 2x2 ("data", "model") mesh (uneven slabs of 56 and 64 rows) against
+    the single-process steps (check_dp); a reference-named ``.ckpt`` of
+    pinned S8 written by ``utils/torch_export`` and evaluated by
+    ``python -m nanovs_slam_torch.eval_multitask --model_path x.ckpt``,
+    equal to the ``.npz``'s evaluation; ``python -m
+    nanovs_slam_torch.demo`` on 4 synthetic frames; and a bf16 LightGlue
+    pair (pinned S, K = 512: the plain blocks, no kernel) against the
+    CPU's bf16 pair and the card's float32 kernel pair (the CPU test's
+    criterion); the kernels' launches on the ranks are the ``spatial``
+    path's;
  18. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
@@ -259,7 +277,7 @@ Phases, each of which raises (exit code != 0) on failure:
     and ``eval``; of phases 15 and 16: ``kf_tiny``, ``kf_default`` (and
     ``_bf16``), ``kf_eval``, ``kf_train_tiny``, ``kf_train_default`` (and
     ``_bf16``), ``lg_train``; of phase 17: ``int8``; of phase 17b:
-    ``parallel``, summed over the ranks; ``_kf`` /
+    ``parallel``, of phase 17c ``spatial``, summed over the ranks; ``_kf`` /
     ``_kf_tiny`` keys KeypointFormer's shapes, ``_kf_train`` the forward
     at its train shape); ``int8_conv3x3``'s first
     path is ``int8``; ``netvlad_backward``'s first path is ``train``, its bf16
@@ -4833,6 +4851,245 @@ def parallel_phase(dev, repo: str, cor: Corridor) -> dict:
     return {"parallel": path}
 
 
+# ------------------------------------------------------------- spatial phase
+
+SPATIAL_RANKS = 4  # ranks sharing the card; the 2-rank request uses two
+
+
+def spatial_jobs() -> list:
+    """The spatial phase's jobs (``nanovs_slam_torch.dryrun.JOBS``):
+    pinned S8's 240x320 request at batch 1 (a synthetic-shapes frame,
+    five timed calls after one) with its height over 2 and over 4 ranks;
+    2 steps of config S (28 classes, 120x160, global batch 4, Adam 5e-4,
+    dropout on) on a (2, 2) ("data", "model") mesh."""
+    from nanovs_slam_torch.dryrun import shifted_frames
+
+    req = dict(pinned=True, frames=shifted_frames(1, H, W), request=True,
+               repeats=5)
+    h, w = TRAIN_HW
+    batch = {k: v.numpy() for k, v in train_batch(SEED).items()}
+    return [("sp2", "sp_forward", dict(req, ranks=2)),
+            ("sp4", "sp_forward", dict(req, ranks=4)),
+            ("sp_train", "dp_steps", dict(
+                config="S", n_classes=28, H=h, W=w, steps=2, lr=DP_LR,
+                batch=batch, grads=True, timing=True, spatial=True))]
+
+
+def spatial_clis(repo: str, card: str) -> None:
+    """At once: ``eval_multitask --keypoints`` (120x160, a synthetic
+    HPatches sequence, 2 pairs, top_k 300) of pinned S8 from a
+    reference-named ``.ckpt`` that ``utils/torch_export`` writes and from
+    the ``.npz``, whose results must agree within 1e-6; and ``python -m
+    nanovs_slam_torch.demo`` (pinned S8, 240x320) on 4 synthetic frames,
+    which must write 4 frames of keypoints over classes."""
+    import tempfile
+
+    import cv2
+    import torch
+
+    from nanovs_slam_torch.configs import get_config
+    from nanovs_slam_torch.dryrun import shifted_frames
+    from nanovs_slam_torch.models.kp2dtiny import build_model
+    from nanovs_slam_torch.utils.torch_export import save_torch_checkpoint
+    from nanovs_slam_torch.utils.torch_import import (load_model_weights,
+                                                      read_torch_checkpoint)
+
+    repo = os.path.abspath(repo)
+    pinned = os.path.join(repo, "pinned", "extractor_S8.npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = os.path.join(tmp, "hpatches")
+        r = subprocess.run([sys.executable, os.path.join(
+            repo, "scripts", "make_synthetic_hpatches.py"), hp, "--n-seq",
+            "1"], capture_output=True, text=True, timeout=300)
+        require(r.returncode == 0, f"spatial CLIs: the HPatches fixture "
+                f"needs cv2: {r.stderr[-400:]}")
+        ds_cfg = os.path.join(tmp, "datasets.json")
+        with open(ds_cfg, "w") as f:
+            json.dump({"hpatches_data_path": hp}, f)
+        model = load_model_weights(build_model(get_config("S", n_classes=8)),
+                                   pinned)
+        ckpt = save_torch_checkpoint(os.path.join(tmp, "s8.ckpt"), model,
+                                     {"config": "S", "n_classes": 8})
+        names = sorted(read_torch_checkpoint(ckpt)[0])
+        log(f"ckpt: {len(names)} reference-named entries, e.g. "
+            f"{[n for n in names if 'conf' in n or 'convs.' in n][:3]}")
+        frames = os.path.join(tmp, "frames")
+        os.makedirs(frames)
+        for i, f in enumerate(shifted_frames(4, H, W)):
+            cv2.imwrite(os.path.join(frames, f"{i:02d}.png"),
+                        (f[..., ::-1] * 255).astype(np.uint8))
+        env = {**os.environ, "PYTHONPATH": repo}
+        evals = ["--config", "S", "--n_classes", "8", "--im_h", "120",
+                 "--im_w", "160", "--keypoints", "--max_items", "2",
+                 "--top_k", "300", "--dataset_config", ds_cfg]
+        cmds = {tag: [sys.executable, "-m",
+                      "nanovs_slam_torch.eval_multitask", "--model_path",
+                      path, "--out", os.path.join(tmp, f"{tag}.json")]
+                + evals for tag, path in (("ckpt", ckpt), ("npz", pinned))}
+        cmds["demo"] = [sys.executable, "-m", "nanovs_slam_torch.demo",
+                        "--input", frames, "--config", "S", "--n_classes",
+                        "8", "--model_path", pinned, "--out_dir",
+                        os.path.join(tmp, "demo"), "--max_frames", "4"]
+        t0 = time.perf_counter()
+        procs = {tag: subprocess.Popen(cmd, cwd=tmp, env=env,
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+                 for tag, cmd in cmds.items()}
+        try:
+            done = {tag: p.communicate(timeout=300)
+                    for tag, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for tag, (out, err) in done.items():
+            require(procs[tag].returncode == 0, f"spatial CLI {tag}: exit "
+                    f"{procs[tag].returncode}\n{out[-2000:]}\n{err[-3000:]}")
+        res = {}
+        for tag in ("ckpt", "npz"):
+            with open(os.path.join(tmp, f"{tag}.json")) as f:
+                res[tag] = json.load(f)["keypoints_top300"]
+        gap = max(abs(res["ckpt"][k] - v) for k, v in res["npz"].items()
+                  if isinstance(v, float))
+        log(f"ckpt: eval_multitask on the .ckpt {json.dumps(res['ckpt'])}; "
+            f"the .npz's {gap:.3g} apart")
+        require("error" not in res["npz"] and gap <= 1e-6
+                and res["ckpt"].keys() == res["npz"].keys(),
+                "ckpt: its evaluation is not the .npz's")
+        shots = sorted(os.listdir(os.path.join(tmp, "demo")))
+        img = cv2.imread(os.path.join(tmp, "demo", shots[-1]))
+        kps = [ln for ln in done["demo"][0].splitlines() if "keypoints" in ln]
+        log(f"demo: {shots}, {img.shape}, {kps}")
+        require(len(shots) == 4 and img.shape == (2 * H, W, 3)
+                and all(int(ln.split()[-2]) > 0 for ln in kps),
+                "demo: frames not written")
+        log(f"spatial CLIs: the three runs at once in "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+    torch.cuda.synchronize()
+
+
+def lightglue_bf16_pair(dev, repo: str, card: str) -> None:
+    """Pinned LightGlue S at bf16 on one pair of K = 512 keypoints (a
+    seeded pair, the last 4 and 6 masked): the card's log assignment (of
+    the valid keypoints and the dustbins) and last-layer descriptors no
+    further from the card's float32 kernel
+    forward than 1.5x the CPU bf16 forward's distance from the CPU float32
+    forward, plus one bf16 ulp of the largest value (the CPU test's
+    criterion with the CPU's bf16 in the JAX bf16's place), and within as
+    much of the CPU bf16 forward; the LightGlue kernel not launched at
+    bf16 (the blocks run: a choice by dtype); ms a forward at bf16 and
+    float32."""
+    import dataclasses
+
+    import torch
+
+    from nanovs_slam_torch.dryrun import lightglue_data
+    from nanovs_slam_torch.kernels import lightglue_transformer
+    from nanovs_slam_torch.matching.lightglue import LightGlue
+
+    lg32 = pinned_lightglue(repo)
+    lg16 = LightGlue(dataclasses.replace(lg32.cfg, dtype="bfloat16"))
+    lg16.load_state_dict(lg32.state_dict())
+    data = lightglue_data(32, 512, SEED + 9)
+    keys = ("log_assignment", "ref_descriptors0", "ref_descriptors1")
+    # the log assignment's entries of valid keypoints and the dustbins (a
+    # masked keypoint's sit near -1e9)
+    rows, cols = (np.append(data[k][0].numpy(), True)
+                  for k in ("mask0", "mask1"))
+    out = {}
+    with torch.inference_mode():
+        for tag, m, d in (("cpu32", lg32, "cpu"), ("cpu16", lg16, "cpu"),
+                          ("card32", lg32, dev), ("card16", lg16, dev)):
+            m.to(d).eval()
+            x = {k: v.to(d) for k, v in data.items()}
+            before = lightglue_transformer.launches
+            pred = m(x)
+            out[tag] = {k: pred[k].float().cpu().numpy() for k in keys}
+            out[tag]["log_assignment"] = \
+                out[tag]["log_assignment"][:, rows][:, :, cols]
+            out[tag + "_launches"] = lightglue_transformer.launches - before
+            if d != "cpu":
+                out[tag + "_ms"] = statistics.median(host_ms(
+                    lambda i: m(x), 10))
+    lg32.to("cpu")
+    res = {}
+    for k in keys:
+        ulp = 2.0 ** (float(np.floor(np.log2(np.abs(
+            out["cpu32"][k]).max()))) - 7)
+        lim = 1.5 * float(np.abs(out["cpu16"][k] - out["cpu32"][k]).max()) \
+            + ulp
+        res[k] = {"vs_card32": float(np.abs(out["card16"][k]
+                                            - out["card32"][k]).max()),
+                  "vs_cpu16": float(np.abs(out["card16"][k]
+                                           - out["cpu16"][k]).max()),
+                  "limit": lim}
+    log(f"lightglue bf16: pinned S, K=512 {json.dumps(res)}; kernel "
+        f"launches bf16 {out['card16_launches']}, float32 "
+        f"{out['card32_launches']}; ms a forward bf16 "
+        f"{out['card16_ms']:.3f}, float32 {out['card32_ms']:.3f} [{card}]")
+    require(all(r["vs_card32"] <= r["limit"] and r["vs_cpu16"] <= r["limit"]
+                for r in res.values()), "lightglue bf16: apart")
+    require(out["card16_launches"] == 0 and out["card32_launches"] == 1,
+            "lightglue bf16: the kernel's launches")
+
+
+def spatial_phase(dev, repo: str) -> dict:
+    """Phase 17c (see the module doc). Returns the ranks' launch counts
+    (every rank, every job) as the ``spatial`` path."""
+    from nanovs_slam_torch.dryrun import compare_outputs, run_jobs
+    from nanovs_slam_torch.parallel.distributed import (same_on_every_rank,
+                                                        spawn)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    jobs = spatial_jobs()
+    t0 = time.perf_counter()
+    ranks = spawn(run_jobs, SPATIAL_RANKS, (jobs,), device=dev,
+                  backend="gloo", timeout=120, deadline=400)
+    log(f"spatial: {SPATIAL_RANKS} ranks over gloo sharing the card, their "
+        f"jobs in {time.perf_counter() - t0:.1f} s")
+    want = run_jobs(None, [(n, k, s) for n, k, s in jobs if n != "sp4"], dev)
+    launches = {}
+    for r in ranks:
+        for job in r.values():
+            for k, n in job["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    wf = want["sp2"]["out"]
+    for tag, n in (("sp2", 2), ("sp4", 4)):
+        got = [r[tag]["out"] for r in ranks[:n]]
+        same_on_every_rank(got)
+        g = got[0]
+        floats = {k: v for k, v in wf.items() if v.dtype.kind == "f"}
+        gap = compare_outputs({k: g[k] for k in floats}, floats)
+        seg = float((g["seg"] == wf["seg"]).mean())
+        log(f"spatial {tag}: pinned S8 240x320 over {n} ranks against one "
+            f"process, floats {gap:.3g} apart ({sorted(floats)}), seg ids "
+            f"equal on {seg:.5f}; ms a request "
+            f"{[round(r[tag]['ms'], 3) for r in ranks[:n]]} (ranks), "
+            f"{want['sp2']['ms']:.3f} (one process) [{card}]")
+        require(gap <= 1e-4 and seg >= 0.999, f"spatial {tag}: apart")
+    check_dp("sp_train", same_on_every_rank([r["sp_train"] for r in ranks]),
+             want["sp_train"])
+    for i, r in enumerate(ranks):
+        step, red = r["sp_train"]["step_ms"], r["sp_train"]["reduce_ms"]
+        log(f"spatial train: rank {i} ms a step "
+            f"{[round(x, 3) for x in step]}, the gradient all-reduce "
+            f"{[round(x, 3) for x in red]} [{card}]")
+    log(f"spatial train: one process ms a step "
+        f"{[round(x, 3) for x in want['sp_train']['step_ms']]} [{card}]")
+    path = {k: launches[k] for k in ("fused_stem_pair_pool",
+                                     "fused_postprocess", "netvlad",
+                                     "netvlad_backward")}
+    log(f"spatial: launches on the ranks {json.dumps(path)}")
+    require(all(n > 0 for n in path.values()),
+            f"spatial: a kernel of the path never launched {path}")
+    spatial_clis(repo, card)
+    lightglue_bf16_pair(dev, repo, card)
+    log(f"spatial: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"spatial": path}
+
+
 def main() -> int:
     import torch
 
@@ -4893,6 +5150,7 @@ def main() -> int:
     paths.update(lightglue_train_phase(dev, repo))
     paths.update(int8_phase(dev, repo, kernels))
     paths.update(parallel_phase(dev, repo, cor))
+    paths.update(spatial_phase(dev, repo))
 
     lines = []
     for key, entry in kernels.items():

@@ -17,7 +17,11 @@ same work in this process on one device:
   frames) against ``relative_poses``;
 - eval fan-out: ``sharded_infer_fn`` over 11 items at batch 4N against the
   single run;
-- dp x sp: waits for ``parallel/spatial.py`` (ROADMAP Queue 1 item 7).
+- dp x sp (N even): the dp step's steps over an (N / 2, 2) ("data",
+  "model") mesh, each image's rows split over the "model" axis
+  (``spatial_train_step``), against the single-process steps with the dp
+  step's bounds and, as the JAX dry run holds it, its loss within 1e-2 +
+  1e-3 |loss| of the dp step's.
 
 It prints one line a check and exits 1 if any failed. The jobs
 (``run_jobs``, ``JOBS``) are what the tests and ``chip_smoke.py`` spawn at
@@ -27,6 +31,7 @@ their own sizes.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -141,14 +146,17 @@ def _sync(dev):
 
 def dp_steps(mesh, spec: dict, dev=None) -> dict:
     """``spec["steps"]`` train steps on ``spec["batch"]`` (the global
-    batch, numpy): data parallel over ``mesh`` (this rank's rows), or on
+    batch, numpy): data parallel over ``mesh`` (this rank's rows), or with
+    ``spec["spatial"]`` over a (size / 2, 2) ("data", "model") mesh of its
+    ranks (``spatial_train_step``: this rank's rows and slab), or on
     ``dev`` in one process where ``mesh`` is None. Returns each step's
     metrics and host ms (synchronised), the final state, the first step's
     raw gradients and the state after it (with ``spec["grads"]``, under
     "first") and, data parallel, the
     gradient all-reduce's ms a step (with ``spec["timing"]``)."""
     from .parallel.data_parallel import make_dp_train_step
-    from .parallel.mesh import shard_batch
+    from .parallel.mesh import make_mesh, shard_batch
+    from .parallel.spatial import spatial_train_step
     from .train.schedules import DEFAULT_LOSS_WEIGHTS
     from .train.train_step import make_train_step
 
@@ -159,9 +167,15 @@ def dp_steps(mesh, spec: dict, dev=None) -> dict:
               train_flags=spec.get("train_flags"))
     batch = {k: torch.as_tensor(v) for k, v in spec["batch"].items()}
     dp = None
-    if mesh is not None:
-        step, dp = make_dp_train_step(mesh, cfg, H, W,
-                                      timing=spec.get("timing", False), **kw)
+    timing = spec.get("timing", False)
+    if mesh is not None and spec.get("spatial"):
+        mesh = make_mesh(mesh.size, ("data", "model"),
+                         (mesh.size // 2, 2), device=mesh.device)
+        step = spatial_train_step(mesh, functools.partial(
+            make_train_step, cfg, H, W, **kw), cfg=cfg, timing=timing)
+        dp = step.parallel
+    elif mesh is not None:
+        step, dp = make_dp_train_step(mesh, cfg, H, W, timing=timing, **kw)
         batch = shard_batch(mesh, batch)
     else:
         step = make_train_step(cfg, H, W, **kw)
@@ -286,27 +300,90 @@ def sharded_vo(mesh, spec: dict, dev=None) -> dict:
             "ms": (time.perf_counter() - t0) * 1e3}
 
 
+def _job_model(spec: dict, dev):
+    """(cfg, eval model on ``dev``) of a serving job: pinned S8 with
+    ``spec["pinned"]``, else ``spec["config"]`` (V3 with ``spec["v3"]``,
+    ``spec["n_classes"]``) seeded, or loaded from ``spec["init"]`` (a
+    numpy state dict)."""
+    from .configs import get_config
+    from .models.kp2dtiny import init_model
+
+    if spec.get("pinned"):
+        return _pinned_s8(dev)
+    cfg = get_config(spec["config"], n_classes=spec["n_classes"],
+                     v3=spec.get("v3", False))
+    model = init_model(cfg, torch.Generator().manual_seed(SEED), dev)
+    if spec.get("init"):
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in spec["init"].items()})
+    return cfg, model
+
+
+def sp_forward(mesh, spec: dict, dev=None) -> dict:
+    """The model of ``_job_model(spec)`` on ``spec["frames"]`` ((B, H, W,
+    3) in [0, 1], numpy): with ``spec["request"]`` the request (the keys of
+    ``make_infer_fn``'s result; keypoints with ``spec["top_k"]``), else the
+    raw forward's outputs (NHWC) on the frames as model input; spatially
+    partitioned over the first ``spec["ranks"]`` ranks of ``mesh`` (with
+    ``spec["data"]`` > 1 a
+    ("data", "model") mesh of that many rows, the batch split over
+    "data"), or in one process on ``dev`` where ``mesh`` is None. Returns
+    the outputs (none on a rank outside the mesh) and the host ms of a
+    call (the median of ``spec["repeats"]``, default 1, after a first)."""
+    from .inference import make_infer_fn
+    from .ops.image import to_model_input
+    from .parallel.mesh import make_mesh
+    from .parallel.spatial import make_spatial_infer_fn, spatial_forward
+
+    dev = mesh.device if mesh is not None else torch.device(dev)
+    frames = torch.from_numpy(spec["frames"])
+    B, H, W = frames.shape[:3]
+    top_k = spec.get("top_k")
+    cfg, model = _job_model(spec, dev)
+    if mesh is not None:
+        nd, ns = spec.get("data", 1), spec["ranks"]
+        mesh = (make_mesh(nd * ns, ("data", "model"), (nd, ns), device=dev)
+                if nd > 1 else make_mesh(ns, ("model",), device=dev))
+        if mesh is None:
+            return {"out": {}, "ms": 0.0}
+    axis = "data" if spec.get("data", 1) > 1 else None
+    if spec.get("request"):
+        run = (make_spatial_infer_fn(mesh, model, cfg, H, W, top_k=top_k,
+                                     batch_axis=axis) if mesh is not None
+               else make_infer_fn(model, cfg, H, W, top_k=top_k, device=dev))
+        x = frames
+    else:
+        if mesh is not None:
+            run = spatial_forward(mesh, model, batch_axis=axis)
+        else:
+            @torch.inference_mode()
+            def run(x):
+                out = model(x.to(dev).permute(0, 3, 1, 2))
+                return {k: v.permute(0, 2, 3, 1) if v.dim() == 4 else v
+                        for k, v in out.items()}
+        x = to_model_input(frames)
+    times = []
+    for _ in range(1 + spec.get("repeats", 1)):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = run(x)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"out": out, "ms": float(np.median(times[1:]))}
+
+
 def fanout(mesh, spec: dict, dev=None) -> dict:
     """``make_infer_fn`` of a seeded model (``spec["config"]``, or pinned
     S8 with ``spec["pinned"]``) over ``spec["n_items"]`` seeded frames in
     [0, 1] at ``spec["batch_size"]``: ``sharded_infer_fn`` over ``mesh``,
     or the plain infer on ``dev``. Returns the outputs, items
     concatenated, and the host ms a batch."""
-    from .configs import get_config
     from .inference import make_infer_fn
-    from .models.kp2dtiny import init_model
     from .parallel.eval_fanout import map_batched, sharded_infer_fn
 
     dev = mesh.device if mesh is not None else torch.device(dev)
     H, W = spec["H"], spec["W"]
-    if spec.get("pinned"):
-        cfg, model = _pinned_s8(dev)
-    else:
-        cfg = get_config(spec["config"], n_classes=spec["n_classes"])
-        model = init_model(cfg, torch.Generator().manual_seed(SEED), dev)
-        if spec.get("init"):
-            model.load_state_dict({k: torch.as_tensor(v)
-                                   for k, v in spec["init"].items()})
+    cfg, model = _job_model(spec, dev)
     infer = make_infer_fn(model, cfg, H, W, device=dev)
     run = sharded_infer_fn(infer, model, mesh) if mesh is not None else infer
     items = np.random.RandomState(spec.get("seed", 5)).rand(
@@ -375,7 +452,8 @@ def tp_lightglue(mesh, spec: dict, dev=None) -> dict:
 
 
 JOBS = {"dp_steps": dp_steps, "dp_epoch": dp_epoch, "sharded_vo": sharded_vo,
-        "fanout": fanout, "tp_lightglue": tp_lightglue}
+        "fanout": fanout, "tp_lightglue": tp_lightglue,
+        "sp_forward": sp_forward}
 
 
 def _launches() -> Dict[str, int]:
@@ -496,8 +574,8 @@ def dryrun_jobs(n: int) -> List[tuple]:
     H, W, B = 48, 64, 2 * n
     train = dict(config="N", n_classes=8, H=H, W=W, steps=2, lr=5e-4,
                  io_top_k=48)
-    jobs = [("dp step", "dp_steps",
-             dict(train, batch=train_batch(H, W, B, 8, 3))),
+    batch = train_batch(H, W, B, 8, 3)
+    jobs = [("dp step", "dp_steps", dict(train, batch=batch)),
             ("dp epoch", "dp_epoch", dict(train, B=B)),
             ("sharded VO", "sharded_vo",
              dict(frames=shifted_frames(4, 64, 160), matcher="bf", k=256)),
@@ -508,13 +586,16 @@ def dryrun_jobs(n: int) -> List[tuple]:
         jobs.append(("tp LightGlue", "tp_lightglue",
                      dict(lg=dict(input_dim=64, descriptor_dim=64,
                                   n_layers=2, num_heads=4), K=24)))
+    if n % 2 == 0:
+        jobs.append(("dp x sp", "dp_steps", dict(train, batch=batch,
+                                                 spatial=True)))
     return jobs
 
 
 def check(name: str, got: dict, want: dict, lr: float = 5e-4
           ) -> Tuple[bool, str]:
     """(passed, detail) of one dry-run job against its reference."""
-    if name in ("dp step", "dp epoch"):
+    if name in ("dp step", "dp epoch", "dp x sp"):
         gm, wm = got["metrics"], want["metrics"]
         if isinstance(wm, dict):  # the epoch's stacked metrics
             gm = [{k: float(v[i]) for k, v in gm.items()}
@@ -540,6 +621,16 @@ def check(name: str, got: dict, want: dict, lr: float = 5e-4
     same = bool(np.array_equal(got["matches0"], want["matches0"]))
     return same and gap <= 2e-4, (f"matches equal {same}, log assignment "
                                   f"{gap:.3g} apart")
+
+
+def sp_against_dp(sp: dict, dp: dict) -> Tuple[float, bool]:
+    """(the largest gap of the dp x sp steps' total loss from the dp
+    steps', whether every step's is within 1e-2 + 1e-3 |loss|: the JAX dry
+    run's bound)."""
+    gaps = [(abs(g["total_loss"] - w["total_loss"]),
+             1e-2 + 1e-3 * abs(w["total_loss"]))
+            for g, w in zip(sp["metrics"], dp["metrics"])]
+    return max(g for g, _ in gaps), all(g <= lim for g, lim in gaps)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -572,20 +663,26 @@ def main(argv: Optional[List[str]] = None) -> int:
           flush=True)
     if threads:
         torch.set_num_threads(threads)
-    want = run_jobs(None, jobs, dev)
+    # the dp x sp steps' reference is the dp step's single process
+    want = run_jobs(None, [j for j in jobs if not j[2].get("spatial")], dev)
     failed = 0
-    for name, _, _ in jobs:
+    for name, _, spec in jobs:
+        ref = "dp step" if spec.get("spatial") else name
         try:
-            ok, detail = check(name, ranks[0][name], want[name])
+            ok, detail = check(name, ranks[0][name], want[ref])
             for r in range(1, args.n):  # every rank holds the whole result
                 ok = ok and check(name, ranks[r][name], ranks[0][name])[0]
+            if spec.get("spatial"):
+                gap, ok_dp = sp_against_dp(ranks[0][name], ranks[0][ref])
+                ok = ok and ok_dp
+                detail += f"; loss {gap:.3g} from the dp step's"
         except (KeyError, ValueError) as e:
             ok, detail = False, f"{type(e).__name__}: {e}"
         failed += not ok
         print(f"dryrun {name}: {'ok' if ok else 'FAILED'}, {detail}",
               flush=True)
-    print("dryrun dp x sp: not run; spatial partitioning waits for "
-          "parallel/spatial.py (ROADMAP Queue 1 item 7)")
+    if args.n % 2:
+        print("dryrun dp x sp: not run (the (N / 2, 2) mesh needs N even)")
     print(f"dryrun_multichip({args.n}): {'ok' if not failed else 'FAILED'}")
     return 1 if failed else 0
 

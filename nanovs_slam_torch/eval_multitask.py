@@ -26,9 +26,10 @@ synthetic-shapes images (``quant.calibrate_conv_scales``, every head) and
 runs the keypoint, segmentation, depth and retrieval tasks with int8
 convs (``make_eval_fn(int8_scales=...)``, chained); VO stays float32, as
 in the JAX CLI. ``--int8_weight_only`` evaluates the float model on
-int8 fake-quantised weights (``quant.fake_quant_params``). Flags whose
-modules the port does not have yet exit, naming their ROADMAP item: a
-torch ``.ckpt`` ``--model_path`` (item 7) and ``--wandb`` (item 7).
+int8 fake-quantised weights (``quant.fake_quant_params``).
+``--model_path`` takes an ``.npz`` or a reference PyTorch ``.ckpt``
+(``utils/torch_import.load_model_weights``; KP2DTiny or KeypointFormer).
+``--wandb`` exits: wandb is not installed.
 ``--model_type
 KeypointFormer`` evaluates ``models/keypoint_former.py`` at ``--config``
 where it names one of its configs, else "tiny" (the JAX CLI's rule); its
@@ -44,10 +45,10 @@ import os
 
 import numpy as np
 
-# flag -> why it exits (the ROADMAP.md item its module waits in)
+# flag -> why it exits
 DEFERRED = {
-    "wandb": "the port writes its results JSON only (wandb: ROADMAP Queue "
-             "1 item 7, utils)",
+    "wandb": "the port writes its results JSON only (wandb is not "
+             "installed)",
 }
 
 
@@ -55,7 +56,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate KP2DTiny multitask "
                                 "(PyTorch port)")
     p.add_argument("--model_path", default=None,
-                   help=".npz checkpoint (the JAX package's or the port's)")
+                   help=".npz checkpoint (the JAX package's or the port's) "
+                        "or a reference torch .ckpt")
     p.add_argument("--config", default="S")
     p.add_argument("--model_type", default="KP2DtinyV2")
     p.add_argument("--n_classes", type=int, default=28)
@@ -115,14 +117,10 @@ def check_supported(args) -> None:
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: not in the port yet; {why}")
     path = args.model_path
-    if path and not path.endswith(".npz"):
-        if os.path.isdir(path):
-            raise SystemExit(f"--model_path {path}: the port reads .npz "
-                             "checkpoints (utils/checkpoint.py), not "
-                             "checkpoint directories")
-        raise SystemExit(f"--model_path {path}: torch checkpoints are not "
-                         "read by the port yet; utils/torch_import waits in "
-                         "ROADMAP Queue 1 item 7")
+    if path and os.path.isdir(path):
+        raise SystemExit(f"--model_path {path}: the port reads .npz or "
+                         "torch checkpoint files, not checkpoint "
+                         "directories")
     if args.model_type == "KeypointFormer":
         from .models.keypoint_former import check_frame_size
 
@@ -144,10 +142,9 @@ def build(args, dev):
     cfg, init_model = build_config(args, args.n_classes)
     model = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     if args.model_path:
-        from .utils.checkpoint import load_npz_checkpoint
+        from .utils.torch_import import load_model_weights
 
-        tree, _ = load_npz_checkpoint(args.model_path)
-        load_jax_variables(model, tree["params"], tree["batch_stats"])
+        load_model_weights(model, args.model_path)
     if args.int8_weight_only:
         from .quant import fake_quant_params
 

@@ -15,7 +15,8 @@ them (``{"qparams", "batch_stats", "config"}``, flax layout),
 (requires ``--to_mcu``), int8 where ``--calib_images`` seeded uniform
 images calibrate the score/loc/desc convs on ``--device`` (default cuda;
 ``--device cpu`` without a card), ``<out>.nvsb``. The weights are seeded
-(``init_model``, seed 0) or the ``--model_path`` checkpoint's (.npz).
+(``init_model``, seed 0) or the ``--model_path`` checkpoint's (an .npz or
+a reference PyTorch .ckpt).
 ``--format stablehlo`` and ``savedmodel`` exit: they are the JAX
 package's formats, and this package writes ``pt2``.
 """
@@ -37,7 +38,8 @@ def parse_args(argv=None):
     p.add_argument("--model_type", default="KP2DtinyV2",
                    choices=["KP2DtinyV2", "KP2DtinyV3", "DF"])
     p.add_argument("--n_classes", type=int, default=28)
-    p.add_argument("--model_path", default=None, help=".npz checkpoint")
+    p.add_argument("--model_path", default=None,
+                   help=".npz checkpoint or reference torch .ckpt")
     p.add_argument("--im_h", type=int, default=240)
     p.add_argument("--im_w", type=int, default=320)
     p.add_argument("--to_mcu", action="store_true")
@@ -64,15 +66,9 @@ def build(args):
                      to_export=args.to_export)
     model = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     if args.model_path:
-        if not args.model_path.endswith(".npz"):
-            raise SystemExit(f"--model_path {args.model_path}: the port "
-                             "reads .npz checkpoints; torch checkpoints "
-                             "wait in ROADMAP Queue 1 item 7")
-        from .utils.checkpoint import load_npz_checkpoint
-        from .utils.convert import load_jax_variables
+        from .utils.torch_import import load_model_weights
 
-        tree, _ = load_npz_checkpoint(args.model_path)
-        load_jax_variables(model, tree["params"], tree["batch_stats"])
+        load_model_weights(model, args.model_path)
     return model, cfg
 
 

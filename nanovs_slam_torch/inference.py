@@ -53,6 +53,34 @@ def forward_post_process(model: nn.Module, cfg, x: Tensor,
     return post_process(nhwc, H, W, cfg.cell, cfg.cross_ratio, eval_mode=True)
 
 
+def request_heads(cfg, with_seg: bool, with_vlad: bool) -> tuple:
+    """The heads a request computes (V2; V3 computes them all)."""
+    return ("score", "loc", "desc") + (("seg",) if with_seg else ()) \
+        + (("vlad",) if with_vlad else ()) \
+        + (("depth",) if has_depth(cfg) else ())
+
+
+def request_result(post: Dict[str, Tensor], with_seg: bool, with_vlad: bool,
+                   top_k: Optional[int], conf_threshold: float
+                   ) -> Dict[str, Tensor]:
+    """An ``infer`` result from the eval ``post_process`` of a request:
+    its keys as ``make_infer_fn`` says, keypoints with ``top_k``."""
+    result = {k: post[k] for k in ("score", "coord", "feat")}
+    if with_seg:
+        result["seg"] = post["seg"]
+    if with_vlad:
+        result["vlad"] = post["vlad"]
+    if "depth" in post:
+        result["depth"] = post["depth"]
+    if top_k is not None:
+        kp, s, d, valid = top_k_keypoints(
+            post["score"], post["coord"], post["feat"], top_k,
+            conf_threshold)
+        result.update(keypoints=kp, keypoint_scores=s, descriptors=d,
+                      keypoint_valid=valid)
+    return result
+
+
 def make_infer_fn(model: nn.Module, cfg, H: int, W: int,
                   top_k: Optional[int] = None, conf_threshold: float = 0.0,
                   with_seg: bool = True, with_vlad: bool = True,
@@ -80,9 +108,7 @@ def make_infer_fn(model: nn.Module, cfg, H: int, W: int,
     """
     dev = resolve_device(device)
     model.to(dev).eval()
-    heads = ("score", "loc", "desc") + (("seg",) if with_seg else ()) \
-        + (("vlad",) if with_vlad else ()) \
-        + (("depth",) if has_depth(cfg) else ())
+    heads = request_heads(cfg, with_seg, with_vlad)
 
     @torch.inference_mode()
     def infer(images) -> Dict[str, Tensor]:
@@ -94,20 +120,8 @@ def make_infer_fn(model: nn.Module, cfg, H: int, W: int,
         x = to_model_input(images.to(dev, non_blocking=True))
         with int8_context(int8_scales):
             post = forward_post_process(model, cfg, x, H, W, heads)
-        result = {k: post[k] for k in ("score", "coord", "feat")}
-        if with_seg:
-            result["seg"] = post["seg"]
-        if with_vlad:
-            result["vlad"] = post["vlad"]
-        if "depth" in post:
-            result["depth"] = post["depth"]
-        if top_k is not None:
-            kp, s, d, valid = top_k_keypoints(
-                post["score"], post["coord"], post["feat"], top_k,
-                conf_threshold)
-            result.update(keypoints=kp, keypoint_scores=s, descriptors=d,
-                          keypoint_valid=valid)
-        return result
+        return request_result(post, with_seg, with_vlad, top_k,
+                              conf_threshold)
 
     return infer
 

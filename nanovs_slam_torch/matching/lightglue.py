@@ -15,11 +15,25 @@ Submodules keep the flax names (``transformers_{i}``, ``log_assignment_{i}``,
 tree onto the ``state_dict`` by name. ``posenc.Wr`` keeps the flax layout
 (2, head_dim/2).
 
-On a CUDA device the transformer stack runs through the hand-written
-kernel (``kernels/lightglue.lightglue_transformer``): all layers in one
-call at static depth, one layer per call with ``depth_confidence > 0``.
-On the CPU it runs the blocks below. The embedding and the assignment tail
-are plain PyTorch on both.
+On a CUDA device the float32 transformer stack runs through the
+hand-written kernel (``kernels/lightglue.lightglue_transformer``): all
+layers in one call at static depth, one layer per call with
+``depth_confidence > 0``. On the CPU it runs the blocks below. The
+embedding and the assignment tail are plain PyTorch on both.
+
+``cfg.dtype = "bfloat16"`` computes as flax's ``dtype=bfloat16`` modules
+do (``Dense`` and ``LayerNorm`` below): every Dense layer casts its input
+and its float32 weights to bf16, its product rounded to bf16 before the
+bias; the attention products take bf16 (or, after the rotary's float32
+tables, float32) operands with float32 accumulation
+(``preferred_element_type``); the masked softmax is cast to v's dtype; the
+LayerNorm takes float32 statistics and rounds its output to bf16; a
+float32 residual stream (the descriptors, when no input projection casts
+them) stays float32 by type promotion, as in JAX. At bf16 the stack runs
+these blocks on every device (``kernel_allowed``): the kernel is float32
+only, as the Pallas one is, and the JAX package reaches no Pallas kernel
+at bf16 either (XLA runs its modules), so this is a choice by dtype, not a
+fallback.
 
 Training (``forward(train=True)``) runs the stack's layers through the
 plain blocks (``run_layer``) under autograd, on the card too: the JAX
@@ -92,6 +106,47 @@ class FourierPositionalEncoding(nn.Module):
                      for t in self.tables(kpts))
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` as flax's ``nn.Dense(
+    dtype=...)``: the input and the float32 weight cast to it, the
+    product rounded to it, then the bias added in it (float32: exactly
+    ``nn.Linear``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: Tensor) -> Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm``; at a reduced ``compute_dtype`` flax's
+    ``nn.LayerNorm(dtype=...)``: the mean and the variance (E[x^2] -
+    E[x]^2, clipped at 0) in float32, the float32 affine, the output
+    rounded to the compute dtype."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: Tensor) -> Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(self.compute_dtype)
+
+
+def _mm32(a: Tensor, b: Tensor) -> Tensor:
+    """a @ b with float32 accumulation (``preferred_element_type``): the
+    products of bf16 operands are exact in float32."""
+    return a.float() @ b.float()
+
+
 def masked_softmax(logits: Tensor, mask: Optional[Tensor], dim: int = -1
                    ) -> Tensor:
     """softmax with invalid entries masked out; fully-masked rows -> 0."""
@@ -107,9 +162,9 @@ class FFN(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.fc1 = nn.Linear(2 * dim, 2 * dim)
-        self.norm = nn.LayerNorm(2 * dim, eps=1e-5)
-        self.fc2 = nn.Linear(2 * dim, dim)
+        self.fc1 = Dense(2 * dim, 2 * dim)
+        self.norm = LayerNorm(2 * dim, eps=1e-5)
+        self.fc2 = Dense(2 * dim, dim)
 
     def forward(self, x: Tensor, message: Tensor) -> Tensor:
         y = self.norm(self.fc1(torch.cat([x, message], -1)))
@@ -130,8 +185,8 @@ class SelfBlock(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.Wqkv = nn.Linear(dim, 3 * dim)
-        self.out_proj = nn.Linear(dim, dim)
+        self.Wqkv = Dense(dim, 3 * dim)
+        self.out_proj = Dense(dim, dim)
         self.ffn = FFN(dim)
 
     def forward(self, x: Tensor, enc: Tuple[Tensor, Tensor],
@@ -146,9 +201,10 @@ class SelfBlock(nn.Module):
         qkv = qkv.reshape(B, N, h, dh, 3).transpose(1, 2)
         q, k, v = qkv[..., 0], qkv[..., 1], qkv[..., 2]
         q, k = apply_rotary(enc, q), apply_rotary(enc, k)
-        sim = q @ k.transpose(-1, -2) * dh ** -0.5
+        sim = _mm32(q, k.transpose(-1, -2)) * dh ** -0.5
         key_mask = None if mask is None else mask[:, None, None, :]
-        ctx = _merge_heads(masked_softmax(sim, key_mask) @ v)
+        attn = masked_softmax(sim, key_mask).to(v.dtype)
+        ctx = _merge_heads(_mm32(attn, v).to(x.dtype))
         return x + self.ffn(x, self.out_proj(ctx))
 
 
@@ -156,9 +212,9 @@ class CrossBlock(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.to_qk = nn.Linear(dim, dim)
-        self.to_v = nn.Linear(dim, dim)
-        self.to_out = nn.Linear(dim, dim)
+        self.to_qk = Dense(dim, dim)
+        self.to_v = Dense(dim, dim)
+        self.to_out = Dense(dim, dim)
         self.ffn = FFN(dim)
 
     def forward(self, x0: Tensor, x1: Tensor, mask0: Optional[Tensor] = None,
@@ -169,13 +225,14 @@ class CrossBlock(nn.Module):
         s = qk0.shape[-1] ** -0.5  # the head width, as in SelfBlock
         v0 = _split_heads(self.to_v(x0), h)
         v1 = _split_heads(self.to_v(x1), h)
-        sim = (qk0 * s ** 0.5) @ (qk1 * s ** 0.5).transpose(-1, -2)
+        sim = _mm32(qk0 * s ** 0.5, (qk1 * s ** 0.5).transpose(-1, -2))
         m1k = None if mask1 is None else mask1[:, None, None, :]
         m0k = None if mask0 is None else mask0[:, None, None, :]
-        msg0 = masked_softmax(sim, m1k) @ v1
-        msg1 = masked_softmax(sim.transpose(-1, -2), m0k) @ v0
-        msg0 = self.to_out(_merge_heads(msg0))
-        msg1 = self.to_out(_merge_heads(msg1))
+        msg0 = _mm32(masked_softmax(sim, m1k).to(v1.dtype), v1)
+        msg1 = _mm32(masked_softmax(sim.transpose(-1, -2), m0k).to(v0.dtype),
+                     v0)
+        msg0 = self.to_out(_merge_heads(msg0.to(x0.dtype)))
+        msg1 = self.to_out(_merge_heads(msg1.to(x1.dtype)))
         return x0 + self.ffn(x0, msg0), x1 + self.ffn(x1, msg1)
 
 
@@ -213,8 +270,8 @@ class MatchAssignment(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.dim = dim
-        self.matchability = nn.Linear(dim, 1)
-        self.final_proj = nn.Linear(dim, dim)
+        self.matchability = Dense(dim, 1)
+        self.final_proj = Dense(dim, dim)
 
     def forward(self, desc0: Tensor, desc1: Tensor,
                 mask0: Optional[Tensor] = None,
@@ -222,7 +279,7 @@ class MatchAssignment(nn.Module):
         """-> (log assignment (B, M+1, N+1), sim)."""
         mdesc0 = self.final_proj(desc0) / self.dim ** 0.25
         mdesc1 = self.final_proj(desc1) / self.dim ** 0.25
-        sim = mdesc0 @ mdesc1.transpose(1, 2)
+        sim = _mm32(mdesc0, mdesc1.transpose(1, 2))
         z0 = self.matchability(desc0)
         z1 = self.matchability(desc1)
         return sigmoid_log_double_softmax(sim, z0, z1, mask0, mask1), sim
@@ -259,7 +316,7 @@ def filter_matches(scores: Tensor, th: float,
 class TokenConfidence(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.token = nn.Linear(dim, 1)
+        self.token = Dense(dim, 1)
 
     def forward(self, desc0: Tensor, desc1: Tensor) -> Tuple[Tensor, Tensor]:
         t0 = torch.sigmoid(self.token(desc0.detach()))[..., 0]
@@ -276,13 +333,14 @@ def confidence_threshold(layer_index: int, n_layers: int) -> float:
 class LightGlue(nn.Module):
     def __init__(self, cfg: LightGlueConfig):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError("reduced-precision LightGlue is not "
-                                      "ported yet")
+        dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+        if cfg.dtype not in dtypes:
+            raise ValueError(f"LightGlue dtype {cfg.dtype}: float32 or "
+                             "bfloat16")
         self.cfg = cfg
         d = cfg.descriptor_dim
         if cfg.input_dim != d:
-            self.input_proj = nn.Linear(cfg.input_dim, d)
+            self.input_proj = Dense(cfg.input_dim, d)
         self.posenc = FourierPositionalEncoding(d // cfg.num_heads)
         for i in range(cfg.n_layers):
             self.add_module(f"transformers_{i}",
@@ -290,6 +348,9 @@ class LightGlue(nn.Module):
             self.add_module(f"log_assignment_{i}", MatchAssignment(d))
         for i in range(cfg.n_layers - 1):
             self.add_module(f"token_confidence_{i}", TokenConfidence(d))
+        for m in self.modules():
+            if isinstance(m, (Dense, LayerNorm)):
+                m.compute_dtype = dtypes[cfg.dtype]
         self._packed: Optional[Tuple[tuple, Tensor, Optional[Tensor]]] = None
 
     # --- staged methods (as in the flax module) ---
@@ -367,11 +428,19 @@ class LightGlue(nn.Module):
             self._packed = (key, packed, split)
         return self._packed
 
+    def kernel_allowed(self, desc: Tensor) -> bool:
+        """Whether the stack runs as the kernel for ``desc``: on a CUDA
+        device at float32. At bf16 the blocks run on every device (the
+        JAX package's bf16 LightGlue runs XLA's modules; the kernel, as
+        the Pallas one, is float32 only): a choice by dtype, not a
+        fallback."""
+        return desc.device.type == "cuda" and self.cfg.dtype == "float32"
+
     def run_layers(self, layers: range, desc0, desc1, enc0, enc1,
                    mask0=None, mask1=None):
-        """Layers ``layers`` of the stack: one call of the kernel on a
-        CUDA device, the plain blocks on the CPU."""
-        if desc0.device.type != "cuda":
+        """Layers ``layers`` of the stack: one call of the kernel where
+        ``kernel_allowed``, else the plain blocks."""
+        if not self.kernel_allowed(desc0):
             for i in layers:
                 desc0, desc1 = self.run_layer(i, desc0, desc1, enc0, enc1,
                                               mask0, mask1)

@@ -51,7 +51,12 @@ class ChannelLayerNorm(nn.Module):
 
 
 class EfficientSelfAttention(nn.Module):
-    """Spatially reduced self-attention over a feature map."""
+    """Spatially reduced self-attention over a feature map. On a slab of
+    rows (``slabs`` set inside ``parallel.spatial.spatial_partition``) it
+    attends over the whole map, gathered from the slabs, and keeps its
+    slab's rows: the gather's backward sums the ranks' gradients."""
+
+    slabs = None  # set inside ``spatial_partition``
 
     def __init__(self, dim: int, heads: int = 4, reduction_ratio: int = 2):
         super().__init__()
@@ -76,6 +81,12 @@ class EfficientSelfAttention(nn.Module):
         return kv.transpose(1, 2).reshape(B, -1, Hr, Wr)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.slabs is None:
+            return self._attend(x)
+        full, rows = self.slabs.gather(x, 2, partial_grads=True)
+        return self._attend(full)[:, :, rows]
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
         h = self.heads
         dh = C // h

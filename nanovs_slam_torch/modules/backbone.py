@@ -16,6 +16,14 @@ their inputs). An eval-mode forward under autograd (VPR finetuning
 differentiates the model in inference mode), train mode, int8 execution
 and calibration run the block chain, as the CPU always does.
 
+On a slab of rows (``slabs`` set inside
+``parallel.spatial.spatial_partition``) the kernel takes the slab extended
+by two input rows from each neighbouring slab and drops the pooled row
+each extension adds; at the map's first and last rows the slab is not
+extended, since the kernel's own zero padding is the true one there (a
+zero row in its place would not be: conv1a of a zero row is its bias
+through the activation).
+
 Under ``quant.int8_execution(..., chain=True)`` the blocks of
 ``quant.BACKBONE_CHAIN`` hand int8 ``QTensor``s to each other; a producer
 that a max-pool follows pools in its kernel (``ConvBNAct``'s ``pool``).
@@ -66,6 +74,8 @@ class BackBone(nn.Module):
     """Returns (x, skip): x at 1/cell resolution (c4 ch), skip at
     1/(cell/2) resolution (c4 ch)."""
 
+    slabs = None  # set inside ``spatial_partition``
+
     def __init__(self, c1: int, c2: int, c3: int, c4: int,
                  downsample: int = 2, with_drop: bool = True,
                  bn_momentum: float = 0.1, leaky_relu: bool = True):
@@ -87,9 +97,15 @@ class BackBone(nn.Module):
         if x.is_cuda and stem_kernel_allowed(self, x):
             w1, b1 = fold_conv_bn(self.conv1a.conv, self.conv1a.bn)
             w2, b2 = fold_conv_bn(self.conv1b.conv, self.conv1b.bn)
+            if self.slabs is not None:
+                h, top = x.shape[2], int(self.slabs.mesh.rank > 0)
+                x = self.slabs.halo(x, 2, 2, zero_edges=False)
             y = fused_stem_pair_pool(x.permute(0, 2, 3, 1), w1, b1, w2, b2,
                                      0.01 if self.leaky_relu else 0.0)
-            return y.permute(0, 3, 1, 2)
+            y = y.permute(0, 3, 1, 2)
+            if self.slabs is not None:
+                y = y[:, :, top:top + h // 2]
+            return y
         pool = self.downsample >= 2
         x = self.drop(self.conv1b(self.conv1a(x), pool=pool))
         return max_pool_2x2(x) if pool else x

@@ -63,24 +63,31 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
 
 def _synced_batch_norm(bn, x: torch.Tensor, dims, mesh) -> torch.Tensor:
     """``batch_norm_train`` over the global batch of which ``x`` is this
-    rank's equal shard (channels on dim 1). Each rank's per-channel mean
-    and centred sum of squares are gathered (one collective, whose
-    backward sums the ranks' partial gradients) and combined as Chan et
-    al.'s parallel variance does; the output is the float32 affine of
-    ``x`` against the global mean and biased variance, in ``x``'s dtype.
-    The running statistics take the global ones, as on one device."""
+    rank's part (channels on dim 1): a shard of the batch, or of a
+    spatially partitioned batch a slab of rows, so the parts may differ in
+    size. Each rank's count, per-channel mean and centred sum of squares
+    are gathered (one collective, whose backward sums the ranks' partial
+    gradients) and combined with their counts as Chan et al.'s parallel
+    variance does; the output is the float32 affine of ``x`` against the
+    global mean and biased variance, in ``x``'s dtype. The running
+    statistics take the global ones, as on one device."""
     from ..parallel.mesh import gather_stats
 
     xf = x.float()
     shape = [1] * x.dim()
     shape[1] = x.shape[1]
-    n = xf.numel() // x.shape[1]
+    n_i = float(xf.numel() // x.shape[1])
     mean_i = xf.mean(dim=dims)
     m2_i = ((xf - mean_i.reshape(shape)) ** 2).sum(dim=dims)
-    stats = gather_stats(mesh, torch.stack([mean_i, m2_i])[None])
-    mean = stats[:, 0].mean(0)
-    m2 = (stats[:, 1] + n * (stats[:, 0] - mean) ** 2).sum(0)
-    var = m2 / (n * mesh.size)
+    stats = gather_stats(mesh, torch.stack(
+        [torch.full_like(mean_i, n_i), mean_i, m2_i])[None])
+    n = stats[:, 0]
+    total = n.sum(0)
+    # the parts' weights n / total: 1 / size exactly for equal parts of a
+    # power-of-two mesh, where this is the mean of the parts' means
+    mean = (n / total * stats[:, 1]).sum(0)
+    m2 = (stats[:, 2] + n * (stats[:, 1] - mean) ** 2).sum(0)
+    var = m2 / total
     y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + bn.eps)
     y = y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
     with torch.no_grad():
@@ -192,29 +199,51 @@ def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype`` (float32 until
-    ``set_compute_dtype`` sets it); its parameters stay float32."""
+    ``set_compute_dtype`` sets it); its parameters stay float32. Under
+    ``parallel.spatial.spatial_partition`` (``slabs`` set) the input is
+    this rank's slab of rows: a conv padded in height first takes its
+    halo from the neighbouring slabs, then runs unpadded in height, so
+    that it writes exactly the slab's rows."""
 
     compute_dtype = torch.float32
+    slabs = None  # set inside ``spatial_partition``
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        ph = self.padding[0]
+        if self.slabs is None or not ph:
+            return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        x = self.slabs.halo(x, ph, ph)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                        (0, self.padding[1]), self.dilation, self.groups)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` (fixed output padding) computing in
-    ``compute_dtype``, as ``Conv2d``."""
+    ``compute_dtype``, as ``Conv2d``. On a slab (``slabs`` set) the
+    Upsampler's k3 s2 p1 op1 reads one row below the slab: it takes that
+    row from the rank below (zeros below the map, as the full map's output
+    padding sees), and keeps the slab's 2h output rows."""
 
     compute_dtype = torch.float32
+    slabs = None  # set inside ``spatial_partition``
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias,
-                                  self.stride, self.padding,
-                                  self.output_padding, self.groups,
-                                  self.dilation)
+        h = x.shape[2]
+        if self.slabs is not None:
+            if (self.kernel_size[0], self.stride[0], self.padding[0],
+                    self.output_padding[0]) != (3, 2, 1, 1):
+                raise ValueError("a slab takes the k3 s2 p1 op1 upsampler "
+                                 "only")
+            x = self.slabs.halo(x, 0, 1)
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias,
+                               self.stride, self.padding,
+                               self.output_padding, self.groups,
+                               self.dilation)
+        return y if self.slabs is None else y[:, :, :2 * h]
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:

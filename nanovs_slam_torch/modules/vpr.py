@@ -3,7 +3,10 @@ convlad1 ConvBNAct [+ drop] -> convlad2 -> convlad3 -> the aggregator of
 ``method`` (NetVLAD, GeM or ConvAP), named ``netvlad`` whatever it is, as in
 flax. ``only_encoder`` returns the L2-normalised dense map instead (for
 k-means cluster init); ``remove_netvlad`` (export) the raw map, for the
-netvlad method only, as in the JAX package.
+netvlad method only, as in the JAX package. On a slab of rows (``slabs``
+set inside ``parallel.spatial.spatial_partition``) the aggregator, which
+pools over the whole map, takes the map gathered from the slabs; every
+rank computes the same descriptor.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from .blocks import ConvBNAct, Dropout2d, l2_normalize
 
 
 class VPRHead(nn.Module):
+    slabs = None  # set inside ``spatial_partition``
+
     def __init__(self, c_in: int, encoder_dim: int, num_clusters: int = 64,
                  with_drop: bool = True, bn_momentum: float = 0.1,
                  remove_netvlad: bool = False, leaky_relu: bool = True,
@@ -45,4 +50,6 @@ class VPRHead(nn.Module):
             return v
         if only_encoder:
             return l2_normalize(v, dim=1)
+        if self.slabs is not None:
+            v = self.slabs.gather(v, 2)[0]
         return self.netvlad(v)

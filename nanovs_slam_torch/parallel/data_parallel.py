@@ -65,7 +65,8 @@ class DataParallel:
 
     def reduce_gradients(self, grads: List[Tuple[str, Tensor]]) -> None:
         """Sum the ranks' gradients in place (one all-reduce of them all,
-        flattened), averaging the ``REPLICATED`` ones."""
+        flattened), averaging those that several ranks computed whole
+        (``replicas``)."""
         if not grads:
             return
         dev = grads[0][1].device
@@ -82,9 +83,14 @@ class DataParallel:
         for k, g in grads:
             part = flat[offset:offset + g.numel()].view_as(g)
             offset += g.numel()
-            if k.startswith(REPLICATED):
-                part = part / self.mesh.size
-            g.copy_(part)
+            n = self.replicas(k)
+            g.copy_(part / n if n > 1 else part)
+
+    def replicas(self, key: str) -> int:
+        """How many ranks computed parameter ``key``'s gradient whole (it
+        is averaged over them; the rest are partial sums): the whole
+        mesh for the ``REPLICATED`` ones, else 1."""
+        return self.mesh.size if key.startswith(REPLICATED) else 1
 
 
 def make_dp_train_step(mesh: Mesh, cfg, H: int, W: int, timing=False,

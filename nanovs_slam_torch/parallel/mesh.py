@@ -22,7 +22,15 @@ where NCCL refuses and gloo serves CUDA tensors for those two only):
   tail on the global batch), so each rank already holds the whole
   gradient. That of ``gather_stats`` all-reduces the gradient first: each
   rank's consumer covers only its own rows (synced BatchNorm), so the
-  ranks hold partial gradients.
+  ranks hold partial gradients;
+- ``halo_rows`` / ``gather_slabs``: the exchanges of a map split over the
+  ranks by height into slabs of rows (``parallel/spatial.py``), under
+  autograd. ``halo_rows`` gives a rank its neighbours' edge rows (the
+  halo a padded convolution reads), and its backward returns the halo's
+  gradient to the rank that owns those rows; ``gather_slabs`` is the whole
+  map from uneven slabs, its backward as ``gather_batch``'s or, for a
+  consumer of which each rank keeps only its own rows, as
+  ``gather_stats``'s.
 
 A mesh of one rank without a process group makes every collective the
 identity, so that the parallel paths also run in a plain process.
@@ -72,9 +80,9 @@ def make_mesh(n_devices: Optional[int] = None,
               shape: Optional[Sequence[int]] = None, device=None
               ) -> Optional[Mesh]:
     """A mesh over the first ``n_devices`` ranks of the default group (all
-    of them where None), 1-D by default; ``axis_names`` with ``shape`` make
-    an N-D mesh, ranks in row-major order (the last axis on neighbouring
-    ranks, as the JAX ``make_mesh`` orders devices). Every rank of the
+    of them where None), 1-D by default; ``axis_names`` with their
+    ``shape`` make an N-D mesh, ranks in row-major order (the last axis
+    on neighbouring ranks, as the JAX ``make_mesh`` orders devices). Every rank of the
     default group must call it (``new_group`` is collective); a rank
     outside the mesh gets None. ``device``: this rank's device (default
     "cuda", the current card). Without a process group it is the one-rank
@@ -94,7 +102,9 @@ def make_mesh(n_devices: Optional[int] = None,
     if n > world:
         raise ValueError(f"{n} ranks asked for, the group has {world}")
     if shape is None:
-        shape = (n,) + (1,) * (len(axis_names) - 1)
+        if len(axis_names) > 1:
+            raise ValueError("an N-D mesh needs its shape")
+        shape = (n,)
     shape = tuple(int(s) for s in shape)
     if int(np.prod(shape)) != n or len(shape) != len(axis_names):
         raise ValueError(f"shape {shape} does not hold {n} ranks over "
@@ -208,6 +218,99 @@ def gather_stats(mesh: Mesh, t: Tensor) -> Tensor:
     backward sums the ranks' partial gradients, then keeps the rank's
     rows."""
     return _Gather.apply(mesh, t, True)
+
+
+# ------------------------------------------------ exchanges between slabs
+
+class _Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, top, bottom, zero_edges):
+        r, n, h = mesh.rank, mesh.size, x.shape[2]
+        k = max(top, bottom)
+        if h < k:
+            raise ValueError(f"a slab of {h} rows cannot lend a halo of {k}")
+        up, down = r > 0, r < n - 1
+        wire = _wire(x)
+        buf = wire.new_zeros((n, 2) + tuple(x.shape[:2]) + (k, x.shape[3]))
+        buf[r, 0], buf[r, 1] = wire[:, :, :k], wire[:, :, h - k:]
+        if mesh.group is not None:
+            dist.all_reduce(buf, group=mesh.group)
+        buf = buf.to(x.dtype)
+        zeros = x.new_zeros(tuple(x.shape[:2]) + (k, x.shape[3]))
+        parts = []
+        ctx.top = top if (up or zero_edges) else 0
+        ctx.bottom = bottom if (down or zero_edges) else 0
+        if ctx.top:
+            parts.append((buf[r - 1, 1] if up else zeros)[:, :, k - top:])
+        parts.append(x)
+        if ctx.bottom:
+            parts.append((buf[r + 1, 0] if down else zeros)[:, :, :bottom])
+        ctx.mesh, ctx.k, ctx.h = mesh, k, h
+        return torch.cat(parts, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, k, h, top = ctx.mesh, ctx.k, ctx.h, ctx.top
+        r, n = mesh.rank, mesh.size
+        gx = _wire(g[:, :, top:top + h])
+        buf = gx.new_zeros((n, 2) + tuple(g.shape[:2]) + (k, g.shape[3]))
+        # the halo above came from the bottom rows of the rank above, the
+        # one below from the top rows of the rank below
+        if top and r > 0:
+            buf[r - 1, 1, :, :, k - top:] = g[:, :, :top]
+        if ctx.bottom and r < n - 1:
+            buf[r + 1, 0, :, :, :ctx.bottom] = g[:, :, top + h:]
+        if mesh.group is not None:
+            dist.all_reduce(buf, group=mesh.group)
+        gx[:, :, :k] += buf[r, 0]
+        gx[:, :, h - k:] += buf[r, 1]
+        return None, gx.to(g.dtype), None, None, None
+
+
+def halo_rows(mesh: Mesh, x: Tensor, top: int, bottom: int,
+              zero_edges: bool = True) -> Tensor:
+    """x (B, C, h, W): this rank's slab of a map whose rows are split
+    over the mesh's ranks in rank order. Returns the slab with the last
+    ``top`` rows of the rank above prepended and the first ``bottom`` rows
+    of the rank below appended: one all-reduce, in which every rank writes
+    its edge rows into its place of a zeroed (ranks, 2, B, C, k, W)
+    buffer. Beyond the map's first and last rows the halo is zeros (a
+    convolution's zero padding) where ``zero_edges``, else left out. The
+    backward adds the halo's gradient to the rows it came from (one
+    all-reduce)."""
+    return _Halo.apply(mesh, x, top, bottom, zero_edges)
+
+
+class _GatherSlabs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x, dim, start, height, partial_grads):
+        wire = _wire(x)
+        shape = list(x.shape)
+        shape[dim] = height
+        buf = wire.new_zeros(shape)
+        buf.narrow(dim, start, x.shape[dim]).copy_(wire)
+        if mesh.group is not None:
+            dist.all_reduce(buf, group=mesh.group)
+        ctx.mesh, ctx.dim, ctx.start, ctx.rows = mesh, dim, start, x.shape[dim]
+        ctx.partial = partial_grads
+        return buf.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = all_reduce(ctx.mesh, g)
+        return (None, g.narrow(ctx.dim, ctx.start, ctx.rows), None, None,
+                None, None)
+
+
+def gather_slabs(mesh: Mesh, x: Tensor, dim: int, start: int, height: int,
+                 partial_grads: bool = False) -> Tensor:
+    """The whole map on every rank from the ranks' slabs along ``dim`` (of
+    any heights; this rank's begins at row ``start`` of ``height``): an
+    all-reduce of zero-padded buffers, exact. The backward returns this
+    rank's rows of the gradient, after summing the ranks' gradients where
+    ``partial_grads`` (each rank's consumer keeps only its own rows)."""
+    return _GatherSlabs.apply(mesh, x, dim, start, height, partial_grads)
 
 
 # ------------------------------------------------------- placing pytrees

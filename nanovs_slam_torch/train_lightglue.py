@@ -20,9 +20,9 @@ JAX CLI's step) and Adam at ``--lr``. The matcher's stack runs through its
 plain blocks under autograd (``LightGlue.forward(train=True)``).
 
 The extractor is seeded (``models/kp2dtiny.init_model``) or
-``--extractor_path``'s ``.npz``; a torch ``.ckpt`` exits (its import waits
-in ROADMAP Queue 1 item 7). The matcher is PyTorch's initialisation drawn
-from ``--seed``: the weights differ from the JAX CLI's ``jax.random``
+``--extractor_path``'s ``.npz`` or reference PyTorch ``.ckpt``
+(``utils/torch_import.load_model_weights``). The matcher is PyTorch's
+initialisation drawn from ``--seed``: the weights differ from the JAX CLI's ``jax.random``
 draw, so a run differs from the JAX CLI's unless the weights are carried
 across. The trained matcher is written as ``<out_model_path>.npz``,
 ``{"params": ...}`` in flax names (``utils/convert.to_jax_lightglue``)
@@ -50,7 +50,7 @@ def parse_args(argv=None):
                                 "descriptors (PyTorch port)")
     p.add_argument("--extractor_config", default="N")
     p.add_argument("--extractor_path", default=None,
-                   help="KP2DTiny .npz checkpoint")
+                   help="KP2DTiny .npz or reference torch .ckpt")
     p.add_argument("--n_classes", type=int, default=28)
     p.add_argument("--lg_config", default="kp2dtiny_S",
                    help="LightGlue config name (matching/configs.py)")
@@ -80,17 +80,10 @@ def build_extractor(args, dev):
 
     cfg = get_config(args.extractor_config, n_classes=args.n_classes)
     model = init_model(cfg, torch.Generator().manual_seed(args.seed), "cpu")
-    path = args.extractor_path
-    if path:
-        if not path.endswith(".npz"):
-            raise SystemExit(f"--extractor_path {path}: the port reads .npz "
-                             "checkpoints; torch checkpoints wait in "
-                             "ROADMAP Queue 1 item 7 (utils/torch_import)")
-        from .utils.checkpoint import load_npz_checkpoint
-        from .utils.convert import load_jax_variables
+    if args.extractor_path:
+        from .utils.torch_import import load_model_weights
 
-        tree, _ = load_npz_checkpoint(path)
-        load_jax_variables(model, tree["params"], tree["batch_stats"])
+        load_model_weights(model, args.extractor_path)
     return model.to(dev).eval(), cfg
 
 

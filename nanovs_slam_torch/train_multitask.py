@@ -48,7 +48,7 @@ freezes a top-level ``backbone``, which KeypointFormer's tree lacks.
 a straight-through gradient; the inlier net stays float), and ``--to_mcu``
 trains the MCU export variant (convtranspose upsample, plain ReLU), whose
 checkpoint ``python -m nanovs_slam_torch.export_model --to_mcu --format
-mcu`` bundles. ``--wandb`` raises, naming its ROADMAP item.
+mcu`` bundles. ``--wandb`` raises: wandb is not installed.
 
 Data parallel (``parallel/data_parallel.py``): ``--num_devices N`` trains
 on N ranks in all, each a process of its own (start method "spawn") with
@@ -92,10 +92,9 @@ SYNTHETIC_CONFIG = dict(lr=0.0005, n_classes=8, im_h=96, im_w=128,
                         n_epochs=2, optimizer="adam", lr_scheduler="cosine",
                         freeze_backbone=False)
 
-# flag -> why it raises (the ROADMAP.md item its module waits in)
+# flag -> why it raises
 DEFERRED = {
-    "wandb": "the port logs to metrics.jsonl only (wandb: ROADMAP Queue 1 "
-             "item 7, utils)",
+    "wandb": "the port logs to metrics.jsonl only (wandb is not installed)",
 }
 
 

@@ -28,7 +28,8 @@ card). The loop is the JAX CLI's:
 final model's) and ``--recall_out`` writes the curve as JSON. The
 checkpoint is ``<out_model_path>.npz`` with the model's ``params`` and
 ``batch_stats``, which the JAX ``load_checkpoint`` reads. ``--model_path``
-takes such an ``.npz``; a torch ``.ckpt`` exits (ROADMAP Queue 1 item 7).
+takes such an ``.npz`` or a reference PyTorch ``.ckpt``
+(``utils/torch_import.load_model_weights``).
 Without a dataset, ``--synthetic`` writes and trains on the seeded
 Pittsburgh-format fixture (``scripts/make_synthetic_pittsburgh.py``, cv2).
 """
@@ -83,16 +84,12 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Exit for a ``--model_path`` the port cannot read."""
+    """Exit for a ``--model_path`` directory (the port reads files)."""
     path = args.model_path
-    if path and not path.endswith(".npz"):
-        if os.path.isdir(path):
-            raise SystemExit(f"--model_path {path}: the port reads .npz "
-                             "checkpoints (utils/checkpoint.py), not "
-                             "checkpoint directories")
-        raise SystemExit(f"--model_path {path}: torch checkpoints are not "
-                         "read by the port yet; utils/torch_import waits in "
-                         "ROADMAP Queue 1 item 7")
+    if path and os.path.isdir(path):
+        raise SystemExit(f"--model_path {path}: the port reads .npz or "
+                         "torch checkpoint files, not checkpoint "
+                         "directories")
 
 
 def _nchw(images: np.ndarray, dev) -> torch.Tensor:
@@ -233,9 +230,9 @@ def main(argv=None) -> int:
     from .data.pittsburgh import TripletMiningDataset, WholeDataset
     from .evaluation.global_descriptor import evaluate_global_descriptor
     from .models.kp2dtiny import init_model
-    from .utils.checkpoint import load_npz_checkpoint, save_model_checkpoint
-    from .utils.convert import load_jax_variables
+    from .utils.checkpoint import save_model_checkpoint
     from .utils.device import resolve_device
+    from .utils.torch_import import load_model_weights
 
     dev = resolve_device(args.device)
     H, W = args.im_h, args.im_w
@@ -243,8 +240,7 @@ def main(argv=None) -> int:
     cfg = get_config(args.config, v3=v3, n_classes=args.n_classes)
     model = init_model(cfg, torch.Generator().manual_seed(args.seed), "cpu")
     if args.model_path:
-        tree, _ = load_npz_checkpoint(args.model_path)
-        load_jax_variables(model, tree["params"], tree["batch_stats"])
+        load_model_weights(model, args.model_path)
     model = model.to(dev).eval()
 
     found = _dataset_root(args)

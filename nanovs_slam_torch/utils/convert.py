@@ -89,8 +89,12 @@ def convert_variables(params: Mapping, batch_stats: Mapping,
     return out
 
 
-def _load_strict(model: nn.Module, sd: Dict[str, torch.Tensor],
-                 absent: tuple = ()) -> nn.Module:
+def load_state_strict(model: nn.Module, sd: Dict[str, torch.Tensor],
+                      absent: tuple = ()) -> nn.Module:
+    """``sd`` into ``model`` in place: every key of the model but BN's
+    ``num_batches_tracked`` must receive a value of its shape, and every
+    key of ``sd`` must exist in the model (keys starting with one of
+    ``absent`` are exempt on both sides)."""
     target = {k: v for k, v in model.state_dict().items()
               if not k.endswith("num_batches_tracked")}
     missing = sorted(k for k in target.keys() - sd.keys()
@@ -120,7 +124,7 @@ def load_jax_variables(model: nn.Module, params: Mapping,
     ``"vlad_head"``) are exempt on both sides: the model keeps its own
     values there.
     """
-    return _load_strict(model, convert_variables(params, batch_stats),
+    return load_state_strict(model, convert_variables(params, batch_stats),
                         tuple(f"{h}." for h in absent_heads))
 
 
@@ -152,7 +156,7 @@ def load_jax_lightglue(model: nn.Module, params: Mapping) -> nn.Module:
     for path, value in _flatten(params).items():
         key, t = _torch_entry(path, value, dense=True)
         sd[key] = t
-    return _load_strict(model, sd)
+    return load_state_strict(model, sd)
 
 
 def load_jax_inlier_net(net: nn.Module, params: Mapping,
@@ -160,7 +164,7 @@ def load_jax_inlier_net(net: nn.Module, params: Mapping,
     """Load flax InlierNet ``io_params`` / ``io_batch_stats`` (Dense
     layers) into the port's ``InlierNet`` in place and return it; strict
     as ``load_jax_variables``."""
-    return _load_strict(net, convert_variables(params, batch_stats, True))
+    return load_state_strict(net, convert_variables(params, batch_stats, True))
 
 
 def to_jax_lightglue(model: nn.Module) -> Dict:

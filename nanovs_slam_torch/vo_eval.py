@@ -13,8 +13,11 @@ prints the results and writes them with the arguments to ``--out``.
 ``--device`` (default cuda) runs the frontend, the dense matcher,
 LightGlue and the device RANSAC there. Reading the video needs cv2, as
 does the default host pose tail (without ``--device_pose``).
-Not ported yet, and raising: ``--plot`` and checkpoints other than
-``.npz`` (see ROADMAP.md).
+``--model_path`` takes an ``.npz`` or a reference PyTorch ``.ckpt``
+(``utils/torch_import.load_model_weights``). ``--plot`` writes the
+estimated trajectory beside ``--out`` (``<out>_traj.png``,
+``utils/plot.plot_trajectory``); it needs matplotlib, and exits naming it
+where it is missing.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ def parse_args(argv=None):
     p.add_argument("--gt_name", default="06.txt")
     p.add_argument("--video_name", default="06.mp4")
     p.add_argument("--model_path", default=None,
-                   help=".npz checkpoint (flax tree with __meta__)")
+                   help=".npz checkpoint (flax tree with __meta__) or a "
+                        "reference torch .ckpt")
     p.add_argument("--config", default="N")
     p.add_argument("--model_type", default="KP2DtinyV2")
     p.add_argument("--n_classes", type=int, default=28)
@@ -70,7 +74,8 @@ def parse_args(argv=None):
     p.add_argument("--max_frames", type=int, default=None)
     p.add_argument("--out", default="vo_results.json")
     p.add_argument("--plot", action="store_true",
-                   help="save the trajectory plot (not ported yet)")
+                   help="save the estimated trajectory plot (needs "
+                        "matplotlib)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -79,8 +84,11 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.plot:
-        raise NotImplementedError("--plot (utils/plot.py) is not ported "
-                                  "yet: ROADMAP.md Queue 1 item 7")
+        import importlib.util
+
+        if importlib.util.find_spec("matplotlib") is None:
+            raise SystemExit("--plot needs matplotlib, which is not "
+                             "installed")
     import torch
 
     from .configs import get_config
@@ -94,14 +102,9 @@ def main(argv=None) -> int:
     cfg = get_config(args.config, v3=v3, n_classes=args.n_classes)
     model = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     if args.model_path:
-        if not args.model_path.endswith(".npz"):
-            raise NotImplementedError(
-                "the port reads .npz checkpoints only (utils/checkpoint.py)")
-        from .utils.checkpoint import load_npz_checkpoint
-        from .utils.convert import load_jax_variables
+        from .utils.torch_import import load_model_weights
 
-        tree, _ = load_npz_checkpoint(args.model_path)
-        load_jax_variables(model, tree["params"], tree["batch_stats"])
+        load_model_weights(model, args.model_path)
     H, W = args.im_h, args.im_w
     if args.offline:
         results = offline(args, model, cfg, dev)
@@ -126,6 +129,12 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         json.dump({"args": vars(args), "results": results}, f, indent=2,
                   default=str)
+    if args.plot:
+        from .utils.plot import plot_trajectory
+
+        print("trajectory plot written to",
+              plot_trajectory(results.get("trajectory", []),
+                              path=args.out.replace(".json", "_traj.png")))
     return 0
 
 

@@ -336,10 +336,22 @@ def test_bf16_forward_matches_flax_relative_to_float32():
 
 
 def test_lightglue_still_refuses_bf16():
+    """LightGlue takes bfloat16 since it was ported (it raised here
+    before; its parity is test_torch_port_lightglue.py::
+    test_lightglue_bf16_matches_flax_bf16): its Dense layers and LayerNorm
+    compute in bf16 over float32 parameters, the stack is the plain blocks
+    on every device; a dtype the JAX package has no use for (float16)
+    raises."""
     cfg = dataclasses.replace(LIGHTGLUE_CONFIGS["kp2dtiny_S"],
                               dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="reduced-precision"):
-        LightGlue(cfg)
+    lg = LightGlue(cfg)
+    assert lg.transformers_0.self_attn.Wqkv.compute_dtype == torch.bfloat16
+    assert lg.transformers_0.self_attn.ffn.norm.compute_dtype \
+        == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in lg.parameters())
+    assert not lg.kernel_allowed(torch.zeros(1, 2, 32, device="meta"))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        LightGlue(dataclasses.replace(cfg, dtype="float16"))
 
 
 def test_quantize_u8_matches_jax():

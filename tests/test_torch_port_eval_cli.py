@@ -145,12 +145,13 @@ def test_cli_matches_the_jax_evaluators(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model_type", "KeypointFormer", "--model_path", "kf.ckpt"],
-     "item 7"),
-    (["--model_path", "model.ckpt"], "item 7"), (["--wandb"], "item 7")])
+    (["--model_type", "KeypointFormer", "--model_path", REPO],
+     "directories"),
+    (["--model_path", REPO], "directories"), (["--wandb"], "not installed")])
 def test_cli_refuses_deferred_flags(flags, item):
-    """Each flag whose module the port lacks exits, naming its ROADMAP
-    item (KeypointFormer is ported; its reference .ckpt import is not)."""
+    """What the port does not read exits, saying why: a checkpoint
+    directory (a reference .ckpt loads since utils/torch_import was ported,
+    tests/test_torch_port_torch_import.py), and --wandb (not installed)."""
     from nanovs_slam_torch import eval_multitask
 
     with pytest.raises(SystemExit, match=item):

@@ -149,6 +149,70 @@ def test_lightglue_matches_flax(flax_params, name, case):
         assert (got["matches0"][0] == -1).all()
 
 
+# (config, overrides): kp2dtiny_S keeps a float32 residual stream (no
+# input projection casts the descriptors); with a projection from 16 the
+# stream is bf16, as in flax
+BF16_CASES = {"float32_stream": ("kp2dtiny_S", {}),
+              "bf16_stream": ("kp2dtiny_S", dict(input_dim=16))}
+
+
+def _bf16_ulp(x) -> float:
+    """One bfloat16 ulp at the largest magnitude of ``x``."""
+    return 2.0 ** (np.floor(np.log2(np.abs(np.asarray(x)).max())) - 7)
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_lightglue_bf16_matches_flax_bf16(case):
+    """LightGlue at dtype "bfloat16" (flax's semantics: Dense layers and
+    the LayerNorm in bf16, attention products accumulated in float32, the
+    softmax cast to v's dtype) on the CPU: on seeded flax params and a
+    masked pair (B=2, 48 x 40 keypoints), the last layer's descriptors and
+    the log assignment (its valid keypoints' entries and dustbins) lie no further from the JAX float32 answer than
+    1.5x the JAX bf16 answer's distance plus one bf16 ulp of the largest
+    value, in flax's dtypes; the float32 port on the same params stays as
+    close to JAX as test_lightglue_matches_flax holds it."""
+    jax = _jax()
+    import jax.numpy as jnp
+    from nanovs_slam_tpu.matching.configs import LIGHTGLUE_CONFIGS as JC
+    from nanovs_slam_tpu.matching.lightglue import LightGlue as JaxLightGlue
+
+    from _torch_port_util import random_variables
+
+    name, over = BF16_CASES[case]
+    jcfg = dataclasses.replace(JC[name], **over)
+    data = _pair_data(48, 40, jcfg.input_dim, B=2, seed=7, pad0=6, pad1=4)
+    jdata = {k: jnp.asarray(v) for k, v in data.items()}
+    params, _ = random_variables(JaxLightGlue(jcfg), jdata, seed=2,
+                                 train=True)
+    want = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(jcfg, dtype=getattr(jnp, dt))
+        want[dt] = jax.jit(lambda p, d, c=cfg: JaxLightGlue(c).apply(
+            {"params": p}, d))(params, jdata)
+    got = {}
+    for dt in ("float32", "bfloat16"):
+        with torch.no_grad():
+            got[dt] = _port(name, params, dtype=dt, **over)(
+                _torch_data(data))
+    _compare(got["float32"], want["float32"])
+    # the log assignment's entries of valid keypoints and the dustbins (a
+    # masked keypoint's sit near -1e9, where a bf16 ulp is 2^22)
+    valid = np.ix_(range(2), np.append(data["mask0"][0], True),
+                   np.append(data["mask1"][0], True))
+    for k in ("ref_descriptors0", "ref_descriptors1", "log_assignment"):
+        part = valid if k == "log_assignment" else ...
+        ref = np.asarray(want["float32"][k], np.float32)[part]
+        jax_gap = np.abs(np.asarray(want["bfloat16"][k], np.float32)[part]
+                         - ref).max()
+        port_gap = np.abs(got["bfloat16"][k].float().numpy()[part]
+                          - ref).max()
+        assert port_gap <= 1.5 * jax_gap + _bf16_ulp(ref), (k, port_gap,
+                                                             jax_gap)
+        # the same dtypes as flax's: a bf16 stream stays bf16
+        assert str(got["bfloat16"][k].dtype) == "torch." + str(
+            want["bfloat16"][k].dtype), k
+
+
 @pytest.mark.parametrize("name", ["kp2dtiny_S", "kp2dtiny_F"])
 def test_lightglue_early_exit_matches_flax(flax_params, name):
     """depth_confidence 0.5 with token_confidence_1 biased to certainty:

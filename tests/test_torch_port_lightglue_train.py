@@ -255,7 +255,8 @@ def test_cli_writes_a_checkpoint_the_jax_loader_reads(tmp_path, capsys):
     ``.npz`` it writes is read by the JAX ``load_checkpoint``: flax
     LightGlue params with the init's keys and shapes, the flags in the
     meta; the JAX forward with them and the port's with them loaded agree
-    (1e-5). A torch ``.ckpt`` extractor exits naming ROADMAP item 7."""
+    (1e-5). An extractor checkpoint directory raises (a reference torch
+    ``.ckpt`` loads: tests/test_torch_port_torch_import.py)."""
     from nanovs_slam_tpu.utils.checkpoint import load_checkpoint
 
     from nanovs_slam_torch import train_lightglue
@@ -286,9 +287,9 @@ def test_cli_writes_a_checkpoint_the_jax_loader_reads(tmp_path, capsys):
     np.testing.assert_allclose(got["log_assignment"].numpy(),
                                np.asarray(want["log_assignment"]),
                                atol=1e-5, rtol=1e-5)
-    with pytest.raises(SystemExit, match="item 7"):
+    with pytest.raises(ValueError, match="directories"):
         train_lightglue.main(["--device", "cpu", "--extractor_path",
-                              "ex.ckpt"])
+                              str(tmp_path)])
 
 
 def test_cli_matcher_initialises_from_torch_generators():

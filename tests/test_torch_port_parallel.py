@@ -571,11 +571,11 @@ def test_trainer_runs_data_parallel_on_cpu(tmp_path, start):
 
 def test_dryrun_exits_zero_on_cpu():
     """``python -m nanovs_slam_torch.dryrun 2 --device cpu``: every check
-    passes and the spatial one says what it waits for."""
+    passes, the dp x sp one (a (1, 2) mesh) among them."""
     r = subprocess.run([sys.executable, "-m", "nanovs_slam_torch.dryrun",
                         "2", "--device", "cpu"], cwd=REPO, env=_env(),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "dryrun_multichip(2): ok" in r.stdout
-    assert "parallel/spatial.py" in r.stdout
-    assert r.stdout.count(": ok,") == 5, r.stdout
+    assert "dryrun dp x sp: ok," in r.stdout
+    assert r.stdout.count(": ok,") == 6, r.stdout

@@ -7,8 +7,8 @@ same batch, with channel dropout patched to the identity on both sides
 checkpoint round trip through the JAX ``load_checkpoint``, a resumed
 run's first step against the JAX trainer's (``restore_train_state``
 against ``filter_params`` + ``merge_params`` into a fresh state), the
-CLI's refusal of the flags whose modules wait in ROADMAP.md (and its
-acceptance of the ported ones), and freeze_backbone."""
+CLI's refusal of --wandb (wandb is not installed) and its acceptance of
+the ported flags, and freeze_backbone."""
 
 import os
 
@@ -320,15 +320,16 @@ def test_checkpoint_loads_in_jax_and_gives_the_same_forward(one_step,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num_devices", "2", "--wandb"], "item 7"),
-    (["--num_processes", "2", "--wandb"], "item 7"),
-    (["--coordinator_address", "localhost:1", "--wandb"], "item 7"),
-    (["--process_id", "1", "--wandb"], "item 7"), (["--wandb"], "item 7"),
-    (["--model_type", "KeypointFormer", "--wandb"], "item 7")])
+    (["--num_devices", "2", "--wandb"], "not installed"),
+    (["--num_processes", "2", "--wandb"], "not installed"),
+    (["--coordinator_address", "localhost:1", "--wandb"], "not installed"),
+    (["--process_id", "1", "--wandb"], "not installed"),
+    (["--wandb"], "not installed"),
+    (["--model_type", "KeypointFormer", "--wandb"], "not installed")])
 def test_cli_rejects_deferred_flags(flags, item):
-    """Each flag whose module the port lacks raises, naming its ROADMAP
-    item (KeypointFormer and the data-parallel flags are ported: with
-    them, a deferred flag still raises)."""
+    """--wandb raises, saying that wandb is not installed (it named ROADMAP
+    Queue 1 item 7, which no longer lists it); KeypointFormer and the
+    data-parallel flags are ported: with them, --wandb still raises."""
     from nanovs_slam_torch.train_multitask import check_supported, parse_args
 
     with pytest.raises(SystemExit, match=item):

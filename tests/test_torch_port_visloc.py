@@ -197,10 +197,15 @@ def test_cluster_init_samples_the_jax_clis_descriptors():
                           cen)
 
 
-def test_cli_refuses_torch_checkpoints():
-    with pytest.raises(SystemExit, match="item 7"):
+def test_cli_refuses_torch_checkpoints(tmp_path):
+    """A checkpoint directory exits; a reference torch .ckpt file, which it
+    refused before utils/torch_import was ported, passes the check (its
+    load: tests/test_torch_port_torch_import.py)."""
+    with pytest.raises(SystemExit, match="directories"):
         train_visloc.check_supported(train_visloc.parse_args(
-            ["--model_path", "model.ckpt"]))
+            ["--model_path", str(tmp_path)]))
+    train_visloc.check_supported(train_visloc.parse_args(
+        ["--model_path", "model.ckpt"]))
 
 
 def test_cli_runs_on_the_synthetic_fixture(tmp_path):

@@ -372,9 +372,10 @@ def test_vo_entry_points_without_card_raise(tmp_path):
 def test_vo_eval_cli_on_cpu(corridor, tmp_path, monkeypatch):
     """``python -m nanovs_slam_torch.vo_eval`` with ``--device cpu`` on the
     corridor: the JSON has the keys of the root vo_eval.py (its arguments
-    and ``--device``; the verbose results); --plot raises, naming
-    ROADMAP.md (--offline and --matcher dense run: see
-    tests/test_torch_port_offline.py)."""
+    and ``--device``; the verbose results); --plot writes the trajectory
+    beside the JSON, ``<out>_traj.png`` as the root CLI names it (it
+    raised, naming ROADMAP.md, before utils/plot.py was ported; --offline
+    and --matcher dense run: see tests/test_torch_port_offline.py)."""
     import vo_eval as jax_cli
     from nanovs_slam_torch import vo_eval
 
@@ -382,7 +383,7 @@ def test_vo_eval_cli_on_cpu(corridor, tmp_path, monkeypatch):
     argv = ["--kitti_path", corridor, "--config", "S", "--n_classes", "8",
             "--model_path", PINNED_EX, "--im_h", str(H), "--im_w", str(W),
             "--top_k", "512", "--max_frames", "3", "--out", out]
-    assert vo_eval.main(argv + ["--device", "cpu"]) == 0
+    assert vo_eval.main(argv + ["--device", "cpu", "--plot"]) == 0
     with open(out) as f:
         saved = json.load(f)
     monkeypatch.setattr(sys, "argv", ["vo_eval.py"] + argv)
@@ -391,8 +392,8 @@ def test_vo_eval_cli_on_cpu(corridor, tmp_path, monkeypatch):
                                      "estimation_fails", "stats",
                                      "trajectory"}
     assert saved["results"]["estimation_fails"] == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vo_eval.main(argv + ["--device", "cpu", "--plot"])
+    png = tmp_path / "vo_traj.png"
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
 
 def test_datasets_match_jax(tmp_path):
