@@ -108,7 +108,17 @@ Phases, each of which raises (exit code != 0) on failure:
     pair, the match map against the CPU's, the errors against the ground
     truth and the ms a sequence and of its extract / match-map / pose-map
     stages; and the kernel phase times the stem and the postprocess at
-    that batch (``_vo_b16`` keys);
+    that batch (``_vo_b16`` keys); then the three modes again at
+    pair_batch 1, 2, 4 and 8 (chunks of P pairs: one batched matcher
+    call, LightGlue at batch P, and one batched device RANSAC a chunk):
+    each P's match map against pair_batch 1's (valid equal, within
+    1e-5), its poses within relative_poses_sharded's criterion, a
+    LightGlue sequence's launches at 2, 4 and 8 (LightGlue once a chunk;
+    at 8 the ``vo_offline_batched`` path), and in turns the ms a
+    sequence, the pose map's ms a pair and its peak memory; the kernel
+    phase holds the LightGlue stack at batch 8, K = 1024, every pair's
+    masks its own, against its twin (``_b8_k1024`` keys, with its bound
+    and an SDPA call);
  12. LightGlue's adaptive paths at K = 1024 on the match phase's pair:
     LG-adaptive-K1024 (AdaptiveLightGlue, depth_confidence 0.95: the exit
     layer, one kernel call a layer) and LG-width-K1024 (width_confidence
@@ -259,7 +269,17 @@ Phases, each of which raises (exit code != 0) on failure:
     pair (pinned S, K = 512: the plain blocks, no kernel) against the
     CPU's bf16 pair and the card's float32 kernel pair (the CPU test's
     criterion); the kernels' launches on the ranks are the ``spatial``
-    path's;
+    path's; then KeypointFormer "default" (8 classes, seeded) at 256x320,
+    B=1, its height over 2 and 4 ranks (slabs of 128 / 64 rows: the MiT's
+    strided embeds and heads writing the rows whose window centre is
+    theirs, its attention and NetVLAD on gathered maps) against the
+    single-process request (the S8 request's criteria), ms a request
+    beside it, and 2 of its steps at 96x128 (global batch 4, slabs of 32
+    and 64 rows) on the 2x2 mesh against the single-process steps
+    (check_dp); the postprocess, NetVLAD and its backward launched on
+    every rank (the ``kf_spatial`` path, summed over the ranks); the
+    kernel phase holds NetVLAD's forward and backward at a rank's shape
+    of that step (2 images, the 13x17 map gathered: ``_kf_sp_train``);
  18. one JSON line describing each kernel, the card's line before it, and
     as the last line {"ok": true, "device": {...}}. A kernel's unsuffixed
     keys hold the first path that runs it (the N slice, B=1; LightGlue:
@@ -277,7 +297,8 @@ Phases, each of which raises (exit code != 0) on failure:
     and ``eval``; of phases 15 and 16: ``kf_tiny``, ``kf_default`` (and
     ``_bf16``), ``kf_eval``, ``kf_train_tiny``, ``kf_train_default`` (and
     ``_bf16``), ``lg_train``; of phase 17: ``int8``; of phase 17b:
-    ``parallel``, of phase 17c ``spatial``, summed over the ranks; ``_kf`` /
+    ``parallel``, of phase 17c ``spatial`` and ``kf_spatial``, summed
+    over the ranks; of phase 11 ``vo_offline_batched``; ``_kf`` /
     ``_kf_tiny`` keys KeypointFormer's shapes, ``_kf_train`` the forward
     at its train shape); ``int8_conv3x3``'s first
     path is ``int8``; ``netvlad_backward``'s first path is ``train``, its bf16
@@ -722,6 +743,14 @@ def kernel_cases(B: int, dev) -> list[Case]:
         cases += [netvlad_case("_kf_train", 256, 64, bf16=bf,
                                hw=KF_TRAIN_VLAD_HW, bias=True, Bn=KF_TRAIN_B)
                   for bf in (False, True)]
+        # a rank's part of the spatial phase's KeypointFormer step on the
+        # 2x2 mesh: 2 images, the VPR map gathered whole (``_kf_sp_train``)
+        Bs = KF_TRAIN_B // 2
+        cases += [netvlad_case("_kf_sp_train", 256, 64, hw=KF_TRAIN_VLAD_HW,
+                               bias=True, Bn=Bs),
+                  netvlad_backward_case("_kf_sp_train", Bs,
+                                        *KF_TRAIN_VLAD_HW, 256, 64,
+                                        bias=True)]
     return cases
 
 
@@ -1705,6 +1734,108 @@ def vo_offline_phase(dev, repo: str, cor: Corridor) -> dict:
     return paths
 
 
+# the offline VO's pair_batch values, in turns; the last is the LightGlue
+# kernel case's batch
+VO_PAIR_BATCHES = (1, 2, 4, 8)
+
+
+def vo_offline_batched_phase(dev, repo: str, cor: Corridor) -> dict:
+    """VO-offline-{dense,bf,lg}-128x512 at pair_batch 1, 2, 4 and 8
+    (vo.offline.OfflineVO's chunks of P pairs: one batched matcher call
+    and one batched device RANSAC a chunk), the 7 pairs of the corridor's
+    8 frames, the vo_offline phase's settings: each P's match map against
+    pair_batch 1's (valid equal, the correspondences within 1e-5) and
+    its poses within relative_poses_sharded's criterion (match counts
+    equal, R and t within 1e-3); the launches of a LightGlue sequence at
+    pair_batch 8 (stem and postprocess once, LightGlue once for the 7
+    pairs: the ``vo_offline_batched`` path), and at 2 and 4 (4 and 2
+    LightGlue launches); then, in turns (P = 1, 2, 4, 8, three rounds),
+    the host ms of a sequence, of its match map and of its pose map, and
+    the pose map's peak device memory."""
+    import torch
+
+    from nanovs_slam_torch.kernels import (fused_postprocess,
+                                           fused_stem_pair_pool,
+                                           lightglue_transformer,
+                                           reset_launches)
+    from nanovs_slam_torch.vo.offline import OfflineVO
+    from nanovs_slam_torch.vo.visual_odometry import (load_lightglue_for_vo,
+                                                      prep_frame)
+
+    card = card_line()
+    frames, cpu_frames, gt, cfg, ex, cpu_ex, cam = cor
+    stack = torch.stack([prep_frame(f, VO_SIZE) for f in frames])
+    pairs = VO_FRAMES - 1
+    paths = {}
+    for mode, tag in (("dense", "dense"), ("bf", "bf"), ("lightglue", "lg")):
+        name = f"vo offline {tag} pair_batch"
+        lg = (load_lightglue_for_vo(
+            os.path.join(repo, "pinned", "lightglue_S.npz"), cfg.nfeatures,
+            KITTI_HW[::-1], max_n=1024) if mode == "lightglue" else None)
+        vos = {P: OfflineVO(ex, cfg, VO_SIZE, cam, lightglue=lg, device=dev,
+                            k=512 if mode == "dense" else 1024,
+                            matcher=mode, n_hypotheses=8192, restarts=3,
+                            pair_batch=P) for P in VO_PAIR_BATCHES}
+        reps = vos[1].extract(stack)
+        mm1 = vos[1].match_map(reps)
+        R1, t1, _, n1 = (a.cpu().numpy() for a in vos[1].pose_map(*mm1))
+        for P in VO_PAIR_BATCHES[1:]:
+            mm = vos[P].match_map(reps)
+            same = bool(torch.equal(mm[2], mm1[2]))
+            v = mm1[2]
+            gap = max(float((a[v] - b[v]).abs().max())
+                      for a, b in zip(mm[:2], mm1[:2]))
+            R, t, _, n = (a.cpu().numpy() for a in vos[P].pose_map(*mm))
+            dR, dt = float(np.abs(R - R1).max()), float(np.abs(t - t1).max())
+            log(f"{name} {P}: match map against pair_batch 1's: valid "
+                f"equal {same}, correspondences {gap:.3g} apart; poses R "
+                f"{dR:.3g} t {dt:.3g} apart, match counts equal "
+                f"{bool(np.array_equal(n, n1))}")
+            require(same and gap <= 1e-5 and np.array_equal(n, n1)
+                    and dR <= 1e-3 and dt <= 1e-3,
+                    f"{name} {P}: not pair_batch 1's answer")
+        if mode == "lightglue":
+            for P in VO_PAIR_BATCHES[1:]:
+                reset_launches()
+                vos[P].relative_poses(stack)
+                launches = {
+                    "fused_stem_pair_pool": fused_stem_pair_pool.launches,
+                    "fused_postprocess": fused_postprocess.launches,
+                    "lightglue_transformer": lightglue_transformer.launches}
+                want = {"fused_stem_pair_pool": 1, "fused_postprocess": 1,
+                        "lightglue_transformer": -(-pairs // P)}
+                log(f"{name} {P}: launches over a sequence of {VO_FRAMES} "
+                    f"frames {launches}")
+                require(launches == want, f"{name} {P}: launches "
+                        f"{launches}, expected {want}")
+            paths["vo_offline_batched"] = launches
+        seq, match, pose = ({P: [] for P in VO_PAIR_BATCHES}
+                            for _ in range(3))
+        mms = {P: vos[P].match_map(reps) for P in VO_PAIR_BATCHES}
+        for _ in range(3):
+            for P in VO_PAIR_BATCHES:
+                seq[P] += host_ms(lambda i: vos[P].relative_poses(stack), 1)
+                match[P] += host_ms(lambda i: vos[P].match_map(reps), 1)
+                pose[P] += host_ms(lambda i: vos[P].pose_map(*mms[P]), 1)
+        peak = {}
+        for P in VO_PAIR_BATCHES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            vos[P].pose_map(*mms[P])
+            torch.cuda.synchronize()
+            peak[P] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        res = {P: {"sequence_ms": statistics.median(seq[P][1:]),
+                   "match_map_ms": statistics.median(match[P][1:]),
+                   "pose_map_ms": statistics.median(pose[P][1:]),
+                   "pose_ms_a_pair": statistics.median(pose[P][1:]) / pairs,
+                   "pose_map_peak_mib": round(peak[P], 1)}
+               for P in VO_PAIR_BATCHES}
+        log(f"{name}: host ms in turns (medians of rounds 2-3, synchronised) "
+            f"{json.dumps(res)} [{card}]")
+    return paths
+
+
 def lightglue_depth_width_phase(dev, repo: str) -> dict:
     """LG-adaptive-K1024 and LG-width-K1024: pinned S8 extracts 1024
     keypoints from the textured 240x320 frame and its homography-warped
@@ -2356,12 +2487,58 @@ def lightglue_kernel_phase(dev, lg, key: str, name: str) -> dict:
     entry["library"] = ("torch.nn.functional.scaled_dot_product_attention, "
                         "one call over the two images of one self-attention "
                         "launch; the stack has no single library call")
+    if D != 256:  # the offline VO's batched match map runs D = 32
+        entry.update(lightglue_batched_case(dev, lg, name, P))
     if D == 256:
         entry["row_library"] = ("torch.matmul, float32 (TF32 off): fc1's "
                                 "product (M+N, 2D) x (2D, 2D), the row "
                                 "stage's cuBLAS yardstick")
         return {key: entry, "split_weights": split_entry}
     return {key: entry}
+
+
+def lightglue_batched_case(dev, lg, name: str, P: int) -> dict:
+    """The stack at batch ``VO_PAIR_BATCHES[-1]`` = 8 pairs and K = 1024
+    (the offline VO's match map at pair_batch 8), every pair's masks its
+    own (pair i pads 16 i slots of image 0 and 24 i of image 1), against
+    its twin: timed (the twin by the profiler's summed device time), its
+    bound (all in 3xTF32, as at batch 1) and one SDPA call over the 2 x 8
+    images of one self-attention launch; keys ``_b8_k1024``."""
+    import torch
+    import torch.nn.functional as F
+
+    from nanovs_slam_torch.kernels.lightglue import (
+        HEADS, lightglue_transformer, lightglue_transformer_plain)
+
+    B, K = VO_PAIR_BATCHES[-1], 1024
+    D, L = lg.cfg.descriptor_dim, lg.cfg.n_layers
+    args = lightglue_args(lg, dev, B, K, K, 1, 1, False, SEED + 450)
+    slots = torch.arange(K, device=dev)
+    for a, step in ((6, 16), (7, 24)):  # the masks: pair i its own padding
+        args[a] = slots[None] < K - step * torch.arange(B, device=dev)[:, None]
+    got = lightglue_transformer(*args)
+    want = lightglue_transformer_plain(*args, range(L))
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    require(err <= 1e-4, f"{name} B8_K1024: max_abs_err {err}")
+    ms = cuda_ms(lambda: lightglue_transformer(*args), inner=10)
+    plain_ms = device_sum_ms(lambda: lightglue_transformer_plain(
+        *args, range(L)))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(2 * B, HEADS, K, D // HEADS, device=dev,
+                           generator=g) for _ in range(3))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    bounds = lightglue_bounds(B, K, K, D, L, P)
+    log(f"kernel {name} B8_K1024: max_abs_err {err:.3g}, kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {bounds['all_3xtf32']:.5f} ms "
+        f"(operations, all in 3xTF32; attention in 3xTF32 and the rest in "
+        f"float32 {bounds['attn_3xtf32']:.5f}, all in float32 "
+        f"{bounds['float32']:.5f}); sdpa {library_ms:.4f} ms")
+    return {"max_abs_err_b8_k1024": err, "ms_b8_k1024": ms,
+            "plain_ms_b8_k1024": plain_ms,
+            "bound_ms_b8_k1024": bounds["all_3xtf32"],
+            "bound_by_b8_k1024": "operations",
+            "library_ms_b8_k1024": library_ms}
 
 
 def split_weights_entry(dev, packed) -> dict:
@@ -4868,11 +5045,25 @@ def spatial_jobs() -> list:
                repeats=5)
     h, w = TRAIN_HW
     batch = {k: v.numpy() for k, v in train_batch(SEED).items()}
+    kf = dict(keypoint_former=True, config="default", n_classes=KF_CLASSES)
+    kf_req = dict(kf, frames=shifted_frames(1, *KF_HW), request=True,
+                  repeats=5)
+    kh, kw = KF_TRAIN_HW
     return [("sp2", "sp_forward", dict(req, ranks=2)),
             ("sp4", "sp_forward", dict(req, ranks=4)),
             ("sp_train", "dp_steps", dict(
                 config="S", n_classes=28, H=h, W=w, steps=2, lr=DP_LR,
-                batch=batch, grads=True, timing=True, spatial=True))]
+                batch=batch, grads=True, timing=True, spatial=True)),
+            ("kf_sp2", "sp_forward", dict(kf_req, ranks=2)),
+            ("kf_sp4", "sp_forward", dict(kf_req, ranks=4)),
+            ("kf_sp_train", "dp_steps", dict(
+                kf, H=kh, W=kw, steps=2, lr=DP_LR,
+                batch={k: np.asarray(v) for k, v in kf_train_batch(
+                    SEED).items()}, grads=True, timing=True,
+                spatial=True))]
+
+# the spatial phase's jobs that have no single-process run of their own
+SPATIAL_ONLY = ("sp4", "kf_sp4")
 
 
 def spatial_clis(repo: str, card: str) -> None:
@@ -5049,45 +5240,61 @@ def spatial_phase(dev, repo: str) -> dict:
                   backend="gloo", timeout=120, deadline=400)
     log(f"spatial: {SPATIAL_RANKS} ranks over gloo sharing the card, their "
         f"jobs in {time.perf_counter() - t0:.1f} s")
-    want = run_jobs(None, [(n, k, s) for n, k, s in jobs if n != "sp4"], dev)
-    launches = {}
+    want = run_jobs(None, [(n, k, s) for n, k, s in jobs
+                           if n not in SPATIAL_ONLY], dev)
+    kf_jobs = ("kf_sp2", "kf_sp4", "kf_sp_train")
+    launches, kf_launches = {}, []
     for r in ranks:
-        for job in r.values():
+        kf_rank = {}
+        for name, job in r.items():
+            total = kf_rank if name in kf_jobs else launches
             for k, n in job["launches"].items():
-                launches[k] = launches.get(k, 0) + n
-    wf = want["sp2"]["out"]
-    for tag, n in (("sp2", 2), ("sp4", 4)):
+                total[k] = total.get(k, 0) + n
+        kf_launches.append(kf_rank)
+    for tag, n, ref, what in (("sp2", 2, "sp2", "pinned S8 240x320"),
+                              ("sp4", 4, "sp2", "pinned S8 240x320"),
+                              ("kf_sp2", 2, "kf_sp2", "KeypointFormer "
+                               "default 256x320"),
+                              ("kf_sp4", 4, "kf_sp2", "KeypointFormer "
+                               "default 256x320")):
+        wf = want[ref]["out"]
         got = [r[tag]["out"] for r in ranks[:n]]
         same_on_every_rank(got)
         g = got[0]
         floats = {k: v for k, v in wf.items() if v.dtype.kind == "f"}
         gap = compare_outputs({k: g[k] for k in floats}, floats)
         seg = float((g["seg"] == wf["seg"]).mean())
-        log(f"spatial {tag}: pinned S8 240x320 over {n} ranks against one "
+        log(f"spatial {tag}: {what} over {n} ranks against one "
             f"process, floats {gap:.3g} apart ({sorted(floats)}), seg ids "
             f"equal on {seg:.5f}; ms a request "
             f"{[round(r[tag]['ms'], 3) for r in ranks[:n]]} (ranks), "
-            f"{want['sp2']['ms']:.3f} (one process) [{card}]")
+            f"{want[ref]['ms']:.3f} (one process) [{card}]")
         require(gap <= 1e-4 and seg >= 0.999, f"spatial {tag}: apart")
-    check_dp("sp_train", same_on_every_rank([r["sp_train"] for r in ranks]),
-             want["sp_train"])
-    for i, r in enumerate(ranks):
-        step, red = r["sp_train"]["step_ms"], r["sp_train"]["reduce_ms"]
-        log(f"spatial train: rank {i} ms a step "
-            f"{[round(x, 3) for x in step]}, the gradient all-reduce "
-            f"{[round(x, 3) for x in red]} [{card}]")
-    log(f"spatial train: one process ms a step "
-        f"{[round(x, 3) for x in want['sp_train']['step_ms']]} [{card}]")
+    for tag, what in (("sp_train", "spatial train"),
+                      ("kf_sp_train", "spatial kf train")):
+        check_dp(tag, same_on_every_rank([r[tag] for r in ranks]), want[tag])
+        for i, r in enumerate(ranks):
+            step, red = r[tag]["step_ms"], r[tag]["reduce_ms"]
+            log(f"{what}: rank {i} ms a step "
+                f"{[round(x, 3) for x in step]}, the gradient all-reduce "
+                f"{[round(x, 3) for x in red]} [{card}]")
+        log(f"{what}: one process ms a step "
+            f"{[round(x, 3) for x in want[tag]['step_ms']]} [{card}]")
     path = {k: launches[k] for k in ("fused_stem_pair_pool",
                                      "fused_postprocess", "netvlad",
                                      "netvlad_backward")}
     log(f"spatial: launches on the ranks {json.dumps(path)}")
     require(all(n > 0 for n in path.values()),
             f"spatial: a kernel of the path never launched {path}")
+    kf_keys = ("fused_postprocess", "netvlad", "netvlad_backward")
+    log(f"spatial kf: launches by rank {json.dumps(kf_launches)}")
+    require(all(r.get(k, 0) > 0 for r in kf_launches for k in kf_keys),
+            "spatial kf: a kernel of the path never launched on a rank")
+    kf_path = {k: sum(r.get(k, 0) for r in kf_launches) for k in kf_keys}
     spatial_clis(repo, card)
     lightglue_bf16_pair(dev, repo, card)
     log(f"spatial: phase {time.perf_counter() - t_phase:.1f} s")
-    return {"spatial": path}
+    return {"spatial": path, "kf_spatial": kf_path}
 
 
 def main() -> int:
@@ -5137,20 +5344,24 @@ def main() -> int:
     paths["odd_request"] = odd_request_phase(dev)
     paths["lightglue_default"] = lightglue_default_phase(dev)
     cor = corridor_setup(dev, repo)
-    paths.update(vo_phase(dev, repo, cor))
-    paths.update(family_phase(dev))
-    paths.update(vo_dense_phase(dev, cor))
-    paths.update(vo_offline_phase(dev, repo, cor))
-    paths.update(lightglue_depth_width_phase(dev, repo))
-    paths.update(train_phase(dev, repo))
-    paths.update(train_cache_phase(dev))
-    paths.update(visloc_phase(dev, repo))
-    paths.update(eval_phase(dev, repo))
-    paths.update(keypoint_former_phase(dev, repo))
-    paths.update(lightglue_train_phase(dev, repo))
-    paths.update(int8_phase(dev, repo, kernels))
-    paths.update(parallel_phase(dev, repo, cor))
-    paths.update(spatial_phase(dev, repo))
+    for phase, args in ((vo_phase, (dev, repo, cor)), (family_phase, (dev,)),
+                        (vo_dense_phase, (dev, cor)),
+                        (vo_offline_phase, (dev, repo, cor)),
+                        (vo_offline_batched_phase, (dev, repo, cor)),
+                        (lightglue_depth_width_phase, (dev, repo)),
+                        (train_phase, (dev, repo)),
+                        (train_cache_phase, (dev,)),
+                        (visloc_phase, (dev, repo)),
+                        (eval_phase, (dev, repo)),
+                        (keypoint_former_phase, (dev, repo)),
+                        (lightglue_train_phase, (dev, repo)),
+                        (int8_phase, (dev, repo, kernels)),
+                        (parallel_phase, (dev, repo, cor)),
+                        (spatial_phase, (dev, repo))):
+        t_phase = time.perf_counter()
+        paths.update(phase(*args))
+        log(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s, "
+            f"{time.perf_counter() - t0:.1f} s since the build began")
 
     lines = []
     for key, entry in kernels.items():

@@ -50,16 +50,38 @@ SEED = 0
 
 # ------------------------------------------------------------------ inputs
 
-def train_batch(H: int, W: int, B: int, n_classes: int, seed: int
-                ) -> Dict[str, np.ndarray]:
+def _config(spec: dict):
+    """(cfg, its ``init_model``) of a job: KeypointFormer's
+    ``spec["config"]`` ("tiny", "default") with ``spec["keypoint_former"]``,
+    else KP2DTiny's (V3 with ``spec["v3"]``), at ``spec["n_classes"]`` and
+    ``spec["dtype"]``."""
+    kw = dict(n_classes=spec["n_classes"], dtype=spec.get("dtype",
+                                                           "float32"))
+    if spec.get("keypoint_former"):
+        import dataclasses
+
+        from .models.keypoint_former import KEYPOINTFORMER_CONFIGS, init_model
+
+        return dataclasses.replace(KEYPOINTFORMER_CONFIGS[spec["config"]],
+                                   **kw), init_model
+    from .configs import get_config
+    from .models.kp2dtiny import init_model
+
+    return get_config(spec["config"], v3=spec.get("v3", False), **kw), \
+        init_model
+
+
+def train_batch(H: int, W: int, B: int, n_classes: int, seed: int,
+                d_f: int = 2) -> Dict[str, np.ndarray]:
     """One global training batch of the synthetic set through the
-    PairLoader's host augments and homographies, as numpy."""
+    PairLoader's host augments and homographies, as numpy; labels at
+    H / ``d_f`` (the trainer's cell / 2: 4 for KeypointFormer)."""
     from .data.datasets import SyntheticShapesDataset
     from .data.pipeline import PairLoader
 
     loader = PairLoader(SyntheticShapesDataset((H, W), max(B, 8), n_classes,
                                                seed=seed),
-                        B, H, W, seed=seed, device="cpu")
+                        B, H, W, d_f=d_f, seed=seed, device="cpu")
     return {k: v.numpy() for k, v in next(iter(loader)).items()}
 
 
@@ -99,17 +121,15 @@ def _train_state(spec: dict, dev):
     inlier net from the seed (or ``spec["init"]``'s numpy state dicts),
     Adam at ``lr`` (on a cosine schedule of ``spec["cosine"]`` = (steps an
     epoch, epochs) where given), dropout on a generator seeded alike on
-    every rank, or off."""
-    from .configs import get_config
+    every rank, or off. A KeypointFormer with ``spec["keypoint_former"]``
+    (``_config``)."""
     from .models.inlier_net import init_inlier_net
-    from .models.kp2dtiny import init_model
     from .modules.blocks import set_dropout
     from .train.schedules import make_lr_schedule
     from .train.train_step import create_train_state, make_optimizer
 
     seed = spec.get("seed", SEED)
-    cfg = get_config(spec["config"], n_classes=spec["n_classes"],
-                     dtype=spec.get("dtype", "float32"))
+    cfg, init_model = _config(spec)
     model = init_model(cfg, torch.Generator().manual_seed(seed), dev)
     io = init_inlier_net(torch.Generator().manual_seed(seed + 2), device=dev)
     if spec.get("init"):
@@ -302,16 +322,11 @@ def sharded_vo(mesh, spec: dict, dev=None) -> dict:
 
 def _job_model(spec: dict, dev):
     """(cfg, eval model on ``dev``) of a serving job: pinned S8 with
-    ``spec["pinned"]``, else ``spec["config"]`` (V3 with ``spec["v3"]``,
-    ``spec["n_classes"]``) seeded, or loaded from ``spec["init"]`` (a
-    numpy state dict)."""
-    from .configs import get_config
-    from .models.kp2dtiny import init_model
-
+    ``spec["pinned"]``, else ``spec["config"]`` (``_config``) seeded, or
+    loaded from ``spec["init"]`` (a numpy state dict)."""
     if spec.get("pinned"):
         return _pinned_s8(dev)
-    cfg = get_config(spec["config"], n_classes=spec["n_classes"],
-                     v3=spec.get("v3", False))
+    cfg, init_model = _config(spec)
     model = init_model(cfg, torch.Generator().manual_seed(SEED), dev)
     if spec.get("init"):
         model.load_state_dict({k: torch.as_tensor(v)

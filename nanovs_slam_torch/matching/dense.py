@@ -47,55 +47,64 @@ def coarse_match(d0: Tensor, d1: Tensor, temperature: float = 0.1
                  ) -> Tuple[Tensor, Tensor]:
     """Dual-softmax mutual matching over flattened coarse descriptors.
 
-    d0, d1: (N, C) L2-normalised -> (j (N,) the best match in d1 of every
-    cell of d0, conf (N,) its dual-softmax probability, 0 where the match
-    is not mutual). ``torch.argmax`` returns the first of equal maxima, as
-    ``jnp.argmax`` does.
+    d0, d1: (..., N, C) L2-normalised (leading dims: pairs) -> (j (..., N)
+    the best match in d1 of every cell of d0, conf (..., N) its
+    dual-softmax probability, 0 where the match is not mutual).
+    ``torch.argmax`` returns the first of equal maxima, as ``jnp.argmax``
+    does.
 
     The column softmax runs on the transposed copy: PyTorch's softmax over
     the first of two dims of a contiguous matrix is its slow spatial
     kernel (4.45 of 5.06 device ms a match at N = 4096 on an H100)."""
-    s = (d0 @ d1.T) / temperature
-    p = torch.softmax(s, 1) * torch.softmax(s.T.contiguous(), 1).T
-    j = torch.argmax(p, 1)
-    i_back = torch.argmax(p, 0)
-    mutual = i_back[j] == torch.arange(d0.shape[0], device=d0.device)
-    conf = torch.gather(p, 1, j[:, None])[:, 0]
+    s = (d0 @ d1.transpose(-1, -2)) / temperature
+    p = torch.softmax(s, -1) * torch.softmax(
+        s.transpose(-1, -2).contiguous(), -1).transpose(-1, -2)
+    j = torch.argmax(p, -1)
+    i_back = torch.argmax(p, -2)
+    mutual = torch.gather(i_back, -1, j) == torch.arange(
+        d0.shape[-2], device=d0.device)
+    conf = torch.gather(p, -1, j[..., None])[..., 0]
     return j, torch.where(mutual, conf, 0.0)
 
 
 def _gather_windows(fmap: Tensor, cy: Tensor, cx: Tensor, w: int) -> Tensor:
-    """fmap (H, W, C), integer centres cy / cx (K,) inside the map ->
-    (K, w, w, C) windows centred on them, zero outside the map."""
+    """fmap ([P,] H, W, C), integer centres cy / cx ([P,] K) inside the
+    map -> ([P,] K, w, w, C) windows centred on them, zero outside the
+    map."""
     r = w // 2
     padded = F.pad(fmap, (0, 0, r, r, r, r))
     offs = torch.arange(w, device=fmap.device)
     # row cy + r of the padded map is row cy of the map
-    rows = (cy[:, None] + offs)[:, :, None]
-    cols = (cx[:, None] + offs)[:, None, :]
-    return padded[rows, cols]
+    rows = (cy[..., None] + offs)[..., :, :, None]
+    cols = (cx[..., None] + offs)[..., :, None, :]
+    if fmap.dim() == 3:
+        return padded[rows, cols]
+    pairs = torch.arange(fmap.shape[0], device=fmap.device)
+    return padded[pairs[:, None, None, None], rows, cols]
 
 
 def fine_refine(f1: Tensor, d0c: Tensor, py: Tensor, px: Tensor, w: int,
                 temperature: float = 0.05) -> Tuple[Tensor, Tensor]:
     """Soft-argmax local correlation refinement (LoFTR's fine stage).
 
-    f1 (Hf, Wf, C) image 1's fine map; d0c (K, C) image 0's descriptors;
-    (py, px) (K,) image 1's points on the fine grid. The window's centre
+    f1 ([P,] Hf, Wf, C) image 1's fine map; d0c ([P,] K, C) image 0's
+    descriptors; (py, px) ([P,] K) image 1's points on the fine grid. The window's centre
     is the point rounded half to even (``jnp.round``) and clipped to the
     map. -> (dy, dx) offsets in fine-grid units, the centre's rounding
     folded in."""
-    Hf, Wf, _ = f1.shape
+    Hf, Wf = f1.shape[-3:-1]
     r = w // 2
     iy = torch.clamp(torch.round(py).long(), 0, Hf - 1)
     ix = torch.clamp(torch.round(px).long(), 0, Wf - 1)
     win = _l2n(_gather_windows(f1, iy, ix, w))  # centres at (r, r)
-    corr = torch.einsum("kxyc,kc->kxy", win, _l2n(d0c)) / temperature
-    prob = torch.softmax(corr.reshape(corr.shape[0], -1), -1
+    # a product and a sum over C per window pixel, not a batched matmul:
+    # each pair's arithmetic is then the same in a batch of any size
+    corr = (win * _l2n(d0c)[..., None, None, :]).sum(-1) / temperature
+    prob = torch.softmax(corr.reshape(corr.shape[:-2] + (-1,)), -1
                          ).reshape(corr.shape)
     offs = torch.arange(w, dtype=torch.float32, device=f1.device) - r
-    dy = (prob * offs[None, :, None]).sum((1, 2))
-    dx = (prob * offs[None, None, :]).sum((1, 2))
+    dy = (prob * offs[:, None]).sum((-2, -1))
+    dx = (prob * offs[None, :]).sum((-2, -1))
     return dy + (iy - py), dx + (ix - px)
 
 
@@ -155,16 +164,17 @@ class DenseMatcher:
     @torch.inference_mode()
     def match_maps(self, f0: Tensor, f1: Tensor):
         """Two fine maps -> (kp0 (K, 2), kp1 (K, 2), conf (K,)) on their
-        device, K = min(k, Hc * Wc), in descending confidence."""
+        device, K = min(k, Hc * Wc), in descending confidence. Maps of P
+        pairs (P, Hf, Wf, C) give (P, K, 2), (P, K, 2) and (P, K)."""
         H, W, cell, w = self.H, self.W, self.cell, self.window
-        Hf, Wf, C = f0.shape
+        *lead, Hf, Wf, C = f0.shape
         Hc, Wc = Hf // 2, Wf // 2
         n = Hc * Wc
         dev = f0.device
 
         def coarse(f):  # 2x average pool of the fine map
-            return _l2n(f.reshape(Hc, 2, Wc, 2, C).mean(dim=(1, 3))
-                        ).reshape(n, C)
+            return _l2n(f.reshape(*lead, Hc, 2, Wc, 2, C).mean(
+                dim=(-4, -2))).reshape(*lead, n, C)
 
         j, conf = coarse_match(coarse(f0), coarse(f1), self.ct)
         # drop the border cells (the model's border mask removes the
@@ -174,7 +184,7 @@ class DenseMatcher:
         inner = (ii > 0) & (ii < Hc - 1) & (jj > 0) & (jj < Wc - 1)
         conf = torch.where(inner, conf, 0.0)
         top_conf, idx0 = stable_top_k(conf, min(self.k, n))
-        idx1 = j[idx0]
+        idx1 = torch.gather(j, -1, idx0)
 
         step = (cell - 1) / 2.0  # cell centres (decode_coords)
 
@@ -187,12 +197,13 @@ class DenseMatcher:
         # image 1's point refined on the fine grid (align corners); image
         # 0's anchor descriptor sampled bilinearly at kp0 itself
         rx, ry = (Wf - 1) / (W - 1), (Hf - 1) / (H - 1)
-        d0c = sample_descriptors(f0[None], kp0[None], H, W)[0]
-        dy, dx = fine_refine(f1, d0c, kp1[:, 1] * ry, kp1[:, 0] * rx, w,
-                             self.ft)
+        d0c = (sample_descriptors(f0, kp0, H, W) if lead else
+               sample_descriptors(f0[None], kp0[None], H, W)[0])
+        dy, dx = fine_refine(f1, d0c, kp1[..., 1] * ry, kp1[..., 0] * rx,
+                             w, self.ft)
         kp1 = kp1 + torch.stack([dx / rx, dy / ry], -1)
-        kp1 = torch.stack([torch.clamp(kp1[:, 0], 0.0, W - 1.0),
-                           torch.clamp(kp1[:, 1], 0.0, H - 1.0)], -1)
+        kp1 = torch.stack([torch.clamp(kp1[..., 0], 0.0, W - 1.0),
+                           torch.clamp(kp1[..., 1], 0.0, H - 1.0)], -1)
         return kp0, kp1, top_conf
 
     def __call__(self, img0, img1, conf_threshold: float = 0.05,

@@ -26,6 +26,12 @@ size: ceil(H/4) and ceil(W/4) divisible by 8, which H and W divisible by 32
 give. The JAX model fails there otherwise (at 120x160 and 240x320); the
 port raises ``ValueError`` before any work.
 
+On a slab of rows (``slabs`` set inside
+``parallel.spatial.spatial_partition``) the VPR head's rows are those its
+strided first conv gives the rank (``SlabPlan.conv_rows``), and NetVLAD
+takes the head's map gathered from them: every rank computes the same
+descriptor.
+
 Submodules keep the flax names (``mit.stage{s}_embed``,
 ``mit.stage{s}_l{l}_att``, ``to_fused{i}_conv``, ``seg_conv0``,
 ``netvlad``, ...), so that ``utils/convert.load_jax_variables`` maps a flax
@@ -154,6 +160,8 @@ def _upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 
 class KeypointFormer(nn.Module):
+    slabs = None  # set inside ``spatial_partition``
+
     def __init__(self, cfg: KeypointFormerConfig):
         super().__init__()
         self.cfg = cfg
@@ -197,6 +205,12 @@ class KeypointFormer(nn.Module):
             fused.append(_upsample_nearest(y, 2 ** i))
         fused = torch.cat(fused, dim=1)  # (B, 4d, H/4, W/4)
         vlad_feat = torch.relu(self._head("vlad", fused))
+        if self.slabs is not None:
+            conv = self.vlad_conv0
+            _, _, _, lo, total = self.slabs.conv_rows(
+                fused.shape[2], conv.kernel_size[0], conv.stride[0],
+                conv.padding[0])
+            vlad_feat = self.slabs.gather_rows(vlad_feat, 2, lo, total)
         if only_encoder:
             return vlad_feat
         return {"score": torch.sigmoid(self._head("score", fused)),

@@ -201,9 +201,10 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype`` (float32 until
     ``set_compute_dtype`` sets it); its parameters stay float32. Under
     ``parallel.spatial.spatial_partition`` (``slabs`` set) the input is
-    this rank's slab of rows: a conv padded in height first takes its
-    halo from the neighbouring slabs, then runs unpadded in height, so
-    that it writes exactly the slab's rows."""
+    this rank's slab of rows: a conv padded in height first takes the
+    halo its rows read from the neighbouring slabs, then runs unpadded in
+    height, so that it writes the rows ``SlabPlan.conv_rows`` gives the
+    rank (a stride-1 conv: exactly the slab's rows)."""
 
     compute_dtype = torch.float32
     slabs = None  # set inside ``spatial_partition``
@@ -214,9 +215,13 @@ class Conv2d(nn.Conv2d):
         ph = self.padding[0]
         if self.slabs is None or not ph:
             return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
-        x = self.slabs.halo(x, ph, ph)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                        (0, self.padding[1]), self.dilation, self.groups)
+        k, st = self.kernel_size[0], self.stride[0]
+        top, bottom, rows, _, _ = self.slabs.conv_rows(x.shape[2], k, st, ph)
+        if top or bottom:
+            x = self.slabs.halo(x, top, bottom)
+        return F.conv2d(x[:, :, rows].to(dt), self.weight.to(dt), bias,
+                        self.stride, (0, self.padding[1]), self.dilation,
+                        self.groups)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

@@ -210,33 +210,36 @@ def bf_match_device(feat0: torch.Tensor, feat1: torch.Tensor,
 
     feat0 (K0, C) query, feat1 (K1, C) train, optional boolean validity
     masks for padded slots. Returns (train_idx (K0,) int32, valid (K0,)
-    bool): query q matches train train_idx[q] iff valid[q].
+    bool): query q matches train train_idx[q] iff valid[q]. Leading dims
+    (pairs: (P, K0, C), (P, K1, C), masks (P, K)) match each pair alone.
     """
-    K0, K1 = feat0.shape[0], feat1.shape[0]
-    aa = (feat0 * feat0).sum(1)[:, None]
-    bb = (feat1 * feat1).sum(1)[None, :]
-    d2 = torch.clamp(aa + bb - 2.0 * feat0 @ feat1.T, min=0.0)
+    K0, K1 = feat0.shape[-2], feat1.shape[-2]
+    aa = (feat0 * feat0).sum(-1)[..., :, None]
+    bb = (feat1 * feat1).sum(-1)[..., None, :]
+    d2 = torch.clamp(aa + bb - 2.0 * feat0 @ feat1.transpose(-1, -2),
+                     min=0.0)
     if mask1 is not None:
-        d2 = torch.where(mask1[None, :], d2, torch.inf)
+        d2 = torch.where(mask1[..., None, :], d2, torch.inf)
     # the two smallest; a stable sort keeps lax.top_k's order on ties
-    d_sorted, idx2 = torch.sort(d2, dim=1, stable=True)
-    d_pair = torch.sqrt(torch.clamp(d_sorted[:, :2], min=0.0))
-    t = idx2[:, 0]
-    d0, d1 = d_pair[:, 0], d_pair[:, 1]
+    d_sorted, idx2 = torch.sort(d2, dim=-1, stable=True)
+    d_pair = torch.sqrt(torch.clamp(d_sorted[..., :2], min=0.0))
+    t = idx2[..., 0]
+    d0, d1 = d_pair[..., 0], d_pair[..., 1]
     keep = (d0 <= ratio_test * d1) & torch.isfinite(d0)
     if mask0 is not None:
         keep = keep & mask0
     # one-to-one: per train index, the kept query with the smallest
     # distance wins; exact ties go to the smallest query index
-    q_idx = torch.arange(K0, device=feat0.device)
+    q_idx = torch.arange(K0, device=feat0.device).expand(t.shape)
     d_for_min = torch.where(keep, d0, torch.inf)
-    seg_min = torch.full((K1,), torch.inf, dtype=d0.dtype,
+    lead = tuple(t.shape[:-1])
+    seg_min = torch.full(lead + (K1,), torch.inf, dtype=d0.dtype,
                          device=d0.device).scatter_reduce(
-        0, t, d_for_min, "amin")
-    cand = keep & (d0 == seg_min[t])
+        -1, t, d_for_min, "amin")
+    cand = keep & (d0 == torch.gather(seg_min, -1, t))
     q_for_min = torch.where(cand, q_idx, K0)
-    seg_min_q = torch.full((K1,), K0, dtype=q_idx.dtype,
+    seg_min_q = torch.full(lead + (K1,), K0, dtype=q_idx.dtype,
                            device=d0.device).scatter_reduce(
-        0, t, q_for_min, "amin")
-    valid = cand & (q_idx == seg_min_q[t])
+        -1, t, q_for_min, "amin")
+    valid = cand & (q_idx == torch.gather(seg_min_q, -1, t))
     return t.to(torch.int32), valid

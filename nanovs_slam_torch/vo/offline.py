@@ -14,6 +14,13 @@ the whole trajectory in three device stages instead of a frame loop.
    so that a pair's stream does not depend on which pairs ran before it
    (the property ``jax.random.fold_in(key, i)`` gives the JAX package).
 
+Both maps run in chunks of ``pair_batch`` consecutive pairs (the last
+chunk the remainder), as the JAX package's ``lax.map(..., batch_size)``
+does: one batched call of each matcher (LightGlue at batch P) and one
+batched RANSAC (the pairs folded into its restarts' axis) a chunk. Every
+pair keeps its own generator, so any ``pair_batch`` gives the match sets
+of 1, and its poses up to MSAC's ties between near-equal hypotheses.
+
 ``relative_poses_sharded`` splits the pairs over a mesh's ranks: each rank
 extracts only its pairs' frames and runs their match and pose maps with
 their global pair indices (so their RANSAC streams are those of
@@ -43,12 +50,6 @@ from .pose import (assemble_vo_error_stats, calculate_error_stats,
 
 Tensor = torch.Tensor
 
-PAIR_BATCH_NOT_PORTED = (
-    "pair_batch > 1 (the JAX package's vmapped pose map, measured slower "
-    "than 1 on its chip) is not ported: ROADMAP.md, 'Later kernel and perf "
-    "work', the device RANSAC")
-
-
 def pair_generator(seed: int, i: int, device) -> torch.Generator:
     """The RANSAC generator of pair i: seeded from (seed, i) alone."""
     state = np.random.SeedSequence((seed, i)).generate_state(1, np.uint64)
@@ -73,7 +74,9 @@ class OfflineVO:
     with LightGlue's masked forward on keypoints scaled to the camera's
     size. ``lightglue``: a LightGlue module, or the tuple of
     ``load_lightglue_for_vo``. The pose map: ``n_hypotheses`` and
-    ``restarts`` of the device RANSAC."""
+    ``restarts`` of the device RANSAC. ``pair_batch``: the pairs of a
+    chunk of the match and pose maps (the RANSAC's residuals take P x
+    restarts x n_hypotheses x N float64 a chunk)."""
 
     def __init__(self, model, cfg, size: Tuple[int, int], cam,
                  k: int = 512, n_matches: int = 400,
@@ -88,8 +91,7 @@ class OfflineVO:
         if matcher == "lightglue" and lightglue is None:
             raise ValueError("matcher='lightglue' needs lightglue= (a "
                              "LightGlue module)")
-        if pair_batch and pair_batch > 1:
-            raise NotImplementedError(PAIR_BATCH_NOT_PORTED)
+        self.pair_batch = max(1, pair_batch or 1)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
@@ -161,18 +163,25 @@ class OfflineVO:
             return torch.cat(chunks)[:T]
         return tuple(torch.cat(parts)[:T] for parts in zip(*chunks))
 
+    def _chunks(self, n: int):
+        """The pair slices of the maps: ``pair_batch`` pairs each, the
+        last the remainder."""
+        return [slice(i, min(i + self.pair_batch, n))
+                for i in range(0, n, self.pair_batch)]
+
     def _match_step(self, r0, r1):
-        """One pair's representations -> (kpn0 (K, 2), kpn1 (K, 2), valid
-        (K,)) normalised correspondences and their validity."""
+        """A chunk of P pairs' representations (leading axis P) -> (kpn0
+        (P, K, 2), kpn1 (P, K, 2), valid (P, K)) normalised
+        correspondences and their validity."""
         if self.matcher == "dense":
             kp0, kp1, conf = self.dm.match_maps(r0, r1)
             # the online loop's dense policy without a host read: the
             # confidences are sorted, so the confident set is rank < n_over
             # and the top-up's union rank < max(n_over, n_matches)
-            thr = self.dense_rel_conf * conf.max() \
+            thr = self.dense_rel_conf * conf.max(-1, keepdim=True).values \
                 if self.dense_rel_conf > 0 else self.dense_conf
-            n_over = (conf > thr).sum()
-            rank = torch.arange(conf.shape[0], device=conf.device)
+            n_over = (conf > thr).sum(-1, keepdim=True)
+            rank = torch.arange(conf.shape[-1], device=conf.device)
             keep = (rank < torch.clamp(n_over, min=self.n_matches)) \
                 & (conf > 0.0)
             return self._unproject(kp0), self._unproject(kp1), keep
@@ -189,46 +198,49 @@ class OfflineVO:
             # (reference visual_odometry.py:119-121)
             size = (self.cam.width, self.cam.height)
             pred = self.lightglue({
-                "keypoints0": normalize_keypoints((kp0 * self._scale)[None],
-                                                  size),
-                "keypoints1": normalize_keypoints((kp1 * self._scale)[None],
-                                                  size),
-                "descriptors0": d0[None], "descriptors1": d1[None],
-                "mask0": m0[None], "mask1": m1[None]})
-            mtc = pred["matches0"][0]
+                "keypoints0": normalize_keypoints(kp0 * self._scale, size),
+                "keypoints1": normalize_keypoints(kp1 * self._scale, size),
+                "descriptors0": d0, "descriptors1": d1,
+                "mask0": m0, "mask1": m1})
+            mtc = pred["matches0"]
             valid = mtc >= 0
             t_idx = torch.clamp(mtc, min=0)
-        return self._unproject(kp0), self._unproject(kp1[t_idx]), valid
+        kp1m = torch.gather(kp1, 1, t_idx[..., None].expand(-1, -1, 2))
+        return self._unproject(kp0), self._unproject(kp1m), valid
 
     @torch.inference_mode()
     def match_map(self, reps):
         """The representations of T frames -> (kpn0, kpn1 (T-1, K, 2),
-        valid (T-1, K)): every consecutive pair's correspondences."""
-        if self.matcher == "dense":
-            pairs = [(reps[i], reps[i + 1]) for i in range(len(reps) - 1)]
-        else:
-            T = reps[0].shape[0]
-            pairs = [tuple(tuple(a[j] for a in reps) for j in (i, i + 1))
-                     for i in range(T - 1)]
-        out = [self._match_step(*p) for p in pairs]
-        return tuple(torch.stack(parts) for parts in zip(*out))
+        valid (T-1, K)): every consecutive pair's correspondences, a
+        chunk of ``pair_batch`` pairs a call of the matcher."""
+        dense = self.matcher == "dense"
+        T = (reps if dense else reps[0]).shape[0]
+
+        def frames(lo, hi):
+            return reps[lo:hi] if dense else tuple(a[lo:hi] for a in reps)
+
+        out = [self._match_step(frames(sl.start, sl.stop),
+                                frames(sl.start + 1, sl.stop + 1))
+               for sl in self._chunks(T - 1)]
+        return tuple(torch.cat(parts) for parts in zip(*out))
 
     @torch.inference_mode()
     def pose_map(self, kpn0: Tensor, kpn1: Tensor, valid: Tensor,
                  seed: int = 0, pair_index=None):
         """Correspondences of T-1 pairs -> (R (T-1, 3, 3), t (T-1, 3),
         n_inliers (T-1,), n_matches (T-1,)) on the device, by the device
-        RANSAC in float64, pair i from ``pair_generator(seed,
-        pair_index[i])`` (default: i)."""
+        RANSAC in float64 on chunks of ``pair_batch`` pairs, pair i from
+        ``pair_generator(seed, pair_index[i])`` (default: i)."""
         out = []
-        for i in range(kpn0.shape[0]):
-            g = i if pair_index is None else int(pair_index[i])
+        for sl in self._chunks(kpn0.shape[0]):
+            gens = [pair_generator(seed, i if pair_index is None
+                                   else int(pair_index[i]), self.device)
+                    for i in range(sl.start, sl.stop)]
             R, t, inl = ransac_essential_device(
-                kpn0[i].double(), kpn1[i].double(),
-                pair_generator(seed, g, self.device), valid=valid[i],
+                kpn0[sl].double(), kpn1[sl].double(), gens, valid=valid[sl],
                 n_hypotheses=self.n_hypotheses, restarts=self.restarts)
-            out.append((R, t[:, 0], inl.sum(), valid[i].sum()))
-        return tuple(torch.stack(parts) for parts in zip(*out))
+            out.append((R, t[..., 0], inl.sum(-1), valid[sl].sum(-1)))
+        return tuple(torch.cat(parts) for parts in zip(*out))
 
     def relative_poses(self, frames, seed: int = 0):
         """(T, H, W, 3) uint8 or float [0, 1] frames -> (R (T-1, 3, 3),

@@ -147,17 +147,31 @@ def _tangent_basis(t: Tensor):
     return b1, torch.linalg.cross(t, b1)
 
 
+def _apply(M: Tensor, h: Tensor) -> Tensor:
+    """M (R, ..., 3, 3) times every row of h (R, N, 3), row r of M with
+    row r of h -> (R, ..., N, 3)."""
+    R = h.shape[0]
+    out = torch.einsum("rmij,rnj->rmni", M.reshape(R, -1, 3, 3), h)
+    return out.reshape(M.shape[:-2] + h.shape[1:])
+
+
+def _like(x: Tensor, y: Tensor) -> Tensor:
+    """x (R, *t) viewed as (R, 1, ..., 1, *t) to broadcast against y
+    (R, ..., *t)."""
+    return x.reshape(x.shape[:1] + (1,) * (y.dim() - x.dim()) + x.shape[1:])
+
+
 def _epipolar(E: Tensor, h0: Tensor, h1: Tensor):
-    """E (..., 3, 3), h0 / h1 (N, 3) -> (E h0, E^T h1) each (..., N, 3)."""
-    return (torch.einsum("...ij,nj->...ni", E, h0),
-            torch.einsum("...ij,ni->...nj", E, h1))
+    """E (R, ..., 3, 3), h0 / h1 (R, N, 3) -> (E h0, E^T h1) each
+    (R, ..., N, 3)."""
+    return _apply(E, h0), _apply(E.transpose(-1, -2), h1)
 
 
 def _sampson(E: Tensor, h0: Tensor, h1: Tensor) -> Tensor:
-    """Squared Sampson distances (..., N) of every correspondence under
-    every E (..., 3, 3)."""
+    """Squared Sampson distances (R, ..., N) of every correspondence of
+    row r under every E of row r (R, ..., 3, 3)."""
     Ex0, Etx1 = _epipolar(E, h0, h1)
-    num = torch.square((h1 * Ex0).sum(-1))
+    num = torch.square((_like(h1, Ex0) * Ex0).sum(-1))
     den = (torch.square(Ex0[..., 0]) + torch.square(Ex0[..., 1])
            + torch.square(Etx1[..., 0]) + torch.square(Etx1[..., 1]))
     return num / torch.clamp(den, min=1e-12)
@@ -176,17 +190,18 @@ def _smallest(scores: Tensor, k: int) -> Tensor:
 
 
 def _msac(d2: Tensor, v: Tensor, t2: float) -> Tensor:
-    """MSAC scores (...,) of squared distances (..., N) over the valid
-    points."""
-    return torch.where(v, torch.clamp(d2, max=t2), 0.0).sum(-1)
+    """MSAC scores (R, ...) of squared distances (R, ..., N) over the
+    valid points v (R, N)."""
+    return torch.where(_like(v, d2), torch.clamp(d2, max=t2), 0.0).sum(-1)
 
 
 _W = ((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
 
 
 def _decompose_vote(E: Tensor, wf: Tensor, h0: Tensor, h1: Tensor):
-    """E (..., 3, 3) -> the (R (..., 3, 3), t (..., 3)) of its 4-way
-    decomposition with the most points of weight ``wf`` (..., N) in front
+    """E (R, ..., 3, 3) -> the (R (R, ..., 3, 3), t (R, ..., 3)) of its
+    4-way decomposition with the most points of weight ``wf`` (R, ..., N)
+    (h0 / h1 (R, N, 3)) in front
     of both cameras (a midpoint-depth test; near-parallel rays do not
     vote, as in cv2.recoverPose). svd3's v2 sign at most swaps the roles
     of Ra and Rb inside the candidate set."""
@@ -197,12 +212,13 @@ def _decompose_vote(E: Tensor, wf: Tensor, h0: Tensor, h1: Tensor):
     Ra, Rb, tu = U @ W @ Vt * d, U @ W.T @ Vt * d, U[..., :, 2]
     Rs = torch.stack([Ra, Ra, Rb, Rb], -3)
     ts = torch.stack([tu, -tu, tu, -tu], -2)
-    a = torch.einsum("...ij,nj->...ni", Rs, h0)
+    a = _apply(Rs, h0)
+    b = _like(h1, a)
     M00 = (a * a).sum(-1)
-    M01 = -(a * h1).sum(-1)
-    M11 = (h1 * h1).sum(-1)
+    M01 = -(a * b).sum(-1)
+    M11 = (b * b).sum(-1)
     r0 = -(a * ts[..., None, :]).sum(-1)
-    r1 = (h1 * ts[..., None, :]).sum(-1)
+    r1 = (b * ts[..., None, :]).sum(-1)
     det = M00 * M11 - M01 * M01
     ok = torch.abs(det) >= 1e-12
     safe = torch.where(ok, det, 1.0)
@@ -227,7 +243,7 @@ def _gn_step(R: Tensor, t: Tensor, wres: Tensor, h0: Tensor, h1: Tensor):
     tn = t / nt
     E = _skew(tn) @ R
     Ex0, Etx1 = _epipolar(E, h0, h1)
-    num = (h1 * Ex0).sum(-1)
+    num = (_like(h1, Ex0) * Ex0).sum(-1)
     den_raw = (torch.square(Ex0[..., 0]) + torch.square(Ex0[..., 1])
                + torch.square(Etx1[..., 0]) + torch.square(Etx1[..., 1]))
     den = torch.clamp(den_raw, min=1e-12)
@@ -238,7 +254,7 @@ def _gn_step(R: Tensor, t: Tensor, wres: Tensor, h0: Tensor, h1: Tensor):
     dE = torch.stack([_skew(tn) @ _skew(eye[k]) @ R for k in range(3)]
                      + [_skew(d) @ R for d in dts], -3)  # (..., 5, 3, 3)
     dEx0, dEtx1 = _epipolar(dE, h0, h1)  # (..., 5, N, 3)
-    dnum = (h1 * dEx0).sum(-1)
+    dnum = (_like(h1, dEx0) * dEx0).sum(-1)
     dden = 2.0 * (Ex0[..., None, :, 0] * dEx0[..., 0]
                   + Ex0[..., None, :, 1] * dEx0[..., 1]
                   + Etx1[..., None, :, 0] * dEtx1[..., 0]
@@ -256,12 +272,12 @@ def _gn_step(R: Tensor, t: Tensor, wres: Tensor, h0: Tensor, h1: Tensor):
 
 def _polish(E_c: Tensor, s_c: Tensor, h0: Tensor, h1: Tensor, v: Tensor,
             t2: float):
-    """Pool candidates E_c (..., 3, 3) with MSAC scores s_c -> the best of
-    {unpolished, 5 GN steps on the binary inlier mask, then 5 IRLS steps
-    with Cauchy weights over all valid points} of each, by MSAC:
-    (R (..., 3, 3), t (..., 3), score (...))."""
-    vf = v.to(E_c.dtype)
-    wres = ((_sampson(E_c, h0, h1) < t2) & v).to(E_c.dtype)
+    """Pool candidates E_c (R, k, 3, 3) with MSAC scores s_c -> the best
+    of {unpolished, 5 GN steps on the binary inlier mask, then 5 IRLS
+    steps with Cauchy weights over all valid points v (R, N)} of each, by
+    MSAC: (R (R, k, 3, 3), t (R, k, 3), score (R, k))."""
+    vf = v[:, None].to(E_c.dtype)
+    wres = ((_sampson(E_c, h0, h1) < t2) & v[:, None]).to(E_c.dtype)
     R0, t0 = _decompose_vote(E_c, wres, h0, h1)
     R_gn, t_gn = R0, t0
     for _ in range(5):
@@ -288,8 +304,7 @@ def _polish(E_c: Tensor, s_c: Tensor, h0: Tensor, h1: Tensor, v: Tensor,
             torch.gather(cand_s, -1, j[..., None])[..., 0])
 
 
-def ransac_essential_device(kpn_ref, kpn_cur,
-                            generator: torch.Generator,
+def ransac_essential_device(kpn_ref, kpn_cur, generator,
                             valid: Optional[Tensor] = None,
                             n_hypotheses: int = 8192,
                             threshold: float = 3e-4, lo_rounds: int = 2,
@@ -326,40 +341,65 @@ def ransac_essential_device(kpn_ref, kpn_cur,
     ``generator``: a ``torch.Generator`` on the device, from which
     ``gumbel_noise`` draws (restarts, n_hypotheses, N) a stage. Returns
     (R (3, 3), t (3, 1) unit, inlier mask (N,) bool), the cv2 convention.
+
+    Batched over P pairs: kpn_ref / kpn_cur (P, N, 2), ``valid`` (P, N)
+    and ``generator`` a sequence of P generators, one a pair. The pairs
+    fold into the restarts' axis (P * restarts rows), so that one set of
+    launches serves them all; each stage draws every pair's noise from
+    that pair's generator in pair order, so that a pair's stream is the
+    one the unbatched call draws. Returns R (P, 3, 3), t (P, 3, 1) and
+    the inlier masks (P, N).
     """
-    dev = generator.device
+    if torch.as_tensor(kpn_ref).dim() == 2:
+        R, t, inl = ransac_essential_device(
+            torch.as_tensor(kpn_ref)[None], torch.as_tensor(kpn_cur)[None],
+            [generator], None if valid is None
+            else torch.as_tensor(valid)[None], n_hypotheses, threshold,
+            lo_rounds, pool, restarts)
+        return R[0], t[0], inl[0]
+    gens = list(generator)
+    dev = gens[0].device
     pts0 = torch.as_tensor(kpn_cur, device=dev)  # cv2 operand order
     pts1 = torch.as_tensor(kpn_ref, device=dev)
     dt = pts0.dtype
-    N = pts0.shape[0]
+    P, N = pts0.shape[:2]
     S = max(1, restarts)
-    v = (torch.ones((N,), dtype=torch.bool, device=dev) if valid is None
+    if len(gens) != P:
+        raise ValueError(f"{P} pairs need {P} generators, got {len(gens)}")
+    v = (torch.ones((P, N), dtype=torch.bool, device=dev) if valid is None
          else torch.as_tensor(valid, device=dev).to(torch.bool))
     vf = v.to(dt)
-    n_valid = torch.clamp(vf.sum(), min=1.0)
+    n_valid = torch.clamp(vf.sum(1), min=1.0)
 
-    # Hartley normalisation over the valid points
+    # Hartley normalisation over each pair's valid points
     def normalize(p):
-        mean = (p * vf[:, None]).sum(0) / n_valid
-        d = torch.sqrt(((p - mean) ** 2).sum(-1))
-        scale = math.sqrt(2.0) / torch.clamp((d * vf).sum() / n_valid,
+        mean = (p * vf[..., None]).sum(1) / n_valid[:, None]
+        d = torch.sqrt(((p - mean[:, None]) ** 2).sum(-1))
+        scale = math.sqrt(2.0) / torch.clamp((d * vf).sum(1) / n_valid,
                                              min=1e-9)
-        T = torch.eye(3, dtype=dt, device=dev)
-        T[0, 0] = T[1, 1] = scale
-        T[0, 2] = -scale * mean[0]
-        T[1, 2] = -scale * mean[1]
-        return (p - mean) * scale, T
+        T = torch.zeros((P, 3, 3), dtype=dt, device=dev)
+        T[:, 0, 0] = T[:, 1, 1] = scale
+        T[:, 0, 2] = -scale * mean[:, 0]
+        T[:, 1, 2] = -scale * mean[:, 1]
+        T[:, 2, 2] = 1.0
+        return (p - mean[:, None]) * scale[:, None, None], T
 
     p0, T0 = normalize(pts0)
     p1, T1 = normalize(pts1)
-    x0, y0 = p0[:, 0], p0[:, 1]
-    x1, y1 = p1[:, 0], p1[:, 1]
+    x0, y0 = p0[..., 0], p0[..., 1]
+    x1, y1 = p1[..., 0], p1[..., 1]
     A = torch.stack([x1 * x0, x1 * y0, x1, y1 * x0, y1 * y0, y1, x0, y0,
-                     torch.ones_like(x0)], dim=1)  # (N, 9)
-    ones = torch.ones((N, 1), dtype=dt, device=dev)
-    h0 = torch.cat([pts0, ones], -1)
-    h1 = torch.cat([pts1, ones], -1)
+                     torch.ones_like(x0)], dim=-1)  # (P, N, 9)
+    ones = torch.ones((P, N, 1), dtype=dt, device=dev)
+
+    def rows_of(x):  # (P, ...) -> (P * S, ...), row p * S + s
+        return x.repeat_interleave(S, 0)
+
+    A, v, T0, T1 = rows_of(A), rows_of(v), rows_of(T0), rows_of(T1)
+    h0 = rows_of(torch.cat([pts0, ones], -1))
+    h1 = rows_of(torch.cat([pts1, ones], -1))
     t2 = threshold * threshold
+    rows = torch.arange(P * S, device=dev)
 
     def sampson(E):
         return _sampson(E, h0, h1)
@@ -372,26 +412,28 @@ def ransac_essential_device(kpn_ref, kpn_cur,
             + U[..., :, 1:2] @ V[..., :, 1:2].transpose(-1, -2))
 
     def denormalize(E):
-        return T1.T @ E @ T0
+        return _like(T1.transpose(-1, -2), E) @ E @ _like(T0, E)
 
     def hypotheses(support):
-        """(S, n, 3, 3) essential candidates from minimal samples drawn
-        inside ``support`` (S, N) (or (N,))."""
-        g = gumbel_noise((S, n_hypotheses, N), generator).to(dt)
-        g = torch.where(support[..., None, :], g, -torch.inf)
-        idx = torch.topk(g, 8, dim=-1).indices  # (S, n, 8)
-        E = nullvec(A[idx]).reshape(S, n_hypotheses, 3, 3)
+        """(P * S, n, 3, 3) essential candidates from minimal samples
+        drawn inside ``support`` (P * S, N)."""
+        g = torch.stack([gumbel_noise((S, n_hypotheses, N), gen)
+                         for gen in gens]).to(dt)
+        g = torch.where(support[:, None, :],
+                        g.reshape(P * S, n_hypotheses, N), -torch.inf)
+        idx = torch.topk(g, 8, dim=-1).indices  # (P * S, n, 8)
+        E = nullvec(A[rows[:, None, None], idx]).reshape(
+            P * S, n_hypotheses, 3, 3)
         return essential_project(denormalize(E))
 
-    rows = torch.arange(S, device=dev)
-    P = max(1, pool)
+    K = max(1, pool)
     E_h = hypotheses(v)
-    d2 = sampson(E_h)  # (S, n, N)
+    d2 = sampson(E_h)  # (P * S, n, N)
     sc = _msac(d2, v, t2)
     best = torch.argmin(sc, dim=-1)
     E, score = E_h[rows, best], sc[rows, best]
     inl = (d2[rows, best] < t2) & v
-    pidx = _smallest(sc, P)
+    pidx = _smallest(sc, K)
     E_pool, s_pool = _take(E_h, pidx), _take(sc, pidx)
     del d2
     for _ in range(lo_rounds):
@@ -404,15 +446,15 @@ def ransac_essential_device(kpn_ref, kpn_cur,
         inl = (sampson(E) < t2) & v
         # the inlier-weighted DLT refit, also accept-if-better
         E_r = essential_project(denormalize(
-            nullvec(A * inl.to(dt)[..., None]).reshape(S, 3, 3)))
+            nullvec(A * inl.to(dt)[..., None]).reshape(P * S, 3, 3)))
         s_r = _msac(sampson(E_r), v, t2)
         E = torch.where((s_r < score)[:, None, None], E_r, E)
         score = torch.minimum(s_r, score)
         inl = (sampson(E) < t2) & v
-        p2 = _smallest(sc2, P)
+        p2 = _smallest(sc2, K)
         E_pool = torch.cat([E_pool, _take(E2_h, p2), E_r[:, None]], 1)
         s_pool = torch.cat([s_pool, _take(sc2, p2), s_r[:, None]], 1)
-        keep = _smallest(s_pool, P)
+        keep = _smallest(s_pool, K)
         E_pool, s_pool = _take(E_pool, keep), _take(s_pool, keep)
 
     R_cs, t_cs, s_cs = _polish(E_pool, s_pool, h0, h1, v, t2)
@@ -420,8 +462,9 @@ def ransac_essential_device(kpn_ref, kpn_cur,
     R_fin, t_fin = R_cs[rows, kb], t_cs[rows, kb]
     # Sampson is scale-invariant: skew(t) R is the winner's E
     inl_fin = (sampson(_skew(t_fin) @ R_fin) < t2) & v
-    j = torch.argmax(inl_fin.sum(-1))
-    return R_fin[j], t_fin[j][:, None], inl_fin[j]
+    j = torch.argmax(inl_fin.sum(-1).reshape(P, S), dim=-1) \
+        + torch.arange(P, device=dev) * S
+    return R_fin[j], t_fin[j][..., None], inl_fin[j]
 
 
 def estimate_pose_device(kpn_ref, kpn_cur, device=None):

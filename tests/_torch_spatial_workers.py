@@ -58,7 +58,44 @@ def slab_batch_norm(mesh, spec):
             "var": bn.running_var}
 
 
+def slab_conv(mesh, spec):
+    """Each convolution of ``spec["convs"]`` ((kernel, stride, pad) in
+    height and width, with a bias) of ``spec["x"]`` (B, C, H, W) as the
+    port's slabbed ``Conv2d`` runs it over the first ``len(spec["bounds"])
+    - 1`` ranks, rank r holding rows ``bounds[r]:bounds[r + 1]``. Returns
+    a result a conv: the rows this rank writes, its first row, the map
+    gathered from every rank's rows (``SlabPlan.gather_rows``), the
+    gradient of sum(output * ``spec["g"]``'s rows) with respect to the
+    slab, and that with respect to the weight summed over the ranks."""
+    from nanovs_slam_torch.modules.blocks import Conv2d
+    from nanovs_slam_torch.parallel.spatial import SlabPlan
+
+    b = spec["bounds"]
+    sub = pm.make_mesh(len(b) - 1, ("model",), device="cpu")
+    if sub is None:
+        return {}
+    r, plan = sub.rank, SlabPlan(sub, tuple(b))
+    out = {}
+    for i, (k, st, pad) in enumerate(spec["convs"]):
+        conv = Conv2d(spec["x"].shape[1], 3, k, stride=st, padding=pad)
+        with torch.no_grad():
+            conv.weight.copy_(torch.from_numpy(spec["w"][i]))
+            conv.bias.fill_(0.25)
+        conv.slabs = plan
+        xs = torch.from_numpy(spec["x"][:, :, b[r]:b[r + 1]]).requires_grad_()
+        y = conv(xs)
+        _, _, _, lo, total = plan.conv_rows(xs.shape[2], k, st, pad)
+        g = torch.from_numpy(spec["g"][i])[:, :, lo:lo + y.shape[2]]
+        (y * g).sum().backward()
+        out[str(i)] = {"y": y, "lo": lo,
+                       "full": plan.gather_rows(y.detach(), 2, lo, total),
+                       "gx": xs.grad,
+                       "gw": pm.all_reduce(sub, conv.weight.grad)}
+    return out
+
+
 KINDS = {"halo_conv": halo_conv, "slab_batch_norm": slab_batch_norm,
+         "slab_conv": slab_conv,
          "mesh_axes": lambda mesh, spec: mesh_axes(mesh)}
 
 

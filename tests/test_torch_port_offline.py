@@ -34,6 +34,16 @@ H, W = 96, 320
 T = 5  # frames of the offline sequence
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads for this file's torch work (the suite runs
+    files in parallel workers; see test_torch_port_train_step.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def corridor(tmp_path_factory):
     """The seeded corridor sequence (6 frames at 96x320, KITTI poses)."""
@@ -79,7 +89,7 @@ def _offline_pair(pinned, matcher, **kw):
         load_lightglue_for_vo as jload
 
     (port, cfg), (jm, jcfg, variables) = pinned
-    k = 512 if matcher == "dense" else 1024
+    k = kw.pop("k", 512 if matcher == "dense" else 1024)
     lg = jlg = None
     if matcher == "lightglue":
         lg = port_vo.load_lightglue_for_vo(PINNED_LG, 32, (W, H))
@@ -279,15 +289,156 @@ def test_offline_extract_chunking_and_u8(stack, pinned, matcher):
 
 
 def test_offline_unported_parts_raise(pinned):
-    """pair_batch > 1 names its ROADMAP item. (The sharded pose map, which
-    raised here, is ported: tests/test_torch_port_parallel.py holds it.)"""
+    """A CUDA device without a card raises. (The sharded pose map and
+    pair_batch > 1, which raised here, are ported:
+    tests/test_torch_port_parallel.py and the pair_batch tests below hold
+    them.)"""
     (port, cfg), _ = pinned
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'Later"):
-        offline.OfflineVO(port, cfg, (H, W), _cam(), pair_batch=2,
-                          device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             offline.OfflineVO(port, cfg, (H, W), _cam())
+
+
+@pytest.fixture(scope="module")
+def stack8(tmp_path_factory):
+    """The seeded corridor's 8 frames (7 pairs) at 96x320, float [0, 1]."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_synthetic_kitti import make_corridor_sequence
+
+    out = str(tmp_path_factory.mktemp("corridor8"))
+    make_corridor_sequence(out, n_frames=8, W_img=W, H_img=H, seed=3)
+    frames = list(port_vo.read_video(os.path.join(out, "06.mp4")))
+    return torch.stack([port_vo.prep_frame(f) for f in frames]).numpy()
+
+
+_BATCHED = {}
+
+
+def _pair_batch_run(pinned, stack8, matcher, pair_batch):
+    """(match map, relative poses at seed 4) of the port's OfflineVO at
+    ``pair_batch`` over the 8 frames (k 512, 256 hypotheses, 2
+    restarts), run once per (matcher, pair_batch); the frames are
+    extracted once per matcher (the extraction takes no pair_batch)."""
+    key = (matcher, pair_batch)
+    if key not in _BATCHED:
+        (port, cfg), _ = pinned
+        lg = (port_vo.load_lightglue_for_vo(PINNED_LG, 32, (W, H))
+              if matcher == "lightglue" else None)
+        vo = offline.OfflineVO(
+            port, cfg, (H, W), _cam(), k=512, matcher=matcher, lightglue=lg,
+            n_hypotheses=256, restarts=2, pair_batch=pair_batch,
+            extract_chunk=8, device="cpu")
+        if matcher not in _BATCHED:
+            _BATCHED[matcher] = vo.extract(stack8)
+        mm = vo.match_map(_BATCHED[matcher])
+        _BATCHED[key] = (mm, vo.pose_map(*mm, seed=4))
+    return _BATCHED[key]
+
+
+@pytest.mark.parametrize("pair_batch", [2, 3])
+@pytest.mark.parametrize("matcher", ["dense", "bf", "lightglue"])
+def test_offline_pair_batch_matches_pair_batch_1(pinned, stack8, matcher,
+                                                 pair_batch):
+    """OfflineVO at pair_batch 2 and 3 over the 8-frame corridor (7
+    pairs: chunks of 2, 2, 2, 1 and 3, 3, 1, so that one is a remainder):
+    the match map (one batched matcher call a chunk: bf_match_device,
+    LightGlue at batch P, the dense match_maps) equal to pair_batch 1's;
+    the poses of the batched RANSAC (the pairs folded into its restarts'
+    axis, each drawing from its own generator) within
+    relative_poses_sharded's criterion (match counts equal, R and t
+    within 1e-3: equal up to MSAC's ties; a batch of other shape may sum
+    in another order, measured 2.5e-15 apart with equal inlier
+    counts)."""
+    (mm1, poses1) = _pair_batch_run(pinned, stack8, matcher, 1)
+    (mm, poses) = _pair_batch_run(pinned, stack8, matcher, pair_batch)
+    assert mm[0].shape[0] == 7
+    for a, b in zip(mm, mm1):
+        assert torch.equal(a, b)
+    assert int(mm[2].sum(1).min()) >= 50
+    (R, t, _, nmat), (R1, t1, _, nmat1) = poses, poses1
+    assert torch.equal(nmat, nmat1)
+    assert float((R - R1).abs().max()) <= 1e-3
+    assert float((t - t1).abs().max()) <= 1e-3
+
+
+def test_offline_sharded_pair_batch_matches_relative_poses(pinned, stack8):
+    """``relative_poses_sharded`` at pair_batch 3 on the one-rank mesh (no
+    process group: its pairs' global indices, chunks of 3, 3 and 1)
+    against ``relative_poses`` at pair_batch 1 (BF, seed 4), by its own
+    criterion: match counts equal, R and t within 1e-3."""
+    from nanovs_slam_torch.parallel.mesh import make_mesh
+
+    (port, cfg), _ = pinned
+    kw = dict(k=1024, matcher="bf", n_hypotheses=256, restarts=2,
+              extract_chunk=8, device="cpu")
+    want = offline.OfflineVO(port, cfg, (H, W), _cam(), **kw
+                             ).relative_poses(stack8, seed=4)
+    got = offline.OfflineVO(port, cfg, (H, W), _cam(), pair_batch=3, **kw
+                            ).relative_poses_sharded(
+        stack8, make_mesh(device="cpu"), seed=4)
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_allclose(got[0], want[0], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-3, rtol=0)
+
+
+def test_offline_pair_batch_2_matches_jax(stack, pinned, monkeypatch):
+    """The JAX OfflineVO at pair_batch 2 (its lax.map with batch_size 2,
+    the solver vmapped over the chunk) against the port's at pair_batch
+    2 (k 512): the BF match map on the same representations as
+    test_offline_match_map_matches_jax holds it (valid equal, the
+    correspondences within 1e-5), and the pose map of pairs 0 and 2 (one
+    chunk) under the same injected noise in float64 (JAX
+    under ``jax.enable_x64``, every pair of a chunk drawing the same
+    table as the patched JAX key does): R and t within 1e-4, inlier and
+    match counts equal."""
+    vo, jvo = _offline_pair(pinned, "bf", pair_batch=2, k=512)
+    reps = vo.extract(stack)
+    kpn0, kpn1, valid = vo.match_map(reps)
+    w0, w1, wv = (np.asarray(a) for a in jvo._match_map(_jax_reps(reps)))
+    v = valid.numpy()
+    np.testing.assert_array_equal(v, wv)
+    np.testing.assert_allclose(kpn0.numpy()[v], w0[v], atol=1e-5)
+    np.testing.assert_allclose(kpn1.numpy()[v], w1[v], atol=1e-5)
+
+    hyp, lo, N = 256, 2, kpn0.shape[1]
+    table = np.random.RandomState(12).gumbel(
+        size=(1 + lo, hyp, N)).astype(np.float32)
+
+    def split(key, num=2):
+        c = jnp.asarray(key)[0]
+        return jnp.stack([jnp.stack([c * 16 + i + 1, jnp.asarray(key)[1]])
+                          for i in range(num)])
+
+    def gumbel(key, shape, dtype=jnp.float32):
+        c = jnp.asarray(key)[0]
+        r = jnp.maximum(c // 16, 1) - 1
+        assert tuple(shape) == (hyp, N)
+        return jnp.take(jnp.asarray(table), r * (1 + lo) + c % 16 - 1,
+                        axis=0)
+
+    pairs = [0, 2]
+    with monkeypatch.context() as m, jax.enable_x64():
+        m.setattr(jax.random, "split", split)
+        m.setattr(jax.random, "gumbel", gumbel)
+        m.setattr(jax.random, "fold_in", lambda key, i: key)
+        want = [np.asarray(a) for a in jvo._pose_map(
+            jnp.asarray(kpn0[pairs].double().numpy()),
+            jnp.asarray(kpn1[pairs].double().numpy()),
+            jnp.asarray(valid[pairs].numpy()), jnp.zeros((2,), jnp.uint32))]
+    # a chunk of P pairs draws stage by stage, each pair in turn
+    stages = iter([s for s in range(1 + lo) for _ in pairs])
+
+    def gumbel_noise(shape, generator):
+        assert tuple(shape) == (1, hyp, N)
+        return torch.from_numpy(table[next(stages)][None])
+
+    monkeypatch.setattr(port_pose, "gumbel_noise", gumbel_noise)
+    R, t, ninl, nmat = vo.pose_map(kpn0[pairs], kpn1[pairs], valid[pairs])
+    np.testing.assert_allclose(R.numpy(), want[0], atol=1e-4)
+    np.testing.assert_allclose(t.numpy(), want[1], atol=1e-4)
+    np.testing.assert_array_equal(ninl.numpy(), want[2])
+    np.testing.assert_array_equal(nmat.numpy(), want[3])
+    assert int(ninl.min()) > 50
 
 
 # ------------------------------------------------------------------- CLI
