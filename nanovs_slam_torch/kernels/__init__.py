@@ -24,7 +24,7 @@ KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad,
            int8_conv3x3)
 # the wrappers that have bfloat16 instances too
 BF16_KERNELS = (fused_postprocess, fused_stem_pair_pool, netvlad,
-                netvlad_backward)
+                netvlad_backward, int8_conv3x3)
 
 
 def reset_launches() -> None:

@@ -10,11 +10,12 @@ fused stem kernel on BN-folded weights, its bfloat16 instance for a
 bfloat16 input, wherever ``stem_kernel_allowed`` says so: in eval mode
 (dropout the identity, BN's running statistics) and with no gradient to
 flow through the stem, since the kernel has no backward (nor has the JAX
-one), and with conv1a and conv1b in float32 and unobserved (no int8 scale
-under ``quant.int8_execution``, no forward hooks: calibration observes
-their inputs). An eval-mode forward under autograd (VPR finetuning
-differentiates the model in inference mode), train mode, int8 execution
-and calibration run the block chain, as the CPU always does.
+one), and with conv1a and conv1b unobserved (no int8 scale under
+``quant.int8_execution``, at float32 or bfloat16 alike, no forward hooks:
+calibration observes their inputs). An eval-mode forward under autograd
+(VPR finetuning differentiates the model in inference mode), train mode,
+int8 execution and calibration run the block chain, as the CPU always
+does.
 
 On a slab of rows (``slabs`` set inside
 ``parallel.spatial.spatial_partition``) the kernel takes the slab extended
@@ -45,9 +46,10 @@ from .blocks import ConvBNAct, Dropout2d
 
 def stem_kernel_allowed(backbone: "BackBone", x: torch.Tensor) -> bool:
     """Whether the backbone's stem may run as the fused kernel for ``x``:
-    eval mode, downsample >= 2, conv1a and conv1b float32 and unobserved
-    (no int8 scale or chained output, no forward hook), and grad mode off
-    or neither ``x`` nor a parameter of conv1a / conv1b requiring grad.
+    eval mode, downsample >= 2, conv1a and conv1b unobserved (no int8
+    scale or chained output, whatever the dtype; no forward hook), and
+    grad mode off or neither ``x`` nor a parameter of conv1a / conv1b
+    requiring grad.
     The choice is by what the call needs, not a fallback: the kernel
     cannot pass a gradient, run int8 or show a hook the blocks' inputs."""
     if backbone.training or backbone.downsample < 2:

@@ -7,7 +7,9 @@ counterpart of ``nanovs_slam_tpu/quant.py``.
   input scale runs its conv as int8 x int8 -> int32: the input quantised
   as ``clip(round(x / scale_in), -127, 127)``, the weights per output
   channel as ``_quantize_kernel`` does, the sums rescaled by
-  ``float32(scale_in) * s_w`` before the BatchNorm and the activation.
+  ``float32(scale_in) * s_w`` before the BatchNorm and the activation
+  (in a bfloat16 model the BN's float32 affine is rounded to bf16 and the
+  activation runs on bf16, as the JAX block at bf16 computes).
   It runs as the ``kernels.int8conv`` wrapper: the CUDA kernel for a CUDA
   tensor, its plain twin for a CPU one. With ``chain`` the producers of
   ``BACKBONE_CHAIN`` emit int8 (a ``QTensor``, NHWC) at their consumer's
@@ -130,9 +132,9 @@ def _block_plan(block: nn.Module, scale_in: float, dev: torch.device):
 
 
 def quantize_activation(y: torch.Tensor, scale: float) -> QTensor:
-    """A float32 NCHW block output -> its int8 NHWC ``QTensor`` at
-    ``scale``, dividing as the JAX package does (``x / scale``, not a
-    product with the reciprocal)."""
+    """A float32 or bfloat16 NCHW block output -> its int8 NHWC
+    ``QTensor`` at ``scale``, dividing as the JAX package does (``x /
+    scale``, not a product with the reciprocal)."""
     from .kernels.int8conv import true_divide
 
     q = torch.clamp(torch.round(true_divide(y.float(), scale)), -127,
@@ -146,12 +148,11 @@ def int8_block(block: nn.Module, x, scale_in: Optional[float],
     ``scale_in`` is given or ``x`` is a ``QTensor``, else its float
     forward; an int8 ``QTensor`` out at ``out_scale`` where the block is a
     chain's producer, 2x2 max-pooled where ``pool`` (in the kernel), else
-    float32 NCHW."""
+    NCHW in the block's compute dtype. At bfloat16 the kernel reads a bf16
+    input itself and rounds as the JAX block at bf16 does (a float32 BN
+    rounded to bf16, the activation in bf16; ``kernels.int8conv``)."""
     from .kernels.int8conv import int8_conv3x3
 
-    if block.conv.compute_dtype != torch.float32:
-        raise ValueError("int8 execution runs float32 models; this block "
-                         f"computes in {block.conv.compute_dtype}")
     pre_q = isinstance(x, QTensor)
     if not pre_q and scale_in is None:  # a float producer of a chain
         y = block.act(block.bn(block.conv(x)))
@@ -159,12 +160,13 @@ def int8_block(block: nn.Module, x, scale_in: Optional[float],
                                    out_scale)
     if pre_q:
         x, scale_in = x.values, x.scale
-    else:
-        x = x.float().contiguous()
+    else:  # quantised as it is, float32 or bfloat16, as the JAX block does
+        x = x.contiguous()
     wq, m, a, b = _block_plan(block, scale_in, x.device)
     slope = 0.01 if isinstance(block.act, nn.LeakyReLU) else 0.0
     y = int8_conv3x3(x, wq, m, a, b, scale_in, slope, out_scale,
-                     pool and out_scale is not None)
+                     pool and out_scale is not None,
+                     out_dtype=block.conv.compute_dtype)
     return y if out_scale is None else QTensor(y, out_scale)
 
 
@@ -175,7 +177,8 @@ def calibrate_conv_scales(model: nn.Module, batches: Iterable,
                           max_batches: int = 100, **forward_kwargs
                           ) -> Dict[str, float]:
     """{flax path: absmax / 127} of every named ``ConvBNAct``'s float
-    input over ``batches`` (each (B, H, W, 3) NHWC model input in [-1, 1],
+    input (bfloat16 in a bf16 model, as the JAX package's ``sow`` reads
+    it) over ``batches`` (each (B, H, W, 3) NHWC model input in [-1, 1],
     numpy or a tensor), the model in eval mode on its device, called with
     ``forward_kwargs`` (e.g. ``heads=`` of a V2 model; by default every
     head runs, as the JAX package's ``apply`` without ``heads=``). The
@@ -187,8 +190,8 @@ def calibrate_conv_scales(model: nn.Module, batches: Iterable,
 
     def hook(block, args):
         x = args[0]
-        if not isinstance(x, QTensor):
-            m = float(x.float().abs().max())
+        if not isinstance(x, QTensor):  # |x| exact in x's dtype (bf16 too)
+            m = float(x.abs().amax())
             maxima[block.path] = max(maxima.get(block.path, 0.0), m)
 
     handles = [m.register_forward_pre_hook(hook) for m in model.modules()

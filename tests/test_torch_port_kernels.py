@@ -740,7 +740,8 @@ def test_kernels_refuse_widths_past_their_limits(cuda):
 
 def _int8_inputs(dev, B, H, W, cin, cout, int8_in, seed=0):
     """Random int8 weights (Kpad zero-padded), multipliers, BN affine and
-    an input (float32 NCHW, or int8 NHWC codes) for ``int8_conv3x3``."""
+    an input (float32 NCHW, or int8 NHWC codes) for ``int8_conv3x3``
+    (``int8_in`` "bf16": the float32 input rounded to bfloat16)."""
     from nanovs_slam_torch.kernels.int8conv import padded_k
 
     rs = np.random.RandomState(seed)
@@ -749,11 +750,14 @@ def _int8_inputs(dev, B, H, W, cin, cout, int8_in, seed=0):
     m = (rs.rand(cout) * 1e-4 + 1e-5).astype(np.float32)
     a = (1.0 + 0.1 * rs.randn(cout)).astype(np.float32)
     b = (0.1 * rs.randn(cout)).astype(np.float32)
-    if int8_in:
+    if int8_in is True:
         x = rs.randint(-127, 128, (B, H, W, cin)).astype(np.int8)
     else:
         x = rs.uniform(-1.5, 1.5, (B, cin, H, W)).astype(np.float32)
-    return [torch.from_numpy(v).to(dev) for v in (x, wq, m, a, b)]
+    out = [torch.from_numpy(v).to(dev) for v in (x, wq, m, a, b)]
+    if int8_in == "bf16":
+        out[0] = out[0].bfloat16()
+    return out
 
 
 @pytest.mark.parametrize("B,H,W,cin,cout,int8_in,out", [
@@ -798,7 +802,7 @@ def test_int8_conv_kernel_matches_twin(cuda, B, H, W, cin, cout, int8_in,
     exact on both sides and the epilogue rounds each product and sum as
     the twin does, so codes and float32 outputs are equal bit for bit;
     one launch counted. The cases cover the edges of the kernel's design
-    (``csrc/int8conv.cu``): partial tiles, each instance's tile rows and
+    (``csrc/int8conv.cuh``): partial tiles, each instance's tile rows and
     channels a warp, channel groups, streamed weights, staged float chunks
     and each input copy."""
     from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
@@ -843,9 +847,93 @@ def test_int8_conv_kernel_exact_at_ties(cuda, scale):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("B,H,W,cin,cout,x_in,out,slope", [
+    # conv1a of a bf16 model: Cin 3 (byte-by-byte A), chained and not
+    (1, 240, 320, 3, 16, "bf16", "int8", 0.01),
+    (1, 240, 320, 3, 16, "bf16", "float", 0.01),
+    # a head's conv at 60x80 and 30x40 (64 channels), 96 channels
+    (1, 60, 80, 64, 64, "bf16", "float", 0.01),
+    (2, 30, 40, 64, 128, "bf16", "float", 0.01),
+    (1, 120, 160, 96, 64, "bf16", "float", 0.01),
+    # odd frames: bf16 rows loaded value by value (W % 8 != 0)
+    (1, 241, 321, 3, 16, "bf16", "int8", 0.01),
+    (1, 241, 321, 16, 32, "bf16", "pool", 0.01),
+    (1, 7, 84, 64, 64, "bf16", "float", 0.01),
+    (1, 4, 8, 7, 16, "bf16", "float", 0.01),
+    # Cout 256 (a float input, and a chained consumer's codes)
+    (1, 19, 24, 48, 256, "bf16", "float", 0.01),
+    (1, 30, 40, 64, 256, "int8", "float", 0.01),
+    # weights streamed in K chunks, channels staged in chunks
+    (1, 6, 16, 256, 256, "bf16", "pool", 0.01),
+    # int8 codes in, codes and pooled codes out
+    (2, 9, 13, 32, 32, "int8", "int8", 0.01),
+    (3, 37, 51, 32, 24, "int8", "pool", 0.01),
+    # ReLU; codes pooled at config N's 60x80 widths
+    (1, 12, 24, 64, 64, "bf16", "float", 0.0),
+    (1, 60, 80, 48, 48, "int8", "pool", 0.01),
+    # batch 128 at config N's 60x80 head map
+    (128, 60, 80, 48, 64, "bf16", "float", 0.01)])
+def test_int8_conv_kernel_bf16_matches_twin(cuda, B, H, W, cin, cout, x_in,
+                                            out, slope):
+    """The int8 conv kernel's bfloat16 instances (a bf16 map staged as bf16
+    and quantised from it; a bf16 block's epilogue, which rounds the BN
+    affine and the activation's product to bf16) against the twin, which
+    rounds at the same places: bf16 outputs and codes equal bit for bit;
+    one launch counted, in ``launches_bf16``."""
+    from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
+
+    dt = torch.bfloat16
+    x, wq, m, a, b = _int8_inputs(cuda, B, H, W, cin, cout,
+                                  x_in if x_in == "bf16" else True)
+    args = (x, wq, m, a, b, 0.0123, slope,
+            None if out == "float" else 0.0371, out == "pool")
+    counts = (int8_conv3x3.launches, int8_conv3x3.launches_bf16)
+    got = int8_conv3x3(*args, out_dtype=dt)
+    want = int8_conv3x3_plain(*args, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert (int8_conv3x3.launches, int8_conv3x3.launches_bf16) == (
+        counts[0], counts[1] + 1)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.dtype == (dt if out == "float" else torch.int8)
+    assert torch.equal(got, want)
+    assert float(got.float().abs().max()) > 0
+
+
+def test_int8_conv_kernel_bf16_exact_at_ties(cuda):
+    """bfloat16 inputs on and a few bf16 ulps beside half-integer
+    quotients x / scale, beyond the clip, zeros and subnormals, through an
+    identity conv (the centre tap's weight 1 from each channel to itself,
+    m = a = 1, b = 0, slope 1), so that the bf16 output is each input code
+    exactly: the kernel's codes are the twin's, which are clip(round(x /
+    scale)) of the IEEE quotient."""
+    from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
+    from nanovs_slam_torch.kernels.int8conv import padded_k
+
+    rs = np.random.RandomState(6)
+    B, H, W, cin, scale = 2, 9, 24, 16, 0.0123
+    k = rs.randint(-130, 130, (B, cin, H, W)).astype(np.float32)
+    x = torch.from_numpy((k + np.float32(0.5)) * np.float32(scale)).to(
+        torch.bfloat16)
+    bits = x.view(torch.int16)
+    bits += torch.from_numpy(rs.randint(-3, 4, x.shape).astype(np.int16))
+    x[0, 0, 0, :4] = torch.tensor([0.0, -0.0, 1e-40, -3e-39])
+    wq = torch.zeros(cin, padded_k(cin), dtype=torch.int8)
+    wq[torch.arange(cin), 4 * cin + torch.arange(cin)] = 1
+    ones = torch.ones(cin)
+    args = [t.to(cuda) for t in (x, wq, ones, ones, torch.zeros(cin))]
+    got = int8_conv3x3(*args, scale, 1.0, out_dtype=torch.bfloat16)
+    want = int8_conv3x3_plain(*args, scale, 1.0, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    codes = np.clip(np.round(x.float().numpy() / np.float32(scale)), -127,
+                    127)
+    assert np.array_equal(got.float().cpu().numpy(), codes)
+
+
 def test_int8_conv_refuses_what_it_does_not_take(cuda):
-    """Cout not a multiple of 8, a pooled float output and a bfloat16
-    input raise for CUDA tensors (no fallback to the twin)."""
+    """Cout not a multiple of 8, a pooled float output, a float16 input,
+    a float16 block and a map of another dtype than its block's raise for
+    CUDA tensors (no fallback to the twin)."""
     from nanovs_slam_torch.kernels import int8_conv3x3
 
     x, wq, m, a, b = _int8_inputs(cuda, 1, 8, 8, 4, 12, False)
@@ -854,5 +942,9 @@ def test_int8_conv_refuses_what_it_does_not_take(cuda):
     x, wq, m, a, b = _int8_inputs(cuda, 1, 8, 8, 4, 16, False)
     with pytest.raises(ValueError, match="emits int8 only"):
         int8_conv3x3(x, wq, m, a, b, 0.1, 0.0, None, True)
-    with pytest.raises(TypeError, match="float32 or int8"):
-        int8_conv3x3(x.bfloat16(), wq, m, a, b, 0.1, 0.0)
+    with pytest.raises(TypeError, match="float32, bfloat16 or int8"):
+        int8_conv3x3(x.half(), wq, m, a, b, 0.1, 0.0)
+    with pytest.raises(TypeError, match="out_dtype"):
+        int8_conv3x3(x, wq, m, a, b, 0.1, 0.0, out_dtype=torch.float16)
+    with pytest.raises(TypeError, match="own dtype"):
+        int8_conv3x3(x, wq, m, a, b, 0.1, 0.0, out_dtype=torch.bfloat16)

@@ -1,4 +1,4 @@
-"""The int8 conv kernel's products as committed (csrc/int8conv.cu: Hopper's
+"""The int8 conv kernel's products as committed (csrc/int8conv.cuh: Hopper's
 warpgroup products, wgmma.mma_async m64nNk32 s32.s8.s8, for the instances
 with 64 or more channels a warp, mma.sync m16n8k32 for the narrower ones)
 against the same kernel with every instance on mma.sync and with every
@@ -8,9 +8,11 @@ instance on wgmma, on one NVIDIA card.
 
 Builds the three from this checkout's ``csrc/`` with nvcc into
 ``nanovs_slam_torch/_build/int8_variants/`` (the variants change the
-source's ``kWgmmaMinN``; the all-wgmma one adds the N = 8, 16, 32 atoms),
-prints what ptxas reports, then at every one of the int8 S8 request's 23
-calls at batch 1 and 8 (``chip_smoke.int8_calls`` on
+header's ``kWgmmaMinN``; the all-wgmma one adds the N = 8, 16, 32 atoms;
+each variant's header sits beside copies of ``int8conv.cu`` and
+``int8conv_bf16.cu``, which include it), prints what ptxas reports, then
+at every one of the float32 int8 S8 request's 23 calls at batch 1 and 8
+(``chip_smoke.int8_calls`` on
 ``int8_kernel_cases``' seeded input, pinned S8 calibrated as
 ``chip_smoke.py``'s int8 phase does) holds each to the twin at 0 and times
 them with ``chip_smoke.cuda_ms`` in the order kernel, mma, wgmma, wgmma,
@@ -63,17 +65,23 @@ def variants(src: str) -> dict:
 
 
 def build() -> dict:
-    os.makedirs(OUT, exist_ok=True)
-    src = open(os.path.join(CSRC, "int8conv.cu")).read()
+    src = open(os.path.join(CSRC, "int8conv.cuh")).read()
     procs = {}
     for name, text in variants(src).items():
-        cu = os.path.join(OUT, name + ".cu")
-        with open(cu, "w") as f:
+        d = os.path.join(OUT, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "int8conv.cuh"), "w") as f:
             f.write(text)
+        cus = []
+        for cu in ("int8conv.cu", "int8conv_bf16.cu"):
+            with open(os.path.join(CSRC, cu)) as f, \
+                    open(os.path.join(d, cu), "w") as g:
+                g.write(f.read())
+            cus.append(os.path.join(d, cu))
         cmd = ["/usr/local/cuda/bin/nvcc", "-gencode",
                "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-I", CSRC,
-               "-o", os.path.join(OUT, f"lib{name}.so"), cu]
+               "-o", os.path.join(OUT, f"lib{name}.so")] + cus
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     fns = {}
@@ -114,8 +122,8 @@ def main() -> int:
         model, [calib[i]["image"][None] * 2.0 - 1.0
                 for i in range(cs.INT8_CALIB)])
 
-    def call(fn, args):
-        x, wq, m, a, b, s_in, slope, out_scale, pool = args
+    def call(fn, args):  # a float32 block
+        x, wq, m, a, b, s_in, slope, out_scale, pool = args[:9]
         int8_in = x.dtype == torch.int8
         B, cin = x.shape[0], ic.in_channels(x)
         H, W = x.shape[1:3] if int8_in else x.shape[2:]
@@ -129,8 +137,8 @@ def main() -> int:
                               dtype=torch.int8)
         ic._build.check(fn(
             x.data_ptr(), int(int8_in), wq.data_ptr(), m.data_ptr(),
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, B, H, W, cin,
-            cout, ic.padded_k(cin), s_in,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, 0, B, H, W,
+            cin, cout, ic.padded_k(cin), s_in,
             0.0 if out_scale is None else out_scale, slope,
             ic._build.stream_ptr(dev)), "int8_variants")
         return out
