@@ -4474,32 +4474,58 @@ def int8_kernel_cases(dev, model, scales, B: int, name: str = INT8,
                       f"{f_sh['blocks_per_sm']} an SM)")
         sh = launch_shape(args[0], args[1].shape[0], args[7], args[8],
                           args[9])
+        d = sh["design"]
+        for k, v in (("ms", ms), ("library_ms", lib_ms),
+                     ("bound_ms", max(tb, to)), ("calls", 1)):
+            sums[f"{k}_{d}"] = sums.get(f"{k}_{d}", 0) + v
+        if d == "strips":
+            launch = (
+                f"strips: {sh['blocks_x']} persistent blocks of "
+                f"{32 * (4 * sh['warpgroups'] + 2)} threads "
+                f"({sh['warpgroups']} consumer warpgroups in two pipes, each "
+                f"pipe fed by a producer warp), cluster 1, "
+                f"{sh['blocks_per_sm']} an SM, "
+                f"{sh['smem_bytes']} B shared, {sh['sms_covered']} of "
+                f"{sh['sms']} SMs; {sh['tile_rows']}x{sh['tile_cols']} pixel"
+                f" strips ({sh['m_blocks']} m-blocks of 64), bulk-copied "
+                f"into {sh['stages']} stages of {sh['staged_channels']} "
+                + ("rows" if xin == "int8" else "channels")
+                + f"; wgmma m64n{args[1].shape[0]}k32, A and B from shared "
+                f"memory, {sh['k_chunk'] // 32} k-steps; weights resident")
+        else:
+            launch = (
+                f"tiles: {sh['blocks_x']}x{sh['blocks_y']} persistent "
+                f"blocks of 256 threads, cluster 1, {sh['blocks_per_sm']} "
+                f"an SM, {sh['smem_bytes']} B shared, {sh['sms_covered']} "
+                f"of {sh['sms']} SMs; {sh['tile_rows']}x{sh['tile_cols']} "
+                f"pixel tiles, {sh['stages']} stages, "
+                f"{sh['channels_a_warp']} channels a warp; weights "
+                + ("resident" if sh["weights_resident"]
+                   else f"in K chunks of {sh['k_chunk']}")
+                + (f"; {sh['staged_channels']} channels staged x "
+                   f"{sh['chunks_a_tile']}" if xin != "int8" else ""))
         log(f"kernel {name} B={B} {path} ({xin} in, {kind} out, "
             f"{tuple(args[0].shape)} -> Cout {args[1].shape[0]}): "
             f"max_abs_err {e:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f}"
             f" ms, _int_mm {lib_ms:.4f} ms, bound {max(tb, to):.5f} ms "
             f"({'bytes' if tb >= to else 'operations'}), "
-            f"{max(tb, to) / ms:.1%} of it; launch {sh['blocks_x']}x"
-            f"{sh['blocks_y']} persistent blocks of 256 threads, cluster 1, "
-            f"{sh['blocks_per_sm']} an SM, {sh['smem_bytes']} B shared, "
-            f"{sh['sms_covered']} of {sh['sms']} SMs; {sh['tile_rows']}x16 "
-            f"pixel tiles, {sh['channels_a_warp']} channels a warp; weights "
-            + ("resident" if sh["weights_resident"]
-               else f"in K chunks of {sh['k_chunk']}")
-            + (f"; {sh['staged_channels']} channels staged x "
-               f"{sh['chunks_a_tile']}" if xin != "int8" else "") + staged)
+            f"{max(tb, to) / ms:.1%} of it; launch {launch}" + staged)
     b_ms = max(sums["t_bytes"], sums["t_ops"])
     by = "bytes" if sums["t_bytes"] >= sums["t_ops"] else "operations"
+    designs = {k: v for k, v in sums.items() if k.split("_")[-1] in
+               ("tiles", "strips")}
     log(f"kernel {name} B={B} ({card_line()}): {len(calls)} calls a "
         f"request, summed kernel {sums['ms']:.4f} ms, plain "
         f"{sums['plain_ms']:.4f} ms, _int_mm {sums['library_ms']:.4f} ms, "
-        f"bound {b_ms:.5f} ms ({by}), {b_ms / sums['ms']:.1%} of it")
+        f"bound {b_ms:.5f} ms ({by}), {b_ms / sums['ms']:.1%} of it; by "
+        f"design {json.dumps(designs)}")
     if sfx is None:
         sfx = "" if B == 1 else f"_b{B}"
     return {"max_abs_err" + sfx: err, "ms" + sfx: sums["ms"],
             "plain_ms" + sfx: sums["plain_ms"], "bound_ms" + sfx: b_ms,
             "bound_by" + sfx: by, "library_ms" + sfx: sums["library_ms"],
-            "calls_a_request" + sfx: len(calls)}
+            "calls_a_request" + sfx: len(calls),
+            **{k + sfx: v for k, v in designs.items()}}
 
 
 def int8_raw_gaps(model, x) -> dict:

@@ -30,16 +30,18 @@ then ``out_dtype`` NCHW out, or ``clip(round(float32(v) / out_scale),
 weights ``wq`` (Cout, Kpad) int8 hold K = 9 Cin in (tap, channel) order,
 zero-padded to Kpad, a multiple of 32 (``padded_k``).
 
-At config S's widths bytes bound it; on the H100 what bounds a call of the
-S8 request is latency (a block's chain of copies, quantisation, products
-and epilogue) and how many chains an SM keeps in flight. The kernel
+At config S's and N's widths bytes bound it. The kernel
 (``csrc/int8conv.cuh`` says how) is an implicit GEMM on the tensor cores
-(``wgmma`` s8 where a warp has 64 or more channels, ``mma.sync`` below,
-each the faster there: ``tools/int8_variants.py``) in persistent
-blocks, as many as the card holds, that keep their weights in shared
-memory for all their tiles; the next tile's input is copied with
-``cp.async`` while the current one is worked on; a float input is staged a
-channel plane's halo rows at a time and quantised from shared memory.
+in persistent blocks that keep their weights in shared memory, in one of
+two designs, chosen by shape: 16-pixel tiles for the
+latency-bound calls of under 3/4 of a wave of strips (the S8 request at
+batch 1, its 60x80 and 30x40 maps at batch 8; ``wgmma`` s8 where a warp
+has 64 or more channels, ``mma.sync`` below), and strips for the rest
+(config N at batch 128, S8's wide maps at batch 8): whole rows
+bulk-copied by a producer warp into a ring of stages, quantised once into
+code planes that ``wgmma`` reads by descriptor (A and B from shared
+memory, N = Cout), the output stored along W in 16-byte pieces
+(``tools/int8_variants.py`` times both designs at every call).
 ``launch_shape`` reads the launch a call makes.
 """
 
@@ -188,20 +190,28 @@ int8_conv3x3.launches_bf16 = 0
 
 _SHAPE_KEYS = ("blocks_x", "blocks_y", "smem_bytes", "blocks_per_sm", "sms",
                "weights_resident", "k_chunk", "staged_channels",
-               "chunks_a_tile", "channels_a_warp", "tile_rows")
+               "chunks_a_tile", "channels_a_warp", "tile_rows", "design",
+               "tile_cols", "stages", "warpgroups", "m_blocks")
+DESIGNS = ("tiles", "strips")
 
 
 def launch_shape(x: torch.Tensor, cout: int, out_scale=None,
                  pool: bool = False, out_dtype: torch.dtype = None) -> dict:
     """The launch ``int8_conv3x3`` makes for this input on the current
-    card (nothing is launched): the persistent grid (``blocks_x`` blocks
-    walking the tiles, for each of ``blocks_y`` channel groups), shared
-    memory a block, blocks an SM, the card's SMs and the SMs the grid
-    covers, whether the weights stay resident (else their K chunk), a float
-    input's staged channels and chunks a tile, a warp's channels and the
-    tile's rows. ``out_dtype``: the block's (by default a float map's,
-    float32 for int8 codes); a bf16 block takes instances of its own and
-    stages a bf16 map as bf16."""
+    card (nothing is launched): its ``design`` ("tiles", 16-pixel
+    tiles, or "strips", the wide strips of calls with at least 3/4 of a
+    wave of them: ``csrc/int8conv.cuh`` states the rule), the persistent grid
+    (``blocks_x`` blocks walking the tiles, for each of ``blocks_y``
+    channel groups), shared memory a block, blocks an SM, the card's SMs
+    and the SMs the grid covers, whether the weights stay resident (else
+    their K chunk; strips: the k-steps' depth), a float input's staged
+    channels (strips: channels, or int8 rows, a chunk) and chunks a tile,
+    a warp's channels (strips: a warpgroup's), the tile's rows and
+    columns, the input's stages, the consumer warpgroups a block (strips:
+    each fed by a producer warp of its own; 0 for tiles) and a strip's
+    64-pixel m-blocks. ``out_dtype``: the block's (by default a float
+    map's, float32 for int8 codes); a bf16 block takes instances of its
+    own and stages a bf16 map as bf16."""
     int8_in = x.dtype == torch.int8
     if out_dtype is None:
         out_dtype = torch.float32 if int8_in else x.dtype
@@ -213,5 +223,6 @@ def launch_shape(x: torch.Tensor, cout: int, out_scale=None,
     _build.check(fn(_X_TYPES[x.dtype], mode, int(out_dtype == BF16), B, H, W,
                     cin, cout, padded_k(cin), shape), "int8_conv3x3")
     out = dict(zip(_SHAPE_KEYS, shape))
+    out["design"] = DESIGNS[out["design"]]
     out["sms_covered"] = min(out["sms"], out["blocks_x"] * out["blocks_y"])
     return out

@@ -87,14 +87,19 @@ class _Nest(fnn.Module):
 
 # (path, Cin, Cout, input): the image into conv1a, a middle block (bf16 in
 # and out), a chained producer (codes in, pooled codes out at its
-# consumer's scale) and a head block
+# consumer's scale) and a head block at config S's widths; and config N's
+# widths that the kernel's strips are designed for: desc_head/convAa (72
+# -> 48), seg_head/convs_4 (48 -> 96) and conv1b (16 -> 24, pooled codes)
 BLOCKS = {"conv1a": ("backbone/conv1a", 3, 16, "image"),
           "middle": ("backbone/conv3b", 32, 64, "bf16"),
           "producer": ("backbone/conv1b", 16, 32, "codes"),
-          "head": ("desc_head/convAa", 64, 64, "bf16")}
+          "head": ("desc_head/convAa", 64, 64, "bf16"),
+          "n_head": ("desc_head/convAa", 72, 48, "bf16"),
+          "n_seg": ("seg_head/convs_4", 48, 96, "bf16"),
+          "n_producer": ("backbone/conv1b", 16, 24, "codes")}
 SCALES = {"backbone/conv1a": 1.0 / 127, "backbone/conv3b": 0.0123,
           "backbone/conv1b": 0.0211, "backbone/conv2a": 0.0371,
-          "desc_head/convAa": 0.0157}
+          "desc_head/convAa": 0.0157, "seg_head/convs_4": 0.0139}
 
 
 @pytest.mark.parametrize("block", sorted(BLOCKS))
@@ -155,7 +160,7 @@ def test_bf16_int8_twin_matches_the_jax_block(block):
         want = mod.apply(var, jx)
     with torch.no_grad(), quant.int8_execution(SCALES, chain=chain):
         got = port(tx, pool=chain)
-    if block == "producer":
+    if kind == "codes":
         assert isinstance(want, jquant.QTensor)
         w = np.asarray(fnn.max_pool(want.values, (2, 2), strides=(2, 2)))
         assert got.values.dtype == torch.int8

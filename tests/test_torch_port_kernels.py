@@ -820,16 +820,27 @@ def test_int8_conv_kernel_matches_twin(cuda, B, H, W, cin, cout, int8_in,
     assert float(got.abs().max()) > 0
 
 
+# (B, H, W, design): 16-pixel tiles, and strips (many images of a few rows)
+TIE_SHAPES = [(2, 9, 21, "tiles"), (400, 16, 24, "strips")]
+
+
+def _design(x, cout, out_scale=None, pool=False, out_dtype=None):
+    from nanovs_slam_torch.kernels.int8conv import launch_shape
+    return launch_shape(x, cout, out_scale, pool, out_dtype)["design"]
+
+
+@pytest.mark.parametrize("B,H,W,design", TIE_SHAPES)
 @pytest.mark.parametrize("scale", [0.0123, 0.1, 1.0 / 3, 7.1e-3])
-def test_int8_conv_kernel_exact_at_ties(cuda, scale):
+def test_int8_conv_kernel_exact_at_ties(cuda, scale, B, H, W, design):
     """Float inputs whose quotients x / scale lie on or a few ulps beside
     half-integers (where a product with the reciprocal rounds to another
     code than the IEEE division) and beyond the clip, zeros and denormals:
-    the kernel's codes are the twin's (float32 out shows every int32 sum)."""
+    the kernel's codes are the twin's (float32 out shows every int32 sum),
+    in each design."""
     from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
 
     rs = np.random.RandomState(5)
-    B, H, W, cin, cout = 2, 9, 21, 16, 16
+    cin, cout = 16, 16
     s32 = np.float32(scale)
     k = rs.randint(-130, 130, (B, cin, H, W)).astype(np.float32)
     x = (k + np.float32(0.5)) * s32
@@ -841,6 +852,7 @@ def test_int8_conv_kernel_exact_at_ties(cuda, scale):
     x[0, 0, 0, :4] = [0.0, -0.0, 1e-40, -3e-39]
     _, wq, m, a, b = _int8_inputs(cuda, B, H, W, cin, cout, False)
     xt = torch.from_numpy(x).to(cuda)
+    assert _design(xt, cout) == design
     got = int8_conv3x3(xt, wq, m, a, b, float(s32), 0.01)
     want = int8_conv3x3_plain(xt, wq, m, a, b, float(s32), 0.01)
     torch.cuda.synchronize()
@@ -899,18 +911,20 @@ def test_int8_conv_kernel_bf16_matches_twin(cuda, B, H, W, cin, cout, x_in,
     assert float(got.float().abs().max()) > 0
 
 
-def test_int8_conv_kernel_bf16_exact_at_ties(cuda):
+@pytest.mark.parametrize("B,H,W,design", [(2, 9, 24, "tiles"),
+                                           (400, 16, 24, "strips")])
+def test_int8_conv_kernel_bf16_exact_at_ties(cuda, B, H, W, design):
     """bfloat16 inputs on and a few bf16 ulps beside half-integer
     quotients x / scale, beyond the clip, zeros and subnormals, through an
     identity conv (the centre tap's weight 1 from each channel to itself,
     m = a = 1, b = 0, slope 1), so that the bf16 output is each input code
     exactly: the kernel's codes are the twin's, which are clip(round(x /
-    scale)) of the IEEE quotient."""
+    scale)) of the IEEE quotient, in each design."""
     from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
     from nanovs_slam_torch.kernels.int8conv import padded_k
 
     rs = np.random.RandomState(6)
-    B, H, W, cin, scale = 2, 9, 24, 16, 0.0123
+    cin, scale = 16, 0.0123
     k = rs.randint(-130, 130, (B, cin, H, W)).astype(np.float32)
     x = torch.from_numpy((k + np.float32(0.5)) * np.float32(scale)).to(
         torch.bfloat16)
@@ -921,6 +935,7 @@ def test_int8_conv_kernel_bf16_exact_at_ties(cuda):
     wq[torch.arange(cin), 4 * cin + torch.arange(cin)] = 1
     ones = torch.ones(cin)
     args = [t.to(cuda) for t in (x, wq, ones, ones, torch.zeros(cin))]
+    assert _design(args[0], cin, out_dtype=torch.bfloat16) == design
     got = int8_conv3x3(*args, scale, 1.0, out_dtype=torch.bfloat16)
     want = int8_conv3x3_plain(*args, scale, 1.0, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -928,6 +943,57 @@ def test_int8_conv_kernel_bf16_exact_at_ties(cuda):
     codes = np.clip(np.round(x.float().numpy() / np.float32(scale)), -127,
                     127)
     assert np.array_equal(got.float().cpu().numpy(), codes)
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout,x_in,out,block", [
+    # config N's head conv at 60x80 (Cin 48 -> Cout 48), bf16 out and codes
+    (132, 60, 80, 48, 48, "float", "float", "bf16"),
+    (132, 60, 80, 48, 48, "float", "int8", "bf16"),
+    # Cin 72 (five channel groups, the k-steps pairing across taps) on a
+    # height that is not a multiple of the strip's rows
+    (136, 61, 80, 72, 48, "float", "float", "bf16"),
+    # Cout 96 (seg_head/convs_6), and codes of Cin 24 in (conv3b)
+    (132, 60, 80, 48, 96, "float", "float", "bf16"),
+    (132, 60, 80, 24, 48, "int8", "float", "bf16"),
+    # conv1b's widths (Cin 16 codes -> pooled codes of Cout 24) on a width
+    # of two column tiles, the last narrower, and an odd height
+    (136, 31, 344, 16, 24, "int8", "pool", "bf16"),
+    # codes of Cin 48 -> pooled codes (conv4b's widths, chained)
+    (132, 60, 80, 48, 48, "int8", "pool", "bf16"),
+    # conv1a's 3 channels (one group, 13 channels of zero weights)
+    (64, 24, 320, 3, 16, "float", "int8", "bf16"),
+    (48, 20, 328, 3, 16, "float", "float", "float32"),
+    # float32 blocks: a float map, codes in and out, a pooled float map
+    (132, 60, 80, 48, 48, "float", "float", "float32"),
+    (264, 40, 40, 16, 16, "int8", "int8", "float32"),
+    (264, 30, 40, 32, 32, "float", "pool", "float32")])
+def test_int8_conv_kernel_strips_match_twin(cuda, B, H, W, cin, cout, x_in,
+                                            out, block):
+    """The strip design (calls of 3/4 of a wave of strips or more: bulk-copied
+    rows, codes quantised once into wgmma's planes, m64nNk32 with A and B
+    from shared memory at N = Cout) against the twin, bit for bit: widths
+    Cin 3 / 16 / 24 / 48 / 72 and Cout 16 / 24 / 32 / 48 / 96, float and int8
+    inputs, float, codes and pooled codes out, bf16 and float32 blocks,
+    heights and widths that the strips do not divide."""
+    from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
+
+    dt = torch.bfloat16 if block == "bf16" else torch.float32
+    x, wq, m, a, b = _int8_inputs(cuda, B, H, W, cin, cout,
+                                  True if x_in == "int8" else
+                                  ("bf16" if block == "bf16" else False))
+    args = (x, wq, m, a, b, 0.0123, 0.01,
+            None if out == "float" else 0.0371, out == "pool")
+    assert _design(x, cout, args[7], args[8], dt) == "strips"
+    counts = (int8_conv3x3.launches, int8_conv3x3.launches_bf16)
+    got = int8_conv3x3(*args, out_dtype=dt)
+    want = int8_conv3x3_plain(*args, out_dtype=dt)
+    torch.cuda.synchronize()
+    bf = block == "bf16"
+    assert (int8_conv3x3.launches, int8_conv3x3.launches_bf16) == (
+        counts[0] + (not bf), counts[1] + bf)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert float(got.float().abs().max()) > 0
 
 
 def test_int8_conv_refuses_what_it_does_not_take(cuda):

@@ -1,23 +1,24 @@
-"""The int8 conv kernel's products as committed (csrc/int8conv.cuh: Hopper's
-warpgroup products, wgmma.mma_async m64nNk32 s32.s8.s8, for the instances
-with 64 or more channels a warp, mma.sync m16n8k32 for the narrower ones)
-against the same kernel with every instance on mma.sync and with every
-instance on wgmma, on one NVIDIA card.
+"""The int8 conv kernel as committed (csrc/int8conv.cuh: its plan picks
+16-pixel tiles or strips by shape) against the same kernel with every
+call on tiles and with every call the strips take on strips, on one
+NVIDIA card.
 
     python3 tools/int8_variants.py
 
 Builds the three from this checkout's ``csrc/`` with nvcc into
 ``nanovs_slam_torch/_build/int8_variants/`` (the variants change the
-header's ``kWgmmaMinN``; the all-wgmma one adds the N = 8, 16, 32 atoms;
-each variant's header sits beside copies of ``int8conv.cu`` and
-``int8conv_bf16.cu``, which include it), prints what ptxas reports, then
-at every one of the float32 int8 S8 request's 23 calls at batch 1 and 8
-(``chip_smoke.int8_calls`` on
-``int8_kernel_cases``' seeded input, pinned S8 calibrated as
-``chip_smoke.py``'s int8 phase does) holds each to the twin at 0 and times
-them with ``chip_smoke.cuda_ms`` in the order kernel, mma, wgmma, wgmma,
-mma, kernel. Prints the card's name and power limit, a line a call and the
-sums over each batch's request. Imports neither jax nor nanovs_slam_tpu.
+header's ``kStripMinQuarters``; each variant's header sits beside copies of
+``int8conv.cu`` and ``int8conv_bf16.cu``, which include it), prints what
+ptxas reports, then at every int8 call of four requests (``chip_smoke.
+int8_calls`` on ``int8_kernel_cases``' seeded input): pinned S8 at
+float32 and at bf16 (calibrated as ``chip_smoke.py``'s int8 phase does)
+at batch 1 and 8, and config N with 28 classes at bf16 at batch 128
+(``chip_smoke.int8_bf16_n28``'s seeded model and calibration), holds each
+variant to the twin at 0 and times them with ``chip_smoke.cuda_ms`` in
+the order kernel, tiles, strips, strips, tiles, kernel. Prints the card's
+name and power limit, a line a call (with the design the committed plan
+picks) and the sums over each request. Imports neither jax nor
+nanovs_slam_tpu.
 """
 
 from __future__ import annotations
@@ -30,38 +31,18 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "nanovs_slam_torch", "csrc")
 OUT = os.path.join(REPO, "nanovs_slam_torch", "_build", "int8_variants")
-MIN_N = "constexpr int kWgmmaMinN = 64;"
-ATOMS_AT = "// ... the same on Hopper's warpgroup products (wgmma)"
-ORDER = ("kernel", "mma", "wgmma", "wgmma", "mma", "kernel")
-
-
-def wgmma_atoms(widths) -> str:
-    """wgmma_s8<N> for the given N, in the source's form."""
-    out = []
-    for n in widths:
-        nd = n // 2
-        regs = ", ".join(f"%{i}" for i in range(nd))
-        cons = ", ".join(f'"+r"(d[{i}])' for i in range(nd))
-        out.append(
-            f"template <>\n__device__ __forceinline__ void wgmma_s8<{n}>("
-            f"int (&d)[{nd}], const uint32_t (&a)[4], uint64_t desc) {{\n"
-            f'  asm volatile("{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{nd + 5}, '
-            f'0;\\n"\n      "wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8'
-            f'.s8 {{{regs}}}, {{%{nd}, %{nd + 1}, %{nd + 2}, %{nd + 3}}}, '
-            f'%{nd + 4}, p;\\n}}\\n"\n      : {cons}\n      : "r"(a[0]), '
-            f'"r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));\n}}')
-    return "\n\n".join(out) + "\n\n"
+RULE = "constexpr int kStripMinQuarters = "
+ORDER = ("kernel", "tiles", "strips", "strips", "tiles", "kernel")
 
 
 def variants(src: str) -> dict:
-    """{name: source}: as committed, every instance on mma.sync, every
-    instance on wgmma."""
-    assert src.count(MIN_N) == 1 and src.count(ATOMS_AT) == 1
-    wgmma = src.replace(MIN_N, "constexpr int kWgmmaMinN = 8;").replace(
-        ATOMS_AT, wgmma_atoms((8, 16, 32)) + ATOMS_AT)
+    """{name: source}: as committed, every call on tiles, every call the
+    strips take on strips."""
+    assert src.count(RULE) == 1
+    line = src[src.index(RULE):].split("\n", 1)[0]
     return {"kernel": src,
-            "mma": src.replace(MIN_N, "constexpr int kWgmmaMinN = 1 << 30;"),
-            "wgmma": wgmma}
+            "tiles": src.replace(line, RULE + "1 << 20;"),
+            "strips": src.replace(line, RULE + "0;")}
 
 
 def build() -> dict:
@@ -103,9 +84,9 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from nanovs_slam_torch.data.datasets import SyntheticShapesDataset
+    from nanovs_slam_torch.configs import get_config
     from nanovs_slam_torch.kernels import int8conv as ic
-    from nanovs_slam_torch.quant import calibrate_conv_scales
+    from nanovs_slam_torch.models.kp2dtiny import build_model, init_model
 
     if not torch.cuda.is_available():
         print("int8_variants: needs an NVIDIA GPU", file=sys.stderr)
@@ -116,34 +97,29 @@ def main() -> int:
         fn.restype = ctypes.c_int
     print(cs.card_line(), flush=True)
     dev = torch.device("cuda")
-    model, _ = cs.int8_pinned(REPO, dev)
-    calib = SyntheticShapesDataset((cs.H, cs.W), cs.INT8_CALIB, 8, seed=3)
-    scales = calibrate_conv_scales(
-        model, [calib[i]["image"][None] * 2.0 - 1.0
-                for i in range(cs.INT8_CALIB)])
 
-    def call(fn, args):  # a float32 block
-        x, wq, m, a, b, s_in, slope, out_scale, pool = args[:9]
+    def call(fn, args):
+        x, wq, m, a, b, s_in, slope, out_scale, pool, dt = args
         int8_in = x.dtype == torch.int8
         B, cin = x.shape[0], ic.in_channels(x)
         H, W = x.shape[1:3] if int8_in else x.shape[2:]
         cout = wq.shape[0]
         if out_scale is None:
-            mode, out = 0, torch.empty((B, cout, H, W), device=dev)
+            mode, out = 0, torch.empty((B, cout, H, W), device=dev, dtype=dt)
         else:
             mode = 2 if pool else 1
             ho, wo = (H // 2, W // 2) if pool else (H, W)
             out = torch.empty((B, ho, wo, cout), device=dev,
                               dtype=torch.int8)
         ic._build.check(fn(
-            x.data_ptr(), int(int8_in), wq.data_ptr(), m.data_ptr(),
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, 0, B, H, W,
-            cin, cout, ic.padded_k(cin), s_in,
-            0.0 if out_scale is None else out_scale, slope,
-            ic._build.stream_ptr(dev)), "int8_variants")
+            x.data_ptr(), ic._X_TYPES[x.dtype], wq.data_ptr(), m.data_ptr(),
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), mode,
+            int(dt == torch.bfloat16), B, H, W, cin, cout,
+            ic.padded_k(cin), s_in, 0.0 if out_scale is None else out_scale,
+            slope, ic._build.stream_ptr(dev)), "int8_variants")
         return out
 
-    for B in (1, 8):
+    def request(label, model, scales, B, runs):
         rs = np.random.RandomState(cs.SEED + 1800 + B)
         x = torch.from_numpy(rs.uniform(-1, 1, (B, 3, cs.H, cs.W)).astype(
             np.float32)).to(dev)
@@ -154,14 +130,31 @@ def main() -> int:
                 got = call(fn, args)
                 torch.cuda.synchronize()
                 cs.require(cs.max_err(got, want) == 0,
-                           f"{name} {path} B={B}: differs from the twin")
-            ms = [cs.cuda_ms(lambda f=fns[n]: call(f, args)) for n in ORDER]
+                           f"{name} {label} {path}: differs from the twin")
+            ms = [cs.cuda_ms(lambda f=fns[n]: call(f, args), *runs)
+                  for n in ORDER]
             sums = [s + m for s, m in zip(sums, ms)]
-            print(f"B={B} {path}: " + ", ".join(
+            design = ic.launch_shape(args[0], args[1].shape[0], args[7],
+                                     args[8], args[9])["design"]
+            print(f"{label} {path} ({design}): " + ", ".join(
                 f"{n} {m:.4f}" for n, m in zip(ORDER, ms)) + " ms",
                 flush=True)
-        print(f"B={B} summed over the request: " + ", ".join(
+        print(f"{label} summed over the request: " + ", ".join(
             f"{n} {s:.4f}" for n, s in zip(ORDER, sums)) + " ms", flush=True)
+
+    for dtype in ("float32", "bfloat16"):
+        model, _ = cs.int8_pinned(REPO, dev, dtype)
+        scales = cs.int8_calibrate(model, 8)
+        for B in (1, 8):
+            request(f"S8 {dtype} B={B}", model, scales, B, (20, 15))
+    gen = torch.Generator().manual_seed(cs.SEED + 2200)
+    model32 = init_model(get_config("N", n_classes=28), gen, "cpu")
+    cs.randomize_bn(model32, gen)
+    model = build_model(get_config("N", n_classes=28, dtype="bfloat16"))
+    model.load_state_dict(model32.state_dict())
+    model = model.to(dev).eval()
+    request("N28 bfloat16 B=128", model, cs.int8_calibrate(model, 28), 128,
+            (5, 7))
     return 0
 
 

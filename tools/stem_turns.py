@@ -35,10 +35,17 @@ the order parent, change, change, parent, a subprocess imports that tree's
   does; ``chip_smoke.int8_calls`` on the seeded input of
   ``int8_kernel_cases``), each held to its twin at 0 and timed by
   ``cuda_ms``; the sums over the request, over its float-input calls and
-  over its two 120x160x96 calls;
+  over its two 120x160x96 calls (the float32 blocks: the control);
+- the same at bf16 blocks: pinned S8 at bfloat16 (calibrated at bf16) at
+  batch 1 and 8, and config N with 28 classes at bfloat16 (seeded weights
+  and BN statistics, calibrated at bf16: ``chip_smoke.int8_bf16_n28``'s
+  model) at batch 128, every call held to its twin at 0; the sums over
+  each request, over its bf16-input calls and over the calls of each
+  design (``launch_shape``'s ``design``; a tree without one has tiles);
 - the int8 S8 request (``make_infer_fn(int8_scales=...)``, top_k 1000) at
-  batch 1 and 8: host-clock median ms of 20 steady requests and the
-  device ms of a request.
+  batch 1 and 8, float32 and bf16, and the N28 bf16 int8 request at batch
+  128: host-clock median ms of 20 steady requests and the device ms of a
+  request.
 
 ``netvlad``:
 
@@ -140,14 +147,12 @@ for name in (("D", "N") if "stem" in PARTS else ()):
 if "int8" in PARTS:
     from nanovs_slam_torch.data.datasets import SyntheticShapesDataset
     from nanovs_slam_torch.kernels import int8_conv3x3, int8_conv3x3_plain
+    from nanovs_slam_torch.kernels.int8conv import launch_shape
     from nanovs_slam_torch.quant import calibrate_conv_scales
 
-    model, cfg = cs.int8_pinned(sys.argv[1], dev)
-    calib = SyntheticShapesDataset((cs.H, cs.W), cs.INT8_CALIB, 8, seed=3)
-    scales = calibrate_conv_scales(
-        model, [calib[i]["image"][None] * 2.0 - 1.0
-                for i in range(cs.INT8_CALIB)])
-    for B in (1, 8):
+    # each int8 call of a request of the model at batch B against its
+    # twin, timed; the sums
+    def int8_times(model, scales, B, tag, runs=(20, 15)):
         rs8 = np.random.RandomState(cs.SEED + 1800 + B)
         x = torch.from_numpy(rs8.uniform(-1, 1, (B, 3, cs.H, cs.W)).astype(
             np.float32)).to(dev)
@@ -155,22 +160,57 @@ if "int8" in PARTS:
         for path, args in cs.int8_calls(model, x, scales):
             got, want = int8_conv3x3(*args), int8_conv3x3_plain(*args)
             torch.cuda.synchronize()
-            cs.require(cs.max_err(got, want) == 0, f"int8 {path} B={B}")
-            ms = cs.cuda_ms(lambda: int8_conv3x3(*args))
-            out[f"int8_{path}_B{B}"] = ms
+            cs.require(cs.max_err(got, want) == 0,
+                       f"int8{tag} {path} B={B}")
+            ms = cs.cuda_ms(lambda: int8_conv3x3(*args), *runs)
+            out[f"int8{tag}_{path}_B{B}"] = ms
             sums["all"] += ms
-            if args[0].dtype == torch.float32:
+            if args[0].dtype != torch.int8:
                 sums["float_in"] += ms
                 if args[0].shape[1:] == (96, 120, 160):
                     sums["wide"] += ms
+            design = launch_shape(args[0], args[1].shape[0], args[7],
+                                  args[8], args[9]).get("design", "tiles")
+            sums[design] = sums.get(design, 0.0) + ms
         for k, v in sums.items():
-            out[f"int8_sum_{k}_B{B}"] = v
-    rs8 = np.random.RandomState(cs.SEED + 1900)
-    infer = make_infer_fn(model, cfg, cs.H, cs.W, top_k=1000, device=dev,
-                          int8_scales=scales)
+            out[f"int8{tag}_sum_{k}_B{B}"] = v
+
+    model, cfg = cs.int8_pinned(sys.argv[1], dev)
+    calib = SyntheticShapesDataset((cs.H, cs.W), cs.INT8_CALIB, 8, seed=3)
+    scales = calibrate_conv_scales(
+        model, [calib[i]["image"][None] * 2.0 - 1.0
+                for i in range(cs.INT8_CALIB)])
     for B in (1, 8):
-        frames = rs8.randint(0, 256, (B, cs.H, cs.W, 3)).astype(np.uint8)
-        request_ms(infer, frames, f"S8_int8_B{B}")
+        int8_times(model, scales, B, "")
+    model16, cfg16 = cs.int8_pinned(sys.argv[1], dev, "bfloat16")
+    scales16 = cs.int8_calibrate(model16, 8)
+    for B in (1, 8):
+        int8_times(model16, scales16, B, "_bf16")
+    cfg_n32 = get_config("N", n_classes=28)
+    cfg_n = get_config("N", n_classes=28, dtype="bfloat16")
+    gen = torch.Generator().manual_seed(cs.SEED + 2200)
+    model_n32 = init_model(cfg_n32, gen, "cpu")
+    cs.randomize_bn(model_n32, gen)
+    model_n = build_model(cfg_n)
+    model_n.load_state_dict(model_n32.state_dict())
+    model_n = model_n.to(dev).eval()
+    del model_n32
+    scales_n = cs.int8_calibrate(model_n, 28)
+    int8_times(model_n, scales_n, 128, "_n28_bf16", runs=(5, 7))
+    rs8 = np.random.RandomState(cs.SEED + 1900)
+    for tag, m, c, sc in (("S8_int8", model, cfg, scales),
+                          ("S8_bf16_int8", model16, cfg16, scales16)):
+        infer = make_infer_fn(m, c, cs.H, cs.W, top_k=1000, device=dev,
+                              int8_scales=sc)
+        for B in (1, 8):
+            frames = rs8.randint(0, 256, (B, cs.H, cs.W, 3)).astype(
+                np.uint8)
+            request_ms(infer, frames, f"{tag}_B{B}")
+    frames = np.random.RandomState(cs.SEED + 2201).randint(
+        0, 256, (128, cs.H, cs.W, 3)).astype(np.uint8)
+    infer = make_infer_fn(model_n, cfg_n, cs.H, cs.W, top_k=1000,
+                          device=dev, int8_scales=scales_n)
+    request_ms(infer, frames, "N28_bf16_int8_B128")
 if "netvlad" in PARTS:
     from nanovs_slam_torch.kernels import (netvlad, netvlad_backward,
                                            netvlad_backward_plain,
